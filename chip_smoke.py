@@ -19,8 +19,13 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    the random tail against a ``device="cpu"`` decode of the same bytes;
 3. the strided OCCURS layout: 50,000 exp3 wide records (16,064 bytes),
    framed on the host, kernel against plain on the card;
-4. timings at the exp1 chunk and exp3 shapes: kernel (median of 20
-   launches, CUDA events), plain version, and the memory bound;
+4. timings at the exp1 chunk and exp3 shapes, each the median of 20
+   launches between CUDA events: ``kernel_ms`` (the kernels line's
+   ``ms``) times a wrapper call on an idle stream, so the host's launch
+   path is in it; ``device_ms`` holds the stream busy before each start
+   event, so it is the launch's device time alone. Beside them the plain
+   version, the byte bound, the share of it that the device time reaches
+   and the achieved GB/s, and the card's name and power limit;
 5. where one exp1 chunk's time goes: the file read, then one decode
    under ``torch.profiler`` (device time by kernel and copy, idle share).
 
@@ -131,20 +136,22 @@ class Smoke:
                         if "registers" in l or "spill" in l]
                 log(f"[env] {name}: {' | '.join(regs) or report.strip()}")
         else:
+            self.card = "cpu rehearsal"
             log(f"[env] cpu rehearsal, torch {torch.__version__}")
 
     def phase_grid(self):
         torch = self.torch
         from cobrix_tpu_torch.ops.fused_decode import (
             FusedLayout, StridedGroup, fused_decode, fused_decode_plain)
-        from cobrix_tpu_torch.testing.kernel_cases import kernel_cases
+        from cobrix_tpu_torch.testing.kernel_cases import (kernel_cases,
+                                                           kernel_input)
 
         cases = kernel_cases()
         for i, (name, case) in enumerate(sorted(cases.items())):
             dicts, data = case(self.grid_rows, 1000 + i)
             groups = [StridedGroup.from_dict(d) for d in dicts]
             layout = FusedLayout(groups)
-            x = torch.from_numpy(data).to(self.device)
+            x = kernel_input(name, data, self.device)
             got = layout.split(fused_decode(x, layout))
             want = fused_decode_plain(x, groups)
             for gi, (a_out, b_out) in enumerate(zip(got, want)):
@@ -197,7 +204,8 @@ class Smoke:
         self.sync()
         secs = time.perf_counter() - t0
         self.launches = fused_decode.launches
-        log(f"[main] read_cobol: {len(data)} records, {len(data.batches)} "
+        log(f"[main] {self.card}: read_cobol: {len(data)} records, "
+            f"{len(data.batches)} "
             f"chunks in {secs:.3f} s = {size / secs / 1e6:.1f} MB/s "
             f"end to end; fused kernel launches {self.launches}")
         check(len(data) == self.n_exp1 + self.n_tail, "record count")
@@ -290,9 +298,11 @@ class Smoke:
             f"({dec.fused.n_cols} columns): kernel == plain, exact")
         self.exp3 = arr
 
-    def _time(self, fn, reps):
+    def _time(self, fn, reps, busy=False):
         """Median milliseconds of `reps` calls (CUDA events on the card,
-        after warm-up)."""
+        after warm-up). `busy` queues a sleep kernel before each start
+        event, so the events bracket the launch's device time alone and
+        not the host's path to it."""
         torch = self.torch
         for _ in range(3):
             fn()
@@ -305,6 +315,8 @@ class Smoke:
                 continue
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if busy:
+                torch.cuda._sleep(2_000_000)  # about 1 ms of device time
             start.record()
             fn()
             end.record()
@@ -315,7 +327,8 @@ class Smoke:
     def phase_timings(self):
         torch = self.torch
         from cobrix_tpu_torch import ColumnarDecoder, parse_copybook
-        from cobrix_tpu_torch.ops.fused_decode import fused_decode, fused_decode_plain
+        from cobrix_tpu_torch.ops.fused_decode import (fused_decode,
+                                                       fused_decode_plain)
         from cobrix_tpu_torch.testing.generators import (EXP1_COPYBOOK,
                                                          EXP3_COPYBOOK)
 
@@ -327,18 +340,26 @@ class Smoke:
             x = torch.from_numpy(arr).to(self.device)
             n = arr.shape[0]
             read, written = layout.bytes_per_record()
-            bound_ms = n * (read + written) / HBM_BYTES_PER_S * 1e3
+            moved = n * (read + written)
+            bound_ms = moved / HBM_BYTES_PER_S * 1e3
             kernel_ms = self._time(lambda: fused_decode(x, layout), 20)
+            device_ms = self._time(lambda: fused_decode(x, layout), 20,
+                                   busy=True)
             plain_ms = self._time(
                 lambda: fused_decode_plain(x, layout.groups), 5)
             self.timings[name] = dict(
                 records=n, record_bytes=arr.shape[1], fused_columns=
-                layout.n_cols, bytes_read=n * read, bytes_written=n * written,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=None)
-            log(f"[time] {name}: {json.dumps(self.timings[name])}")
+                layout.n_cols, windows=len(layout.plan.windows),
+                max_pitch=layout.max_pitch, bytes_read=n * read,
+                bytes_written=n * written,
+                kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, share_of_bound=bound_ms / device_ms,
+                gb_per_s=moved / device_ms / 1e6, library_ms=None)
+            log(f"[time] {self.card}: {name}: "
+                f"{json.dumps(self.timings[name])}")
         size, secs = self.e2e
-        log(f"[time] exp1 read_cobol end to end: {size} bytes in {secs:.3f} s "
+        log(f"[time] {self.card}: exp1 read_cobol end to end: {size} bytes "
+            f"in {secs:.3f} s "
             f"= {size / secs / 1e6:.1f} MB/s; launches_per_read "
             f"{self.launches}")
 
@@ -400,7 +421,7 @@ class Smoke:
         else:
             log("[profile] the trace holds no device time: busy and idle "
                 "share not measured")
-        log(f"[profile] exp1 chunk: {json.dumps(self.profile)}")
+        log(f"[profile] {self.card}: exp1 chunk: {json.dumps(self.profile)}")
         for name, (ms, count) in sorted(by_name.items(),
                                         key=lambda kv: -kv[1][0])[:12]:
             log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
@@ -423,6 +444,7 @@ class Smoke:
             "name": "fused_decode", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES, "launches": self.launches,
             "max_abs_err": self.max_err, "ms": t["kernel_ms"],
+            "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None}]}
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

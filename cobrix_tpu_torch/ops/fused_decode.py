@@ -4,18 +4,21 @@ Replaces ``cobrix_tpu/ops/pallas_tpu.py::_fused_kernel`` (with its
 launcher ``build_fused_decode`` and XLA-side ``_assemble_group``): one
 launch decodes every binary, packed-BCD and zoned-DISPLAY group of a
 record batch. The kernel is ``csrc/fused_decode.cu``; its note says what
-bounds it (memory) and how the layout answers that.
+bounds it and how its tiles, windows and ring answer that.
 
 * `StridedGroup` is the static spec of one fused group, with the plain
   attributes of ``pallas_tpu.StridedGroup``.
-* `FusedLayout` flattens a list of groups into per-column descriptors (a
-  small device table built once per layout and device, not per batch)
+* `FusedLayout` flattens a list of groups into per-column descriptors
   and places every group output in one of three column-major planes:
   ``"i32"`` (int32), ``"i64"`` (int64) and ``"bool"``. `split` turns the
   planes back into each group's tuple, dtype for dtype the tuple
   ``columnar._run_group_jax`` returns in the JAX package: int32 or int64
   values, bool valid, uint64 hi/lo (int64 bit patterns on the card,
   viewed as uint64 on the host), bool negative, int32 dots.
+* `plan_windows` cuts a layout's columns, sorted by offset, into byte
+  windows of the row that the kernel stages in shared memory a record
+  tile at a time; the layout keeps the descriptor table reordered by
+  window and the window table, uploaded once per device.
 * `fused_decode(data, layout)` launches the kernel for a CUDA tensor and
   counts the launch in ``fused_decode.launches``; for a CPU tensor it runs
   `fused_decode_plain`. Any other input raises: there is no fallback.
@@ -27,7 +30,8 @@ bounds it (memory) and how the layout answers that.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+import functools
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +54,14 @@ _DESC_FIELDS = 12
 _F_SIGNED, _F_BIG_ENDIAN, _F_ALLOW_DOT, _F_REQUIRE_DIGITS = 1, 2, 4, 8
 
 _PLANE_DTYPES = {"i32": torch.int32, "i64": torch.int64, "bool": torch.bool}
+
+# csrc/fused_decode.cu staging: a block stages TILE_RECORDS records x one
+# window of the row per stage, in a ring of two stages; the planner keeps
+# each stage within STAGE_BYTES so that two blocks fit on an SM
+TILE_RECORDS = 32
+STAGE_BYTES = 48 * 1024
+# window table fields: lo, span, pitch, first column, end column
+_WIN_FIELDS = 5
 
 
 class StridedGroup:
@@ -113,9 +125,59 @@ class StridedGroup:
         return planes + (["i32"] if self.is_display else [])  # dots
 
 
+def staged_pitch(span: int) -> int:
+    """Bytes between two staged records of a window `span` bytes wide.
+
+    A record's window bytes land at their 16-byte phase in the row (the
+    copies move aligned 16-byte chunks), so the span needs room for 15
+    more bytes. The chunk count is made odd: then 8 records at one window
+    position lie in 8 different 16-byte bank slots, whatever the row
+    pitch (at a pitch that is a multiple of 128 they would share one)."""
+    chunks = -(-(span + 15) // 16)
+    return 16 * (chunks | 1)
+
+
+class WindowPlan(NamedTuple):
+    order: np.ndarray    # descriptor rows in window order (sorted by offset)
+    windows: np.ndarray  # [n_windows, 5] int32: lo, span, pitch, begin, end
+
+
+def plan_windows(offsets: Sequence[int],
+                 widths: Sequence[int]) -> WindowPlan:
+    """Cut the columns, sorted by offset, into windows [lo, lo + span) of
+    the row that never split a field and whose staged tile (TILE_RECORDS
+    records at `staged_pitch(span)`) fits STAGE_BYTES. The cut is greedy:
+    a window takes the next column while its span still fits, and a
+    column that does not starts the next window at its own offset.
+    Columns ``order[begin:end]`` lie in a window. A field too wide for the
+    budget gets a window of its own; the kernel's launch then asks for
+    the shared memory it needs, or is refused."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    ends = offsets + np.asarray(widths, dtype=np.int64)
+    order = np.argsort(offsets, kind="stable")
+    windows = []
+    lo = hi = begin = None
+    for k, c in enumerate(order):
+        start, end = int(offsets[c]), int(ends[c])
+        if lo is not None and (TILE_RECORDS * staged_pitch(max(hi, end) - lo)
+                               <= STAGE_BYTES):
+            hi = max(hi, end)
+            continue
+        if lo is not None:
+            windows.append((lo, hi - lo, staged_pitch(hi - lo), begin, k))
+        lo, hi, begin = start, end, k
+    if lo is not None:
+        windows.append((lo, hi - lo, staged_pitch(hi - lo), begin,
+                        len(order)))
+    return WindowPlan(order, np.asarray(windows, dtype=np.int32).reshape(
+        -1, _WIN_FIELDS))
+
+
 class FusedLayout:
-    """Where every group's outputs live in the three planes, and the
-    per-column descriptor table the kernel reads."""
+    """Where every group's outputs live in the three planes, the
+    per-column descriptor table (`desc`, in group order) and the kernel's
+    tables: `plan` cuts the columns into windows, and the kernel reads
+    `desc[plan.order]` with `plan.windows`."""
 
     def __init__(self, groups: Sequence[StridedGroup]):
         self.groups = list(groups)
@@ -129,7 +191,8 @@ class FusedLayout:
             self.slots.append(slots)
         self.rows = rows
         self.desc = self._descriptors()
-        self._desc_on: Dict[str, torch.Tensor] = {}
+        self.plan = plan_windows(self.desc[:, 0], self.desc[:, 3])
+        self._tables_on: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _descriptors(self) -> np.ndarray:
         out = []
@@ -155,13 +218,20 @@ class FusedLayout:
     def n_cols(self) -> int:
         return self.desc.shape[0]
 
-    def desc_on(self, device: torch.device) -> torch.Tensor:
-        """The descriptor table on `device`, uploaded once and cached."""
+    @property
+    def max_pitch(self) -> int:
+        return int(self.plan.windows[:, 2].max())
+
+    def tables_on(self, device: torch.device) -> tuple:
+        """(descriptors in window order, window table) on `device`,
+        uploaded once and cached."""
         key = str(device)
-        t = self._desc_on.get(key)
+        t = self._tables_on.get(key)
         if t is None:
-            t = torch.from_numpy(self.desc).to(device)
-            self._desc_on[key] = t
+            desc = np.ascontiguousarray(self.desc[self.plan.order])
+            t = (torch.from_numpy(desc).to(device),
+                 torch.from_numpy(self.plan.windows).to(device))
+            self._tables_on[key] = t
         return t
 
     def empty_planes(self, n: int, device) -> Dict[str, torch.Tensor]:
@@ -251,15 +321,16 @@ def fused_decode_plain(data: torch.Tensor,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def _kernel():
-    """The C entry, with its argument types set (ctypes would otherwise
-    pass every Python int as a 32-bit int and cut the pointers)."""
+    """The C entry, loaded and given its argument types once (ctypes
+    would otherwise pass every Python int as a 32-bit int and cut the
+    pointers)."""
     from ._build import load
 
     fn = load("fused_decode").cobrix_fused_decode
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_int64, ctypes.c_int64, p, ctypes.c_int32,
-                   p, p, p, p]
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    fn.argtypes = [p, i64, i64, p, p, i32, i32, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -289,11 +360,12 @@ def fused_decode(data: torch.Tensor,
     if data.device.type != "cuda":
         raise ValueError(f"fused_decode runs on cuda or cpu, not "
                          f"{data.device}")
-    desc = layout.desc_on(data.device)
+    desc, windows = layout.tables_on(data.device)
     kernel = _kernel()
     with torch.cuda.device(data.device):  # ctypes launches on the current device
         rc = kernel(data.data_ptr(), n, row_len, desc.data_ptr(),
-                    layout.n_cols, planes["i32"].data_ptr(),
+                    windows.data_ptr(), windows.shape[0], layout.max_pitch,
+                    planes["i32"].data_ptr(),
                     planes["i64"].data_ptr(), planes["bool"].data_ptr(),
                     torch.cuda.current_stream(data.device).cuda_stream)
     if rc != 0:

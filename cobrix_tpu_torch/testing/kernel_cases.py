@@ -8,9 +8,14 @@ JAX package's ``tests/test_pallas_kernels.py`` covers: binary in every
 signed/endian/width variant, binary wide at 9, 12 and 16 bytes, BCD and
 BCD wide, DISPLAY EBCDIC and ASCII across widths, out kinds,
 ``allow_dot``, ``require_digits`` and ``dyn_sf < 0``, irregular offsets,
-and fields that end at or run past the row end.
+and fields that end at or run past the row end. The edge cases of the
+CUDA kernel's staging stand beside them: an odd row length, a record
+count that is not a multiple of the 32-record tile, a single record, a
+row wider than one staging window, and a record matrix passed as the
+slice ``x[1:]`` (see `kernel_input`).
 
-`kernel_cases()` is the whole grid. `jax_subset()` names the cases the
+`kernel_cases()` is the whole grid; `kernel_input` turns a case's matrix
+into the tensor the kernel is given. `jax_subset()` names the cases the
 CPU tests run through the Pallas kernel in interpret mode, where every
 case is a compile: each kind, width and out bucket appears, and every
 DISPLAY flag combination appears at least once.
@@ -137,6 +142,84 @@ def _row_end(n, seed):
     return groups, data
 
 
+def _mixed_groups(row_len: int) -> List[dict]:
+    """One group of each kind on a row of `row_len` >= 45 bytes, the last
+    field ending at the row end."""
+    return [dict(offsets=[0, row_len - 4], width=4, kind="binary",
+                 out="i32", signed=True),
+            dict(offsets=[4], width=5, kind="bcd", out="i64"),
+            dict(offsets=[9, 19], width=9, kind="display_ebcdic", out="i32",
+                 signed=True, allow_dot=True),
+            dict(offsets=[28], width=12, kind="binary", out="wide",
+                 signed=True, big_endian=False)]
+
+
+def _mixed_rows(rng, n: int, row_len: int) -> np.ndarray:
+    data = _random_rows(rng, n, row_len)
+    data[:, 4:9] = _bcd_fields(rng, n, 5)
+    for off in (9, 19):
+        data[:, off:off + 9] = display_payload(rng, n, 9, False)
+    return data
+
+
+def _odd_row(n, seed):
+    """A 45-byte row: odd and not a multiple of 16, so the records of a
+    tile start at every 16-byte phase."""
+    rng = np.random.default_rng(seed)
+    return _mixed_groups(45), _mixed_rows(rng, n, 45)
+
+
+def _ragged_tile(n, seed):
+    """A record count that is not a multiple of the 32-record tile."""
+    rng = np.random.default_rng(seed)
+    return _mixed_groups(61), _mixed_rows(rng, max(1, n - 13), 61)
+
+
+def _single_record(n, seed):
+    rng = np.random.default_rng(seed)
+    return _mixed_groups(45), _mixed_rows(rng, 1, 45)
+
+
+def _wide_row(n, seed):
+    """A 3,301-byte row, wider than one staging window: fields all along
+    it, some of them across the byte positions where windows are cut."""
+    rng = np.random.default_rng(seed)
+    row_len = 3301
+    groups = [
+        _strided(0, 37, 89, 4, "binary", out="i32", signed=True),
+        _strided(6, 37, 89, 6, "bcd", out="i64"),
+        _strided(14, 37, 89, 18, "display_ebcdic", out="i64", signed=True),
+        dict(offsets=[1495, 2996, row_len - 10], width=10, kind="binary",
+             out="wide", signed=True)]
+    data = _random_rows(rng, n, row_len)
+    for off in groups[1]["offsets"]:
+        data[:, off:off + 6] = _bcd_fields(rng, n, 6)
+    for off in groups[2]["offsets"]:
+        data[:, off:off + 18] = display_payload(rng, n, 18, False)
+    return groups, data
+
+
+def _unaligned_slice(n, seed):
+    """n + 1 records of 45 bytes; the kernel is given ``x[1:]``, whose
+    first byte is not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    return _mixed_groups(45), _mixed_rows(rng, n + 1, 45)
+
+
+# cases whose record matrix the kernel gets as the slice x[1:]
+SLICED = ("unaligned_slice",)
+
+
+def kernel_input(name: str, data: np.ndarray, device):
+    """The tensor case `name` hands the kernel: `data` on `device`, cut
+    to ``x[1:]`` for the cases in `SLICED` (a contiguous view whose base
+    is not 16-byte aligned)."""
+    import torch
+
+    t = torch.from_numpy(data).to(device)
+    return t[1:] if name in SLICED else t
+
+
 def kernel_cases() -> Dict[str, Case]:
     """name -> case(n_rows, seed) over the whole grid."""
     cases: Dict[str, Case] = {}
@@ -163,15 +246,22 @@ def kernel_cases() -> Dict[str, Case]:
                                           signed, dot, req, sf)
     cases["irregular"] = _irregular
     cases["row_end"] = _row_end
+    cases["odd_row"] = _odd_row
+    cases["ragged_tile"] = _ragged_tile
+    cases["single_record"] = _single_record
+    cases["wide_row"] = _wide_row
+    cases["unaligned_slice"] = _unaligned_slice
     return cases
 
 
 def jax_subset() -> List[str]:
     """Cases cheap enough to compile through the Pallas interpreter in
-    the CPU tests: all binary and BCD cases, and per DISPLAY width two
-    flag settings for the narrow buckets and one for the wide ones,
-    rotated so every flag combination appears."""
-    names = [k for k in kernel_cases() if not k.startswith("display")]
+    the CPU tests: all binary, BCD and staging edge cases but the wide
+    row, and per DISPLAY width two flag settings for the narrow buckets
+    and one for the wide ones, rotated so every flag combination
+    appears."""
+    names = [k for k in kernel_cases()
+             if not k.startswith("display") and k != "wide_row"]
     combos = [(s, k) for k in range(len(DISPLAY_FLAGS)) for s in (0, 1)]
     i = 0
     for mode in ("ebcdic", "ascii"):

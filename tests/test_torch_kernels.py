@@ -18,7 +18,8 @@ from cobrix_tpu.ops import pallas_tpu
 from cobrix_tpu_torch.ops.fused_decode import (FusedLayout, StridedGroup,
                                                fused_decode,
                                                fused_decode_plain)
-from cobrix_tpu_torch.testing.kernel_cases import jax_subset, kernel_cases
+from cobrix_tpu_torch.testing.kernel_cases import (jax_subset, kernel_cases,
+                                                   kernel_input)
 
 from conftest import jax_usable
 
@@ -127,7 +128,7 @@ def test_kernel_matches_plain_on_card():
         dicts, data = case(1024, 3)
         groups = [StridedGroup.from_dict(d) for d in dicts]
         layout = FusedLayout(groups)
-        t = torch.from_numpy(data).cuda()
+        t = kernel_input(name, data, "cuda")
         got = layout.split(fused_decode(t, layout))
         want = fused_decode_plain(t, groups)
         torch.cuda.synchronize()
