@@ -11,22 +11,43 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    (``cobrix_tpu_torch.testing.kernel_cases``) over 4,096 random rows
    through the fused CUDA kernel and its plain PyTorch version on the
    card; exact equality;
-2. the main path: a file of 1,000,000 exp1 records (1,493 bytes each)
-   plus 1,024 random records, read with ``read_cobol`` on the default
-   device. The fused kernel must launch once per 64 MiB chunk; every
-   chunk's fused outputs are held against the plain version on the card
-   over the same bytes, and the rows of the first 2,000 records and of
-   the random tail against a ``device="cpu"`` decode of the same bytes;
-3. the strided OCCURS layout: 50,000 exp3 wide records (16,064 bytes),
-   framed on the host, kernel against plain on the card;
-4. timings at the exp1 chunk and exp3 shapes, each the median of 20
+2. the framing kernels vs their plain versions on the card, over the
+   grid of ``cobrix_tpu_torch.testing.framing_cases``: the RDW scan of
+   whole images and of windows cut at every phase (status and
+   FramingError included), the windowed framing of the reader, and the
+   record pack at unaligned offsets, clamped rows and start offsets;
+3. the fixed-length main path: a file of 1,000,000 exp1 records (1,493
+   bytes each) plus 1,024 random records, read with ``read_cobol`` on the
+   default device. The fused kernel must launch once per 64 MiB chunk;
+   every chunk's fused outputs are held against the plain version on the
+   card over the same bytes, and the rows of the first 2,000 records and
+   of the random tail against a ``device="cpu"`` decode of the same bytes;
+4. the RDW main path: an exp3 file (150,000 records, about 0.81 GB) and
+   an exp2 file (2,000,000 records, about 0.13 GB), each read with
+   ``read_cobol`` on the default device with the segment field, the
+   redefine map C -> STATIC-DETAILS, P -> CONTACTS, Seg_Id levels C and
+   P, a fixed prefix and record ids. The scan, pack and fused kernels
+   must each launch; the framing is held against a sequential host walk
+   of the headers, and the planes and rows of the first records against
+   ``read_cobol(device="cpu")`` of the same bytes;
+5. the strided OCCURS layout: 50,000 exp3 wide records (16,064 bytes),
+   the 'C' records of the exp3 file, kernel against plain on the card;
+6. timings at the exp1 chunk and exp3 shapes, each the median of 20
    launches between CUDA events: ``kernel_ms`` (the kernels line's
    ``ms``) times a wrapper call on an idle stream, so the host's launch
    path is in it; ``device_ms`` holds the stream busy before each start
    event, so it is the launch's device time alone. Beside them the plain
    version, the byte bound, the share of it that the device time reaches
    and the achieved GB/s, and the card's name and power limit;
-5. where one exp1 chunk's time goes: the file read, then one decode
+7. the framing kernels timed at the RDW main path's shapes (one 64 MiB
+   window of each file, and its segments' packs) beside their plain
+   versions, the bound (the pack: the bytes it reads and writes; the
+   scan: its records' headers and outputs, with the whole window's read
+   beside it as ``window_read_ms``) and, for the pack, one PyTorch
+   indexing call;
+   then one window of each file split into read, H2D, scan, segment-id
+   pack and D2H, host work, pack, fused kernel and decode;
+8. where one exp1 chunk's time goes: the file read, then one decode
    under ``torch.profiler`` (device time by kernel and copy, idle share).
 
 Every failure exits non-zero. The last two lines are the kernels JSON and
@@ -40,7 +61,9 @@ lines: it checks the script's paths, not the card.
 from __future__ import annotations
 
 import argparse
+import io
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -54,6 +77,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "cobrix_tpu_torch/csrc/fused_decode.cu"
 REPLACES = "cobrix_tpu/ops/pallas_tpu.py:369"
+FRAMING_SOURCE = "cobrix_tpu_torch/csrc/rdw_framing.cu"
+# the XLA device framing the two framing kernels replace
+SCAN_REPLACES = "cobrix_tpu/ops/device_framing.py:128"
+PACK_REPLACES = "cobrix_tpu/ops/device_framing.py:65"
+# the RDW main path's options (the JAX package's spellings)
+RDW_OPTIONS = {
+    "is_record_sequence": "true", "segment_field": "SEGMENT-ID",
+    "segment_id_level0": "C", "segment_id_level1": "P",
+    "segment_id_prefix": "SMOKE", "generate_record_id": "true",
+    "redefine-segment-id-map:0": "STATIC-DETAILS => C",
+    "redefine-segment-id-map:1": "CONTACTS => P"}
+KERNELS = ("fused_decode", "rdw_scan", "pack_records")
 
 
 class SmokeFailure(Exception):
@@ -67,6 +102,29 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def _write_part(job):
+    """One part of a generated RDW file, in a worker process."""
+    kind, n, seed, path = job
+    from cobrix_tpu_torch.testing import generators
+
+    data = getattr(generators, f"generate_{kind}")(n, seed=seed)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def host_walk(data):
+    """Payload offsets and lengths of an RDW file (little-endian headers,
+    no adjustment), one record at a time: the sequential reference."""
+    offsets, lengths, pos, size = [], [], 0, len(data)
+    while pos + 4 <= size:
+        length = data[pos + 2] | (data[pos + 3] << 8)
+        offsets.append(pos + 4)
+        lengths.append(min(length, size - pos - 4))
+        pos += 4 + length
+    return offsets, lengths
 
 
 def card_line():
@@ -91,7 +149,13 @@ class Smoke:
         self.n_tail = 64 if self.rehearsal else 1024
         self.n_exp3 = 30 if self.rehearsal else 50_000
         self.grid_rows = 64 if self.rehearsal else 4096
-        self.max_err = 0.0
+        self.n_rdw = ({"exp3": 300, "exp2": 3000} if self.rehearsal
+                      else {"exp3": 150_000, "exp2": 2_000_000})
+        # records whose planes and rows are held against a CPU read
+        self.n_check = ({"exp3": 120, "exp2": 1500} if self.rehearsal
+                        else {"exp3": 3000, "exp2": 20_000})
+        self.max_err = dict.fromkeys(KERNELS, 0.0)
+        self.launches = {}   # path -> kernel -> launches on that path
         self.tmp = tempfile.mkdtemp(prefix="cobrix_smoke_")
 
     def sync(self):
@@ -100,9 +164,9 @@ class Smoke:
 
     # -- comparisons ---------------------------------------------------
 
-    def same(self, a, b, what):
+    def same(self, a, b, what, kernel="fused_decode"):
         """Exact equality of two tensors or arrays (dtype included);
-        records the largest absolute difference."""
+        records the largest absolute difference for `kernel`."""
         np = self.np
         if isinstance(a, self.torch.Tensor):
             a = a.cpu().numpy()
@@ -112,7 +176,8 @@ class Smoke:
               f"{what}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
         if not np.array_equal(a, b):
             diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
-            self.max_err = max(self.max_err, float(np.nanmax(diff)))
+            self.max_err[kernel] = max(self.max_err[kernel],
+                                       float(np.nanmax(diff)))
             raise SmokeFailure(f"{what}: kernel and plain version differ "
                                f"at {int((a != b).sum())} places")
 
@@ -203,16 +268,17 @@ class Smoke:
         data = read_cobol(path, copybook_contents=EXP1_COPYBOOK, **kw)
         self.sync()
         secs = time.perf_counter() - t0
-        self.launches = fused_decode.launches
+        launches = fused_decode.launches
+        self.launches["exp1"] = {"fused_decode": launches}
         log(f"[main] {self.card}: read_cobol: {len(data)} records, "
             f"{len(data.batches)} "
             f"chunks in {secs:.3f} s = {size / secs / 1e6:.1f} MB/s "
-            f"end to end; fused kernel launches {self.launches}")
+            f"end to end; fused kernel launches {launches}")
         check(len(data) == self.n_exp1 + self.n_tail, "record count")
         check(len(data.batches) == n_chunks, "chunk count")
         if not self.rehearsal:
-            check(self.launches == n_chunks,
-                  f"fused kernel launched {self.launches} times for "
+            check(launches == n_chunks,
+                  f"fused kernel launched {launches} times for "
                   f"{n_chunks} chunks")
         self.e2e = (size, secs)
 
@@ -260,6 +326,228 @@ class Smoke:
             f"{self.n_tail}-record random tail == device='cpu' decode")
         os.remove(path)
 
+    def phase_framing_grid(self):
+        """The scan and pack kernels against their plain versions on the
+        card over the shared grid."""
+        np, torch = self.np, self.torch
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+        from cobrix_tpu_torch.reader.diagnostics import FramingError
+        from cobrix_tpu_torch.testing.framing_cases import (
+            WINDOWS, pack_case, scan_cases)
+
+        def outcome(fn):
+            try:
+                offsets, lengths = fn()
+            except FramingError as e:
+                return ("error", str(e), e.offset, e.reason, e.header)
+            return ("ok", list(offsets), list(lengths))
+
+        def windowed(image, big_endian, adj, header, footer, device):
+            offs, lens = [], []
+            for base, _, o, ln in vlr.frame_windows(
+                    io.BytesIO(image), len(image), device, big_endian,
+                    adj, header, footer):
+                offs.extend((base + o.cpu().numpy()).tolist())
+                lens.extend(ln.cpu().tolist())
+            return offs, lens
+
+        cases = scan_cases()
+        windows = 0
+        saved = vlr.READ_WINDOW_BYTES
+        try:
+            for name, (image, big_endian, adj, header, footer) in \
+                    sorted(cases.items()):
+                t = torch.from_numpy(np.frombuffer(image, np.uint8).copy())
+                dev = t.to(self.device)
+                # the record area and first header, as the reader's
+                # frame_windows takes them
+                end = (len(image) - footer if 0 < footer < len(image)
+                       else len(image))
+                start = header if header > 4 else 0
+                for lo, hi in [(start, end)] + [(start, start + w)
+                                                for w in WINDOWS[:-1]]:
+                    if hi > end or lo > hi:
+                        continue
+                    for last in ((True,) if hi == end else (False, True)):
+                        a = df.scan_window(dev[lo:hi], 0, last, big_endian,
+                                           adj)
+                        b = df.scan_window_plain(dev[lo:hi], 0, last,
+                                                 big_endian, adj)
+                        for x, y, what in zip(a[:2], b[:2],
+                                              ("offsets", "lengths")):
+                            self.same(x, y, f"scan {name} [{lo}:{hi}] "
+                                      f"{what}", "rdw_scan")
+                        check(a[2] == b[2], f"scan {name} [{lo}:{hi}] "
+                              f"status {a[2]} != {b[2]}")
+                        windows += 1
+                # the reader's windowed framing on the card against the
+                # same framing over the plain scan
+                for w in WINDOWS:
+                    vlr.READ_WINDOW_BYTES = w
+                    want, got = (outcome(lambda: windowed(
+                        image, big_endian, adj, header, footer, d))
+                        for d in ("cpu", self.device))
+                    check(got == want, f"windowed scan {name} window {w}")
+        finally:
+            vlr.READ_WINDOW_BYTES = saved
+        image, offsets, lengths = pack_case()
+        rng = np.random.default_rng(5)
+        big = rng.integers(0, 256, size=1 << 20, dtype=np.uint8)
+        big_offs = rng.integers(-8, (1 << 20) + 8, size=512).astype(np.int64)
+        big_lens = rng.integers(-2, 20000, size=512).astype(np.int64)
+        packs = 0
+        for img, offs, lens in [(image, offsets, lengths),
+                                (big, big_offs, big_lens)]:
+            dev = torch.from_numpy(img).to(self.device)
+            o = torch.from_numpy(offs).to(self.device)
+            ln = torch.from_numpy(lens).to(self.device)
+            for extent in (1, 5, 16, 17, 64, 333, 16064):
+                for start in (0, 3, 7):
+                    for x in (dev, dev[1:]):  # unaligned image too
+                        a = df.pack_records(x, o, ln, extent, start)
+                        b = df.pack_records_plain(x, o, ln, extent, start)
+                        self.same(a, b, f"pack extent {extent} start "
+                                  f"{start}", "pack_records")
+                        packs += 1
+        self.sync()
+        log(f"[framing] {len(cases)} scan cases, {windows} windows and the "
+            f"reader's framing at {len(WINDOWS)} window sizes; {packs} "
+            f"packs: kernels == plain, exact (status and errors included)")
+
+    def _write_rdw(self, kind, n, seed0):
+        """An RDW file of `n` generated records, in parts written by a
+        pool of worker processes and joined in order."""
+        parts = min(8, os.cpu_count() or 1, max(1, n // 1000))
+        jobs, done = [], 0
+        for k in range(parts):
+            m = (n - done) // (parts - k)
+            jobs.append((kind, m, seed0 + k,
+                         os.path.join(self.tmp, f"{kind}.{k}.part")))
+            done += m
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(len(jobs)) as pool:
+            pool.map(_write_part, jobs)
+        path = os.path.join(self.tmp, f"{kind}.dat")
+        with open(path, "wb") as out:
+            for job in jobs:
+                with open(job[3], "rb") as f:
+                    shutil.copyfileobj(f, out, 16 << 20)
+                os.remove(job[3])
+        return path
+
+    def phase_rdw(self):
+        """The RDW main path: read_cobol over an exp3 and an exp2 file on
+        the default device, each kernel's launches counted on each read."""
+        np, torch = self.np, self.torch
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+        from cobrix_tpu_torch.testing.generators import (EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        if self.rehearsal:
+            vlr.READ_WINDOW_BYTES = 256 * 1024  # several windows
+        counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                    "pack_records": df.pack_records}
+        self.rdw_files, self.rdw_walk, self.rdw_e2e = {}, {}, {}
+        for kind, cb, seed0 in [("exp3", EXP3_COPYBOOK, 11),
+                                ("exp2", EXP2_COPYBOOK, 200)]:
+            t0 = time.perf_counter()
+            path = self._write_rdw(kind, self.n_rdw[kind], seed0)
+            size = os.path.getsize(path)
+            log(f"[rdw] wrote {self.n_rdw[kind]} {kind} records ({size} "
+                f"bytes) in {time.perf_counter() - t0:.1f} s")
+            kw = {"device": "cpu"} if self.rehearsal else {}
+            for fn in counters.values():
+                fn.launches = 0
+            self.sync()
+            t0 = time.perf_counter()
+            data = read_cobol(path, copybook_contents=cb, **RDW_OPTIONS,
+                              **kw)
+            self.sync()
+            secs = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            self.launches[f"rdw_{kind}"] = launches
+            self.rdw_e2e[kind] = (size, secs)
+            log(f"[rdw] {self.card}: {kind} read_cobol: {len(data)} records "
+                f"in {secs:.3f} s = {size / secs / 1e6:.1f} MB/s end to "
+                f"end; launches {json.dumps(launches)}")
+            if not self.rehearsal:
+                for k, v in launches.items():
+                    check(v > 0, f"{k} never launched on the {kind} read")
+            with open(path, "rb") as f:
+                raw = f.read()
+            t0 = time.perf_counter()
+            walk = host_walk(raw)
+            log(f"[rdw] host walk of {len(walk[0])} headers in "
+                f"{time.perf_counter() - t0:.1f} s")
+            self.rdw_files[kind] = path
+            self.rdw_walk[kind] = (raw, walk)
+            (result,) = data.results
+            check(result.records_framed == len(walk[0]) == self.n_rdw[kind]
+                  == len(data), f"{kind}: records framed "
+                  f"{result.records_framed}, walked {len(walk[0])}")
+            offs, lens = [], []
+            with open(path, "rb") as f:
+                for base, _, o, ln in vlr.frame_windows(
+                        f, size, self.device, False, 0):
+                    offs.append(base + o.cpu().numpy())
+                    lens.append(ln.cpu().numpy())
+            check(np.array_equal(np.concatenate(offs), walk[0])
+                  and np.array_equal(np.concatenate(lens), walk[1]),
+                  f"{kind}: device framing differs from the host walk")
+            self._check_prefix(kind, cb, data, raw, walk)
+            del data, raw
+        log(f"[rdw] framing == host walk; planes and rows of the first "
+            f"records == device='cpu' read")
+
+    def _check_prefix(self, kind, cb, data, raw, walk):
+        """Planes and rows of the first records of a device read against
+        read_cobol(device="cpu") over a file of just those records."""
+        np = self.np
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.reader.result import FileResult
+
+        k = self.n_check[kind]
+        offsets, lengths = walk
+        end = offsets[k - 1] + lengths[k - 1]
+        path = os.path.join(self.tmp, f"{kind}.prefix.dat")
+        with open(path, "wb") as f:
+            f.write(raw[:end])
+        want = read_cobol(path, copybook_contents=cb, device="cpu",
+                          **RDW_OPTIONS).results[0]
+        (got,) = data.results
+        # the device read's batches that hold the first k records
+        head = [seg for seg in got.segments if seg.positions[0] < k]
+        actives = {seg.active for seg in want.segments}
+        for active in actives:
+            mine = [seg for seg in head if seg.active == active]
+            ref = [seg for seg in want.segments if seg.active == active]
+            pos = np.concatenate([seg.positions for seg in ref])
+            m = len(pos)
+            check(np.array_equal(np.concatenate(
+                [seg.positions for seg in mine])[:m], pos),
+                f"{kind} {active}: positions differ")
+            decoder = ref[0].batch.decoder
+            for col in range(len(decoder.plan.columns)):
+                for key in ref[0].batch.column_arrays(col):
+                    a = np.concatenate([seg.batch.column_arrays(col)[key]
+                                        for seg in mine])[:m]
+                    b = np.concatenate([seg.batch.column_arrays(col)[key]
+                                        for seg in ref])
+                    self.same(a, b, f"{kind} {active} column {col} {key}")
+        part = FileResult(n_rows=0, file_id=got.file_id, policy=got.policy,
+                          generate_record_id=got.generate_record_id,
+                          segments=head)
+        rows = want.to_rows()
+        check(part.to_rows()[:len(rows)] == rows, f"{kind}: rows of the "
+              f"first {k} records differ from the CPU read")
+        log(f"[rdw] {kind}: planes of {len(actives)} segments and rows of "
+            f"the first {k} records == device='cpu' read")
+        os.remove(path)
+
     def phase_exp3(self):
         np, torch = self.np, self.torch
         from cobrix_tpu_torch import ColumnarDecoder, parse_copybook
@@ -268,7 +556,11 @@ class Smoke:
                                                          generate_exp3)
 
         t0 = time.perf_counter()
-        wide, seed = [], 11
+        # the wide 'C' records of the RDW phase's exp3 file first
+        data, (offsets, lengths) = self.rdw_walk["exp3"]
+        wide = [data[o:o + n] for o, n in zip(offsets, lengths)
+                if n > 1000][:self.n_exp3]
+        seed = 1011
         while len(wide) < self.n_exp3:
             raw, pos = generate_exp3(3 * (self.n_exp3 - len(wide)) + 3,
                                      seed=seed), 0
@@ -361,7 +653,135 @@ class Smoke:
         log(f"[time] {self.card}: exp1 read_cobol end to end: {size} bytes "
             f"in {secs:.3f} s "
             f"= {size / secs / 1e6:.1f} MB/s; launches_per_read "
-            f"{self.launches}")
+            f"{self.launches['exp1']['fused_decode']}")
+
+    def phase_rdw_timings(self):
+        """The framing kernels at the RDW main path's shapes, and one
+        window of each file split into the reader's steps."""
+        np, torch = self.np, self.torch
+        from cobrix_tpu_torch.api import parse_options
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+        from cobrix_tpu_torch.reader.vrl_reader import \
+            resolve_segment_id_field
+        from cobrix_tpu_torch.testing.generators import (EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        self.rdw_timings = {}
+        for kind, cb in [("exp3", EXP3_COPYBOOK), ("exp2", EXP2_COPYBOOK)]:
+            raw = self.rdw_walk[kind][0]
+            L = min(vlr.READ_WINDOW_BYTES, len(raw))
+            last = L == len(raw)
+            split = {}
+
+            def lap(key, t0):
+                self.sync()
+                split[key] = split.get(key, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+
+            t0 = time.perf_counter()
+            host = np.empty(L, dtype=np.uint8)
+            with open(self.rdw_files[kind], "rb") as f:
+                f.readinto(memoryview(host))
+            lap("read_ms", t0)
+            t0 = time.perf_counter()
+            image = torch.from_numpy(host).to(self.device)
+            lap("h2d_ms", t0)
+            t0 = time.perf_counter()
+            offs_d, lens_d, status = df.scan_window(image, 0, last)
+            lap("scan_ms", t0)
+            t0 = time.perf_counter()
+            lens = lens_d.cpu().numpy()
+            lap("lengths_d2h_ms", t0)
+            reader = vlr.VarLenReader(cb, parse_options(RDW_OPTIONS),
+                                      device=self.device)
+            seg_field = resolve_segment_id_field(reader.params,
+                                                 reader.copybook)
+            t0 = time.perf_counter()
+            field = df.pack_records(image, offs_d, lens_d, 5, 0)
+            ids = reader._segment_ids_vectorized(field.cpu().numpy(), lens,
+                                                 seg_field)
+            lap("segment_ids_ms", t0)
+            t0 = time.perf_counter()
+            by_active = {a: np.nonzero(ids.mask_of_mapped(
+                reader.segment_redefine_map, a))[0]
+                for a in set(ids.map_uniq(reader.segment_redefine_map))}
+            lap("host_select_ms", t0)
+            shapes = {}
+            for active, pos in sorted(by_active.items()):
+                dec = reader._decoder_for_segment(active)
+                idx = torch.from_numpy(pos).to(self.device)
+                t0 = time.perf_counter()
+                o, ln = offs_d[idx], lens_d[idx]
+                packed = df.pack_records(image, o, ln, dec.plan.max_extent)
+                lap("pack_ms", t0)
+                if dec.fused is not None:
+                    t0 = time.perf_counter()
+                    planes = fused_decode(packed, dec.fused)
+                    lap("fused_ms", t0)
+                    t0 = time.perf_counter()
+                    {k: v.cpu() for k, v in planes.items()}
+                    lap("fused_planes_d2h_ms", t0)
+                t0 = time.perf_counter()
+                dec.decode_raw(image, o, lens[pos])
+                lap("decode_raw_ms", t0)
+                shapes[active] = (o, ln, dec.plan.max_extent, len(pos))
+            split.update(window_bytes=L, records=int(offs_d.numel()),
+                         segments={a: len(p) for a, p in by_active.items()})
+            log(f"[rdw-time] {self.card}: {kind} window split: "
+                f"{json.dumps(split)}")
+
+            # the scan at this window, kernel against plain
+            plain = df.scan_window_plain(image, 0, last)
+            for a, b in zip((offs_d, lens_d), plain[:2]):
+                self.same(a, b, f"{kind} window scan", "rdw_scan")
+            check(plain[2] == status, f"{kind} window scan status")
+            n = int(offs_d.numel())
+            # what the function must move: the header of each record on
+            # the chain and of the position it stops at (one 32-byte
+            # sector each, the least the memory reads), 16 bytes of
+            # offset and length a record and the 24-byte status; reading
+            # the whole window once is a separate, looser figure
+            scan = dict(
+                window_bytes=L, records=n,
+                ms=self._time(lambda: df.scan_window(image, 0, last), 10),
+                plain_ms=self._time(
+                    lambda: df.scan_window_plain(image, 0, last), 2),
+                bound_ms=(32 * (n + 1) + 16 * n + 24)
+                / HBM_BYTES_PER_S * 1e3,
+                window_read_ms=L / HBM_BYTES_PER_S * 1e3,
+                library_ms=None)
+            # the pack of the window's widest segment
+            o, ln, extent, rows = max(shapes.values(),
+                                      key=lambda v: v[2] * v[3])
+            a = df.pack_records(image, o, ln, extent)
+            self.same(a, df.pack_records_plain(image, o, ln, extent),
+                      f"{kind} window pack", "pack_records")
+            cols = torch.arange(extent, device=self.device)
+            gather = torch.clamp(o[:, None] + cols[None, :], 0, L - 1)
+            # each record's bytes up to the extent, its offset and
+            # length (16 bytes), and the packed matrix
+            moved = (int(torch.clamp(ln, max=extent).clamp(min=0).sum())
+                     + 16 * rows + rows * extent)
+            pack = dict(
+                rows=rows, extent=extent,
+                ms=self._time(lambda: df.pack_records(image, o, ln, extent),
+                              20),
+                plain_ms=self._time(
+                    lambda: df.pack_records_plain(image, o, ln, extent), 5),
+                library_ms=self._time(lambda: image[gather], 20),
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+            del gather
+            self.rdw_timings[kind] = dict(scan=scan, pack=pack)
+            log(f"[rdw-time] {self.card}: {kind} rdw_scan "
+                f"{json.dumps(scan)}")
+            log(f"[rdw-time] {self.card}: {kind} pack_records "
+                f"{json.dumps(pack)}")
+        for kind, (size, secs) in self.rdw_e2e.items():
+            log(f"[rdw-time] {self.card}: {kind} read_cobol end to end: "
+                f"{size} bytes in {secs:.3f} s = {size / secs / 1e6:.1f} "
+                f"MB/s; launches {json.dumps(self.launches['rdw_' + kind])}")
 
     def phase_profile(self):
         """Where one exp1 chunk's time goes: the file read on the host
@@ -430,9 +850,12 @@ class Smoke:
         try:
             self.phase_env()
             self.phase_grid()
+            self.phase_framing_grid()
             self.phase_main()
+            self.phase_rdw()
             self.phase_exp3()
             self.phase_timings()
+            self.phase_rdw_timings()
             self.phase_profile()
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
@@ -440,16 +863,31 @@ class Smoke:
     def result_lines(self):
         torch = self.torch
         t = self.timings["exp1"]
-        kernels = {"kernels": [{
-            "name": "fused_decode", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES, "launches": self.launches,
-            "max_abs_err": self.max_err, "ms": t["kernel_ms"],
-            "device_ms": t["device_ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None}]}
+        by_path = {k: {path: n[k] for path, n in self.launches.items()
+                       if k in n} for k in KERNELS}
+        scan = self.rdw_timings["exp3"]["scan"]
+        pack = self.rdw_timings["exp3"]["pack"]
+        entries = [
+            dict(name="fused_decode", route="cuda", source=KERNEL_SOURCE,
+                 replaces=REPLACES, ms=t["kernel_ms"],
+                 device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                 bound_ms=t["bound_ms"], library_ms=None),
+            dict(name="rdw_scan", route="cuda", source=FRAMING_SOURCE,
+                 replaces=SCAN_REPLACES, ms=scan["ms"],
+                 plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
+                 library_ms=None),
+            dict(name="pack_records", route="cuda", source=FRAMING_SOURCE,
+                 replaces=PACK_REPLACES, ms=pack["ms"],
+                 plain_ms=pack["plain_ms"], bound_ms=pack["bound_ms"],
+                 library_ms=pack["library_ms"]),
+        ]
+        for e in entries:
+            e.update(launches=sum(by_path[e["name"]].values()),
+                     launches_by_path=by_path[e["name"]],
+                     max_abs_err=self.max_err[e["name"]], bound_by="bytes")
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()}
-        return [self.card, json.dumps(kernels),
+        return [self.card, json.dumps({"kernels": entries}),
                 json.dumps({"ok": True, "device": device})]
 
 

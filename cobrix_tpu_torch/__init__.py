@@ -1,8 +1,10 @@
 """cobrix_tpu_torch — the PyTorch/CUDA port of cobrix_tpu.
 
-Parses COBOL copybooks and decodes fixed-length EBCDIC files into
-columnar data on an NVIDIA GPU: every numeric field of a record batch is
-decoded by one launch of a hand-written CUDA kernel
+Parses COBOL copybooks and decodes fixed-length and RDW variable-length
+(single- or multisegment) EBCDIC files into columnar data on an NVIDIA
+GPU: RDW files are framed and their records packed on the card by
+hand-written CUDA kernels (``csrc/rdw_framing.cu``), every numeric field
+of a record batch is decoded by one launch of a hand-written CUDA kernel
 (``csrc/fused_decode.cu``), strings and floats by PyTorch ops on the same
 device. The package imports torch and numpy and nothing of ``cobrix_tpu``;
 it keeps its own copies of the copybook front end, plan compiler and code
@@ -17,6 +19,7 @@ from .copybook.datatypes import (
 )
 from .device import resolve_device
 from .reader.columnar import ColumnarDecoder, DecodedBatch
+from .reader.diagnostics import FramingError
 
 __all__ = [
     "CobolData",
@@ -24,6 +27,7 @@ __all__ = [
     "Copybook",
     "DecodedBatch",
     "FloatingPointFormat",
+    "FramingError",
     "SchemaRetentionPolicy",
     "TrimPolicy",
     "merge_copybooks",

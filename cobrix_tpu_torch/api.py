@@ -1,36 +1,61 @@
-"""`read_cobol` for fixed-length files, decoding on the device.
+"""`read_cobol`: fixed-length and RDW variable-length files, decoding on
+the device.
 
-Port of the fixed-length path of ``cobrix_tpu.api.read_cobol``
-(``_read_fixed_len_chunked`` and ``FixedLenReader.read_result``): the
-file is read in 64 MiB record-aligned chunks; each chunk is framed on the
-host as an [n, record_size] uint8 matrix, moved to the device, decoded by
-`ColumnarDecoder` (one fused kernel launch for every numeric group) and
-kept as a `DecodedBatch` of host planes. Rows are materialized only when
-asked for.
+Port of ``cobrix_tpu.api.read_cobol`` for two routes:
 
-Only the options below are taken. Every other option of the JAX
-package's reader raises ValueError naming it: none is silently ignored.
+* fixed-length files (``_read_fixed_len_chunked`` and
+  ``FixedLenReader.read_result``): the file is read in 64 MiB
+  record-aligned chunks; each chunk is framed on the host as an
+  [n, record_size] uint8 matrix, moved to the device, decoded by
+  `ColumnarDecoder` (one fused kernel launch for every numeric group) and
+  kept as a `DecodedBatch` of host planes;
+* RDW files (``is_record_sequence`` or ``is_xcom``), single- or
+  multisegment: ``reader.var_len_reader.VarLenReader`` frames each file on
+  the device, window by window, and decodes the records of each active
+  segment there, one `FileResult` per file.
+
+Rows are materialized only when asked for. The options below are parsed
+with the JAX package's spellings and error messages
+(``parse_options``); the RDW ones are taken for RDW files only. Every
+other option of the JAX package's reader raises ValueError naming it:
+none is silently ignored. Compressed inputs are read as they are (the JAX
+package's ``compression`` detection is not carried over).
 """
 from __future__ import annotations
 
 import glob as _glob
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .copybook.copybook import merge_copybooks, parse_copybook
+from .copybook.ast import transform_identifier
 from .copybook.datatypes import (
     FloatingPointFormat,
     SchemaRetentionPolicy,
     TrimPolicy,
 )
+from .plan.cache import copybook_for_params
 from .reader.columnar import ColumnarDecoder, DecodedBatch
-from .reader.schema import CobolOutputSchema
+from .reader.parameters import MultisegmentParameters, ReaderParameters
+from .reader.result import FileResult
+from .reader.schema import CobolOutputSchema, output_schema_for
+from .reader.var_len_reader import (VarLenReader, default_segment_id_prefix,
+                                    file_record_id_base)
 
 # fixed-length files stream through bounded chunk reads: peak host memory
 # stays about one chunk plus its decoded columns
 FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
+
+# options of RDW reads, taken with is_record_sequence / is_xcom only
+_RDW_OPTIONS = frozenset((
+    "is_rdw_big_endian", "is_rdw_part_of_record_length", "rdw_adjustment",
+    "file_start_offset", "file_end_offset", "record_start_offset",
+    "segment_field", "segment_filter", "segment_id_root",
+    "segment_id_prefix", "generate_record_id"))
+_RDW_OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
+                        "redefine_segment_id_map")
+_FRAMING_OPTIONS = ("is_record_sequence", "is_xcom")
 
 _ENUMS = {
     "schema_retention_policy": {
@@ -55,6 +80,129 @@ def _parse_enum(key: str, value: str):
     if parsed is None:
         raise ValueError(f"Invalid value '{value}' for '{key}' option.")
     return parsed
+
+
+class Options:
+    """String-keyed option map (``cobrix_tpu.api.Options``, without its
+    usage tracking: the port refuses unknown keys instead of auditing
+    them). Values arrive as strings, as from the reference's ``.option()``
+    map."""
+
+    def __init__(self, options: Dict[str, object]):
+        self._map = {str(k): str(v) for k, v in options.items()}
+
+    def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        return self._map.get(key, default)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._map
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        v = self.get(key)
+        if v is None:
+            return default
+        return v.strip().lower() in ("true", "1", "yes")
+
+    def get_int(self, key: str, default: Optional[int] = None) -> Optional[int]:
+        v = self.get(key)
+        return default if v is None else int(v)
+
+    def keys(self):
+        return self._map.keys()
+
+
+def _parse_segment_levels(opts: Options) -> List[str]:
+    levels = []
+    i = 0
+    while True:
+        name = f"segment_id_level{i}"
+        if name in opts:
+            levels.append(opts.get(name))
+        elif i == 0 and "segment_id_root" in opts:
+            levels.append(opts.get("segment_id_root"))
+        else:
+            return levels
+        i += 1
+
+
+def _parse_prefixed_map(opts: Options,
+                        prefixes: Tuple[str, ...]) -> Dict[str, str]:
+    """Parse 'redefine-segment-id-map:N' options ('FIELD => A,B') into
+    {segment id: redefine name}."""
+    out: Dict[str, str] = {}
+    for key in list(opts.keys()):
+        k = key.lower()
+        if any(k.startswith(p) for p in prefixes):
+            value = opts.get(key)
+            parts = value.split("=>")
+            if len(parts) != 2:
+                raise ValueError(
+                    f"Illegal argument for the '{prefixes[0]}' option: '{value}'.")
+            field = transform_identifier(parts[0].strip())
+            for item in (transform_identifier(s.strip())
+                         for s in parts[1].split(",")):
+                out[item] = field
+    return out
+
+
+def _is_rdw_option(name: str) -> bool:
+    return name in _RDW_OPTIONS or name.lower().startswith(
+        _RDW_OPTION_PREFIXES)
+
+
+def parse_options(options: Dict[str, object],
+                  ebcdic_code_page: str = "common",
+                  schema_retention_policy: str = "keep_original",
+                  string_trimming_policy: str = "both",
+                  floating_point_format: str = "ibm") -> ReaderParameters:
+    """Options -> typed ReaderParameters, as ``cobrix_tpu.api
+    .parse_options`` builds them for the options the port takes. Raises
+    ValueError naming the first option the port does not take, and naming
+    an RDW option given for a file that is not RDW-framed."""
+    for name in sorted(options):
+        if name not in _FRAMING_OPTIONS and not _is_rdw_option(name):
+            raise ValueError(
+                f"Option '{name}' is not supported by cobrix_tpu_torch."
+                f"read_cobol, which reads fixed-length and RDW "
+                f"(is_record_sequence) files")
+    opts = Options(options)
+    is_record_sequence = (opts.get_bool("is_xcom") or
+                          opts.get_bool("is_record_sequence"))
+    if not is_record_sequence:
+        for name in sorted(options):
+            if _is_rdw_option(name):
+                raise ValueError(
+                    f"Option '{name}' is supported by cobrix_tpu_torch."
+                    f"read_cobol for RDW files only "
+                    f"(is_record_sequence=true)")
+    multisegment = None
+    if "segment_field" in opts:
+        filter_str = opts.get("segment_filter")
+        multisegment = MultisegmentParameters(
+            segment_id_field=opts.get("segment_field"),
+            segment_id_filter=filter_str.split(",") if filter_str else None,
+            segment_level_ids=_parse_segment_levels(opts),
+            segment_id_prefix=opts.get("segment_id_prefix", ""),
+            segment_id_redefine_map=_parse_prefixed_map(
+                opts, ("redefine-segment-id-map", "redefine_segment_id_map")))
+    return ReaderParameters(
+        ebcdic_code_page=ebcdic_code_page,
+        floating_point_format=_parse_enum("floating_point_format",
+                                          floating_point_format),
+        is_record_sequence=is_record_sequence,
+        is_rdw_big_endian=opts.get_bool("is_rdw_big_endian"),
+        is_rdw_part_of_record_length=opts.get_bool(
+            "is_rdw_part_of_record_length"),
+        rdw_adjustment=opts.get_int("rdw_adjustment", 0),
+        start_offset=opts.get_int("record_start_offset", 0),
+        file_start_offset=opts.get_int("file_start_offset", 0),
+        file_end_offset=opts.get_int("file_end_offset", 0),
+        generate_record_id=opts.get_bool("generate_record_id"),
+        schema_policy=_parse_enum("schema_retention_policy",
+                                  schema_retention_policy),
+        string_trimming_policy=_parse_enum("string_trimming_policy",
+                                           string_trimming_policy),
+        multisegment=multisegment)
 
 
 def load_copybook_contents(copybook, copybook_contents):
@@ -102,12 +250,15 @@ def list_input_files(path) -> List[str]:
 
 
 class CobolData:
-    """Decoded result of a read: one `DecodedBatch` per chunk, in record
-    order, plus the output schema."""
+    """Decoded result of a read: the fixed-length route's `DecodedBatch`
+    per chunk, or the RDW route's `FileResult` per file, in record order,
+    plus the output schema."""
 
     def __init__(self, batches: List[DecodedBatch],
-                 schema: CobolOutputSchema):
+                 schema: CobolOutputSchema,
+                 results: Optional[List[FileResult]] = None):
         self.batches = batches
+        self.results = results or []
         self.output_schema = schema
         self._rows: Optional[List[List[object]]] = None
 
@@ -116,13 +267,16 @@ class CobolData:
         return self.output_schema.schema
 
     def __len__(self) -> int:
-        return sum(b.n_records for b in self.batches)
+        return (sum(b.n_records for b in self.batches)
+                + sum(r.n_rows for r in self.results))
 
     def to_rows(self) -> List[List[object]]:
         if self._rows is None:
             rows: List[List[object]] = []
             for b in self.batches:
                 rows.extend(b.to_rows(policy=self.output_schema.policy))
+            for r in self.results:
+                rows.extend(r.to_rows())
             self._rows = rows
         return self._rows
 
@@ -140,33 +294,38 @@ def read_cobol(path=None,
                string_trimming_policy: str = "both",
                floating_point_format: str = "ibm",
                **options) -> CobolData:
-    """Read fixed-length mainframe file(s) into decoded columns.
+    """Read fixed-length or RDW mainframe file(s) into decoded columns.
 
     `copybook` is a path (or list of paths) to copybook file(s);
     `copybook_contents` passes the text directly. `device=None` decodes
     on the CUDA device and raises RuntimeError when there is none;
     ``device="cpu"`` runs the plain PyTorch versions. The other keyword
-    arguments take the JAX package's option values."""
-    for name in sorted(options):
-        raise ValueError(
-            f"Option '{name}' is not supported by cobrix_tpu_torch."
-            f"read_cobol, which reads fixed-length files only")
+    arguments take the JAX package's option names and values: with
+    ``is_record_sequence="true"`` (or ``is_xcom``) the files are RDW
+    framed, and the RDW options (header endianness and adjustment, file
+    and record offsets, segment field, filter, levels, prefix and
+    redefine map, record ids) apply."""
+    params = parse_options(options, ebcdic_code_page,
+                           schema_retention_policy, string_trimming_policy,
+                           floating_point_format)
     contents = load_copybook_contents(copybook, copybook_contents)
     if path is None:
         raise ValueError("'path' must be specified for read_cobol.")
-    policy = _parse_enum("schema_retention_policy", schema_retention_policy)
-    kw = dict(
-        string_trimming_policy=_parse_enum("string_trimming_policy",
-                                           string_trimming_policy),
-        ebcdic_code_page=ebcdic_code_page,
-        floating_point_format=_parse_enum("floating_point_format",
-                                          floating_point_format))
-    books = [contents] if isinstance(contents, str) else list(contents)
-    cbs = [parse_copybook(c, **kw) for c in books]
-    cb = cbs[0] if len(cbs) == 1 else merge_copybooks(cbs)
     files = list_input_files(path)
     if not files:
         raise FileNotFoundError(f"No input files found for path {path}")
+    if params.is_record_sequence:
+        reader = VarLenReader(contents, params, device=device)
+        seg = params.multisegment
+        prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
+                  else default_segment_id_prefix())
+        results = [reader.read_result(
+            file_path, file_id=file_order, segment_id_prefix=prefix,
+            start_record_id=file_record_id_base(file_order))
+            for file_order, file_path in enumerate(files)]
+        return CobolData([], output_schema_for(reader.copybook, params,
+                                               is_var_len=True), results)
+    cb = copybook_for_params(contents, params)
     decoder = ColumnarDecoder(cb, device=device)
     rs = cb.record_size
     chunk_bytes = max(rs, FIXED_READ_CHUNK_BYTES // rs * rs)
@@ -188,4 +347,5 @@ def read_cobol(path=None,
                 matrix = np.frombuffer(buf, dtype=np.uint8).reshape(-1, rs)
                 batches.append(decoder.decode(matrix))
                 done += got
-    return CobolData(batches, CobolOutputSchema(cb, policy=policy))
+    return CobolData(batches, output_schema_for(cb, params,
+                                                is_var_len=False))

@@ -1,0 +1,271 @@
+"""RDW framing and record packing on the device: kernel wrappers and
+plain versions.
+
+Port of ``cobrix_tpu.ops.device_framing`` (``_scan_body`` /
+``rdw_scan_device`` and ``pack_records_device``). The kernels are
+``csrc/rdw_framing.cu``; its note says what bounds them. Unlike the JAX
+device scan, which stops quietly at the first invalid link, the scan has
+the semantics of the host walk the JAX reader frames with
+(``native.rdw_scan``, ``native.pack_records``): the last length clamped
+to the window's end, and a zero or oversized header reported at the
+position the sequential walk reaches. The file's header, footer and
+windows, and the JAX package's `FramingError`, are the reader's
+(``reader.var_len_reader.frame_windows``).
+
+* `scan_window(image, start, last_window, big_endian, adjustment)` frames
+  one window of a file image from a start position: payload offsets and
+  lengths (window-relative int64 tensors on the image's device) and the
+  window's status. A window that is not the last keeps only the records
+  that end inside it and says where the next window starts. A CUDA tensor
+  launches the kernel (counted in ``scan_window.launches``), a CPU tensor
+  runs `scan_window_plain`; nothing else is taken.
+* `pack_records(image, offsets, lengths, extent, start_offset)` gathers
+  the zero-padded [n, extent] record matrix (``pack_records.launches``);
+  `pack_records_plain` is the ``pack_records_device`` expression in torch
+  with the host pack's clamps.
+
+``build_wide_pipeline`` (frame, select and pack exp3's wide records in one
+device program for ``DeviceAggregator``) is not ported yet: it feeds the
+device reductions, which wait for their own slice.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+# the host walk's cap on one record (native MAX_RDW_RECORD_SIZE)
+MAX_RDW_RECORD_SIZE = 100 * 1024 * 1024
+
+# scan status codes (csrc/rdw_framing.cu ScanStatus)
+DONE, CARRY, ZERO, TOO_BIG = 0, 1, -1, -2
+
+
+class WindowStatus(NamedTuple):
+    """How a window's chain ended: `code` DONE (it reached the window's
+    end), CARRY (it stopped at a record that continues past a window that
+    is not the last: the next window starts at `position`), ZERO or
+    TOO_BIG (a malformed header at `position`); `length` is the header's
+    length there (adjustment included) for CARRY and the errors."""
+    code: int
+    position: int
+    length: int
+
+
+def _steps(n: int) -> int:
+    """Doubling steps that reach every hop count below n + 1."""
+    return max(1, math.ceil(math.log2(n + 1)))
+
+
+def _check_image(image: torch.Tensor, what: str) -> None:
+    if not isinstance(image, torch.Tensor):
+        raise TypeError(f"{what} takes a torch.Tensor image")
+    if image.dtype != torch.uint8 or image.dim() != 1:
+        raise ValueError(f"{what} takes a 1-D uint8 image, not "
+                         f"{tuple(image.shape)} {image.dtype}")
+    if not image.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous image")
+    if image.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {image.device}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _header_lengths(image: torch.Tensor, big_endian: bool,
+                    adjustment: int) -> torch.Tensor:
+    """int64 length of the header that would start at each position
+    (bytes past the image read 0)."""
+    b = torch.nn.functional.pad(image, (0, 4)).to(torch.int64)
+    n = image.numel()
+    if big_endian:
+        ln = b[1:n + 1] + 256 * b[0:n]
+    else:
+        ln = b[2:n + 2] + 256 * b[3:n + 3]
+    return ln + adjustment
+
+
+def scan_window_plain(image: torch.Tensor, start: int, last_window: bool,
+                      big_endian: bool = False, adjustment: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, WindowStatus]:
+    """The kernel's pointer doubling in torch ops (``_scan_body``): links,
+    then reachability by `scatter_reduce` (amax) through the doubled
+    links, on the image's device."""
+    L = image.numel()
+    dev = image.device
+    pos = torch.arange(L, device=dev, dtype=torch.int64)
+    ln = _header_lengths(image, big_endian, adjustment)
+    valid = ((pos + 4 <= L) & (ln > 0) & (ln <= MAX_RDW_RECORD_SIZE)
+             & (last_window | (pos + 4 + ln <= L)))
+    link = torch.where(valid, torch.clamp(pos + 4 + ln, max=L),
+                       torch.full_like(pos, L))
+    jump = torch.cat([link, torch.tensor([L], device=dev)])
+    reached = torch.zeros(L + 1, dtype=torch.uint8, device=dev)
+    reached[start] = 1
+    for _ in range(_steps(L)):
+        reached = reached.scatter_reduce(0, jump, reached, "amax")
+        jump = jump[jump]
+    hit = torch.nonzero(reached[:L]).flatten()
+    starts = hit[valid[hit]]
+    offsets = starts + 4
+    lengths = torch.minimum(ln[starts], L - offsets)
+    code, at, length = DONE, L, 0
+    if hit.numel():
+        q = int(hit[-1])
+        if not bool(valid[q]):
+            at = q
+            if q + 4 <= L:
+                length = int(ln[q])
+                code = (ZERO if length <= 0 else TOO_BIG
+                        if length > MAX_RDW_RECORD_SIZE else CARRY)
+            else:
+                code = DONE if last_window else CARRY
+    return offsets, lengths, WindowStatus(code, at, length)
+
+
+def pack_records_plain(image: torch.Tensor, offsets: torch.Tensor,
+                       lengths: torch.Tensor, extent: int,
+                       start_offset: int = 0) -> torch.Tensor:
+    """``pack_records_device`` in torch, with ``native.pack_records``'s
+    clamps: a negative or past-the-end offset or a length that is not
+    positive gives a zero row, and a record never reads past the image."""
+    size = image.numel()
+    offs = offsets.to(torch.int64) + start_offset
+    lens = torch.clamp(lengths.to(torch.int64) - start_offset, max=extent)
+    dead = (offs < 0) | (lens <= 0) | (offs >= size)
+    lens = torch.where(dead, torch.zeros_like(lens),
+                       torch.minimum(lens, size - offs))
+    cols = torch.arange(extent, device=image.device, dtype=torch.int64)
+    idx = torch.clamp(offs[:, None] + cols[None, :], 0, max(size - 1, 0))
+    gathered = (image[idx] if size else
+                torch.zeros(idx.shape, dtype=torch.uint8,
+                            device=image.device))
+    return torch.where(cols[None, :] < lens[:, None], gathered,
+                       torch.zeros((), dtype=torch.uint8,
+                                   device=image.device))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """The three C entries of rdw_framing.cu, with their argument types
+    (ctypes would otherwise cut every pointer to 32 bits)."""
+    from ._build import load
+
+    lib = load("rdw_framing")
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    scan = lib.cobrix_rdw_scan
+    scan.argtypes = [p, i64, i64, i32, i32, i32, i32, p, p, p, p, p, p, p]
+    records = lib.cobrix_rdw_records
+    records.argtypes = [p, i64, i32, i32, i32, p, i64, p, p, p, p, p, p]
+    pack = lib.cobrix_pack_records
+    pack.argtypes = [p, i64, p, p, i64, i64, i64, p, p]
+    for fn in (scan, records, pack):
+        fn.restype = ctypes.c_int
+    return scan, records, pack
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def scan_window(image: torch.Tensor, start: int = 0,
+                last_window: bool = True, big_endian: bool = False,
+                adjustment: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor, WindowStatus]:
+    """Frame the RDW records of one window from `start`. Returns int64
+    payload offsets and lengths (window-relative, on the image's device)
+    and the `WindowStatus`. In the last window a record may run past the
+    end and is clamped to it; in any other window only records that end
+    inside it are kept."""
+    _check_image(image, "scan_window")
+    L = image.numel()
+    if L >= 2 ** 31 - 8:
+        raise ValueError(f"a scan window holds under 2 GiB, not {L} bytes")
+    if not 0 <= start <= L:
+        raise ValueError(f"scan start {start} outside the window [0, {L}]")
+    if image.device.type == "cpu":
+        return scan_window_plain(image, start, last_window, big_endian,
+                                 adjustment)
+    dev = image.device
+    scan, records, _ = _kernels()
+    jump_a = torch.empty(L + 1, dtype=torch.int32, device=dev)
+    jump_b = torch.empty_like(jump_a)
+    valid = torch.empty(L + 1, dtype=torch.uint8, device=dev)
+    reached = torch.empty_like(valid)
+    starts = torch.empty(L, dtype=torch.uint8, device=dev)
+    last = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(scan(image.data_ptr(), L, start, int(big_endian),
+                       int(adjustment), int(last_window), _steps(L),
+                       jump_a.data_ptr(), jump_b.data_ptr(),
+                       valid.data_ptr(), reached.data_ptr(),
+                       starts.data_ptr(), last.data_ptr(), stream),
+                  "rdw_scan")
+        pos = torch.nonzero(starts).flatten().contiguous()
+        n = pos.numel()
+        offsets = torch.empty(n, dtype=torch.int64, device=dev)
+        lengths = torch.empty(n, dtype=torch.int64, device=dev)
+        status = torch.empty(3, dtype=torch.int64, device=dev)
+        _raise_on(records(image.data_ptr(), L, int(big_endian),
+                          int(adjustment), int(last_window),
+                          pos.data_ptr(), n, offsets.data_ptr(),
+                          lengths.data_ptr(), valid.data_ptr(),
+                          last.data_ptr(), status.data_ptr(), stream),
+                  "rdw_records")
+    scan_window.launches += 1
+    code, at, length = status.cpu().tolist()
+    return offsets, lengths, WindowStatus(code, at, length)
+
+
+scan_window.launches = 0
+
+
+def pack_records(image: torch.Tensor, offsets: torch.Tensor,
+                 lengths: torch.Tensor, extent: int,
+                 start_offset: int = 0) -> torch.Tensor:
+    """Zero-padded [n, extent] uint8 matrix of the records at int64
+    `offsets` / `lengths` (tensors on the image's device), read from
+    `start_offset` into each record. A CUDA image launches the kernel, a
+    CPU image runs `pack_records_plain`."""
+    _check_image(image, "pack_records")
+    for t, name in ((offsets, "offsets"), (lengths, "lengths")):
+        if t.dtype != torch.int64 or t.dim() != 1 \
+                or t.device != image.device:
+            raise ValueError(f"pack_records takes 1-D int64 {name} on "
+                             f"{image.device}")
+    if offsets.numel() != lengths.numel():
+        raise ValueError("pack_records takes as many lengths as offsets")
+    extent = int(extent)
+    if extent < 0:
+        raise ValueError(f"pack_records takes extent >= 0, not {extent}")
+    if image.device.type == "cpu":
+        return pack_records_plain(image, offsets, lengths, extent,
+                                  start_offset)
+    n = offsets.numel()
+    out = torch.empty((n, extent), dtype=torch.uint8, device=image.device)
+    if n == 0 or extent == 0:
+        return out
+    _, _, pack = _kernels()
+    offsets = offsets.contiguous()
+    lengths = lengths.contiguous()
+    with torch.cuda.device(image.device):
+        _raise_on(pack(image.data_ptr(), image.numel(), offsets.data_ptr(),
+                       lengths.data_ptr(), n, extent, int(start_offset),
+                       out.data_ptr(),
+                       torch.cuda.current_stream(image.device).cuda_stream),
+                  "pack_records")
+    pack_records.launches += 1
+    return out
+
+
+pack_records.launches = 0

@@ -9,10 +9,14 @@
 
 Both caches are process-global, lock-protected and bounded.
 
+`copybook_for_params` parses the copybook of one reader configuration,
+with the redefine map's segment redefines marked at parse time.
+
 Port copy of ``cobrix_tpu.plan.cache``, reduced to `cached_compile_plan`,
-`cached_code_page_lut` and `invalidate_code_page`: the port has no parse
-cache, no per-read stats scopes and no hit/miss counters, so the plan
-cache alone holds copybook references here.
+`cached_code_page_lut`, `invalidate_code_page` and `copybook_for_params`:
+the port has no parse cache (a read parses its copybook once and keeps
+its decoders per reader), no per-read stats scopes and no hit/miss
+counters, so the plan cache alone holds copybook references here.
 """
 from __future__ import annotations
 
@@ -41,6 +45,29 @@ def invalidate_code_page(name: str) -> None:
                    if getattr(cb, "ebcdic_code_page", None) == name]:
             _PLAN_LRU.pop(pk, None)
 
+
+def copybook_for_params(copybook_contents, params):
+    """Parse the Copybook (merged when several texts are given) for one
+    reader configuration: its trimming, code page and float format, and
+    the segment redefines of its redefine map marked at parse time."""
+    from ..copybook.copybook import merge_copybooks, parse_copybook
+
+    contents_list = ([copybook_contents]
+                     if isinstance(copybook_contents, str)
+                     else list(copybook_contents))
+    seg = params.multisegment
+    redefines = (sorted(set(seg.segment_id_redefine_map.values()))
+                 if seg else ())
+    copybooks = [
+        parse_copybook(
+            c,
+            segment_redefines=redefines,
+            string_trimming_policy=params.string_trimming_policy,
+            ebcdic_code_page=params.ebcdic_code_page,
+            floating_point_format=params.floating_point_format,
+        ) for c in contents_list]
+    return (copybooks[0] if len(copybooks) == 1
+            else merge_copybooks(copybooks))
 
 def _clone_plan(plan: FieldPlan) -> FieldPlan:
     """Fresh FieldPlan with copied ColumnSpecs (same statement/dtype

@@ -11,9 +11,19 @@ decode per value on the host. The outputs come back as the same host
 planes, with the same dtypes, that the JAX package builds, and
 `DecodedBatch` turns them into values and rows with the JAX package's code.
 
+`decode_raw` is the packed route of the JAX package's ``decode_raw``
+(``packed_fallback``, the route of its device backends): the records of a
+file image already on the device are packed at the plan's extent by the
+pack kernel (``ops.device_framing.pack_records``) and decoded there; the
+packed matrix never comes to the host, so such a batch keeps on the host
+only the rows its truncation and host-fallback columns read
+(`DecodedBatch` ``host_rows``). `decoder_for_segment` builds a reader's
+decoder per (active segment, device) once.
+
 Left out of the port: the numpy and native backends, the lazy planes,
-``decode_raw`` and raw sources, the Arrow caches, the multi-device
-``shard_map`` split, and the field-cost and observability hooks.
+the in-place raw kernels and segment row masks of ``decode_raw``, the
+Arrow caches, the multi-device ``shard_map`` split, and the field-cost
+and observability hooks.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from ..copybook.datatypes import (
 )
 from ..device import resolve_device
 from ..ops import batch_torch
+from ..ops.device_framing import pack_records
 from ..ops.fused_decode import FusedLayout, StridedGroup, fused_decode
 from ..plan.cache import cached_code_page_lut, cached_compile_plan
 from ..plan.compiler import Codec, ColumnSpec, FieldPlan
@@ -219,12 +230,18 @@ def fused_group_spec(g: _KernelGroup) -> Optional[StridedGroup]:
 class DecodedBatch:
     """Decoded columns of one record batch (host planes)."""
 
-    def __init__(self, decoder: "ColumnarDecoder", data: np.ndarray,
+    def __init__(self, decoder: "ColumnarDecoder",
+                 data: Optional[np.ndarray],
                  outputs: Dict[int, dict],
-                 lengths: Optional[np.ndarray] = None):
+                 lengths: Optional[np.ndarray] = None,
+                 host_rows: Optional[Dict[int, np.ndarray]] = None):
         self.decoder = decoder
+        # the host record matrix; None for a batch packed on the device,
+        # whose truncated rows (the only ones `value` reads bytes of)
+        # come to the host in `host_rows`
         self.data = data
-        self.n_records = data.shape[0]
+        self.host_rows = host_rows or {}
+        self.n_records = data.shape[0] if data is not None else len(lengths)
         self._out = outputs  # col index -> {"values","valid","dot_scale","bytes"}
         self._str_cache: Dict[int, List[str]] = {}
         self._col_cache: Dict[int, list] = {}
@@ -256,7 +273,9 @@ class DecodedBatch:
                     return None
                 if spec.offset + spec.width > length:
                     # truncated varchar tail: decode the available bytes
-                    chunk = self.data[i, spec.offset:length].tobytes()
+                    row = (self.data[i] if self.data is not None
+                           else self.host_rows[i])
+                    chunk = row[spec.offset:length].tobytes()
                     return self.decoder.options.decode(spec.dtype, chunk)
             elif spec.offset + spec.width > length:
                 return None
@@ -591,6 +610,24 @@ class DecodedBatch:
         return values.__getitem__
 
 
+def decoder_for_segment(cache: Dict[str, "ColumnarDecoder"],
+                        copybook: Copybook, active: str,
+                        device) -> "ColumnarDecoder":
+    """The decoder of one active segment on `device`, built once per
+    `cache` (a reader's dict). Port of the JAX package's
+    ``decoder_for_segment``, keyed by the device in place of the backend
+    and without its lock (the port's readers are single-threaded); the
+    port takes no column projection (`select`)."""
+    device = resolve_device(device)
+    key = f"{active}|{device}"
+    dec = cache.get(key)
+    if dec is None:
+        dec = ColumnarDecoder(copybook, active_segment=active or None,
+                              device=device)
+        cache[key] = dec
+    return dec
+
+
 class ColumnarDecoder:
     """Decodes [n, record_len] record batches on `device` (default: the
     CUDA device; ``device="cpu"`` runs the plain versions, for tests)."""
@@ -680,6 +717,51 @@ class ColumnarDecoder:
             self.device)), arr.shape[0])
         self._decode_host_fallback(arr, outputs)
         return DecodedBatch(self, arr, outputs, lengths=lengths)
+
+    def decode_raw(self, image: torch.Tensor, rec_offsets, rec_lengths,
+                   start_offset: int = 0) -> DecodedBatch:
+        """Decode framed records of a file image on the decoder's device:
+        the pack kernel gathers them, from `start_offset` into each
+        record, into a zero-padded [n, extent] matrix at the plan's byte
+        extent, which is decoded where it lies; columns past a record's
+        end are nulled through the lengths, as the JAX package's packed
+        route does. `rec_offsets` / `rec_lengths`: int64 payload offsets
+        into `image` and record lengths, as tensors on the device or
+        host arrays."""
+        if image.device != self.device:
+            raise ValueError(f"decode_raw: image on {image.device}, decoder "
+                             f"on {self.device}")
+
+        def on_device(x):
+            return torch.as_tensor(x, dtype=torch.int64).to(self.device)
+
+        host_lengths = (rec_lengths.cpu().numpy()
+                        if isinstance(rec_lengths, torch.Tensor)
+                        else np.asarray(rec_lengths, dtype=np.int64))
+        extent = self.plan.max_extent
+        lengths = np.minimum(host_lengths - start_offset, extent)
+        packed = pack_records(image, on_device(rec_offsets),
+                              on_device(rec_lengths), extent, start_offset)
+        n = packed.shape[0]
+        outputs = self.collect_outputs(self._decode_device(packed), n)
+        # `value` reads the bytes of a record that ends before the plan's
+        # extent (a string cut by the record's end): only those rows, up
+        # to the longest of their lengths, come to the host
+        host_rows = {}
+        short = np.nonzero(lengths < extent)[0]
+        if len(short):
+            keep = int(max(lengths[short].max(), 0))
+            rows = packed[torch.from_numpy(short).to(self.device),
+                          :keep].cpu().numpy()
+            host_rows = dict(zip(short.tolist(), rows))
+        fallback = [c for g in self.kernel_groups
+                    if g.codec is Codec.HOST_FALLBACK for c in g.columns]
+        if fallback:
+            end = max(c.offset + c.width for c in fallback)
+            self._decode_host_fallback(packed[:, :end].cpu().numpy(),
+                                       outputs)
+        return DecodedBatch(self, None, outputs, lengths=lengths,
+                            host_rows=host_rows)
 
     def _decode_device(self, data: torch.Tensor) -> List[tuple]:
         """Per-kernel-group outputs of one batch, moved to the host: the

@@ -1,9 +1,9 @@
-"""EBCDIC test-data generators for the exp1 and exp3 profiles.
+"""EBCDIC test-data generators for the exp1, exp2 and exp3 profiles.
 
 Port copy of the parts of ``cobrix_tpu.testing.generators`` that
 ``chip_smoke.py`` and the port's tests need: `EXP1_COPYBOOK`,
-`generate_exp1`, `EXP3_COPYBOOK`, `generate_exp3` and their helpers,
-unchanged. The other generators are not carried over.
+`generate_exp1`, `EXP2_COPYBOOK`, `generate_exp2`, `EXP3_COPYBOOK`,
+`generate_exp3` and their helpers, unchanged. The other generators are not carried over.
 
 Reimplements the behavior of the reference's example data generators
 (TestDataGen4CompaniesWide for the exp3 multisegment-wide profile,
@@ -83,6 +83,23 @@ def encode_comp_be(values: np.ndarray, width: int) -> np.ndarray:
         v >>= 8
     return out
 
+
+EXP2_COPYBOOK = """
+        01  COMPANY-DETAILS.
+            05  SEGMENT-ID        PIC X(5).
+            05  COMPANY-ID        PIC X(10).
+            05  STATIC-DETAILS.
+               10  COMPANY-NAME      PIC X(15).
+               10  ADDRESS           PIC X(25).
+               10  TAXPAYER.
+                  15  TAXPAYER-TYPE  PIC X(1).
+                  15  TAXPAYER-STR   PIC X(8).
+                  15  TAXPAYER-NUM  REDEFINES TAXPAYER-STR
+                                     PIC 9(8) COMP.
+            05  CONTACTS REDEFINES STATIC-DETAILS.
+               10  PHONE-NUMBER      PIC X(17).
+               10  CONTACT-PERSON    PIC X(28).
+"""
 
 EXP3_COPYBOOK = """
         01  COMPANY-DETAILS.
@@ -323,6 +340,13 @@ def _rdw(length: int, big_endian: bool = False) -> bytes:
     if big_endian:
         return bytes([length >> 8, length & 0xFF, 0, 0])
     return bytes([0, 0, length & 0xFF, length >> 8])
+
+
+def generate_exp2(num_records: int, seed: int = 100,
+                  big_endian_rdw: bool = False) -> bytes:
+    """RDW multisegment narrow profile (68/64-byte records, 'C'/'P' segments)."""
+    return _generate_companies(num_records, seed, big_endian_rdw,
+                               wide_detail_count=0)
 
 
 def generate_exp3(num_records: int, seed: int = 100,
