@@ -12,10 +12,13 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    through the fused CUDA kernel and its plain PyTorch version on the
    card; exact equality;
 2. the framing kernels vs their plain versions on the card, over the
-   grid of ``cobrix_tpu_torch.testing.framing_cases``: the RDW scan of
-   whole images and of windows cut at every phase (status and
+   grid of ``cobrix_tpu_torch.testing.framing_cases`` and a stream of
+   records shorter and longer than the tiles: the RDW scan of whole
+   images and of windows cut at every phase, from two start positions,
+   at three tile sizes (16, 4,096 and the default; status and
    FramingError included), the windowed framing of the reader, and the
-   record pack at unaligned offsets, clamped rows and start offsets;
+   record pack at extents 1-16,064, unaligned offsets, clamped rows and
+   start offsets;
 3. the fixed-length main path: a file of 1,000,000 exp1 records (1,493
    bytes each) plus 1,024 random records, read with ``read_cobol`` on the
    default device. The fused kernel must launch once per 64 MiB chunk;
@@ -39,14 +42,16 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    event, so it is the launch's device time alone. Beside them the plain
    version, the byte bound, the share of it that the device time reaches
    and the achieved GB/s, and the card's name and power limit;
-7. the framing kernels timed at the RDW main path's shapes (one 64 MiB
-   window of each file, and its segments' packs) beside their plain
-   versions, the bound (the pack: the bytes it reads and writes; the
-   scan: its records' headers and outputs, with the whole window's read
-   beside it as ``window_read_ms``) and, for the pack, one PyTorch
-   indexing call;
-   then one window of each file split into read, H2D, scan, segment-id
-   pack and D2H, host work, pack, fused kernel and decode;
+7. one 64 MiB window of each RDW file split into read, H2D, scan,
+   segment-id pack and D2H, host work, pack, fused kernel and decode;
+   then the framing kernels at the main path's shapes: the window's scan
+   (held against the plain version at the default tile and at 4,096),
+   split pass by pass with the tiles its chain entered, and at tiles of
+   8-64 Ki; the pack of the window's segment-id field and of its widest
+   segment; each beside its plain version, its bound (the pack: the
+   bytes it reads and writes; the scan: its records' headers and
+   outputs, with the whole window's read beside it as
+   ``window_read_ms``) and, for the pack, one PyTorch indexing call;
 8. where one exp1 chunk's time goes: the file read, then one decode
    under ``torch.profiler`` (device time by kernel and copy, idle share).
 
@@ -334,7 +339,7 @@ class Smoke:
         from cobrix_tpu_torch.reader import var_len_reader as vlr
         from cobrix_tpu_torch.reader.diagnostics import FramingError
         from cobrix_tpu_torch.testing.framing_cases import (
-            WINDOWS, pack_case, scan_cases)
+            WINDOWS, pack_case, rdw_stream, scan_cases)
 
         def outcome(fn):
             try:
@@ -352,7 +357,15 @@ class Smoke:
                 lens.extend(ln.cpu().tolist())
             return offs, lens
 
-        cases = scan_cases()
+        cases = dict(scan_cases())
+        # records shorter and longer than the tiles: entries that skip
+        # tiles, links that land on tile ends, stops inside tiles
+        rng = np.random.default_rng(21)
+        long_short = rdw_stream(np.where(
+            rng.random(400) < 0.2, rng.integers(5000, 40000, 400),
+            rng.integers(1, 200, 400)).tolist(), seed=21)
+        cases["long_and_short"] = (long_short, False, 0, 0, 0)
+        tiles = (16, 4096, df.SCAN_TILE)
         windows = 0
         saved = vlr.READ_WINDOW_BYTES
         try:
@@ -370,17 +383,21 @@ class Smoke:
                     if hi > end or lo > hi:
                         continue
                     for last in ((True,) if hi == end else (False, True)):
-                        a = df.scan_window(dev[lo:hi], 0, last, big_endian,
-                                           adj)
-                        b = df.scan_window_plain(dev[lo:hi], 0, last,
-                                                 big_endian, adj)
-                        for x, y, what in zip(a[:2], b[:2],
-                                              ("offsets", "lengths")):
-                            self.same(x, y, f"scan {name} [{lo}:{hi}] "
-                                      f"{what}", "rdw_scan")
-                        check(a[2] == b[2], f"scan {name} [{lo}:{hi}] "
-                              f"status {a[2]} != {b[2]}")
-                        windows += 1
+                        for at in sorted({0, min(5, hi - lo)}):
+                            b = df.scan_window_plain(dev[lo:hi], at, last,
+                                                     big_endian, adj)
+                            for tile in tiles:
+                                a = df.scan_window(dev[lo:hi], at, last,
+                                                   big_endian, adj, tile)
+                                what = (f"scan {name} [{lo}:{hi}] from {at} "
+                                        f"tile {tile}")
+                                for x, y, key in zip(a[:2], b[:2],
+                                                     ("offsets", "lengths")):
+                                    self.same(x, y, f"{what} {key}",
+                                              "rdw_scan")
+                                check(a[2] == b[2],
+                                      f"{what} status {a[2]} != {b[2]}")
+                                windows += 1
                 # the reader's windowed framing on the card against the
                 # same framing over the plain scan
                 for w in WINDOWS:
@@ -402,7 +419,7 @@ class Smoke:
             dev = torch.from_numpy(img).to(self.device)
             o = torch.from_numpy(offs).to(self.device)
             ln = torch.from_numpy(lens).to(self.device)
-            for extent in (1, 5, 16, 17, 64, 333, 16064):
+            for extent in (1, 5, 16, 17, 60, 64, 333, 16064):
                 for start in (0, 3, 7):
                     for x in (dev, dev[1:]):  # unaligned image too
                         a = df.pack_records(x, o, ln, extent, start)
@@ -411,9 +428,10 @@ class Smoke:
                                   f"{start}", "pack_records")
                         packs += 1
         self.sync()
-        log(f"[framing] {len(cases)} scan cases, {windows} windows and the "
-            f"reader's framing at {len(WINDOWS)} window sizes; {packs} "
-            f"packs: kernels == plain, exact (status and errors included)")
+        log(f"[framing] {len(cases)} scan cases, {windows} windows at tiles "
+            f"{tiles} and the reader's framing at {len(WINDOWS)} window "
+            f"sizes; {packs} packs: kernels == plain, exact (status and "
+            f"errors included)")
 
     def _write_rdw(self, kind, n, seed0):
         """An RDW file of `n` generated records, in parts written by a
@@ -732,11 +750,19 @@ class Smoke:
             log(f"[rdw-time] {self.card}: {kind} window split: "
                 f"{json.dumps(split)}")
 
-            # the scan at this window, kernel against plain
+            # the scan at this window, kernel against plain, at the
+            # default tile and at one smaller than exp3's records
             plain = df.scan_window_plain(image, 0, last)
             for a, b in zip((offs_d, lens_d), plain[:2]):
                 self.same(a, b, f"{kind} window scan", "rdw_scan")
             check(plain[2] == status, f"{kind} window scan status")
+            small = df.scan_window(image, 0, last, tile=4096)
+            for a, b in zip(small[:2], plain[:2]):
+                self.same(a, b, f"{kind} window scan at tile 4096",
+                          "rdw_scan")
+            check(small[2] == status, f"{kind} window scan status at tile "
+                  f"4096")
+            del small
             n = int(offs_d.numel())
             # what the function must move: the header of each record on
             # the chain and of the position it stops at (one 32-byte
@@ -744,7 +770,7 @@ class Smoke:
             # offset and length a record and the 24-byte status; reading
             # the whole window once is a separate, looser figure
             scan = dict(
-                window_bytes=L, records=n,
+                window=kind, window_bytes=L, records=n, tile=df.SCAN_TILE,
                 ms=self._time(lambda: df.scan_window(image, 0, last), 10),
                 plain_ms=self._time(
                     lambda: df.scan_window_plain(image, 0, last), 2),
@@ -752,36 +778,101 @@ class Smoke:
                 / HBM_BYTES_PER_S * 1e3,
                 window_read_ms=L / HBM_BYTES_PER_S * 1e3,
                 library_ms=None)
-            # the pack of the window's widest segment
+            scan.update(self._scan_passes(image, last, df.SCAN_TILE))
+            scan["share_of_bound"] = scan["bound_ms"] / scan["ms"]
+            scan["tiles_ms"] = {
+                tile: dict(ms=self._time(lambda: df.scan_window(
+                    image, 0, last, tile=tile), 5),
+                    **self._scan_passes(image, last, tile))
+                for tile in (8192, 16384, 32768, 65536)}
+            # the packs of the main path at this window: the segment-id
+            # field of every record, and the widest segment
+            packs = []
+            props = seg_field.binary_properties
             o, ln, extent, rows = max(shapes.values(),
                                       key=lambda v: v[2] * v[3])
-            a = df.pack_records(image, o, ln, extent)
-            self.same(a, df.pack_records_plain(image, o, ln, extent),
-                      f"{kind} window pack", "pack_records")
-            cols = torch.arange(extent, device=self.device)
-            gather = torch.clamp(o[:, None] + cols[None, :], 0, L - 1)
-            # each record's bytes up to the extent, its offset and
-            # length (16 bytes), and the packed matrix
-            moved = (int(torch.clamp(ln, max=extent).clamp(min=0).sum())
-                     + 16 * rows + rows * extent)
-            pack = dict(
-                rows=rows, extent=extent,
-                ms=self._time(lambda: df.pack_records(image, o, ln, extent),
-                              20),
-                plain_ms=self._time(
-                    lambda: df.pack_records_plain(image, o, ln, extent), 5),
-                library_ms=self._time(lambda: image[gather], 20),
-                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
-            del gather
-            self.rdw_timings[kind] = dict(scan=scan, pack=pack)
+            for what, po, pl, pe, start in [
+                    ("segment_id", offs_d, lens_d, props.actual_size,
+                     props.offset),
+                    ("widest_segment", o, ln, extent, 0)]:
+                packs.append(self._time_pack(kind, what, image, po, pl, pe,
+                                             start))
+            self.rdw_timings[kind] = dict(scan=scan, packs=packs)
             log(f"[rdw-time] {self.card}: {kind} rdw_scan "
                 f"{json.dumps(scan)}")
-            log(f"[rdw-time] {self.card}: {kind} pack_records "
-                f"{json.dumps(pack)}")
+            for pack in packs:
+                log(f"[rdw-time] {self.card}: {kind} pack_records "
+                    f"{json.dumps(pack)}")
         for kind, (size, secs) in self.rdw_e2e.items():
             log(f"[rdw-time] {self.card}: {kind} read_cobol end to end: "
                 f"{size} bytes in {secs:.3f} s = {size / secs / 1e6:.1f} "
                 f"MB/s; launches {json.dumps(self.launches['rdw_' + kind])}")
+
+    def _scan_passes(self, image, last, tile):
+        """The scan's passes one by one, each between CUDA events (median
+        of 10): exits, chain, count, the read-back of the count and
+        status (host included), records; and the tiles the chain
+        entered."""
+        torch = self.torch
+        from cobrix_tpu_torch.ops import device_framing as df
+
+        if self.rehearsal:
+            return {}
+        names = ("exits_ms", "chain_ms", "count_ms", "head_ms", "records_ms")
+        runs = []
+        for _ in range(13):
+            scan = df.ScanPasses(image, 0, last, False, 0, tile)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            scan.exits()
+            ev[1].record()
+            scan.chain()
+            ev[2].record()
+            scan.count()
+            ev[3].record()
+            n, _, hops = scan.head()
+            ev[4].record()
+            scan.records(n)
+            ev[5].record()
+            ev[5].synchronize()
+            runs.append([ev[k].elapsed_time(ev[k + 1]) for k in range(5)])
+        passes = {name: statistics.median(r[k] for r in runs[3:])
+                  for k, name in enumerate(names)}
+        return dict(passes=passes, hops=hops,
+                    tiles=-(-image.numel() // tile))
+
+    def _time_pack(self, kind, what, image, o, ln, extent, start):
+        """One pack shape: kernel against plain, timed beside its plain
+        version, one PyTorch indexing call and the byte bound."""
+        torch = self.torch
+        from cobrix_tpu_torch.ops import device_framing as df
+
+        a = df.pack_records(image, o, ln, extent, start)
+        self.same(a, df.pack_records_plain(image, o, ln, extent, start),
+                  f"{kind} {what} pack", "pack_records")
+        del a
+        rows = int(o.numel())
+        L = image.numel()
+        cols = torch.arange(extent, device=self.device)
+        gather = torch.clamp(o[:, None] + start + cols[None, :], 0, L - 1)
+        # each record's bytes from `start` up to the extent, its offset and
+        # length (16 bytes), and the packed matrix
+        moved = (int(torch.clamp(ln - start, min=0, max=extent).sum())
+                 + 16 * rows + rows * extent)
+        pack = dict(
+            window=kind, pack=what, rows=rows, extent=extent,
+            start_offset=start,
+            ms=self._time(lambda: df.pack_records(image, o, ln, extent,
+                                                  start), 20),
+            device_ms=self._time(lambda: df.pack_records(
+                image, o, ln, extent, start), 20, busy=True),
+            plain_ms=self._time(
+                lambda: df.pack_records_plain(image, o, ln, extent, start),
+                5),
+            library_ms=self._time(lambda: image[gather], 20),
+            bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        pack["share_of_bound"] = pack["bound_ms"] / pack["device_ms"]
+        return pack
 
     def phase_profile(self):
         """Where one exp1 chunk's time goes: the file read on the host
@@ -865,8 +956,14 @@ class Smoke:
         t = self.timings["exp1"]
         by_path = {k: {path: n[k] for path, n in self.launches.items()
                        if k in n} for k in KERNELS}
-        scan = self.rdw_timings["exp3"]["scan"]
-        pack = self.rdw_timings["exp3"]["pack"]
+        # the headline times are exp3's window and its widest segment, as
+        # in earlier runs; `shapes` holds every timed shape
+        scans = [self.rdw_timings[k]["scan"] for k in ("exp3", "exp2")]
+        packs = [p for k in ("exp3", "exp2")
+                 for p in self.rdw_timings[k]["packs"]]
+        scan = scans[0]
+        pack = next(p for p in packs if p["window"] == "exp3"
+                    and p["pack"] == "widest_segment")
         entries = [
             dict(name="fused_decode", route="cuda", source=KERNEL_SOURCE,
                  replaces=REPLACES, ms=t["kernel_ms"],
@@ -875,11 +972,11 @@ class Smoke:
             dict(name="rdw_scan", route="cuda", source=FRAMING_SOURCE,
                  replaces=SCAN_REPLACES, ms=scan["ms"],
                  plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
-                 library_ms=None),
+                 library_ms=None, shapes=scans),
             dict(name="pack_records", route="cuda", source=FRAMING_SOURCE,
                  replaces=PACK_REPLACES, ms=pack["ms"],
                  plain_ms=pack["plain_ms"], bound_ms=pack["bound_ms"],
-                 library_ms=pack["library_ms"]),
+                 library_ms=pack["library_ms"], shapes=packs),
         ]
         for e in entries:
             e.update(launches=sum(by_path[e["name"]].values()),

@@ -12,17 +12,19 @@ position the sequential walk reaches. The file's header, footer and
 windows, and the JAX package's `FramingError`, are the reader's
 (``reader.var_len_reader.frame_windows``).
 
-* `scan_window(image, start, last_window, big_endian, adjustment)` frames
-  one window of a file image from a start position: payload offsets and
-  lengths (window-relative int64 tensors on the image's device) and the
-  window's status. A window that is not the last keeps only the records
-  that end inside it and says where the next window starts. A CUDA tensor
-  launches the kernel (counted in ``scan_window.launches``), a CPU tensor
-  runs `scan_window_plain`; nothing else is taken.
+* `scan_window(image, start, last_window, big_endian, adjustment, tile)`
+  frames one window of a file image from a start position: payload
+  offsets and lengths (window-relative int64 tensors on the image's
+  device) and the window's status. A window that is not the last keeps
+  only the records that end inside it and says where the next window
+  starts. A CUDA tensor launches the kernel's passes (`ScanPasses`, over
+  tiles of `tile` positions; counted in ``scan_window.launches``), a CPU
+  tensor runs `scan_window_plain`; nothing else is taken.
 * `pack_records(image, offsets, lengths, extent, start_offset)` gathers
-  the zero-padded [n, extent] record matrix (``pack_records.launches``);
-  `pack_records_plain` is the ``pack_records_device`` expression in torch
-  with the host pack's clamps.
+  the zero-padded [n, extent] record matrix (``pack_records.launches``)
+  by the tiles of `plan_pack_tiles`; `pack_records_plain` is the
+  ``pack_records_device`` expression in torch with the host pack's
+  clamps.
 
 ``build_wide_pipeline`` (frame, select and pack exp3's wide records in one
 device program for ``DeviceAggregator``) is not ported yet: it feeds the
@@ -153,23 +155,84 @@ def pack_records_plain(image: torch.Tensor, offsets: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+# The scan's tile: window positions one block of pass 1 takes, a power of
+# two from MIN_SCAN_TILE to MAX_SCAN_TILE (tile-local links are 16-bit).
+SCAN_TILE = 65536
+MIN_SCAN_TILE, MAX_SCAN_TILE = 8, 65536
+
+# The pack's plan: output bytes a tile aims at, the most output bytes a
+# chunk (one stage of the ring) holds, and shared bytes a stage may take.
+PACK_THREADS = 256
+PACK_TILE_BYTES = 8 * 1024
+PACK_CHUNK_BYTES = 8 * 1024
+PACK_STAGE_BYTES = 64 * 1024
+PACK_SLOT_BYTES = 24  # a staged row's copy plan (rdw_framing.cu Slot)
+
+
+class PackPlan(NamedTuple):
+    """How the pack kernel cuts an [n, extent] output (csrc/rdw_framing.cu
+    ``pack_tiles``): `tiles` blocks of `rows` rows, rows * extent a
+    multiple of 16; each walks its tile in chunks of `chunk_words` 16-byte
+    output words (a multiple of `threads`), staging the at most `slots`
+    rows a chunk touches, `slot_words` words each, `lanes` threads a row."""
+    rows: int
+    tiles: int
+    chunk_words: int
+    threads: int
+    slots: int
+    slot_words: int
+    lanes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of a block: two ring stages of staged words and
+        row plans."""
+        return 2 * self.slots * (16 * self.slot_words + PACK_SLOT_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_pack_tiles(n: int, extent: int) -> PackPlan:
+    """The pack kernel's tiles for n > 0 rows of extent > 0 bytes."""
+    rows_per_word = 16 // math.gcd(extent, 16)
+    rows = rows_per_word * max(1, PACK_TILE_BYTES
+                               // (rows_per_word * extent))
+    chunk = PACK_CHUNK_BYTES // 16
+    while True:
+        slots = min(rows, (16 * chunk - 2) // extent + 2)
+        slot_words = (min(extent, 16 * chunk) + 30) // 16
+        if (slots * (16 * slot_words + PACK_SLOT_BYTES) <= PACK_STAGE_BYTES
+                or chunk == 32):
+            break
+        chunk //= 2
+    return PackPlan(rows=rows, tiles=-(-n // rows), chunk_words=chunk,
+                    threads=min(PACK_THREADS, chunk), slots=slots,
+                    slot_words=slot_words,
+                    lanes=min(32, 1 << (slot_words - 1).bit_length()))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The three C entries of rdw_framing.cu, with their argument types
-    (ctypes would otherwise cut every pointer to 32 bits)."""
+    """The C entries of rdw_framing.cu, with their argument types (ctypes
+    would otherwise cut every pointer to 32 bits)."""
     from ._build import load
 
     lib = load("rdw_framing")
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    scan = lib.cobrix_rdw_scan
-    scan.argtypes = [p, i64, i64, i32, i32, i32, i32, p, p, p, p, p, p, p]
-    records = lib.cobrix_rdw_records
-    records.argtypes = [p, i64, i32, i32, i32, p, i64, p, p, p, p, p, p]
-    pack = lib.cobrix_pack_records
-    pack.argtypes = [p, i64, p, p, i64, i64, i64, p, p]
-    for fn in (scan, records, pack):
+    window = [p, i64, i32, i32, i32, i32]  # image, L, tile_log2, be, adj, last
+    fns = {
+        "exits": (lib.cobrix_rdw_exits, window + [p, p, p]),
+        "chain": (lib.cobrix_rdw_chain,
+                  [p, i64, i64, i32, i32, i32, i32, p, p, p, p]),
+        "count": (lib.cobrix_rdw_count, window + [p, p, p, p]),
+        "records": (lib.cobrix_rdw_records, window + [p, p, p, p, p]),
+        "pack": (lib.cobrix_pack_records,
+                 [p, i64, p, p, i64, i64, i64, p, i32, i64, i32, i32, i32,
+                  i32, i32, p]),
+    }
+    for fn, argtypes in fns.values():
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return scan, records, pack
+    return {name: fn for name, (fn, _) in fns.items()}
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -177,16 +240,83 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
+def _check_tile(tile: int) -> int:
+    tile = int(tile)
+    if not MIN_SCAN_TILE <= tile <= MAX_SCAN_TILE or tile & (tile - 1):
+        raise ValueError(f"the scan tile is a power of two from "
+                         f"{MIN_SCAN_TILE} to {MAX_SCAN_TILE}, not {tile}")
+    return tile
+
+
+class ScanPasses:
+    """One window's scan on the card, pass by pass (csrc/rdw_framing.cu):
+    `exits()`, `chain()` and `count()` are launched in turn, `head()`
+    reads back the record count, the `WindowStatus` and the tiles the
+    chain entered, and `records(n)` writes the n payload offsets and
+    lengths. Scratch: an int32 exit a position and two int32 a tile.
+    `scan_window` runs the passes in order; chip_smoke.py times them one
+    by one."""
+
+    def __init__(self, image: torch.Tensor, start: int, last_window: bool,
+                 big_endian: bool, adjustment: int, tile: int):
+        self.fns = _kernels()
+        self.device = image.device
+        L = image.numel()
+        self.start = start
+        self.window = (image.data_ptr(), L, tile.bit_length() - 1,
+                       int(big_endian), int(adjustment), int(last_window))
+        self.exit_table = torch.empty(L, dtype=torch.int32,
+                                      device=self.device)
+        # per tile: the chain's entry (-1: none), then the first output index
+        self.entry, self.base = torch.empty(
+            (2, -(-L // tile)), dtype=torch.int32, device=self.device)
+        self.head_d = torch.empty(5, dtype=torch.int64, device=self.device)
+
+    def _launch(self, name: str, *args) -> None:
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            _raise_on(self.fns[name](*args, stream), f"rdw_scan {name}")
+
+    def exits(self) -> None:
+        self._launch("exits", *self.window, self.exit_table.data_ptr(),
+                     self.entry.data_ptr())
+
+    def chain(self) -> None:
+        img, L, log2, be, adj, last = self.window
+        self._launch("chain", img, L, self.start, log2, be, adj, last,
+                     self.exit_table.data_ptr(), self.entry.data_ptr(),
+                     self.head_d.data_ptr())
+
+    def count(self) -> None:
+        self._launch("count", *self.window, self.entry.data_ptr(),
+                     self.base.data_ptr(), self.head_d.data_ptr())
+
+    def head(self) -> Tuple[int, WindowStatus, int]:
+        n, code, at, length, hops = self.head_d.cpu().tolist()
+        return n, WindowStatus(code, at, length), hops
+
+    def records(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        offsets = torch.empty(n, dtype=torch.int64, device=self.device)
+        lengths = torch.empty(n, dtype=torch.int64, device=self.device)
+        if n:
+            self._launch("records", *self.window, self.entry.data_ptr(),
+                         self.base.data_ptr(), offsets.data_ptr(),
+                         lengths.data_ptr())
+        return offsets, lengths
+
+
 def scan_window(image: torch.Tensor, start: int = 0,
                 last_window: bool = True, big_endian: bool = False,
-                adjustment: int = 0
+                adjustment: int = 0, tile: int = SCAN_TILE
                 ) -> Tuple[torch.Tensor, torch.Tensor, WindowStatus]:
     """Frame the RDW records of one window from `start`. Returns int64
     payload offsets and lengths (window-relative, on the image's device)
     and the `WindowStatus`. In the last window a record may run past the
     end and is clamped to it; in any other window only records that end
-    inside it are kept."""
+    inside it are kept. `tile` is the kernel's tile of positions (it does
+    not change the result)."""
     _check_image(image, "scan_window")
+    tile = _check_tile(tile)
     L = image.numel()
     if L >= 2 ** 31 - 8:
         raise ValueError(f"a scan window holds under 2 GiB, not {L} bytes")
@@ -195,36 +325,15 @@ def scan_window(image: torch.Tensor, start: int = 0,
     if image.device.type == "cpu":
         return scan_window_plain(image, start, last_window, big_endian,
                                  adjustment)
-    dev = image.device
-    scan, records, _ = _kernels()
-    jump_a = torch.empty(L + 1, dtype=torch.int32, device=dev)
-    jump_b = torch.empty_like(jump_a)
-    valid = torch.empty(L + 1, dtype=torch.uint8, device=dev)
-    reached = torch.empty_like(valid)
-    starts = torch.empty(L, dtype=torch.uint8, device=dev)
-    last = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(scan(image.data_ptr(), L, start, int(big_endian),
-                       int(adjustment), int(last_window), _steps(L),
-                       jump_a.data_ptr(), jump_b.data_ptr(),
-                       valid.data_ptr(), reached.data_ptr(),
-                       starts.data_ptr(), last.data_ptr(), stream),
-                  "rdw_scan")
-        pos = torch.nonzero(starts).flatten().contiguous()
-        n = pos.numel()
-        offsets = torch.empty(n, dtype=torch.int64, device=dev)
-        lengths = torch.empty(n, dtype=torch.int64, device=dev)
-        status = torch.empty(3, dtype=torch.int64, device=dev)
-        _raise_on(records(image.data_ptr(), L, int(big_endian),
-                          int(adjustment), int(last_window),
-                          pos.data_ptr(), n, offsets.data_ptr(),
-                          lengths.data_ptr(), valid.data_ptr(),
-                          last.data_ptr(), status.data_ptr(), stream),
-                  "rdw_records")
+    scan = ScanPasses(image, start, last_window, big_endian, adjustment,
+                      tile)
+    scan.exits()
+    scan.chain()
+    scan.count()
+    n, status, _ = scan.head()
+    offsets, lengths = scan.records(n)
     scan_window.launches += 1
-    code, at, length = status.cpu().tolist()
-    return offsets, lengths, WindowStatus(code, at, length)
+    return offsets, lengths, status
 
 
 scan_window.launches = 0
@@ -255,15 +364,19 @@ def pack_records(image: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((n, extent), dtype=torch.uint8, device=image.device)
     if n == 0 or extent == 0:
         return out
-    _, _, pack = _kernels()
+    if out.data_ptr() % 16:
+        raise RuntimeError("pack_records: the output is not 16-byte aligned")
+    plan = plan_pack_tiles(n, extent)
     offsets = offsets.contiguous()
     lengths = lengths.contiguous()
     with torch.cuda.device(image.device):
-        _raise_on(pack(image.data_ptr(), image.numel(), offsets.data_ptr(),
-                       lengths.data_ptr(), n, extent, int(start_offset),
-                       out.data_ptr(),
-                       torch.cuda.current_stream(image.device).cuda_stream),
-                  "pack_records")
+        _raise_on(_kernels()["pack"](
+            image.data_ptr(), image.numel(), offsets.data_ptr(),
+            lengths.data_ptr(), n, extent, int(start_offset), out.data_ptr(),
+            plan.rows, plan.tiles, plan.chunk_words, plan.threads, plan.slots,
+            plan.slot_words, plan.lanes.bit_length() - 1,
+            torch.cuda.current_stream(image.device).cuda_stream),
+            "pack_records")
     pack_records.launches += 1
     return out
 
