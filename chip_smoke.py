@@ -53,7 +53,21 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    outputs, with the whole window's read beside it as
    ``window_read_ms``) and, for the pack, one PyTorch indexing call;
 8. where one exp1 chunk's time goes: the file read, then one decode
-   under ``torch.profiler`` (device time by kernel and copy, idle share).
+   under ``torch.profiler`` (device time by kernel and copy, idle share);
+9. the pipelined read: the exp1, exp3 and exp2 files each read with
+   ``pipeline_workers`` 0, 2, -1 (auto) and 0 again, ``chunk_size_mb=64``
+   (decoded MB/s of each, in turns: sequential, pipelined, pipelined,
+   sequential), and exp2 once more in more than 50 shards
+   (``input_split_records``), so that the pinned staging buffers are
+   reused many times. Every read's host planes, record ids, Seg_Id
+   columns and sampled rows are hashed: any difference from the
+   sequential read fails. Each kernel's launches are counted per read
+   (equal where the chunk or shard plan is the same). One pipelined exp1
+   read runs under ``cobrix_tpu_torch.profiling.profile_trace``: the
+   device's busy time and idle share of the wall, the host-to-device and
+   device-to-host copies (one pinned copy back per decoded batch), the
+   streams the work ran on and the copies' overlap with kernels, beside
+   the executor's report (overlap factor, peak queue).
 
 Every failure exits non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -66,11 +80,12 @@ lines: it checks the script's paths, not the card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import io
 import json
-import multiprocessing
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -109,15 +124,76 @@ def log(msg):
     print(msg, flush=True)
 
 
-def _write_part(job):
-    """One part of a generated RDW file, in a worker process."""
-    kind, n, seed, path = job
-    from cobrix_tpu_torch.testing import generators
+# One part of a generated RDW file, written by a child interpreter:
+# argv = checkout, kind, records, seed, path
+WRITE_PART = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from cobrix_tpu_torch.testing import generators
+kind, n, seed, path = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+data = getattr(generators, "generate_" + kind)(n, seed=seed)
+with open(path, "wb") as f:
+    f.write(data)
+"""
 
-    data = getattr(generators, f"generate_{kind}")(n, seed=seed)
-    with open(path, "wb") as f:
-        f.write(data)
-    return len(data)
+
+def run_children(argvs, timeout):
+    """Run the commands side by side and wait for all of them; any child
+    still running when this returns or raises is killed and reaped."""
+    procs = []
+    try:
+        for argv in argvs:
+            procs.append(subprocess.Popen(
+                argv, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE))
+        deadline = time.monotonic() + timeout
+        for argv, proc in zip(argvs, procs):
+            _, err = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            check(proc.returncode == 0,
+                  f"child {argv[-1]} exited {proc.returncode}: "
+                  f"{err.decode(errors='replace')[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def child_pids():
+    """Pids of this process's living children (Linux /proc)."""
+    me, pids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the field after the command's closing parenthesis is the state,
+        # then the parent's pid
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) == me and fields[0] != "Z":
+            pids.append(int(entry))
+    return pids
+
+
+def stop_children():
+    """Kill and reap every child still running: the script leaves no
+    process behind, whatever a phase started."""
+    left = child_pids()
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for pid in left:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+    return left
 
 
 def host_walk(data):
@@ -329,7 +405,7 @@ class Smoke:
                       f"{what} record {i}: rows differ from the CPU decode")
         log(f"[main] rows of the first {len(head)} records and the "
             f"{self.n_tail}-record random tail == device='cpu' decode")
-        os.remove(path)
+        self.exp1_path = path  # read again by the pipeline phase
 
     def phase_framing_grid(self):
         """The scan and pack kernels against their plain versions on the
@@ -434,8 +510,8 @@ class Smoke:
             f"errors included)")
 
     def _write_rdw(self, kind, n, seed0):
-        """An RDW file of `n` generated records, in parts written by a
-        pool of worker processes and joined in order."""
+        """An RDW file of `n` generated records, in parts written by
+        child interpreters side by side and joined in order."""
         parts = min(8, os.cpu_count() or 1, max(1, n // 1000))
         jobs, done = [], 0
         for k in range(parts):
@@ -443,9 +519,9 @@ class Smoke:
             jobs.append((kind, m, seed0 + k,
                          os.path.join(self.tmp, f"{kind}.{k}.part")))
             done += m
-        ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(len(jobs)) as pool:
-            pool.map(_write_part, jobs)
+        run_children([[sys.executable, "-c", WRITE_PART, HERE, job[0],
+                        str(job[1]), str(job[2]), job[3]] for job in jobs],
+                     timeout=600)
         path = os.path.join(self.tmp, f"{kind}.dat")
         with open(path, "wb") as out:
             for job in jobs:
@@ -937,6 +1013,282 @@ class Smoke:
                                         key=lambda kv: -kv[1][0])[:12]:
             log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
 
+    # -- the pipelined read ------------------------------------------------
+
+    def _digest(self, data):
+        """(hash, records): sha256 over every host plane, column by
+        column in record order (per active segment), the record ids and
+        Seg_Id columns, and the decoded values of sampled records (the
+        first and last 100 of a fixed-length read, the first 50 of each
+        segment of an RDW read). Chunk and shard boundaries do not change
+        it."""
+        np = self.np
+        hashers = {}
+
+        def feed(key, arr):
+            h = hashers.get(key)
+            if h is None:
+                h = hashers[key] = hashlib.sha256()
+            if isinstance(arr, np.ndarray) and arr.dtype != object:
+                h.update(np.ascontiguousarray(arr).tobytes())
+            else:
+                h.update(repr(list(arr)).encode())
+
+        def planes(active, batch):
+            for col in range(len(batch.decoder.plan.columns)):
+                for key, arr in sorted(batch.column_arrays(col).items()):
+                    feed((active, col, key), arr)
+
+        def values(batch, i):
+            """Record i's decoded values (a row's leaves, without
+            building the batch's whole row columns)."""
+            return [batch.value(col, i)
+                    for col in range(len(batch.decoder.plan.columns))]
+
+        rows = []
+        n = sum(b.n_records for b in data.batches)
+        sample = set(range(min(100, n))) | set(range(max(0, n - 100), n))
+        first = 0
+        for b in data.batches:
+            planes(None, b)
+            rows += [values(b, i - first) for i in sorted(sample)
+                     if first <= i < first + b.n_records]
+            first += b.n_records
+        for r in data.results:
+            for seg in r.segments:
+                planes(seg.active, seg.batch)
+                feed((seg.active, "record_ids"), seg.record_ids)
+                if seg.seg_level_ids is not None:
+                    c = seg.seg_level_ids.coded
+                    feed((seg.active, "root_rid"), c["root_rid"])
+                    for lvl, (cnt, valid) in enumerate(zip(c["counters"],
+                                                           c["valids"])):
+                        if cnt is not None:
+                            feed((seg.active, "counter", lvl), cnt)
+                        feed((seg.active, "valid", lvl), valid)
+        taken = {}  # the first 50 records of each active segment
+        for r in data.results:
+            for seg in r.segments:
+                got = taken.setdefault(seg.active, [])
+                got += [values(seg.batch, i) for i in range(
+                    min(50 - len(got), seg.batch.n_records))]
+        rows += sorted(taken.items(), key=repr)
+        feed(("rows",), [repr(rows)])
+        top = hashlib.sha256()
+        for key in sorted(hashers, key=repr):
+            top.update(repr(key).encode() + hashers[key].digest())
+        return top.hexdigest(), len(data)
+
+    def _pipelined_read(self, tag, path, cb, workers, **opts):
+        """One read through read_cobol with `workers`, its kernels'
+        launches counted from 0; (seconds, digest, records, metrics,
+        launches)."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+
+        counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                    "pack_records": df.pack_records}
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        for fn in counters.values():
+            fn.launches = 0
+        self.sync()
+        t0 = time.perf_counter()
+        data = read_cobol(path, copybook_contents=cb,
+                          pipeline_workers=str(workers),
+                          chunk_size_mb=self.pipe_chunk_mb, **opts, **kw)
+        self.sync()
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches or k == "fused_decode"}
+        digest, records = self._digest(data)
+        return secs, digest, records, data.metrics.as_dict(), launches
+
+    def phase_pipeline(self):
+        """The pipelined read on the default device (see the module
+        docstring, phase 9)."""
+        from cobrix_tpu_torch.testing.generators import (EXP1_COPYBOOK,
+                                                         EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
+        self.pipeline = {}
+        files = [("exp1", self.exp1_path, EXP1_COPYBOOK, {}),
+                 ("exp3", self.rdw_files["exp3"], EXP3_COPYBOOK,
+                  RDW_OPTIONS),
+                 ("exp2", self.rdw_files["exp2"], EXP2_COPYBOOK,
+                  RDW_OPTIONS)]
+        for kind, path, cb, opts in files:
+            size = os.path.getsize(path)
+            runs = []
+            for workers in (0, 2, -1, 0):
+                secs, digest, records, metrics, launches = \
+                    self._pipelined_read(kind, path, cb, workers, **opts)
+                runs.append(dict(workers=workers, secs=secs,
+                                 mb_per_s=size / secs / 1e6,
+                                 launches=launches, shards=metrics["shards"],
+                                 pipeline=metrics["pipeline"],
+                                 stage_busy=metrics["stage_busy"]))
+                log(f"[pipeline] {self.card}: {kind} workers {workers}: "
+                    f"{records} records, {size} bytes in {secs:.3f} s = "
+                    f"{size / secs / 1e6:.1f} MB/s; shards "
+                    f"{metrics['shards']}; launches {json.dumps(launches)}")
+                if metrics["pipeline"] is not None:
+                    log(f"[pipeline]   report {json.dumps(metrics['pipeline'])}"
+                        f"; stage busy {json.dumps(metrics['stage_busy'])}")
+                runs[-1]["digest"] = digest
+                check(digest == runs[0]["digest"],
+                      f"{kind} workers {workers}: planes or rows differ "
+                      f"from the sequential read")
+            seq, pipe2, auto = runs[0], runs[1], runs[2]
+            self.launches[f"pipeline_{kind}"] = pipe2["launches"]
+            if not self.rehearsal:
+                check(pipe2["launches"] == auto["launches"],
+                      f"{kind}: the same shard plan launched "
+                      f"{pipe2['launches']} and {auto['launches']}")
+                if kind == "exp1":
+                    check(pipe2["launches"] == seq["launches"],
+                          f"exp1: the same chunk plan launched "
+                          f"{pipe2['launches']} pipelined and "
+                          f"{seq['launches']} sequential")
+                for k, v in pipe2["launches"].items():
+                    check(v > 0, f"{k} never launched on the pipelined "
+                          f"{kind} read")
+                if kind != "exp1":
+                    check(set(pipe2["launches"]) == set(KERNELS),
+                          f"{kind}: a kernel of the RDW path never "
+                          f"launched: {pipe2['launches']}")
+            log(f"[pipeline] {self.card}: {kind} MB/s in turns (workers 0, "
+                f"2, auto, 0): " + " / ".join(
+                    f"{r['mb_per_s']:.1f}" for r in runs)
+                + "; outputs equal by hash")
+            self.pipeline[kind] = [{k: v for k, v in r.items()
+                                    if k != "digest"} for r in runs]
+            if kind == "exp2":
+                self.exp2_digest = seq["digest"]
+
+        # many shards: the staging pool's buffers go round many times
+        split = max(1, self.n_rdw["exp2"] // 64)
+        secs, digest, records, metrics, launches = self._pipelined_read(
+            "exp2", self.rdw_files["exp2"], EXP2_COPYBOOK, -1,
+            input_split_records=str(split), **RDW_OPTIONS)
+        staging = metrics["pipeline"]["staging"]
+        log(f"[pipeline] {self.card}: exp2 in {metrics['shards']} shards "
+            f"(input_split_records {split}): {secs:.3f} s; staging "
+            f"{json.dumps(staging)}; launches {json.dumps(launches)}")
+        check(metrics["shards"] > 50, f"exp2 split into only "
+              f"{metrics['shards']} shards")
+        check(staging["acquires"] > staging["buffers"],
+              "the staging buffers were not reused")
+        check(digest == self.exp2_digest, "exp2 in many shards: planes or "
+              "rows differ from the sequential read (a staging buffer "
+              "reused too early?)")
+        log("[pipeline] exp2 in many shards == sequential read by hash")
+        self._pipeline_trace()
+
+    def _pipeline_trace(self):
+        """One pipelined exp1 read under the port's profile_trace: device
+        busy time and idle share, copies by kind, streams, and the
+        copies' overlap with kernels (from the Chrome trace's device
+        events)."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.profiling import TRACE_FILE, profile_trace
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        tdir = os.path.join(self.tmp, "trace")
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        self.sync()
+        with profile_trace(tdir):
+            t0 = time.perf_counter()
+            data = read_cobol(self.exp1_path, copybook_contents=EXP1_COPYBOOK,
+                              pipeline_workers="-1",
+                              chunk_size_mb=self.pipe_chunk_mb, **kw)
+            self.sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        batches = len(data.batches)
+        report = data.metrics.pipeline
+        del data
+        with open(os.path.join(tdir, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+               ("kernel", "gpu_memcpy", "gpu_memset")]
+        by_name, streams = {}, {"kernel": set(), "gpu_memcpy": set()}
+        for e in dev:
+            by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+            if e["cat"] in streams:
+                streams[e["cat"]].add(e.get("args", {}).get("stream"))
+
+        def union(spans):
+            out = []
+            for a, b in sorted(spans):
+                if out and a <= out[-1][1]:
+                    out[-1][1] = max(out[-1][1], b)
+                else:
+                    out.append([a, b])
+            return out
+
+        def measure(u):
+            return sum(b - a for a, b in u)
+
+        def intersect(u, v):
+            i = j = 0
+            total = 0.0
+            while i < len(u) and j < len(v):
+                lo, hi = max(u[i][0], v[j][0]), min(u[i][1], v[j][1])
+                total += max(0.0, hi - lo)
+                if u[i][1] < v[j][1]:
+                    i += 1
+                else:
+                    j += 1
+            return total
+
+        def spans(cat, word=""):
+            return [(e["ts"], e["ts"] + e["dur"]) for e in dev
+                    if e["cat"] == cat and word in e["name"]]
+
+        trace = dict(wall_ms=wall_ms, batches=batches,
+                     copies={k: v for k, v in by_name.items()
+                             if k.startswith("Memcpy")},
+                     kernel_streams=len(streams["kernel"]),
+                     copy_streams=len(streams["gpu_memcpy"]),
+                     executor=report)
+        if dev:
+            busy = measure(union([(e["ts"], e["ts"] + e["dur"])
+                                  for e in dev])) / 1e3
+            kernels = union(spans("kernel"))
+            h2d, d2h = union(spans("gpu_memcpy", "HtoD")), \
+                union(spans("gpu_memcpy", "DtoH"))
+            trace.update(
+                device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+                kernel_ms=measure(kernels) / 1e3,
+                h2d_ms=measure(h2d) / 1e3, d2h_ms=measure(d2h) / 1e3,
+                h2d_overlap_kernels_ms=intersect(h2d, kernels) / 1e3,
+                d2h_overlap_kernels_ms=intersect(d2h, kernels) / 1e3,
+                h2d_overlap_d2h_ms=intersect(h2d, d2h) / 1e3)
+            pinned_d2h = sum(v for k, v in by_name.items()
+                             if k.startswith("Memcpy DtoH")
+                             and "Pinned" in k)
+            pageable_d2h = sum(v for k, v in by_name.items()
+                               if k.startswith("Memcpy DtoH")
+                               and "Pageable" in k)
+            pinned_h2d = sum(v for k, v in by_name.items()
+                             if k.startswith("Memcpy HtoD")
+                             and "Pinned" in k)
+            check(pinned_d2h == batches and pageable_d2h == 0,
+                  f"traced read: {pinned_d2h} pinned and {pageable_d2h} "
+                  f"pageable copies back for {batches} batches")
+            check(pinned_h2d == report["chunks"],
+                  f"traced read: {pinned_h2d} pinned copies to the card "
+                  f"for {report['chunks']} chunks")
+            check(len(streams["kernel"]) >= 2,
+                  f"traced read: kernels ran on {len(streams['kernel'])} "
+                  f"stream(s)")
+        else:
+            log("[pipeline] the trace holds no device time: busy, idle "
+                "share and copies not measured")
+        self.pipeline["trace"] = trace
+        log(f"[pipeline] {self.card}: traced exp1 read: {json.dumps(trace)}")
+
     def run(self):
         try:
             self.phase_env()
@@ -948,6 +1300,7 @@ class Smoke:
             self.phase_timings()
             self.phase_rdw_timings()
             self.phase_profile()
+            self.phase_pipeline()
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -1014,6 +1367,11 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: stopped child processes {left}",
+                  file=sys.stderr)
     if args.cpu_rehearsal:
         log("[rehearsal] all phases passed on the CPU; no result lines")
         return 3

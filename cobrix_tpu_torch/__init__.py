@@ -6,9 +6,12 @@ GPU: RDW files are framed and their records packed on the card by
 hand-written CUDA kernels (``csrc/rdw_framing.cu``), every numeric field
 of a record batch is decoded by one launch of a hand-written CUDA kernel
 (``csrc/fused_decode.cu``), strings and floats by PyTorch ops on the same
-device. The package imports torch and numpy and nothing of ``cobrix_tpu``;
-it keeps its own copies of the copybook front end, plan compiler and code
-pages. Entry points run on the CUDA device unless given ``device="cpu"``.
+device. With ``pipeline_workers`` a read runs through a chunk pipeline
+(``engine``): pinned staging buffers, a CUDA stream per decode worker and
+one copy back per decoded batch. The package imports torch and numpy and
+nothing of ``cobrix_tpu``; it keeps its own copies of the copybook front
+end, plan compiler, code pages, readers and pipeline. Entry points run on
+the CUDA device unless given ``device="cpu"``.
 """
 from .api import CobolData, read_cobol
 from .copybook.copybook import Copybook, merge_copybooks, parse_copybook

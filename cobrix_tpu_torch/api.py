@@ -14,32 +14,55 @@ Port of ``cobrix_tpu.api.read_cobol`` for two routes:
   the device, window by window, and decodes the records of each active
   segment there, one `FileResult` per file.
 
+With ``pipeline_workers`` > 0 (or -1: min(8, cpu_count)) either route
+runs through the chunk pipeline (``engine.pipeline``): a reader thread
+reads record-aligned chunks (``chunk_size_mb``) or sparse-index shards
+into a bounded pool of pinned host buffers, and worker threads, each on
+its own CUDA stream, move them to the card, frame and decode them; the
+results come back in file and chunk order, equal to the sequential
+read's. ``pipeline_workers=0``, the default, is the sequential path.
+
+Every input is sniffed for a compression codec first (the JAX
+package's ``compression`` detection): the port does not inflate yet
+(ROADMAP A4f), so a compressed input raises ValueError naming it, unless
+``compression="none"`` asks for its raw bytes. ``file://`` paths are
+local files; any other scheme raises ValueError naming it.
+
 Rows are materialized only when asked for. The options below are parsed
 with the JAX package's spellings and error messages
 (``parse_options``); the RDW ones are taken for RDW files only. Every
 other option of the JAX package's reader raises ValueError naming it:
-none is silently ignored. Compressed inputs are read as they are (the JAX
-package's ``compression`` detection is not carried over).
+none is silently ignored. `CobolData.metrics` is the read's
+`profiling.ReadMetrics`.
 """
 from __future__ import annotations
 
 import glob as _glob
 import os
+from dataclasses import replace as _dc_replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .copybook.ast import transform_identifier
+from .device import resolve_device
+from .engine.chunks import (auto_split_mb, check_fixed_size,
+                            plan_var_len_chunks)
+from .engine.pipeline import pipelined_fixed_scan, pipelined_var_len_scan
+from .io.compress import active_codec, codec_by_name
 from .copybook.datatypes import (
     FloatingPointFormat,
     SchemaRetentionPolicy,
     TrimPolicy,
 )
 from .plan.cache import copybook_for_params
+from .profiling import ReadMetrics
 from .reader.columnar import ColumnarDecoder, DecodedBatch
+from .reader.diagnostics import ShardErrorPolicy, ShardFailureInfo
 from .reader.parameters import MultisegmentParameters, ReaderParameters
 from .reader.result import FileResult
 from .reader.schema import CobolOutputSchema, output_schema_for
+from .reader.stream import normalize_local, path_scheme
 from .reader.var_len_reader import (VarLenReader, default_segment_id_prefix,
                                     file_record_id_base)
 
@@ -52,7 +75,14 @@ _RDW_OPTIONS = frozenset((
     "is_rdw_big_endian", "is_rdw_part_of_record_length", "rdw_adjustment",
     "file_start_offset", "file_end_offset", "record_start_offset",
     "segment_field", "segment_filter", "segment_id_root",
-    "segment_id_prefix", "generate_record_id"))
+    "segment_id_prefix", "generate_record_id", "input_split_records",
+    "input_split_size_mb", "enable_indexes"))
+# options of every read: the pipeline's, its supervision's and the
+# input's compression mode
+_READ_OPTIONS = frozenset((
+    "pipeline_workers", "chunk_size_mb", "max_inflight_chunks",
+    "shard_timeout_s", "scan_deadline_s", "shard_error_policy",
+    "shard_max_retries", "compression"))
 _RDW_OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
                         "redefine_segment_id_map")
 _FRAMING_OPTIONS = ("is_record_sequence", "is_xcom")
@@ -160,7 +190,8 @@ def parse_options(options: Dict[str, object],
     ValueError naming the first option the port does not take, and naming
     an RDW option given for a file that is not RDW-framed."""
     for name in sorted(options):
-        if name not in _FRAMING_OPTIONS and not _is_rdw_option(name):
+        if name not in _FRAMING_OPTIONS and name not in _READ_OPTIONS \
+                and not _is_rdw_option(name):
             raise ValueError(
                 f"Option '{name}' is not supported by cobrix_tpu_torch."
                 f"read_cobol, which reads fixed-length and RDW "
@@ -185,7 +216,7 @@ def parse_options(options: Dict[str, object],
             segment_id_prefix=opts.get("segment_id_prefix", ""),
             segment_id_redefine_map=_parse_prefixed_map(
                 opts, ("redefine-segment-id-map", "redefine_segment_id_map")))
-    return ReaderParameters(
+    params = ReaderParameters(
         ebcdic_code_page=ebcdic_code_page,
         floating_point_format=_parse_enum("floating_point_format",
                                           floating_point_format),
@@ -194,6 +225,9 @@ def parse_options(options: Dict[str, object],
         is_rdw_part_of_record_length=opts.get_bool(
             "is_rdw_part_of_record_length"),
         rdw_adjustment=opts.get_int("rdw_adjustment", 0),
+        is_index_generation_needed=opts.get_bool("enable_indexes", True),
+        input_split_records=opts.get_int("input_split_records"),
+        input_split_size_mb=opts.get_int("input_split_size_mb"),
         start_offset=opts.get_int("record_start_offset", 0),
         file_start_offset=opts.get_int("file_start_offset", 0),
         file_end_offset=opts.get_int("file_end_offset", 0),
@@ -202,7 +236,50 @@ def parse_options(options: Dict[str, object],
                                   schema_retention_policy),
         string_trimming_policy=_parse_enum("string_trimming_policy",
                                            string_trimming_policy),
-        multisegment=multisegment)
+        multisegment=multisegment,
+        compression=(opts.get("compression", "auto") or "auto").lower(),
+        pipeline_workers=opts.get_int("pipeline_workers", 0),
+        pipeline_chunk_mb=float(opts.get("chunk_size_mb", "") or 16.0),
+        pipeline_max_inflight=opts.get_int("max_inflight_chunks", 0),
+        shard_error_policy=ShardErrorPolicy.parse(
+            opts.get("shard_error_policy", "fail_fast")),
+        shard_timeout_s=float(opts.get("shard_timeout_s", "") or 0.0),
+        shard_max_retries=opts.get_int("shard_max_retries", 2),
+        scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0))
+    _validate(params)
+    return params
+
+
+def _validate(params: ReaderParameters) -> None:
+    """The JAX package's checks (``cobrix_tpu.api.parse_options``) of
+    the compression, pipeline and supervision options, same messages."""
+    if params.compression not in ("auto", "none", "off", "raw"):
+        try:
+            codec_by_name(params.compression)
+        except ValueError as exc:
+            raise ValueError(f"Invalid 'compression' option: {exc}")
+    if params.pipeline_chunk_mb <= 0:
+        raise ValueError(
+            f"Invalid 'chunk_size_mb' of {params.pipeline_chunk_mb}; "
+            "it must be a positive size in megabytes.")
+    if params.pipeline_max_inflight < 0:
+        raise ValueError(
+            f"Invalid 'max_inflight_chunks' of "
+            f"{params.pipeline_max_inflight}; it must be >= 0 "
+            "(0 sizes it from the worker count).")
+    if params.shard_timeout_s < 0:
+        raise ValueError(
+            f"Invalid 'shard_timeout_s' of {params.shard_timeout_s}; "
+            "it must be >= 0 (0 disables the per-shard deadline).")
+    if params.scan_deadline_s < 0:
+        raise ValueError(
+            f"Invalid 'scan_deadline_s' of {params.scan_deadline_s}; "
+            "it must be >= 0 (0 disables the whole-scan deadline).")
+    if params.shard_max_retries < 0:
+        raise ValueError(
+            f"Invalid 'shard_max_retries' of {params.shard_max_retries}; "
+            "it must be >= 0 (0 means a failed shard is never "
+            "re-dispatched).")
 
 
 def load_copybook_contents(copybook, copybook_contents):
@@ -229,10 +306,22 @@ def load_copybook_contents(copybook, copybook_contents):
 
 def list_input_files(path) -> List[str]:
     """Local files under `path` (a file, directory or glob, or a list of
-    them), recursively, skipping hidden names, in a stable order."""
+    them; ``file://`` or plain), recursively, skipping hidden names, in a
+    stable order (reference FileUtils.scala:54-228,
+    getListFilesWithOrder). Any other scheme raises ValueError naming it:
+    the port reads no storage backend yet (ROADMAP A4f)."""
     paths = [path] if isinstance(path, str) else list(path)
     out: List[str] = []
     for p in paths:
+        scheme = path_scheme(p)
+        if scheme not in (None, "file"):
+            raise ValueError(
+                f"Input path '{p}' uses the '{scheme}://' scheme; "
+                f"cobrix_tpu_torch.read_cobol reads local files only "
+                f"(plain or file:// paths)")
+        # file:// never propagates past listing: downstream os.path
+        # consumers see plain local paths
+        p = normalize_local(p)
         if os.path.isdir(p):
             for root, dirs, files in os.walk(p):
                 dirs[:] = sorted(d for d in dirs if not d.startswith((".", "_")))
@@ -251,15 +340,21 @@ def list_input_files(path) -> List[str]:
 
 class CobolData:
     """Decoded result of a read: the fixed-length route's `DecodedBatch`
-    per chunk, or the RDW route's `FileResult` per file, in record order,
-    plus the output schema."""
+    per chunk, or the RDW route's `FileResult` per file (per shard on a
+    pipelined read), in record order, plus the output schema and the
+    read's metrics."""
 
     def __init__(self, batches: List[DecodedBatch],
                  schema: CobolOutputSchema,
-                 results: Optional[List[FileResult]] = None):
+                 results: Optional[List[FileResult]] = None,
+                 metrics: Optional[ReadMetrics] = None,
+                 shard_failures: Optional[List[ShardFailureInfo]] = None):
         self.batches = batches
         self.results = results or []
         self.output_schema = schema
+        self.metrics = metrics
+        # chunks a pipelined read lost under shard_error_policy='partial'
+        self.shard_failures = shard_failures or []
         self._rows: Optional[List[List[object]]] = None
 
     @property
@@ -304,7 +399,10 @@ def read_cobol(path=None,
     ``is_record_sequence="true"`` (or ``is_xcom``) the files are RDW
     framed, and the RDW options (header endianness and adjustment, file
     and record offsets, segment field, filter, levels, prefix and
-    redefine map, record ids) apply."""
+    redefine map, record ids, sparse-index splits) apply. Every read
+    takes `compression` and the pipeline's options (`pipeline_workers`,
+    `chunk_size_mb`, `max_inflight_chunks`, `shard_error_policy`,
+    `shard_timeout_s`, `shard_max_retries`, `scan_deadline_s`)."""
     params = parse_options(options, ebcdic_code_page,
                            schema_retention_policy, string_trimming_policy,
                            floating_point_format)
@@ -314,29 +412,76 @@ def read_cobol(path=None,
     files = list_input_files(path)
     if not files:
         raise FileNotFoundError(f"No input files found for path {path}")
+    for file_path in files:
+        codec = active_codec(file_path, params.compression)
+        if codec is not None:
+            raise ValueError(
+                f"Input file '{file_path}' is {codec.name}-compressed "
+                f"(compression='{params.compression}'); "
+                f"cobrix_tpu_torch.read_cobol does not inflate compressed "
+                f"inputs yet. Decompress it first, or pass "
+                f"compression='none' to read its raw bytes.")
+    device = resolve_device(device)
+    workers = params.resolved_pipeline_workers()
+    use_pipeline = workers > 0
+    if use_pipeline and params.is_record_sequence:
+        split_mb = auto_split_mb(params)
+        if split_mb is not None:
+            # default the sparse-index split to the pipeline chunk size
+            # so mid-size files produce several shards (explicit
+            # input_split options always win)
+            params = _dc_replace(params, input_split_size_mb=split_mb)
+    metrics = ReadMetrics(files=len(files), bytes_read=sum(
+        os.path.getsize(f) for f in files))
+    failures: List[ShardFailureInfo] = []
     if params.is_record_sequence:
         reader = VarLenReader(contents, params, device=device)
         seg = params.multisegment
         prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
                   else default_segment_id_prefix())
-        results = [reader.read_result(
-            file_path, file_id=file_order, segment_id_prefix=prefix,
-            start_record_id=file_record_id_base(file_order))
-            for file_order, file_path in enumerate(files)]
-        return CobolData([], output_schema_for(reader.copybook, params,
-                                               is_var_len=True), results)
-    cb = copybook_for_params(contents, params)
-    decoder = ColumnarDecoder(cb, device=device)
-    rs = cb.record_size
+        if use_pipeline:
+            shards = plan_var_len_chunks(reader, files, params)
+            metrics.shards = len(shards)
+            results, failures = pipelined_var_len_scan(
+                reader, shards, prefix, workers, metrics)
+            results = [r for r in results if r is not None]
+        else:
+            results = [reader.read_result(
+                file_path, file_id=file_order, segment_id_prefix=prefix,
+                start_record_id=file_record_id_base(file_order))
+                for file_order, file_path in enumerate(files)]
+            metrics.shards = len(results)
+        data = CobolData([], output_schema_for(reader.copybook, params,
+                                               is_var_len=True), results,
+                         metrics, failures)
+    else:
+        cb = copybook_for_params(contents, params)
+        decoder = ColumnarDecoder(cb, device=device)
+        if use_pipeline:
+            batches, failures = pipelined_fixed_scan(
+                decoder, files, params, workers, metrics)
+            batches = [b for b in batches if b is not None]
+        else:
+            batches = _read_fixed_sequential(decoder, cb.record_size,
+                                             files)
+            metrics.shards = len(batches)
+        data = CobolData(batches, output_schema_for(cb, params,
+                                                    is_var_len=False),
+                         None, metrics, failures)
+    metrics.records = len(data)
+    return data
+
+
+def _read_fixed_sequential(decoder: ColumnarDecoder, rs: int,
+                           files: List[str]) -> List[DecodedBatch]:
+    """The sequential fixed-length read: each file in record-aligned
+    chunks of FIXED_READ_CHUNK_BYTES, read into a fresh host buffer and
+    decoded in turn."""
     chunk_bytes = max(rs, FIXED_READ_CHUNK_BYTES // rs * rs)
     batches: List[DecodedBatch] = []
     for file_path in files:
         size = os.path.getsize(file_path)
-        if size % rs:
-            raise ValueError(
-                f"Binary record size {rs} does not divide data size {size}"
-                f" of '{file_path}': the last {size % rs} byte(s) (at file "
-                f"offset {size - size % rs}) do not form a whole record.")
+        check_fixed_size(file_path, size, rs)
         with open(file_path, "rb") as f:
             done = 0
             while done < size:
@@ -347,5 +492,4 @@ def read_cobol(path=None,
                 matrix = np.frombuffer(buf, dtype=np.uint8).reshape(-1, rs)
                 batches.append(decoder.decode(matrix))
                 done += got
-    return CobolData(batches, output_schema_for(cb, params,
-                                                is_var_len=False))
+    return batches

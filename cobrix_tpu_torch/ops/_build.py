@@ -9,6 +9,10 @@ package go into a build.
 
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without a GPU need not have ``nvcc``.
+
+`count_launch` adds one to a wrapper's ``launches`` counter under a lock:
+the pipelined read launches from several worker threads, and a bare
+``+=`` on a function attribute can lose counts there.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, ptxas report) of the build this process ran or loaded
 build_info: Dict[str, tuple] = {}
@@ -66,21 +71,29 @@ def build(names: List[str] = None) -> Dict[str, str]:
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     procs = {}
     t0 = time.perf_counter()
-    for n, p in todo.items():
-        os.makedirs(os.path.dirname(p), exist_ok=True)
-        tmp = f"{p}.{os.getpid()}.tmp"
-        procs[n] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC, f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, paths[n])
-        build_info[n] = (time.perf_counter() - t0, log)
+    try:
+        for n, p in todo.items():
+            os.makedirs(os.path.dirname(p), exist_ok=True)
+            tmp = f"{p}.{os.getpid()}.tmp"
+            procs[n] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(CSRC, f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp)
+        for n, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, paths[n])
+            build_info[n] = (time.perf_counter() - t0, log)
+    finally:
+        # no compiler outlives the call, whatever raised
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     for n in names:
@@ -96,3 +109,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name])
             _libs[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on `wrapper.launches` (a plain int attribute that
+    callers read and reset), atomically across threads."""
+    with _launch_lock:
+        wrapper.launches += 1

@@ -39,6 +39,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ._build import count_launch
+
 # the host walk's cap on one record (native MAX_RDW_RECORD_SIZE)
 MAX_RDW_RECORD_SIZE = 100 * 1024 * 1024
 
@@ -332,7 +334,7 @@ def scan_window(image: torch.Tensor, start: int = 0,
     scan.count()
     n, status, _ = scan.head()
     offsets, lengths = scan.records(n)
-    scan_window.launches += 1
+    count_launch(scan_window)
     return offsets, lengths, status
 
 
@@ -377,7 +379,7 @@ def pack_records(image: torch.Tensor, offsets: torch.Tensor,
             plan.slot_words, plan.lanes.bit_length() - 1,
             torch.cuda.current_stream(image.device).cuda_stream),
             "pack_records")
-    pack_records.launches += 1
+    count_launch(pack_records)
     return out
 
 

@@ -31,12 +31,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+import threading
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import batch_torch
+from ._build import count_launch
 
 KINDS = ("binary", "bcd", "display_ebcdic", "display_ascii")
 OUTS = ("i32", "i64", "wide")
@@ -193,6 +195,7 @@ class FusedLayout:
         self.desc = self._descriptors()
         self.plan = plan_windows(self.desc[:, 0], self.desc[:, 3])
         self._tables_on: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._tables_lock = threading.Lock()
 
     def _descriptors(self) -> np.ndarray:
         out = []
@@ -224,14 +227,17 @@ class FusedLayout:
 
     def tables_on(self, device: torch.device) -> tuple:
         """(descriptors in window order, window table) on `device`,
-        uploaded once and cached."""
+        uploaded once and cached. The upload is a blocking copy made
+        under a lock, so decode workers on other streams never race it
+        or read the tables before they have landed."""
         key = str(device)
-        t = self._tables_on.get(key)
-        if t is None:
-            desc = np.ascontiguousarray(self.desc[self.plan.order])
-            t = (torch.from_numpy(desc).to(device),
-                 torch.from_numpy(self.plan.windows).to(device))
-            self._tables_on[key] = t
+        with self._tables_lock:
+            t = self._tables_on.get(key)
+            if t is None:
+                desc = np.ascontiguousarray(self.desc[self.plan.order])
+                t = (torch.from_numpy(desc).to(device),
+                     torch.from_numpy(self.plan.windows).to(device))
+                self._tables_on[key] = t
         return t
 
     def empty_planes(self, n: int, device) -> Dict[str, torch.Tensor]:
@@ -335,12 +341,15 @@ def _kernel():
     return fn
 
 
-def fused_decode(data: torch.Tensor,
-                 layout: FusedLayout) -> Dict[str, torch.Tensor]:
+def fused_decode(data: torch.Tensor, layout: FusedLayout,
+                 out: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Decode every group of `layout` over a [n, row_len] uint8 record
     matrix into the three planes (see `FusedLayout.split`). A CUDA tensor
     launches the kernel on the current stream; a CPU tensor takes the
-    plain version."""
+    plain version. `out`: the planes to write, contiguous [rows, n]
+    tensors of the plane dtypes on the data's device (the decoder's one
+    output buffer); new ones when None."""
     if not isinstance(data, torch.Tensor):
         raise TypeError("fused_decode takes a torch.Tensor")
     if data.dtype != torch.uint8 or data.dim() != 2:
@@ -350,7 +359,17 @@ def fused_decode(data: torch.Tensor,
     if not data.is_contiguous():
         raise ValueError("fused_decode takes a contiguous record matrix")
     n, row_len = data.shape
-    planes = layout.empty_planes(n, data.device)
+    if out is None:
+        planes = layout.empty_planes(n, data.device)
+    else:
+        planes = out
+        for p, dt in _PLANE_DTYPES.items():
+            t = planes[p]
+            if (t.dtype != dt or tuple(t.shape) != (layout.rows[p], n)
+                    or t.device != data.device or not t.is_contiguous()):
+                raise ValueError(
+                    f"fused_decode: out plane {p!r} must be a contiguous "
+                    f"{dt} [{layout.rows[p]}, {n}] tensor on {data.device}")
     if data.device.type == "cpu":
         for (g, slots), outs in zip(zip(layout.groups, layout.slots),
                                     fused_decode_plain(data, layout.groups)):
@@ -371,7 +390,7 @@ def fused_decode(data: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA "
                            f"error {rc}")
-    fused_decode.launches += 1
+    count_launch(fused_decode)
     return planes
 
 

@@ -28,6 +28,7 @@ and observability hooks.
 from __future__ import annotations
 
 import decimal as _decimal
+import threading
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -47,7 +48,9 @@ from ..copybook.datatypes import (
 from ..device import resolve_device
 from ..ops import batch_torch
 from ..ops.device_framing import pack_records
-from ..ops.fused_decode import FusedLayout, StridedGroup, fused_decode
+from ..ops.fused_decode import (_PLANE_DTYPES, FusedLayout, StridedGroup,
+                                fused_decode)
+from ..profiling import annotate
 from ..plan.cache import cached_code_page_lut, cached_compile_plan
 from ..plan.compiler import Codec, ColumnSpec, FieldPlan
 from .extractors import DecodeOptions
@@ -70,6 +73,13 @@ _FLOAT_CODECS = (Codec.FLOAT_IBM, Codec.FLOAT_IEEE, Codec.DOUBLE_IBM,
                  Codec.DOUBLE_IEEE)
 _STRING_CODECS = (Codec.EBCDIC_STRING, Codec.ASCII_STRING, Codec.UTF16_STRING,
                   Codec.HEX_STRING, Codec.RAW_BYTES)
+
+# numpy view of each torch dtype a batch's outputs take on the host
+_NP_DTYPES = {torch.uint8: np.uint8, torch.int16: np.int16,
+              torch.int32: np.int32, torch.int64: np.int64,
+              torch.float32: np.float32, torch.bool: np.bool_}
+# byte alignment of each output in a batch's buffer
+_OUT_ALIGN = 256
 
 
 def _is_wide(spec: ColumnSpec) -> bool:
@@ -234,14 +244,18 @@ class DecodedBatch:
                  data: Optional[np.ndarray],
                  outputs: Dict[int, dict],
                  lengths: Optional[np.ndarray] = None,
-                 host_rows: Optional[Dict[int, np.ndarray]] = None):
+                 host_rows: Optional[Dict[int, np.ndarray]] = None,
+                 n_records: Optional[int] = None):
         self.decoder = decoder
-        # the host record matrix; None for a batch packed on the device,
-        # whose truncated rows (the only ones `value` reads bytes of)
-        # come to the host in `host_rows`
+        # the host record matrix; None for a batch that crossed to the
+        # device from a staging buffer or was packed there, whose
+        # truncated rows (the only ones `value` reads bytes of) come to
+        # the host in `host_rows`
         self.data = data
         self.host_rows = host_rows or {}
-        self.n_records = data.shape[0] if data is not None else len(lengths)
+        self.n_records = (n_records if n_records is not None
+                          else data.shape[0] if data is not None
+                          else len(lengths))
         self._out = outputs  # col index -> {"values","valid","dot_scale","bytes"}
         self._str_cache: Dict[int, List[str]] = {}
         self._col_cache: Dict[int, list] = {}
@@ -610,21 +624,25 @@ class DecodedBatch:
         return values.__getitem__
 
 
+_DECODER_LOCK = threading.Lock()
+
+
 def decoder_for_segment(cache: Dict[str, "ColumnarDecoder"],
                         copybook: Copybook, active: str,
                         device) -> "ColumnarDecoder":
     """The decoder of one active segment on `device`, built once per
-    `cache` (a reader's dict). Port of the JAX package's
-    ``decoder_for_segment``, keyed by the device in place of the backend
-    and without its lock (the port's readers are single-threaded); the
-    port takes no column projection (`select`)."""
+    `cache` (a reader's dict) under a lock, since pipeline workers share
+    a reader. Port of the JAX package's ``decoder_for_segment``, keyed by
+    the device in place of the backend; the port takes no column
+    projection (`select`)."""
     device = resolve_device(device)
     key = f"{active}|{device}"
-    dec = cache.get(key)
-    if dec is None:
-        dec = ColumnarDecoder(copybook, active_segment=active or None,
-                              device=device)
-        cache[key] = dec
+    with _DECODER_LOCK:
+        dec = cache.get(key)
+        if dec is None:
+            dec = ColumnarDecoder(copybook, active_segment=active or None,
+                                  device=device)
+            cache[key] = dec
     return dec
 
 
@@ -672,15 +690,35 @@ class ColumnarDecoder:
                 self.fused_indices.append(gi)
                 specs.append(sg)
         self.fused = FusedLayout(specs) if specs else None
-        # per-group gather indices of the batch_torch groups, on the device
+        # per-group gather indices of the batch_torch groups, on the
+        # device (built here, read-only after: decode workers share them),
+        # and the out table: each batch_torch output's (group, output,
+        # dtype, per-record shape) in the batch's one output buffer, after
+        # the fused planes
         self._gather_idx: Dict[int, torch.Tensor] = {}
+        self._out_table: List[Tuple[int, int, torch.dtype, tuple]] = []
         fused = set(self.fused_indices)
         for gi, g in enumerate(self.kernel_groups):
             if gi not in fused and g.codec is not Codec.HOST_FALLBACK:
                 idx = g.offsets[:, None] + np.arange(g.width)[None, :]
                 self._gather_idx[gi] = torch.from_numpy(idx).to(self.device)
+                self._out_table.extend(
+                    (gi, k, dt, shape)
+                    for k, (dt, shape) in enumerate(self._group_outs(g)))
         self._lut_dev = torch.from_numpy(
             self.lut.view(np.int16).copy()).to(self.device)
+
+    def _group_outs(self, g: _KernelGroup) -> List[Tuple[torch.dtype, tuple]]:
+        """dtype and per-record shape of each output `_run_group_torch`
+        gives for group `g`."""
+        count, width = len(g.columns), g.width
+        if g.codec in (Codec.FLOAT_IBM, Codec.FLOAT_IEEE):
+            return [(torch.float32, (count,)), (torch.bool, (count,))]
+        if g.codec in (Codec.DOUBLE_IBM, Codec.DOUBLE_IEEE):
+            return [(torch.int64, (count,)), (torch.bool, (count,))]
+        if g.codec is Codec.EBCDIC_STRING:
+            return [(torch.int16, (count, width))]
+        return [(torch.uint8, (count, width))]
 
     # ------------------------------------------------------------------
 
@@ -713,10 +751,34 @@ class ColumnarDecoder:
             # written through the tensor
             warnings.filterwarnings("ignore", message=".*not writable.*")
             host = torch.from_numpy(arr)
-        outputs = self.collect_outputs(self._decode_device(host.to(
-            self.device)), arr.shape[0])
+        group_outs, _ = self._decode_device(host.to(self.device))
+        outputs = self.collect_outputs(group_outs, arr.shape[0])
         self._decode_host_fallback(arr, outputs)
         return DecodedBatch(self, arr, outputs, lengths=lengths)
+
+    def decode_tensor(self, data: torch.Tensor) -> DecodedBatch:
+        """Decode a [n, record_len] uint8 record matrix that is already
+        on the decoder's device (a staged chunk of the pipelined read).
+        The batch keeps no host record matrix: the host-fallback columns'
+        bytes come back in the batch's one copy to the host."""
+        if data.device != self.device or data.dtype != torch.uint8 \
+                or data.dim() != 2:
+            raise ValueError(
+                f"decode_tensor takes a [n, record_len] uint8 matrix on "
+                f"{self.device}, not {tuple(data.shape)} {data.dtype} on "
+                f"{data.device}")
+        extent = self.plan.max_extent
+        if data.shape[1] < extent:
+            data = torch.nn.functional.pad(data, (0, extent - data.shape[1]))
+        n = data.shape[0]
+        end = self._fallback_end()
+        extras = [data[:, :end]] if end else []
+        group_outs, extra_host = self._decode_device(data.contiguous(),
+                                                     extras)
+        outputs = self.collect_outputs(group_outs, n)
+        if end:
+            self._decode_host_fallback(extra_host[0], outputs)
+        return DecodedBatch(self, None, outputs, n_records=n)
 
     def decode_raw(self, image: torch.Tensor, rec_offsets, rec_lengths,
                    start_offset: int = 0) -> DecodedBatch:
@@ -740,48 +802,99 @@ class ColumnarDecoder:
                         else np.asarray(rec_lengths, dtype=np.int64))
         extent = self.plan.max_extent
         lengths = np.minimum(host_lengths - start_offset, extent)
-        packed = pack_records(image, on_device(rec_offsets),
-                              on_device(rec_lengths), extent, start_offset)
+        with annotate("cobrix.pack", self.device):
+            packed = pack_records(image, on_device(rec_offsets),
+                                  on_device(rec_lengths), extent,
+                                  start_offset)
         n = packed.shape[0]
-        outputs = self.collect_outputs(self._decode_device(packed), n)
         # `value` reads the bytes of a record that ends before the plan's
         # extent (a string cut by the record's end): only those rows, up
-        # to the longest of their lengths, come to the host
-        host_rows = {}
+        # to the longest of their lengths, come to the host, in the same
+        # copy as the planes; so do the host-fallback columns' bytes
+        extras = []
         short = np.nonzero(lengths < extent)[0]
         if len(short):
             keep = int(max(lengths[short].max(), 0))
-            rows = packed[torch.from_numpy(short).to(self.device),
-                          :keep].cpu().numpy()
-            host_rows = dict(zip(short.tolist(), rows))
-        fallback = [c for g in self.kernel_groups
-                    if g.codec is Codec.HOST_FALLBACK for c in g.columns]
-        if fallback:
-            end = max(c.offset + c.width for c in fallback)
-            self._decode_host_fallback(packed[:, :end].cpu().numpy(),
-                                       outputs)
+            extras.append(packed[torch.from_numpy(short).to(self.device),
+                                 :keep])
+        end = self._fallback_end()
+        if end:
+            extras.append(packed[:, :end])
+        group_outs, extra_host = self._decode_device(packed, extras)
+        outputs = self.collect_outputs(group_outs, n)
+        host_rows = dict(zip(short.tolist(), extra_host[0])) \
+            if len(short) else {}
+        if end:
+            self._decode_host_fallback(extra_host[-1], outputs)
         return DecodedBatch(self, None, outputs, lengths=lengths,
                             host_rows=host_rows)
 
-    def _decode_device(self, data: torch.Tensor) -> List[tuple]:
-        """Per-kernel-group outputs of one batch, moved to the host: the
-        fused launch for every numeric group, batch_torch for the rest."""
-        outs: List[Optional[tuple]] = [None] * len(self.kernel_groups)
+    def _fallback_end(self) -> int:
+        """Bytes of a row the host-fallback columns read (0: none)."""
+        return max((c.offset + c.width for g in self.kernel_groups
+                    if g.codec is Codec.HOST_FALLBACK for c in g.columns),
+                   default=0)
+
+    def _decode_device(self, data: torch.Tensor,
+                       extras: Sequence[torch.Tensor] = ()
+                       ) -> Tuple[List[tuple], List[np.ndarray]]:
+        """Per-kernel-group host outputs of one batch (the fused launch
+        for every numeric group, batch_torch for the rest) and the host
+        copies of `extras` (tensors on the device), all through one
+        device buffer and one copy to the host (see the module
+        docstring)."""
+        n = data.shape[0]
+        with annotate("cobrix.decode", self.device):
+            group_outs = {gi: self._run_group_torch(
+                self.kernel_groups[gi], data[:, idx])
+                for gi, idx in self._gather_idx.items()}
+            entries: List[Tuple[object, torch.dtype, tuple]] = []
+            if self.fused is not None:
+                entries += [(p, dt, (self.fused.rows[p], n))
+                            for p, dt in _PLANE_DTYPES.items()]
+            entries += [((gi, k), dt, (n,) + shape)
+                        for gi, k, dt, shape in self._out_table]
+            entries += [(("extra", k), t.dtype, tuple(t.shape))
+                        for k, t in enumerate(extras)]
+            spans, total = [], 0
+            for _, dt, shape in entries:
+                nbytes = int(np.prod(shape)) * dt.itemsize
+                spans.append((total, total + nbytes))
+                total += -(-nbytes // _OUT_ALIGN) * _OUT_ALIGN
+            buf = torch.empty(total, dtype=torch.uint8, device=data.device)
+            views = {key: buf[a:b].view(dt).view(shape)
+                     for (key, dt, shape), (a, b) in zip(entries, spans)}
+            if self.fused is not None:
+                fused_decode(data, self.fused,
+                             out={p: views[p] for p in _PLANE_DTYPES})
+            for gi, k, dt, shape in self._out_table:
+                out = group_outs[gi][k]
+                if out.dtype != dt or tuple(out.shape) != (n,) + shape:
+                    raise RuntimeError(
+                        f"group {gi} output {k}: {out.dtype} "
+                        f"{tuple(out.shape)}, the out table says {dt} "
+                        f"{(n,) + shape}")
+                views[(gi, k)].copy_(out)
+            for k, t in enumerate(extras):
+                views[("extra", k)].copy_(t)
+        with annotate("cobrix.d2h", self.device):
+            if buf.device.type == "cpu" or total == 0:
+                host = buf.cpu()
+            else:
+                host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+                host.copy_(buf, non_blocking=True)
+                torch.cuda.current_stream(buf.device).synchronize()
+        host_np = host.numpy()
+        planes = {key: host_np[a:b].view(_NP_DTYPES[dt]).reshape(shape)
+                  for (key, dt, shape), (a, b) in zip(entries, spans)}
+        outs: List[Optional[tuple]] = [()] * len(self.kernel_groups)
         if self.fused is not None:
-            planes = fused_decode(data, self.fused)
-            host = {k: v.cpu().numpy() for k, v in planes.items()}
-            for gi, res in zip(self.fused_indices, self.fused.split(host)):
+            for gi, res in zip(self.fused_indices, self.fused.split(
+                    {p: planes[p] for p in _PLANE_DTYPES})):
                 outs[gi] = res
-        for gi, g in enumerate(self.kernel_groups):
-            if outs[gi] is not None:
-                continue
-            if g.codec is Codec.HOST_FALLBACK:
-                outs[gi] = ()
-                continue
-            slab = data[:, self._gather_idx[gi]]
-            outs[gi] = tuple(o.cpu().numpy()
-                             for o in self._run_group_torch(g, slab))
-        return outs
+        for gi, k, _, _ in self._out_table:
+            outs[gi] = outs[gi] + (planes[(gi, k)],)
+        return outs, [planes[("extra", k)] for k in range(len(extras))]
 
     def collect_outputs(self, group_outs, n: int) -> Dict[int, dict]:
         """Per-group host outputs -> per-column host planes, with the JAX
@@ -867,7 +980,6 @@ class ColumnarDecoder:
                 out["dot_scale"] = _wide_dyn_dots(
                     hi[:, pos], lo[:, pos], c.params.scale_factor)
             outputs[c.index] = out
-
 
     # -- host fallback -----------------------------------------------------
 

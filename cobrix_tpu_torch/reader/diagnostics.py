@@ -3,11 +3,40 @@
 Port copy of ``cobrix_tpu.reader.diagnostics``, reduced to `hex_snapshot`
 and `FramingError`, plus `framing_error`, the copy of
 ``cobrix_tpu.native._framing_error``: a malformed RDW header raises the
-same exception class, message, offset and reason as the JAX package. The
-port reads under the fail-fast policy only, so the error ledger, the
-corrupt-record entries and the error policies are not carried over.
+same exception class, message, offset and reason as the JAX package; and the shard-level policy of the pipeline's watchdog,
+`ShardErrorPolicy` and `ShardFailureInfo`, copied as they are. The port
+reads malformed records under the fail-fast policy only, so the error
+ledger, the corrupt-record entries and the record error policies are not
+carried over.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+
+
+class ShardErrorPolicy(Enum):
+    """What a *shard-level* failure (worker crash, deadline, exhausted
+    re-dispatch) does to a pipelined scan."""
+
+    FAIL_FAST = "fail_fast"
+    PARTIAL = "partial"
+
+    @classmethod
+    def parse(cls, value: "str | ShardErrorPolicy") -> "ShardErrorPolicy":
+        if isinstance(value, cls):
+            return value
+        try:
+            return cls(str(value).strip().lower())
+        except ValueError:
+            valid = ", ".join(repr(p.value) for p in cls)
+            raise ValueError(
+                f"Invalid value '{value}' for 'shard_error_policy' option. "
+                f"Valid policies: {valid}.") from None
+
+    @property
+    def is_partial(self) -> bool:
+        return self is ShardErrorPolicy.PARTIAL
 
 
 def hex_snapshot(header, limit: int = 16) -> str:
@@ -52,3 +81,32 @@ def framing_error(header: bytes, pos: int, kind: str) -> FramingError:
         reason = "oversized RDW header"
     return FramingError(message, offset=int(pos), reason=reason,
                         header=header)
+
+
+@dataclass(frozen=True)
+class ShardFailureInfo:
+    """One shard the supervised scan could not complete.
+
+    Produced by the pipeline watchdog (engine/pipeline.py) under
+    ``shard_error_policy='partial'`` — the rows of this byte range are
+    MISSING from the result, and this entry says which bytes, why, and
+    after how many attempts."""
+
+    file: str
+    offset_from: int
+    offset_to: int         # -1 = to end of file
+    record_index: int      # Record_Id seed of the lost shard
+    attempts: int          # dispatch attempts consumed
+    reason: str            # 'error' | 'timeout' | 'scan_deadline'
+    error: str = ""        # last error message observed for the shard
+
+    def as_dict(self) -> dict:
+        return {
+            "file": self.file,
+            "offset_from": self.offset_from,
+            "offset_to": self.offset_to,
+            "record_index": self.record_index,
+            "attempts": self.attempts,
+            "reason": self.reason,
+            "error": self.error,
+        }

@@ -19,6 +19,7 @@ from ..copybook.datatypes import (
     SchemaRetentionPolicy,
     TrimPolicy,
 )
+from .diagnostics import ShardErrorPolicy
 
 DEFAULT_FILE_RECORD_ID_INCREMENT = 2 ** 32      # reference reader Constants.scala:28
 DEFAULT_INDEX_ENTRY_SIZE_MB = 100
@@ -44,6 +45,9 @@ class ReaderParameters:
     is_rdw_big_endian: bool = False
     is_rdw_part_of_record_length: bool = False
     rdw_adjustment: int = 0
+    is_index_generation_needed: bool = False
+    input_split_records: Optional[int] = None
+    input_split_size_mb: Optional[float] = None
     start_offset: int = 0
     file_start_offset: int = 0
     file_end_offset: int = 0
@@ -53,6 +57,48 @@ class ReaderParameters:
     multisegment: Optional[MultisegmentParameters] = None
     input_file_name_column: str = ""
     corrupt_record_column: str = ""
+    # input compression: 'auto' sniffs every input, 'none'/'off'/'raw'
+    # read the raw bytes, a codec name pins it (io/compress.py)
+    compression: str = "auto"
+    # -- chunked pipeline executor (cobrix_tpu_torch.engine) -------------
+    # worker threads overlapping read -> frame -> decode across chunks.
+    # 0 = the sequential path; < 0 = auto-size to the machine
+    # (min(8, cpu_count))
+    pipeline_workers: int = 0
+    # target chunk size for fixed-length byte strides AND the default
+    # sparse-index split size for variable-length reads when pipelining
+    # is on and no explicit input_split option is set (fractional MB
+    # accepted — tests force multi-chunk plans on tiny files)
+    pipeline_chunk_mb: float = 16.0
+    # backpressure bound: chunks concurrently held in flight (staged
+    # bytes). 0 = workers + 2
+    pipeline_max_inflight: int = 0
+    # what a chunk-level failure (error after its one re-queue, deadline)
+    # does to the scan: fail_fast raises, partial returns the completed
+    # chunks plus a ShardFailureInfo ledger
+    shard_error_policy: ShardErrorPolicy = ShardErrorPolicy.FAIL_FAST
+    # per-chunk wall deadline; 0 = none
+    shard_timeout_s: float = 0.0
+    # re-dispatches allowed per chunk (the pipeline re-queues at most
+    # once: min(1, shard_max_retries))
+    shard_max_retries: int = 2
+    # whole-scan wall deadline; 0 = none
+    scan_deadline_s: float = 0.0
+
+    def resolved_pipeline_workers(self) -> int:
+        """Effective worker count: 0 = sequential, negative = auto."""
+        if self.pipeline_workers >= 0:
+            return self.pipeline_workers
+        import os
+
+        return min(8, os.cpu_count() or 1)
+
+    @property
+    def supports_fast_framing(self) -> bool:
+        """True when whole-shard vectorized RDW framing applies: every
+        RDW read of the port (it takes no custom extractors or parsers,
+        text mode, length fields or variable OCCURS)."""
+        return self.is_record_sequence
 
     @property
     def rdw_length_adjustment(self) -> int:

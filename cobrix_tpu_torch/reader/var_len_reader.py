@@ -35,11 +35,19 @@ Changes from the JAX package:
   JAX package decodes every kept record once at the full plan's extent:
   exp3's 60-byte 'P' records are not widened to the 16,064-byte plan.
   Rows, dicts and their order are the same.
-* A file is one shard, framed window by window. The JAX package splits a
-  file over 100 MB at sparse-index entries; that changes nothing but the
-  record ids, where a file header (`file_start_offset` > 0) counts as one
-  record from the first split on (reference IndexGenerator.scala:117-120),
-  and `_index_shift_from` reproduces that.
+* The sequential read (`read_result`) frames a file whole, window by
+  window. The JAX package splits a file over 100 MB (or as the
+  ``input_split_*`` options say) at sparse-index entries; that changes
+  nothing but the record ids, where a file header (`file_start_offset`
+  > 0) counts as one record from the first split on (reference
+  IndexGenerator.scala:117-120), and `read_result` shifts them from the
+  index's first split to match.
+* The pipelined read frames shards: `read_shard` reads the byte range of
+  one sparse-index entry (`generate_index`, the JAX package's
+  ``generate_index_fast``, here over the records the scan kernel frames)
+  from a host staging buffer, numbering records from the entry's record
+  index, as the JAX package's shard reads do; there the record-id shift
+  comes from the plan itself.
 * Not carried over: the hierarchical (segment-children) reads, the
   generic per-record reader (text, record-length fields, custom header
   parsers or extractors, variable OCCURS), the permissive error
@@ -56,11 +64,14 @@ import torch
 
 from ..copybook.ast import Primitive
 from ..device import resolve_device
+from ..engine.staging import StagedBytes
 from ..ops.device_framing import TOO_BIG, ZERO, pack_records, scan_window
 from ..plan.cache import copybook_for_params
+from ..profiling import annotate
 from .columnar import ColumnarDecoder, decoder_for_segment
 from .diagnostics import framing_error
 from .extractors import DecodeOptions
+from .index import SparseIndexEntry, sparse_index_entries
 from .parameters import (DEFAULT_FILE_RECORD_ID_INCREMENT,
                          DEFAULT_INDEX_ENTRY_SIZE_MB, MEGABYTE,
                          ReaderParameters)
@@ -146,30 +157,43 @@ def file_record_id_base(file_order: int) -> int:
 
 
 def frame_windows(f, size: int, device, big_endian: bool, adjustment: int,
-                  file_header_bytes: int = 0, file_footer_bytes: int = 0):
-    """Frame the RDW records of an open file of `size` bytes, a window of
-    at most READ_WINDOW_BYTES at a time (more when one record is longer).
-    Yields (base, image, offsets, lengths) per window: its file offset,
-    its bytes on `device` and its records' int64 payload offsets (relative
-    to base) and lengths there. The records are exactly those of
-    ``native.rdw_scan`` over the whole file: each window's scan starts
-    where the last one's chain stopped, and a malformed header raises the
-    JAX package's FramingError at its file offset. As in the host walk,
-    the footer is cut only when it is shorter than the file, and a file
-    header longer than 4 bytes is skipped whole at position 0."""
+                  file_header_bytes: int = 0, file_footer_bytes: int = 0,
+                  window_bytes: Optional[int] = None):
+    """Frame the RDW records of `size` bytes, a window of at most
+    `window_bytes` (READ_WINDOW_BYTES by default) at a time, more when
+    one record is longer. `f` is an open file, read into a fresh host
+    buffer a window, or a `StagedBytes` holding the bytes (a shard of the
+    pipelined read), whose windows cross to the device from the staging
+    buffer without a wait. Yields (base, image, offsets, lengths) per
+    window: its offset in the bytes framed, its bytes on `device` and its
+    records' int64 payload offsets (relative to base) and lengths there.
+    The records are exactly those of ``native.rdw_scan`` over the same
+    bytes: each window's scan starts where the last one's chain stopped,
+    and a malformed header raises the JAX package's FramingError at its
+    offset. As in the host walk, the footer is cut only when it is
+    shorter than the bytes framed, and a file header longer than 4 bytes
+    is skipped whole at position 0."""
+    window_bytes = window_bytes or READ_WINDOW_BYTES
+    staged = isinstance(f, StagedBytes)
     end = size - file_footer_bytes if 0 < file_footer_bytes < size else size
     pos = file_header_bytes if file_header_bytes > 4 else 0
     need = 0
     while pos + 4 <= end:
-        window_len = min(max(READ_WINDOW_BYTES, need), end - pos)
+        window_len = min(max(window_bytes, need), end - pos)
         last = pos + window_len == end
-        host = np.empty(window_len, dtype=np.uint8)
-        f.seek(pos)
-        if f.readinto(memoryview(host)) != window_len:
-            raise IOError(f"Short read at file offset {pos}")
-        image = torch.from_numpy(host).to(device)
-        offsets, lengths, status = scan_window(image, 0, last, big_endian,
-                                               adjustment)
+        with annotate("cobrix.h2d", device):
+            if staged:
+                host = f.host()[pos:pos + window_len].numpy()
+                image = f.to_device(device, pos, pos + window_len)
+            else:
+                host = np.empty(window_len, dtype=np.uint8)
+                f.seek(pos)
+                if f.readinto(memoryview(host)) != window_len:
+                    raise IOError(f"Short read at file offset {pos}")
+                image = torch.from_numpy(host).to(device)
+        with annotate("cobrix.scan", device):
+            offsets, lengths, status = scan_window(image, 0, last,
+                                                   big_endian, adjustment)
         if status.code in (ZERO, TOO_BIG):
             p = status.position
             raise framing_error(host[p:p + 4].tobytes(), pos + p,
@@ -248,9 +272,58 @@ class VarLenReader:
     def read_result(self, path: str, file_id: int = 0,
                     segment_id_prefix: Optional[str] = None,
                     start_record_id: int = 0) -> FileResult:
-        """Frame and decode one RDW file window by window (see the module
-        docstring). Record ids count every framed record from
-        `start_record_id`."""
+        """Frame and decode one RDW file whole, window by window (see the
+        module docstring). Record ids count every framed record from
+        `start_record_id`, shifted by one from the sparse index's first
+        split when a file header counts there."""
+        p = self.params
+        size = os.path.getsize(path)
+        shifted = self._index_applies(size) and p.file_start_offset > 0
+        with open(path, "rb") as f:
+            result, file_ids, starts = self._read(
+                f, size, file_id, segment_id_prefix, start_record_id,
+                p.file_start_offset, p.file_end_offset,
+                keep_starts=shifted)
+        if shifted:
+            roots = self._root_indices(file_ids.segment_ids())
+            entries = sparse_index_entries(
+                starts, file_id, p, roots, base=1,
+                bytes_per_entry=self._bytes_per_entry())
+            if len(entries) > 1:
+                shift_from = entries[1].record_index - 1
+                for s in result.segments:
+                    s.record_ids = s.record_ids + (s.positions >= shift_from)
+                    if s.seg_level_ids is not None:
+                        rid = s.seg_level_ids.coded["root_rid"]
+                        rid += (rid >= start_record_id + shift_from)
+        return result
+
+    def read_shard(self, staged: StagedBytes, file_id: int,
+                   offset_from: int, record_index: int, file_size: int,
+                   segment_id_prefix: Optional[str] = None) -> FileResult:
+        """Frame and decode one shard of the pipelined read: the bytes
+        [offset_from, offset_from + staged.nbytes) of a file of
+        `file_size` bytes, held in `staged`, with record ids from
+        `record_index` (the JAX package's ``read_result_columnar`` over a
+        shard stream). The file header applies to the shard that starts
+        the file, the footer to the one that ends it; a shard up to twice
+        READ_WINDOW_BYTES is framed as one window."""
+        p = self.params
+        n = staged.nbytes
+        header = p.file_start_offset if offset_from == 0 else 0
+        footer = p.file_end_offset if offset_from + n >= file_size else 0
+        window = n if n <= 2 * READ_WINDOW_BYTES else None
+        result, _, _ = self._read(staged, n, file_id, segment_id_prefix,
+                                  record_index, header, footer,
+                                  window_bytes=window)
+        return result
+
+    def _read(self, f, size: int, file_id: int, segment_id_prefix,
+              start_record_id: int, header: int, footer: int,
+              window_bytes: Optional[int] = None, keep_starts: bool = False):
+        """Frame and decode `size` bytes of `f` (`frame_windows`): the
+        FileResult, the segment ids of every framed record, and the
+        record header offsets when `keep_starts`."""
         p = self.params
         seg = p.multisegment
         prefix = segment_id_prefix or default_segment_id_prefix()
@@ -259,62 +332,137 @@ class VarLenReader:
         level_ids = {s for lvl in levels for s in lvl.split(",")}
         segment_filter = (set(seg.segment_id_filter)
                           if seg and seg.segment_id_filter else None)
-        start = p.start_offset
         result = FileResult(n_rows=0, file_id=file_id,
                             policy=p.schema_policy,
                             generate_record_id=p.generate_record_id)
         file_ids = _FileSegmentIds()
+        starts: List[np.ndarray] = []
         matched = False       # a record of a Seg_Id level was seen
         n_total = 0           # records framed in earlier windows
-        before_split = 0      # records whose header starts before 100 MB
-        split_bytes = DEFAULT_INDEX_ENTRY_SIZE_MB * MEGABYTE
-        size = os.path.getsize(path)
-        with open(path, "rb") as f:
-            for base, image, offs_d, lens_d in frame_windows(
-                    f, size, self.device, p.is_rdw_big_endian,
-                    p.rdw_length_adjustment, p.file_start_offset,
-                    p.file_end_offset):
-                n = offs_d.numel()
-                lengths = lens_d.cpu().numpy()
-                if p.file_start_offset > 0:
-                    before_split += int(np.count_nonzero(
-                        base + offs_d.cpu().numpy() - 4 < split_bytes))
-                keep = np.ones(n, dtype=bool)
-                window_ids = None
-                if seg_field is not None:
-                    props = seg_field.binary_properties
-                    field_bytes = pack_records(
-                        image, offs_d, lens_d, props.actual_size,
-                        start + props.offset).cpu().numpy()
-                    window_ids = self._segment_ids_vectorized(
-                        field_bytes, lengths, seg_field)
-                    file_ids.add(window_ids)
-                    if levels and not matched:
-                        hits = np.nonzero(window_ids.mask_of(level_ids))[0]
-                        matched = bool(len(hits))
-                        keep[:hits[0] if matched else n] = False
-                    if segment_filter is not None:
-                        keep &= window_ids.mask_of(segment_filter)
-                self._decode_window(result, image, offs_d, lengths, keep,
-                                    window_ids, n_total, start_record_id)
-                n_total += n
+        for base, image, offs_d, lengths, window_ids in self._frame(
+                f, size, header, footer, window_bytes, file_ids):
+            n = offs_d.numel()
+            if keep_starts:
+                starts.append(base + offs_d.cpu().numpy() - 4)
+            keep = np.ones(n, dtype=bool)
+            if window_ids is not None:
+                if levels and not matched:
+                    hits = np.nonzero(window_ids.mask_of(level_ids))[0]
+                    matched = bool(len(hits))
+                    keep[:hits[0] if matched else n] = False
+                if segment_filter is not None:
+                    keep &= window_ids.mask_of(segment_filter)
+            self._decode_window(result, image, offs_d, lengths, keep,
+                                window_ids, n_total, start_record_id)
+            n_total += n
         result.records_framed = n_total
-        shift_from = (self._index_shift_from(file_ids, before_split, n_total)
-                      if p.file_start_offset > 0 and size > split_bytes
-                      else None)
-        if shift_from is not None:
-            for s in result.segments:
-                s.record_ids = s.record_ids + (s.positions >= shift_from)
         if levels and seg_field is not None:
             level_cols, _ = _segment_level_ids_vectorized(
                 file_ids.segment_ids(), levels, prefix, file_id,
                 start_record_id)
-            if shift_from is not None:
-                rid = level_cols.coded["root_rid"]
-                rid += (rid >= start_record_id + shift_from)
             for s in result.segments:
                 s.seg_level_ids = level_cols.take(s.positions)
-        return result
+        starts = (np.concatenate(starts) if starts
+                  else np.zeros(0, dtype=np.int64))
+        return result, file_ids, starts
+
+    def _frame(self, f, size: int, header: int, footer: int,
+               window_bytes: Optional[int], file_ids: _FileSegmentIds):
+        """`frame_windows` over `size` bytes of `f`, yielding (base,
+        image, offsets on the device, host lengths, the window's segment
+        ids or None) per window; the ids (their id field packed on the
+        device, decoded on the host) are also added to `file_ids`."""
+        p = self.params
+        seg_field = resolve_segment_id_field(p, self.copybook)
+        for base, image, offs_d, lens_d in frame_windows(
+                f, size, self.device, p.is_rdw_big_endian,
+                p.rdw_length_adjustment, header, footer, window_bytes):
+            lengths = lens_d.cpu().numpy()
+            window_ids = None
+            if seg_field is not None:
+                with annotate("cobrix.segment_ids", self.device):
+                    props = seg_field.binary_properties
+                    field_bytes = pack_records(
+                        image, offs_d, lens_d, props.actual_size,
+                        p.start_offset + props.offset).cpu().numpy()
+                    window_ids = self._segment_ids_vectorized(
+                        field_bytes, lengths, seg_field)
+                file_ids.add(window_ids)
+            yield base, image, offs_d, lengths, window_ids
+
+    # -- the sparse index ---------------------------------------------------
+
+    def _index_split_config(self):
+        """Validated split options and the root-boundary config
+        (reference VarLenNestedReader.generateIndex :125-180: splits align
+        to root-segment boundaries whenever Seg_Id generation is
+        requested, so per-shard Seg_Id accumulators restart exactly at a
+        root). The port takes no parent-child segment map."""
+        params = self.params
+        if params.input_split_records is not None and not (
+                1 <= params.input_split_records <= 1_000_000_000):
+            raise ValueError(
+                "Invalid input split size. The requested number of records "
+                f"is {params.input_split_records}.")
+        if params.input_split_size_mb is not None and not (
+                1 <= params.input_split_size_mb <= 2000):
+            raise ValueError(
+                f"Invalid input split size of {params.input_split_size_mb} MB.")
+        seg = params.multisegment
+        is_hierarchical = bool(seg and seg.segment_level_ids)
+        root_segment_id = seg.segment_level_ids[0] if is_hierarchical else ""
+        return is_hierarchical, root_segment_id
+
+    def _bytes_per_entry(self) -> float:
+        return ((self.params.input_split_size_mb
+                 or DEFAULT_INDEX_ENTRY_SIZE_MB) * MEGABYTE)
+
+    def _index_applies(self, size: int) -> bool:
+        """Whether the JAX package reads a file of `size` bytes in
+        sparse-index shards (``index.file_index_entries`` returns
+        entries)."""
+        p = self.params
+        explicit = (p.input_split_records is not None
+                    or p.input_split_size_mb is not None)
+        if not p.is_index_generation_needed or size == 0 \
+                or not (explicit or size > self._bytes_per_entry()):
+            return False
+        self._index_split_config()  # validates the split options
+        return True
+
+    def _root_indices(self, segment_ids: SegmentIds) -> Optional[np.ndarray]:
+        """Positions of the records a shard may start at (the roots),
+        or None when any record may start one."""
+        is_hierarchical, root_segment_id = self._index_split_config()
+        if not is_hierarchical or resolve_segment_id_field(
+                self.params, self.copybook) is None:
+            return None
+        return np.nonzero(segment_ids.mask_of(
+            set(root_segment_id.split(","))))[0]
+
+    def generate_index(self, path: str,
+                       file_id: int) -> List[SparseIndexEntry]:
+        """The sparse index of one file (the JAX package's
+        ``generate_index_fast``): the scan kernel frames the file window
+        by window, the record header offsets (and, for root-aligned
+        splits, the segment ids) come to the host, and
+        `index.sparse_index_entries` applies the reference's entry
+        rule."""
+        p = self.params
+        self._index_split_config()
+        starts: List[np.ndarray] = []
+        file_ids = _FileSegmentIds()
+        with open(path, "rb") as f:
+            for base, _, offs_d, _, _ in self._frame(
+                    f, os.path.getsize(path), p.file_start_offset,
+                    p.file_end_offset, None, file_ids):
+                starts.append(base + offs_d.cpu().numpy() - 4)
+        starts = (np.concatenate(starts) if starts
+                  else np.zeros(0, dtype=np.int64))
+        return sparse_index_entries(
+            starts, file_id, p, self._root_indices(file_ids.segment_ids()),
+            base=1 if p.file_start_offset > 0 else 0,
+            bytes_per_entry=self._bytes_per_entry())
 
     def _decode_window(self, result: FileResult, image: torch.Tensor,
                        offs_d: torch.Tensor, lengths: np.ndarray,
@@ -347,24 +495,3 @@ class VarLenReader:
                 result.segments.append(SegmentBatch(
                     decoded, active or None, file_pos,
                     start_record_id + file_pos))
-
-    def _index_shift_from(self, file_ids: _FileSegmentIds,
-                          before_split: int, n: int) -> Optional[int]:
-        """The first record of the JAX package's second sparse-index
-        shard (``generate_index_fast``'s first split, 100 MB entries, at a
-        root when Seg_Id levels are set), whose record ids and later ones
-        count the file header as one record; None when the file is one
-        shard."""
-        seg = self.params.multisegment
-        split_at: Optional[int] = before_split
-        if seg and seg.segment_level_ids \
-                and resolve_segment_id_field(self.params,
-                                             self.copybook) is not None:
-            roots = np.nonzero(file_ids.segment_ids().mask_of(
-                set(seg.segment_level_ids[0].split(","))))[0]
-            k = int(np.searchsorted(roots, before_split, side="left"))
-            split_at = int(roots[k]) if k < len(roots) else None
-        last_candidate = n - 1 if self.params.file_end_offset > 0 else n - 2
-        if split_at is None or split_at > last_candidate:
-            return None
-        return split_at

@@ -107,7 +107,7 @@ def test_read_cobol_names_every_option_it_does_not_take(tmp_path):
     path = tmp_path / "one.dat"
     path.write_bytes(pgen.generate_exp1(2, seed=1).tobytes())
     for option in ("record_format", "generate_record_id", "segment_field",
-                   "file_start_offset", "pipeline_workers"):
+                   "file_start_offset", "hosts"):
         with pytest.raises(ValueError, match=option):
             cobrix_tpu_torch.read_cobol(
                 str(path), copybook_contents=pgen.EXP1_COPYBOOK,

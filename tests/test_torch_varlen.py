@@ -262,7 +262,7 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
     ("record_length_field", "SEGMENT-ID"),
     ("is_text", "true"),
     ("record_end_offset", "2"),
-    ("input_split_records", "10"),
+    ("variable_size_occurs", "true"),
 ])
 def test_options_this_slice_does_not_take_are_refused(option, value,
                                                       paths):
