@@ -69,6 +69,33 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    streams the work ran on and the copies' overlap with kernels, beside
    the executor's report (overlap factor, peak queue).
 
+10. the device-resident query path (``cobrix_tpu_torch.parallel``), the
+   JAX package's three bench legs at their published widths: (a) the
+   block query: the exp3 file's 'C' records (``STRATEGY-DETAIL OCCURS
+   2000`` of ``NUM1 PIC 9(7) COMP`` and ``NUM2 PIC 9(7) COMP-3``) framed
+   on the host, then ``DeviceAggregator.put`` / ``submit`` / ``fetch`` in
+   blocks of about 32 MB, for NUM1 and NUM2 and then for NUM1 alone
+   (byte-projected): h2d, device-compute and end-to-end MB/s, the
+   projection ratio and the bytes copied back; (b) the on-HBM pipeline:
+   one copy of the whole image to the card, then ``build_wide_pipeline``
+   (the scan's capped mode, the pack, the column gather), ``submit`` and
+   ``fetch``: device-pipeline and end-to-end MB/s and the peak device
+   memory; (c) ``ShardedColumnarDecoder.decode_stats`` on 1,000,000 exp1
+   records in one device-resident batch: device-compute MB/s. The
+   aggregate kernel is held against its plain version on the card at the
+   shapes of (a) and (b) (counts, min and max exact, sums to rtol
+   1e-12); (a) equals the sums, counts, min and max of the exp3 read's
+   planes (phase 4), (b) equals (a) (sums to rtol 1e-9), the capped scan
+   equals the full scan's wide records and, on the whole image, its
+   plain version (offsets, lengths and count, exact), the pack at the
+   pipeline's shapes equals its plain version, ``decode_stats`` equals
+   the valid planes of the exp1 read (phase 3), one ``submit`` of (b)
+   runs under ``torch.cuda.set_sync_debug_mode("error")`` and a traced
+   ``submit`` and ``fetch`` make no HtoD and one DtoH copy (a trace with
+   no device events fails). The aggregate kernel is timed at both
+   shapes beside its plain version and its byte bound, and the
+   projection's gather after the pack alone.
+
 Every failure exits non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits 2 and prints no result.
@@ -108,7 +135,14 @@ RDW_OPTIONS = {
     "segment_id_prefix": "SMOKE", "generate_record_id": "true",
     "redefine-segment-id-map:0": "STATIC-DETAILS => C",
     "redefine-segment-id-map:1": "CONTACTS => P"}
-KERNELS = ("fused_decode", "rdw_scan", "pack_records")
+# the kernels of the reads, and the query path's aggregate
+READ_KERNELS = ("fused_decode", "rdw_scan", "pack_records")
+KERNELS = READ_KERNELS + ("aggregate",)
+AGG_SOURCE = "cobrix_tpu_torch/csrc/aggregate.cu"
+# the reduction body of DeviceAggregator._build the aggregate kernel replaces
+AGG_REPLACES = "cobrix_tpu/parallel/query.py:123"
+# the query path's exp3 fields (bench.py run_device_query)
+QUERY_FIELDS = ("NUM1", "NUM2")
 
 
 class SmokeFailure(Exception):
@@ -262,6 +296,14 @@ class Smoke:
             raise SmokeFailure(f"{what}: kernel and plain version differ "
                                f"at {int((a != b).sum())} places")
 
+    def same_on_card(self, a, b, what, kernel):
+        """`same` for large tensors: equal on their device, else copied
+        back and compared by `same`, which raises."""
+        if (a.dtype == b.dtype and a.shape == b.shape
+                and self.torch.equal(a, b)):
+            return
+        self.same(a, b, what, kernel)
+
     # -- phases ------------------------------------------------------------
 
     def phase_env(self):
@@ -389,6 +431,7 @@ class Smoke:
                                       f"chunk {bi} column {c.name} {key}")
         log(f"[main] {n_chunks} chunks x {len(fused)} fused groups: kernel "
             f"== plain on the same bytes, exact")
+        self.exp1_valid = self._valid_counts(data.batches, self.n_exp1)
         self.exp1_chunk = data.batches[0].data
 
         # rows against a CPU decode of the same bytes
@@ -593,6 +636,10 @@ class Smoke:
                   and np.array_equal(np.concatenate(lens), walk[1]),
                   f"{kind}: device framing differs from the host walk")
             self._check_prefix(kind, cb, data, raw, walk)
+            if kind == "exp3":
+                self.exp3_planes = self._plane_stats([
+                    seg.batch for seg in data.results[0].segments
+                    if seg.active == "STATIC_DETAILS"], QUERY_FIELDS)
             del data, raw
         log(f"[rdw] framing == host walk; planes and rows of the first "
             f"records == device='cpu' read")
@@ -1155,7 +1202,7 @@ class Smoke:
                     check(v > 0, f"{k} never launched on the pipelined "
                           f"{kind} read")
                 if kind != "exp1":
-                    check(set(pipe2["launches"]) == set(KERNELS),
+                    check(set(pipe2["launches"]) == set(READ_KERNELS),
                           f"{kind}: a kernel of the RDW path never "
                           f"launched: {pipe2['launches']}")
             log(f"[pipeline] {self.card}: {kind} MB/s in turns (workers 0, "
@@ -1289,6 +1336,447 @@ class Smoke:
         self.pipeline["trace"] = trace
         log(f"[pipeline] {self.card}: traced exp1 read: {json.dumps(trace)}")
 
+    # -- the device-resident query path -------------------------------------
+
+    def _valid_counts(self, batches, limit):
+        """decode_stats' dict from the host planes of a read's batches,
+        over their first `limit` records: each group's valid values
+        (JAX keys, a later group of one codec and width overwriting an
+        earlier one's entry) and their total."""
+        from cobrix_tpu_torch.reader.columnar import (_FLOAT_CODECS,
+                                                      _NUMERIC_CODECS)
+
+        groups = batches[0].decoder.kernel_groups
+        per_group, total = {}, 0
+        for g in groups:
+            if g.codec not in _NUMERIC_CODECS + _FLOAT_CODECS:
+                continue
+            count, first = 0, 0
+            for b in batches:
+                rows = max(0, min(b.n_records, limit - first))
+                first += b.n_records
+                for c in g.columns:
+                    count += int(b.column_arrays(c.index)["valid"][:rows]
+                                 .sum())
+            per_group[f"{g.codec.value}_w{g.width}"] = count
+            total += count
+        return {"records": limit, "valid_values": total, **per_group}
+
+    def _plane_stats(self, batches, names):
+        """Per field: count, sum, min and max of the valid values of the
+        host planes of a read's batches (integral fields: exact)."""
+        np = self.np
+        out = {}
+        for name in names:
+            count, total, lo, hi = 0, 0, None, None
+            for b in batches:
+                for c in b.decoder.plan.columns:
+                    if c.name != name:
+                        continue
+                    arr = b.column_arrays(c.index)
+                    v = arr["values"][arr["valid"]].astype(np.int64)
+                    if not v.size:
+                        continue
+                    count += int(v.size)
+                    total += int(v.sum())
+                    lo = int(v.min()) if lo is None else min(lo, int(v.min()))
+                    hi = int(v.max()) if hi is None else max(hi, int(v.max()))
+            out[name] = dict(count=count, sum=total, min=lo, max=hi)
+        return out
+
+    def _same_stats(self, a, b, what, rtol):
+        """Counts, min and max equal, sums to `rtol`."""
+        check(set(a) == set(b), f"{what}: fields {set(a)} vs {set(b)}")
+        for name in a:
+            x, y = a[name], b[name]
+            for key in ("count", "min", "max"):
+                check(x[key] == y[key],
+                      f"{what}: {name} {key} {x[key]} vs {y[key]}")
+            check((x["sum"] is None) == (y["sum"] is None)
+                  and (x["sum"] is None or abs(x["sum"] - y["sum"])
+                       <= rtol * abs(y["sum"])),
+                  f"{what}: {name} sum {x['sum']} vs {y['sum']}")
+
+    def _check_aggregate(self, agg, x, n, what):
+        """The aggregate kernel against aggregate_plain on the card, on
+        the planes the path decodes: counts, min and max exact, sums to
+        rtol 1e-12."""
+        np, torch = self.np, self.torch
+        from cobrix_tpu_torch.ops import aggregate as ag
+
+        dp = agg.decoder.decode_planes(x)
+        a = ag.aggregate(dp.planes, agg.spec, n,
+                         ag.new_stats(agg.spec.n_fields, x.device))
+        b = ag.aggregate_plain(dp.planes, agg.spec, n,
+                               ag.new_stats(agg.spec.n_fields, x.device))
+        ha, hb = (ag.read_stats(s.buffer.cpu().numpy(), agg.spec.n_fields)
+                  for s in (a, b))
+        for k, key in ((1, "counts"), (2, "mins"), (3, "maxs")):
+            self.same(ha[k], hb[k], f"{what} aggregate {key}", "aggregate")
+        err = float(np.max(np.abs(ha[0] - hb[0]))) if len(ha[0]) else 0.0
+        self.max_err["aggregate"] = max(self.max_err["aggregate"], err)
+        check(np.allclose(ha[0], hb[0], rtol=1e-12, atol=0),
+              f"{what}: aggregate sums differ from the plain version by "
+              f"{err}")
+
+    def _agg_bytes(self, agg, n):
+        """Bytes the aggregate must move for `n` live rows: each fused
+        column's value (and lo and sign, dots), its valid flag, and the
+        per-field outputs."""
+        from cobrix_tpu_torch.ops import aggregate as ag
+
+        size = {ag.KIND_I32: 4, ag.KIND_I64: 8, ag.KIND_WIDE: 17}
+        per_row = sum(size[int(d[ag._D_KIND])] + 1
+                      + (4 if d[ag._D_DOTS] >= 0 else 0)
+                      for d in agg.spec.desc)
+        return n * per_row + 28 * agg.spec.n_fields
+
+    def _time_aggregate(self, agg, x, n, what):
+        """The aggregate kernel at one main-path shape: `ms` (events around
+        a wrapper call on an idle stream), `device_ms` (stream held busy
+        first), the plain version, the byte bound."""
+        from cobrix_tpu_torch.ops import aggregate as ag
+
+        dp = agg.decoder.decode_planes(x)
+        F = agg.spec.n_fields
+
+        def kernel():
+            ag.aggregate(dp.planes, agg.spec, n, ag.new_stats(F, x.device))
+
+        def plain():
+            ag.aggregate_plain(dp.planes, agg.spec, n,
+                               ag.new_stats(F, x.device))
+
+        live = int(n)
+        row = dict(shape=what, rows=int(x.shape[0]), live=live,
+                   columns=agg.spec.n_cols, fields=F,
+                   ms=self._time(kernel, 20),
+                   device_ms=self._time(kernel, 20, busy=True),
+                   plain_ms=self._time(plain, 3),
+                   bound_ms=self._agg_bytes(agg, live) / HBM_BYTES_PER_S
+                   * 1e3, library_ms=None)
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        return row
+
+    def phase_query(self):
+        """Phase 10: the device-resident query path (module docstring)."""
+        np, torch = self.np, self.torch
+        from cobrix_tpu_torch.api import parse_options
+        from cobrix_tpu_torch.ops import aggregate as ag
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+        from cobrix_tpu_torch.parallel import (DeviceAggregator,
+                                               ShardedColumnarDecoder,
+                                               merge_aggregates)
+        from cobrix_tpu_torch.reader.var_len_reader import VarLenReader
+        from cobrix_tpu_torch import parse_copybook
+        from cobrix_tpu_torch.testing.generators import (EXP1_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                    "pack_records": df.pack_records, "aggregate": ag.aggregate}
+
+        def reset():
+            self.sync()
+            for fn in counters.values():
+                fn.launches = 0
+
+        def launches():
+            return {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+
+        self.query = {}
+        raw = self.rdw_walk["exp3"][0]
+        size = len(raw)
+        mb = size / 1e6
+        reader = VarLenReader(EXP3_COPYBOOK, parse_options(RDW_OPTIONS),
+                              device=self.device)
+        agg = DeviceAggregator(reader.copybook, columns=list(QUERY_FIELDS),
+                               active_segment="STATIC_DETAILS",
+                               device=self.device)
+        rs = agg.record_extent
+        block = (32 if self.rehearsal else
+                 max(512, (32 * 1024 * 1024 // rs + 255) // 256 * 256))
+        buf = np.frombuffer(raw, dtype=np.uint8)
+
+        def frame_and_pack():
+            """The host side of the block query: a sequential walk of the
+            headers, then the wide 'C' records copied into blocks of
+            [block, rs] (zero past a record's end)."""
+            offsets, lengths = host_walk(raw)
+            wide = [(o, min(ln, rs)) for o, ln in zip(offsets, lengths)
+                    if ln >= 1000]
+            mats = []
+            for i in range(0, len(wide), block):
+                part = wide[i:i + block]
+                mat = np.zeros((len(part), rs), dtype=np.uint8)
+                for row, (o, ln) in zip(mat, part):
+                    row[:ln] = buf[o:o + ln]
+                mats.append(mat)
+            return mats
+
+        # (a) the block query: host framing, put / submit / fetch
+        t0 = time.perf_counter()
+        mats = frame_and_pack()
+        pack_s = time.perf_counter() - t0
+        x, n = agg.put(mats[0], block=block)
+        self._check_aggregate(agg, x, n, "exp3 block")
+        agg.aggregate_device(x, n)  # warm-up
+        c_bytes = sum(m.nbytes for m in mats)
+        h2d_s = comp_s = 0.0
+        for m in mats:
+            t0 = time.perf_counter()
+            x, n = agg.put(m, block=block)
+            self.sync()
+            h2d_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            agg.aggregate_device(x, n)
+            comp_s += time.perf_counter() - t0
+        times = []
+        for _ in range(2):
+            reset()
+            t0 = time.perf_counter()
+            pend = []
+            for m in frame_and_pack():
+                pend.append(agg.submit(*agg.put(m, block=block)))
+            parts = [agg.fetch(p) for p in pend]
+            times.append(time.perf_counter() - t0)
+            self.launches["query_blocks"] = launches()
+        blocks_res = merge_aggregates(parts)
+        d2h_bytes = sum(p.buffer.numel() for p in pend)
+        want = self.exp3_planes
+        for name in QUERY_FIELDS:
+            r, w = blocks_res[name], want[name]
+            check(r["count"] == w["count"] and r["min"] == w["min"]
+                  and r["max"] == w["max"]
+                  and abs(r["sum"] - w["sum"]) <= 1e-12 * abs(w["sum"]),
+                  f"block query {name} {r} != the sequential read's planes "
+                  f"{w}")
+        # NUM1 alone, byte-projected
+        agg1 = DeviceAggregator(reader.copybook, columns=["NUM1"],
+                                active_segment="STATIC_DETAILS",
+                                device=self.device)
+        check(agg1.gather_index is not None, "NUM1 alone is not projected")
+        x1, n1 = agg1.put(mats[0], block=block)
+        self._check_aggregate(agg1, x1, n1, "exp3 NUM1 block")
+        agg1.aggregate_device(x1, n1)
+        times1 = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pend1 = [agg1.submit(*agg1.put(m, block=block)) for m in mats]
+            parts1 = [agg1.fetch(p) for p in pend1]
+            times1.append(time.perf_counter() - t0)
+        num1 = merge_aggregates(parts1)["NUM1"]
+        self._same_stats({"NUM1": num1}, {"NUM1": blocks_res["NUM1"]},
+                         "NUM1 alone vs NUM1 and NUM2", 1e-12)
+        blocks = dict(
+            file_bytes=size, wide_records=sum(m.shape[0] for m in mats),
+            blocks=len(mats), block_records=block, record_extent=rs,
+            host_frame_pack_s=pack_s, h2d_MBps=c_bytes / 1e6 / h2d_s,
+            device_compute_MBps=c_bytes / 1e6 / comp_s,
+            end_to_end_MBps=mb / min(times), end_to_end_s=times,
+            d2h_bytes=d2h_bytes,
+            num1_projected=dict(
+                projection_ratio=rs / len(agg1.gather_index),
+                end_to_end_MBps=mb / min(times1), end_to_end_s=times1),
+            launches=self.launches["query_blocks"])
+        self.query["blocks"] = blocks
+        log(f"[query] {self.card}: (a) exp3 block query: "
+            f"{json.dumps(blocks)}")
+        log(f"[query] block query == the sequential read's planes "
+            f"(counts, min, max exact; sums to rtol 1e-12)")
+
+        # (b) the on-HBM pipeline: one H2D of the image, then frame, select,
+        # pack, decode and aggregate on the card, one D2H
+        cap = -(-int(size / 16072 * 1.25 + 8) // 256) * 256
+        fn = df.build_wide_pipeline(rs, cap=cap, columns=agg.gather_index)
+        host = torch.from_numpy(buf.copy())
+        self.sync()
+        t0 = time.perf_counter()
+        image = (host if self.rehearsal
+                 else host.pin_memory().to(self.device, non_blocking=True))
+        self.sync()
+        h2d_s = time.perf_counter() - t0
+        del host
+        agg.fetch(agg.submit(*fn(image)))  # warm-up
+        # the scan's capped mode against the full scan on the card
+        offs_f, lens_f, _ = df.scan_window(image, 0, True)
+        header = df._header_lengths(image, False, 0)[offs_f - 4]
+        wide = torch.nonzero(header >= 1000).flatten()
+        o, ln, live = df.scan_capped(image, 1000, cap)
+        k = int(live)
+        check(k == min(cap, int(wide.numel())), "capped scan count")
+        self.same(o[:k], offs_f[wide[:k]], "capped scan offsets", "rdw_scan")
+        self.same(ln[:k], lens_f[wide[:k]], "capped scan lengths",
+                  "rdw_scan")
+        check(not bool(o[k:].any()) and not bool(ln[k:].any()),
+              "capped scan: rows past the count are not zero")
+        del offs_f, lens_f, header, wide
+        # ... and against its plain version on the same whole image:
+        # offsets, lengths and the live count, exact (one plain call, its
+        # doubling over every position holds some 40 GB for a while)
+        self.sync()
+        t0 = time.perf_counter()
+        po, pln, plive = df.scan_capped_plain(image, 1000, cap)
+        self.sync()
+        scan_plain_s = time.perf_counter() - t0
+        self.same(o, po, "capped scan offsets vs plain", "rdw_scan")
+        self.same(ln, pln, "capped scan lengths vs plain", "rdw_scan")
+        self.same(live, plive, "capped scan count vs plain", "rdw_scan")
+        del o, ln, po, pln, plive
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        self._check_aggregate(agg, *fn(image), "exp3 on-HBM pipeline")
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            reset()
+            t0 = time.perf_counter()
+            res = agg.fetch(agg.submit(*fn(image)))
+            times.append(time.perf_counter() - t0)
+            self.launches["query_pipeline"] = launches()
+        peak = (None if self.rehearsal else
+                torch.cuda.max_memory_allocated())
+        self._same_stats(res, blocks_res, "on-HBM pipeline vs block query",
+                         1e-9)
+        # no host round trip between the H2D and fetch
+        if not self.rehearsal:
+            self.sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tree = agg.submit(*fn(image))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self._same_stats(agg.fetch(tree), res, "sync-debug run", 1e-9)
+        # one run traced: no copy to the card, one copy back (the fetch)
+        from cobrix_tpu_torch.profiling import TRACE_FILE, profile_trace
+
+        tdir = os.path.join(self.tmp, "query_trace")
+        self.sync()
+        with profile_trace(tdir):
+            agg.fetch(agg.submit(*fn(image)))
+            self.sync()
+        with open(os.path.join(tdir, TRACE_FILE)) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") in
+                      ("kernel", "gpu_memcpy", "gpu_memset")]
+        dtoh = sum(1 for e in events if e["name"].startswith("Memcpy DtoH"))
+        htod = sum(1 for e in events if e["name"].startswith("Memcpy HtoD"))
+        # the CPU rehearsal's trace holds no device events; on the card a
+        # trace without them cannot show the one copy back, and fails
+        check(bool(events) or self.rehearsal, "the traced run of the "
+              "on-HBM pipeline holds no kernel or copy events")
+        if events:
+            check(dtoh == 1 and htod == 0, f"a traced run of the on-HBM "
+                  f"pipeline made {htod} HtoD and {dtoh} DtoH copies")
+        names = events
+        pipeline = dict(
+            file_bytes=size, cap=cap, h2d_MBps=mb / h2d_s,
+            device_pipeline_MBps=mb / min(times), device_pipeline_s=times,
+            end_to_end_MBps=mb / (h2d_s + min(times)),
+            wide_records=res["NUM1"]["count"] // 2000,
+            peak_device_bytes=peak,
+            traced_run_copies=dict(htod=htod, dtoh=dtoh) if names else None,
+            launches=self.launches["query_pipeline"],
+            sync_debug="error" if not self.rehearsal else None)
+        # the NUM1 projection's gather after the pack, timed alone
+        fn1 = df.build_wide_pipeline(agg1.record_extent, cap=cap,
+                                     columns=agg1.gather_index)
+        r1 = agg1.fetch(agg1.submit(*fn1(image)))
+        self._same_stats(r1, {"NUM1": res["NUM1"]}, "projected pipeline",
+                         1e-9)
+        o, ln, live = df.scan_capped(image, 1000, cap)
+        pack_extent = int(agg1.gather_index.max()) + 1
+        # the pack against its plain version at the pipeline's shapes: the
+        # whole extent and the projection's, exact
+        for width in (rs, pack_extent):
+            self.same_on_card(df.pack_records(image, o, ln, width),
+                              df.pack_records_plain(image, o, ln, width),
+                              f"pipeline pack at extent {width}",
+                              "pack_records")
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        packed = df.pack_records(image, o, ln, pack_extent)
+        cols = torch.from_numpy(agg1.gather_index).to(self.device)
+        pipeline["num1_projection"] = dict(
+            width=int(cols.numel()), pack_extent=pack_extent,
+            pack_ms=self._time(lambda: df.pack_records(image, o, ln,
+                                                       pack_extent), 5),
+            gather_ms=self._time(lambda: packed.index_select(1, cols), 5),
+            pipeline_ms=self._time(lambda: agg1.submit(*fn1(image)), 3))
+        del packed
+        # the capped scan at the whole image and at a 64 MiB prefix
+        n_chain = len(self.rdw_walk["exp3"][1][0])
+        cut = image[:min(image.numel(), 64 << 20)]
+        pipeline["capped_scan"] = dict(
+            image_bytes=int(image.numel()), records_on_chain=n_chain,
+            kept=k, ms=self._time(lambda: df.scan_capped(image, 1000, cap),
+                                  5),
+            bound_ms=(32 * (n_chain + 1) + 16 * k + 4)
+            / HBM_BYTES_PER_S * 1e3,
+            prefix_bytes=int(cut.numel()),
+            prefix_ms=self._time(lambda: df.scan_capped(cut, 1000, cap), 5),
+            prefix_plain_ms=self._time(
+                lambda: df.scan_capped_plain(cut, 1000, cap), 1),
+            plain_ms_one_call=scan_plain_s * 1e3,
+            library_ms=None)
+        pipeline["pack"] = dict(
+            rows=cap, extent=rs,
+            ms=self._time(lambda: df.pack_records(image, o, ln, rs), 5))
+        self.query["pipeline"] = pipeline
+        log(f"[query] {self.card}: (b) exp3 on-HBM pipeline: "
+            f"{json.dumps(pipeline)}")
+        log("[query] on-HBM pipeline == block query (counts, min, max "
+            "exact; sums to rtol 1e-9); capped scan and pipeline pack == "
+            "their plain versions (exact)" + ("" if self.rehearsal else
+                                           "; submit ran under sync debug "
+                                           "'error'; a traced run: no HtoD, "
+                                           "one DtoH copy"))
+        # the aggregate kernel at the two shapes of the path
+        x, n = agg.put(mats[0], block=block)
+        px, plive = fn(image)
+        self.query["aggregate"] = [
+            self._time_aggregate(agg, x, n, "exp3 block"),
+            self._time_aggregate(agg, px, plive, "exp3 on-HBM pipeline")]
+        for row in self.query["aggregate"]:
+            log(f"[query] {self.card}: aggregate {json.dumps(row)}")
+        del image, px, x, mats
+
+        # (c) exp1 decode_stats on a device-resident batch, whole
+        dec = ShardedColumnarDecoder(parse_copybook(EXP1_COPYBOOK),
+                                     device=self.device)
+        data = np.fromfile(self.exp1_path, dtype=np.uint8,
+                           count=self.n_exp1 * 1493).reshape(-1, 1493)
+        xs, ns = dec.put(data)
+        dec.decode_stats(xs, ns)  # warm-up
+        times = []
+        for _ in range(3):
+            reset()
+            t0 = time.perf_counter()
+            stats = dec.decode_stats(xs, ns)
+            times.append(time.perf_counter() - t0)
+            self.launches["query_stats"] = launches()
+        check(stats == self.exp1_valid, f"decode_stats {stats} != the "
+              f"valid planes of the read {self.exp1_valid}")
+        exp1 = dict(records=ns, bytes=int(data.nbytes), batches=1,
+                    device_compute_MBps=data.nbytes / 1e6 / min(times),
+                    seconds=times, valid_values=stats["valid_values"],
+                    launches=self.launches["query_stats"])
+        self.query["exp1_stats"] = exp1
+        log(f"[query] {self.card}: (c) exp1 decode_stats, one batch of "
+            f"{ns} records: {json.dumps(exp1)}")
+        log("[query] decode_stats == the valid planes of the exp1 read")
+        del xs, data
+        if not self.rehearsal:
+            for path, kernels in (("query_blocks", ("fused_decode",
+                                                    "aggregate")),
+                                  ("query_pipeline", KERNELS),
+                                  ("query_stats", ("fused_decode",))):
+                for k in kernels:
+                    check(self.launches[path].get(k, 0) > 0,
+                          f"{k} never launched on the {path} path")
+
     def run(self):
         try:
             self.phase_env()
@@ -1301,6 +1789,7 @@ class Smoke:
             self.phase_rdw_timings()
             self.phase_profile()
             self.phase_pipeline()
+            self.phase_query()
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -1331,6 +1820,20 @@ class Smoke:
                  plain_ms=pack["plain_ms"], bound_ms=pack["bound_ms"],
                  library_ms=pack["library_ms"], shapes=packs),
         ]
+        # the query path: the scan's capped mode and the pipeline's pack
+        # join their kernels' shapes; the aggregate's headline is the
+        # block query's shape
+        pipe = self.query["pipeline"]
+        entries[1]["shapes"] = scans + [dict(mode="capped",
+                                             **pipe["capped_scan"])]
+        entries[2]["shapes"] = packs + [dict(pack="on_hbm_pipeline",
+                                             **pipe["pack"])]
+        agg = self.query["aggregate"][0]
+        entries.append(dict(
+            name="aggregate", route="cuda", source=AGG_SOURCE,
+            replaces=AGG_REPLACES, ms=agg["ms"], device_ms=agg["device_ms"],
+            plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
+            library_ms=None, shapes=self.query["aggregate"]))
         for e in entries:
             e.update(launches=sum(by_path[e["name"]].values()),
                      launches_by_path=by_path[e["name"]],

@@ -77,12 +77,13 @@ _RDW_OPTIONS = frozenset((
     "segment_field", "segment_filter", "segment_id_root",
     "segment_id_prefix", "generate_record_id", "input_split_records",
     "input_split_size_mb", "enable_indexes"))
-# options of every read: the pipeline's, its supervision's and the
-# input's compression mode
+# options of every read: the pipeline's, its supervision's, the input's
+# compression mode and the column projection (`filter` and `use_stats`
+# are not taken yet)
 _READ_OPTIONS = frozenset((
     "pipeline_workers", "chunk_size_mb", "max_inflight_chunks",
     "shard_timeout_s", "scan_deadline_s", "shard_error_policy",
-    "shard_max_retries", "compression"))
+    "shard_max_retries", "compression", "select"))
 _RDW_OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
                         "redefine_segment_id_map")
 _FRAMING_OPTIONS = ("is_record_sequence", "is_xcom")
@@ -245,7 +246,9 @@ def parse_options(options: Dict[str, object],
             opts.get("shard_error_policy", "fail_fast")),
         shard_timeout_s=float(opts.get("shard_timeout_s", "") or 0.0),
         shard_max_retries=opts.get_int("shard_max_retries", 2),
-        scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0))
+        scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0),
+        select=tuple(s.strip() for s in opts.get("select", "").split(",")
+                     if s.strip()) or None)
     _validate(params)
     return params
 
@@ -400,9 +403,12 @@ def read_cobol(path=None,
     framed, and the RDW options (header endianness and adjustment, file
     and record offsets, segment field, filter, levels, prefix and
     redefine map, record ids, sparse-index splits) apply. Every read
-    takes `compression` and the pipeline's options (`pipeline_workers`,
+    takes `compression`, the pipeline's options (`pipeline_workers`,
     `chunk_size_mb`, `max_inflight_chunks`, `shard_error_policy`,
-    `shard_timeout_s`, `shard_max_retries`, `scan_deadline_s`)."""
+    `shard_timeout_s`, `shard_max_retries`, `scan_deadline_s`) and
+    `select` (comma-separated field or group names: only those leaves,
+    and the DEPENDING ON counters, are decoded; every other leaf is
+    None)."""
     params = parse_options(options, ebcdic_code_page,
                            schema_retention_policy, string_trimming_policy,
                            floating_point_format)
@@ -456,7 +462,7 @@ def read_cobol(path=None,
                          metrics, failures)
     else:
         cb = copybook_for_params(contents, params)
-        decoder = ColumnarDecoder(cb, device=device)
+        decoder = ColumnarDecoder(cb, select=params.select, device=device)
         if use_pipeline:
             batches, failures = pipelined_fixed_scan(
                 decoder, files, params, workers, metrics)

@@ -285,11 +285,16 @@ __global__ void rdw_chain(const Scan s, int64_t start,
 // output index. The lanes walk together (their reads are one broadcast)
 // through a 4 KB window of the tile in shared memory, which they reload
 // with 16-byte cp.async from the walk's position when a header leaves it.
+// The capped mode (build_wide_pipeline's): only the records whose header
+// length (adjustment included, before the clamp to the window) is at
+// least min_len count and are written, and a record whose output index
+// is cap or more is not written. min_len = 0 and cap < 0 keep every
+// record, as every header on the chain has a positive length.
 template <bool kWrite>
 __global__ void __launch_bounds__(32)
 rdw_walk(const Scan s, const int32_t* __restrict__ entry,
          int32_t* __restrict__ base, int64_t* __restrict__ offsets,
-         int64_t* __restrict__ lengths) {
+         int64_t* __restrict__ lengths, int64_t min_len, int64_t cap) {
   __shared__ uint4 window[kWalkWindow / 16];
   uint8_t* held = reinterpret_cast<uint8_t*>(window);
   const int64_t e = entry[blockIdx.x];
@@ -322,11 +327,15 @@ rdw_walk(const Scan s, const int32_t* __restrict__ entry,
     }
     const int64_t nx = link_at(s, held + (p - w0), p);
     if (nx < 0) break;
-    if (kWrite && lane == 0) {
-      offsets[out] = p + 4;
-      lengths[out] = nx - (p + 4);  // the header's length, clamped to L
+    if (min_len <= 0 ||
+        header_length(held + (p - w0), s.big_endian, s.adjustment) >= min_len) {
+      if (kWrite && cap >= 0 && out >= cap) break;  // the rest is dropped
+      if (kWrite && lane == 0) {
+        offsets[out] = p + 4;
+        lengths[out] = nx - (p + 4);  // the header's length, clamped to L
+      }
+      ++out;
     }
-    ++out;
     p = nx;
   }
   if (!kWrite && lane == 0) base[blockIdx.x] = static_cast<int32_t>(out);
@@ -336,7 +345,8 @@ rdw_walk(const Scan s, const int32_t* __restrict__ entry,
 // is the window's record count.
 __global__ void __launch_bounds__(kScanThreads)
 rdw_count_scan(int32_t* __restrict__ base, int64_t n_tiles,
-               int64_t* __restrict__ head) {
+               int64_t* __restrict__ head, int64_t cap,
+               int32_t* __restrict__ live) {
   __shared__ int32_t warp_sums[kScanThreads / 32];
   __shared__ int64_t carry;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -367,7 +377,11 @@ rdw_count_scan(int32_t* __restrict__ base, int64_t n_tiles,
     if (threadIdx.x == kScanThreads - 1) carry = before + v;
     __syncthreads();
   }
-  if (threadIdx.x == 0) head[H_RECORDS] = carry;
+  if (threadIdx.x == 0) {
+    head[H_RECORDS] = carry;
+    // the capped mode's live count, left on the device
+    if (live != nullptr) *live = static_cast<int32_t>(carry < cap ? carry : cap);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -636,32 +650,39 @@ extern "C" int cobrix_rdw_chain(const void* img, int64_t L, int64_t start,
 }
 
 // Pass 3's count: base[k] = the first output index of tile k's records,
-// head[0] = the window's record count.
+// head[0] = the window's record count. The capped mode counts only the
+// records whose header length is at least min_len and, where live is not
+// null, leaves min(count, cap) there as an int32 (min_len = 0, cap = -1,
+// live = null: every record).
 extern "C" int cobrix_rdw_count(const void* img, int64_t L, int32_t tile_log2,
                                 int32_t big_endian, int32_t adjustment,
                                 int32_t last_window, const void* entry,
-                                void* base, void* head, void* stream) {
+                                void* base, void* head, int64_t min_len,
+                                int64_t cap, void* live, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t tiles = tiles_of(L, tile_log2);
   if (tiles > 0) {
     rdw_walk<false><<<static_cast<unsigned>(tiles), 32, 0, st>>>(
         make_scan(img, L, tile_log2, big_endian, adjustment, last_window),
         static_cast<const int32_t*>(entry), static_cast<int32_t*>(base),
-        nullptr, nullptr);
+        nullptr, nullptr, min_len, cap);
     if (const int rc = static_cast<int>(cudaGetLastError())) return rc;
   }
   rdw_count_scan<<<1, kScanThreads, 0, st>>>(
-      static_cast<int32_t*>(base), tiles, static_cast<int64_t*>(head));
+      static_cast<int32_t*>(base), tiles, static_cast<int64_t*>(head), cap,
+      static_cast<int32_t*>(live));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Pass 3's records: payload offsets and lengths (int64, the count) of
-// every record on the chain.
+// every record on the chain; the capped mode writes those whose header
+// length is at least min_len, the first cap of them (cap < 0: all).
 extern "C" int cobrix_rdw_records(const void* img, int64_t L,
                                   int32_t tile_log2, int32_t big_endian,
                                   int32_t adjustment, int32_t last_window,
                                   const void* entry, const void* base,
                                   void* offsets, void* lengths,
+                                  int64_t min_len, int64_t cap,
                                   void* stream) {
   const int64_t tiles = tiles_of(L, tile_log2);
   if (tiles == 0) return 0;
@@ -670,7 +691,8 @@ extern "C" int cobrix_rdw_records(const void* img, int64_t L,
       make_scan(img, L, tile_log2, big_endian, adjustment, last_window),
       static_cast<const int32_t*>(entry),
       const_cast<int32_t*>(static_cast<const int32_t*>(base)),
-      static_cast<int64_t*>(offsets), static_cast<int64_t*>(lengths));
+      static_cast<int64_t*>(offsets), static_cast<int64_t*>(lengths),
+      min_len, cap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,17 +26,30 @@ windows, and the JAX package's `FramingError`, are the reader's
   ``pack_records_device`` expression in torch with the host pack's
   clamps.
 
-``build_wide_pipeline`` (frame, select and pack exp3's wide records in one
-device program for ``DeviceAggregator``) is not ported yet: it feeds the
-device reductions, which wait for their own slice.
+* `scan_capped(image, min_len, cap, ...)` frames a whole image with the
+  same kernels in their capped mode: only the records whose header
+  length is at least `min_len`, the first `cap` of them, into [cap]
+  offsets and lengths, and their count, min(total, cap), left on the
+  device as a 0-d int32 tensor; nothing is read back
+  (`scan_capped_plain` on the CPU). Its launches count in
+  ``scan_window.launches``: they are the scan kernel's.
+* `build_wide_pipeline(extent, cap, min_len, ...)` (the JAX package's)
+  composes it with `pack_records` and, for a byte projection
+  (`columns`), a torch column gather of the packed matrix: a file image
+  on the card in, the packed [cap, width] matrix and the live count out,
+  with no host round trip. `rdw_scan_device` and `pack_records_device`
+  keep the JAX signatures over `scan_window` and `pack_records`; like
+  the JAX scan, they stop quietly at a zero or invalid header, keeping
+  the records before it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ._build import count_launch
@@ -225,8 +238,9 @@ def _kernels():
         "exits": (lib.cobrix_rdw_exits, window + [p, p, p]),
         "chain": (lib.cobrix_rdw_chain,
                   [p, i64, i64, i32, i32, i32, i32, p, p, p, p]),
-        "count": (lib.cobrix_rdw_count, window + [p, p, p, p]),
-        "records": (lib.cobrix_rdw_records, window + [p, p, p, p, p]),
+        "count": (lib.cobrix_rdw_count, window + [p, p, p, i64, i64, p, p]),
+        "records": (lib.cobrix_rdw_records,
+                    window + [p, p, p, p, i64, i64, p]),
         "pack": (lib.cobrix_pack_records,
                  [p, i64, p, p, i64, i64, i64, p, i32, i64, i32, i32, i32,
                   i32, i32, p]),
@@ -289,9 +303,15 @@ class ScanPasses:
                      self.exit_table.data_ptr(), self.entry.data_ptr(),
                      self.head_d.data_ptr())
 
-    def count(self) -> None:
+    def count(self, min_len: int = 0, cap: int = -1,
+              live: Optional[torch.Tensor] = None) -> None:
+        """Count each tile's records; the capped mode (`min_len`, `cap`,
+        `live`: a 0-d int32 device tensor for min(count, cap)) counts only
+        the records whose header length is at least `min_len`."""
         self._launch("count", *self.window, self.entry.data_ptr(),
-                     self.base.data_ptr(), self.head_d.data_ptr())
+                     self.base.data_ptr(), self.head_d.data_ptr(),
+                     int(min_len), int(cap),
+                     live.data_ptr() if live is not None else None)
 
     def head(self) -> Tuple[int, WindowStatus, int]:
         n, code, at, length, hops = self.head_d.cpu().tolist()
@@ -301,10 +321,16 @@ class ScanPasses:
         offsets = torch.empty(n, dtype=torch.int64, device=self.device)
         lengths = torch.empty(n, dtype=torch.int64, device=self.device)
         if n:
-            self._launch("records", *self.window, self.entry.data_ptr(),
-                         self.base.data_ptr(), offsets.data_ptr(),
-                         lengths.data_ptr())
+            self.records_into(offsets, lengths)
         return offsets, lengths
+
+    def records_into(self, offsets: torch.Tensor, lengths: torch.Tensor,
+                     min_len: int = 0, cap: int = -1) -> None:
+        """Write the records' offsets and lengths (the capped mode: those
+        `count` counted, the first `cap`) into int64 device tensors."""
+        self._launch("records", *self.window, self.entry.data_ptr(),
+                     self.base.data_ptr(), offsets.data_ptr(),
+                     lengths.data_ptr(), int(min_len), int(cap))
 
 
 def scan_window(image: torch.Tensor, start: int = 0,
@@ -384,3 +410,147 @@ def pack_records(image: torch.Tensor, offsets: torch.Tensor,
 
 
 pack_records.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the on-HBM wide pipeline (the JAX package's build_wide_pipeline)
+# ---------------------------------------------------------------------------
+
+def _check_whole_image(image: torch.Tensor, what: str) -> None:
+    _check_image(image, what)
+    if image.numel() >= 2 ** 31 - 8:
+        raise ValueError(f"{what} frames images under 2 GiB, not "
+                         f"{image.numel()} bytes")
+
+
+def scan_capped_plain(image: torch.Tensor, min_len: int, cap: int,
+                      big_endian: bool = False, adjustment: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`scan_capped` in torch ops: the plain scan of the whole image,
+    then the records whose header length is at least `min_len`, the first
+    `cap` of them; rows past the count are offset 0, length 0."""
+    offs, lens, _ = scan_window_plain(image, 0, True, big_endian,
+                                      adjustment)
+    header = _header_lengths(image, big_endian, adjustment)[offs - 4]
+    keep = torch.nonzero(header >= min_len).flatten()
+    live = min(int(keep.numel()), cap)
+    keep = keep[:live]
+    offsets = torch.zeros(cap, dtype=torch.int64, device=image.device)
+    lengths = torch.zeros(cap, dtype=torch.int64, device=image.device)
+    offsets[:live] = offs[keep]
+    lengths[:live] = lens[keep]
+    return offsets, lengths, torch.tensor(live, dtype=torch.int32,
+                                          device=image.device)
+
+
+def scan_capped(image: torch.Tensor, min_len: int, cap: int,
+                big_endian: bool = False, adjustment: int = 0,
+                tile: int = SCAN_TILE
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Frame a whole file image (the last window, from 0) and keep the
+    records whose header length (adjustment included, before the clamp
+    to the image) is at least `min_len`, the first `cap` of them: [cap]
+    int64 payload offsets and clamped lengths (rows past the count: 0
+    and 0) and the count, min(total, cap), as a 0-d int32 tensor on the
+    image's device. A zero or invalid header ends the chain quietly. A
+    CUDA image runs the scan kernels' capped mode and reads nothing back;
+    a CPU image runs `scan_capped_plain`."""
+    _check_whole_image(image, "scan_capped")
+    tile = _check_tile(tile)
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"scan_capped takes cap >= 0, not {cap}")
+    if image.device.type == "cpu":
+        return scan_capped_plain(image, min_len, cap, big_endian, adjustment)
+    scan = ScanPasses(image, 0, True, big_endian, adjustment, tile)
+    live = torch.empty((), dtype=torch.int32, device=image.device)
+    offsets = torch.zeros(cap, dtype=torch.int64, device=image.device)
+    lengths = torch.zeros(cap, dtype=torch.int64, device=image.device)
+    scan.exits()
+    scan.chain()
+    scan.count(min_len, cap, live)
+    if cap:
+        scan.records_into(offsets, lengths, min_len, cap)
+    count_launch(scan_window)
+    return offsets, lengths, live
+
+
+def build_wide_pipeline(extent: int, cap: int, min_len: int = 1000,
+                        big_endian: bool = False, adjustment: int = 0,
+                        columns: Optional[Sequence[int]] = None):
+    """A function from a file image on the device ([L] uint8) to (the
+    packed [cap, width] uint8 matrix of the records whose header length
+    is at least `min_len`, zero rows past them; their count as a 0-d
+    int32 tensor), with no host round trip: `scan_capped`, then
+    `pack_records` at `extent` (truncated records clamped and zero
+    padded), then, for `columns` (the per-record byte indices of
+    ``DeviceAggregator.gather_index``), a torch gather of those columns
+    (width = len(columns); else extent). `cap` bounds the rows (records
+    past it are dropped). Feed the result to ``DeviceAggregator.submit``."""
+    cols = None if columns is None else np.asarray(columns, dtype=np.int64)
+    pack_extent = (int(extent) if cols is None or not len(cols)
+                   else int(cols.max()) + 1)
+    on_device = {}
+
+    def cols_on(device: torch.device) -> torch.Tensor:
+        t = on_device.get(str(device))
+        if t is None:
+            host = torch.from_numpy(cols.copy())
+            # a pinned, non-blocking copy: the first call waits for nothing
+            t = (host if device.type == "cpu"
+                 else host.pin_memory().to(device, non_blocking=True))
+            on_device[str(device)] = t
+        return t
+
+    def fn(image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        offsets, lengths, live = scan_capped(image, min_len, cap, big_endian,
+                                             adjustment)
+        packed = pack_records(image, offsets, lengths, pack_extent)
+        if cols is not None:
+            packed = packed.index_select(1, cols_on(image.device))
+        return packed, live
+
+    return fn
+
+
+def rdw_scan_device(data, big_endian: bool = False, rdw_adjustment: int = 0,
+                    device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """All RDW record (payload offset, length) pairs of a file image
+    (bytes or a uint8 array), framed on `device` (None: the CUDA device)
+    with `scan_window`; host int64 arrays, as ``native.rdw_scan`` gives
+    them for well-formed files. A zero or invalid header stops the scan
+    quietly, keeping the records before it (the JAX device scan)."""
+    from ..device import resolve_device
+
+    buf = (np.frombuffer(data, dtype=np.uint8)
+           if isinstance(data, (bytes, bytearray, memoryview))
+           else np.asarray(data, dtype=np.uint8))
+    image = torch.from_numpy(buf.copy()).to(resolve_device(device))
+    _check_whole_image(image, "rdw_scan_device")
+    offsets, lengths, _ = scan_window(image, 0, True, big_endian,
+                                      rdw_adjustment)
+    return offsets.cpu().numpy(), lengths.cpu().numpy()
+
+
+def pack_records_device(data, offsets, lengths, extent: int,
+                        device=None) -> torch.Tensor:
+    """The zero-padded [n, extent] record matrix gathered on `device`
+    (None: the CUDA device; a tensor image stays where it is) by
+    `pack_records`, with ``native.pack_records``'s clamps. Returns a
+    device tensor."""
+    from ..device import resolve_device
+
+    if isinstance(data, torch.Tensor):
+        image = data
+    else:
+        buf = (np.frombuffer(data, dtype=np.uint8)
+               if isinstance(data, (bytes, bytearray, memoryview))
+               else np.asarray(data, dtype=np.uint8))
+        image = torch.from_numpy(buf.copy()).to(resolve_device(device))
+    offs = torch.as_tensor(np.asarray(offsets, dtype=np.int64)
+                           if not isinstance(offsets, torch.Tensor)
+                           else offsets, dtype=torch.int64).to(image.device)
+    lens = torch.as_tensor(np.asarray(lengths, dtype=np.int64)
+                           if not isinstance(lengths, torch.Tensor)
+                           else lengths, dtype=torch.int64).to(image.device)
+    return pack_records(image, offs, lens, extent)

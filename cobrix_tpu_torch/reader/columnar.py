@@ -20,17 +20,27 @@ only the rows its truncation and host-fallback columns read
 (`DecodedBatch` ``host_rows``). `decoder_for_segment` builds a reader's
 decoder per (active segment, device) once.
 
+`decode_planes` is the counterpart of ``build_jax_decode_fn``: one
+batch on the device in, each kernel group's outputs as device tensors
+out, with nothing copied to the host; the device-resident query path
+(``parallel.query``, ``parallel.sharded``) reduces them where they lie.
+`_decode_device` runs it and then makes the batch's one copy back, so
+the two launch the same work. A decoder takes a column projection
+(`select`), as the JAX decoder does; `rebuild_groups` after a byte
+projection rewrote the plan's offsets builds a new fused layout, with
+its own device tables.
+
 Left out of the port: the numpy and native backends, the lazy planes,
 the in-place raw kernels and segment row masks of ``decode_raw``, the
-Arrow caches, the multi-device ``shard_map`` split, and the field-cost
-and observability hooks.
+Arrow caches, the multi-device ``shard_map`` split (ROADMAP A7), and the
+field-cost and observability hooks.
 """
 from __future__ import annotations
 
 import decimal as _decimal
 import threading
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -628,34 +638,59 @@ _DECODER_LOCK = threading.Lock()
 
 
 def decoder_for_segment(cache: Dict[str, "ColumnarDecoder"],
-                        copybook: Copybook, active: str,
-                        device) -> "ColumnarDecoder":
-    """The decoder of one active segment on `device`, built once per
-    `cache` (a reader's dict) under a lock, since pipeline workers share
-    a reader. Port of the JAX package's ``decoder_for_segment``, keyed by
-    the device in place of the backend; the port takes no column
-    projection (`select`)."""
+                        copybook: Copybook, active: str, device,
+                        select: Optional[Sequence[str]] = None
+                        ) -> "ColumnarDecoder":
+    """The decoder of one active segment on `device` with the column
+    projection `select`, built once per `cache` (a reader's dict) under a
+    lock, since pipeline workers share a reader. Port of the JAX
+    package's ``decoder_for_segment``, keyed by the device in place of
+    the backend."""
     device = resolve_device(device)
-    key = f"{active}|{device}"
+    key = f"{active}|{device}|{','.join(select) if select else ''}"
     with _DECODER_LOCK:
         dec = cache.get(key)
         if dec is None:
             dec = ColumnarDecoder(copybook, active_segment=active or None,
-                                  device=device)
+                                  select=select, device=device)
             cache[key] = dec
     return dec
 
 
+class DevicePlanes(NamedTuple):
+    """One batch's decoded outputs on the device (`decode_planes`).
+
+    `groups[gi]` is kernel group gi's output tuple, dtype for dtype the
+    tuple ``_run_group_jax`` gives in the JAX package, except that wide
+    hi/lo limbs are int64 bit patterns (uint64 in the JAX package) and
+    double outputs int64 bit patterns; host-fallback groups give ().
+    `planes` are the fused kernel's three column-major planes
+    ([rows, n]: a column's values are contiguous), None without fused
+    groups. Every output, and the `extras` copied in, lies in one device
+    `buffer`, at the byte `spans` of `entries` ((key, dtype, shape))."""
+    groups: List[tuple]
+    planes: Optional[Dict[str, torch.Tensor]]
+    buffer: torch.Tensor
+    entries: List[Tuple[object, torch.dtype, tuple]]
+    spans: List[Tuple[int, int]]
+
+
 class ColumnarDecoder:
     """Decodes [n, record_len] record batches on `device` (default: the
-    CUDA device; ``device="cpu"`` runs the plain versions, for tests)."""
+    CUDA device; ``device="cpu"`` runs the plain versions, for tests).
+    `select`: the column projection of ``compile_plan`` (only the named
+    fields, or the fields under a named group, and the DEPENDING ON
+    dependees are decoded; every other leaf is None)."""
 
     def __init__(self, copybook: Copybook,
                  active_segment: Optional[str] = None,
+                 select: Optional[Sequence[str]] = None,
                  device=None):
         self.device = resolve_device(device)
         self.copybook = copybook
-        self.plan: FieldPlan = cached_compile_plan(copybook, active_segment)
+        self.select = tuple(select) if select else None
+        self.plan: FieldPlan = cached_compile_plan(copybook, active_segment,
+                                                   select=self.select)
         self.options = DecodeOptions.from_copybook(copybook)
         self.non_standard_ascii_charset = (
             copybook.ascii_charset.lower().replace("_", "-")
@@ -665,7 +700,11 @@ class ColumnarDecoder:
 
     def rebuild_groups(self) -> None:
         """Build kernel groups, lookup maps and the fused kernel's layout
-        (and its device tables) from the plan columns."""
+        from the plan columns: at construction, and again after a byte
+        projection rewrote the columns' offsets (``parallel.query``). The
+        layout is always a new `FusedLayout`, whose device tables are
+        uploaded from its own descriptors: none of an earlier layout's
+        is reused."""
         groups: Dict[tuple, List[ColumnSpec]] = {}
         for c in self.plan.columns:
             key = (c.codec, c.width) + _variant_key(c)
@@ -835,14 +874,16 @@ class ColumnarDecoder:
                     if g.codec is Codec.HOST_FALLBACK for c in g.columns),
                    default=0)
 
-    def _decode_device(self, data: torch.Tensor,
-                       extras: Sequence[torch.Tensor] = ()
-                       ) -> Tuple[List[tuple], List[np.ndarray]]:
-        """Per-kernel-group host outputs of one batch (the fused launch
-        for every numeric group, batch_torch for the rest) and the host
-        copies of `extras` (tensors on the device), all through one
-        device buffer and one copy to the host (see the module
-        docstring)."""
+    def decode_planes(self, data: torch.Tensor,
+                      extras: Sequence[torch.Tensor] = ()) -> DevicePlanes:
+        """Decode a [n, extent] uint8 record matrix on the decoder's
+        device into device tensors, with no copy to the host: one fused
+        kernel launch for every numeric group, ``batch_torch`` for the
+        strings and floats, each output written into one device buffer
+        laid out by a per-plan table (the JAX package's
+        ``build_jax_decode_fn``). `extras` (tensors on the device) are
+        copied into the same buffer, for `_decode_device`'s one copy
+        back."""
         n = data.shape[0]
         with annotate("cobrix.decode", self.device):
             group_outs = {gi: self._run_group_torch(
@@ -864,9 +905,14 @@ class ColumnarDecoder:
             buf = torch.empty(total, dtype=torch.uint8, device=data.device)
             views = {key: buf[a:b].view(dt).view(shape)
                      for (key, dt, shape), (a, b) in zip(entries, spans)}
+            planes = None
+            outs: List[tuple] = [()] * len(self.kernel_groups)
             if self.fused is not None:
-                fused_decode(data, self.fused,
-                             out={p: views[p] for p in _PLANE_DTYPES})
+                planes = {p: views[p] for p in _PLANE_DTYPES}
+                fused_decode(data, self.fused, out=planes)
+                for gi, res in zip(self.fused_indices,
+                                   self.fused.split(planes)):
+                    outs[gi] = res
             for gi, k, dt, shape in self._out_table:
                 out = group_outs[gi][k]
                 if out.dtype != dt or tuple(out.shape) != (n,) + shape:
@@ -875,13 +921,25 @@ class ColumnarDecoder:
                         f"{tuple(out.shape)}, the out table says {dt} "
                         f"{(n,) + shape}")
                 views[(gi, k)].copy_(out)
+                outs[gi] = outs[gi] + (views[(gi, k)],)
             for k, t in enumerate(extras):
                 views[("extra", k)].copy_(t)
+        return DevicePlanes(outs, planes, buf, entries, spans)
+
+    def _decode_device(self, data: torch.Tensor,
+                       extras: Sequence[torch.Tensor] = ()
+                       ) -> Tuple[List[tuple], List[np.ndarray]]:
+        """Per-kernel-group host outputs of one batch and the host copies
+        of `extras`: `decode_planes`, then ONE copy of its buffer to the
+        host (see the module docstring)."""
+        dp = self.decode_planes(data, extras)
+        buf, entries, spans = dp.buffer, dp.entries, dp.spans
         with annotate("cobrix.d2h", self.device):
-            if buf.device.type == "cpu" or total == 0:
+            if buf.device.type == "cpu" or buf.numel() == 0:
                 host = buf.cpu()
             else:
-                host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+                host = torch.empty(buf.numel(), dtype=torch.uint8,
+                                   pin_memory=True)
                 host.copy_(buf, non_blocking=True)
                 torch.cuda.current_stream(buf.device).synchronize()
         host_np = host.numpy()

@@ -3,7 +3,8 @@
 Port copy of ``cobrix_tpu.reader.parameters``, reduced to the fields that
 ``api.parse_options`` sets: the code page, float format, trimming and
 schema policy, RDW framing, record and file offsets, the multisegment
-options and record ids, plus `input_file_name_column` and
+options and record ids, the pipeline's options and the column
+projection (`select`), plus `input_file_name_column` and
 `corrupt_record_column`, which ``schema.output_schema_for`` reads and
 which stay empty. Every other field of the JAX package belongs to an
 option the port refuses by name (``api.read_cobol``); a field comes back
@@ -12,7 +13,7 @@ with the slice that takes its option.
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from ..copybook.datatypes import (
     FloatingPointFormat,
@@ -84,6 +85,9 @@ class ReaderParameters:
     shard_max_retries: int = 2
     # whole-scan wall deadline; 0 = none
     scan_deadline_s: float = 0.0
+    # column projection: only these fields (or the fields under these
+    # groups) are decoded, and every other leaf is None
+    select: Optional[Sequence[str]] = None
 
     def resolved_pipeline_workers(self) -> int:
         """Effective worker count: 0 = sequential, negative = auto."""

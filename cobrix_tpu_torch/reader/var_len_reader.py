@@ -51,7 +51,8 @@ Changes from the JAX package:
 * Not carried over: the hierarchical (segment-children) reads, the
   generic per-record reader (text, record-length fields, custom header
   parsers or extractors, variable OCCURS), the permissive error
-  policies, pushdown, the persisted index and the Arrow output.
+  policies, filter pushdown, the persisted index and the Arrow output.
+  The column projection (`select`) reaches every segment decoder.
 """
 from __future__ import annotations
 
@@ -246,7 +247,8 @@ class VarLenReader:
 
     def _decoder_for_segment(self, active_segment: str) -> ColumnarDecoder:
         return decoder_for_segment(self._decoders, self.copybook,
-                                   active_segment, self.device)
+                                   active_segment, self.device,
+                                   select=self.params.select)
 
     def _segment_ids_vectorized(self, field_bytes: np.ndarray,
                                 lengths: np.ndarray,

@@ -45,7 +45,9 @@ def _forbidden(module: str) -> bool:
 
 def test_no_module_imports_jax_or_the_jax_package():
     seen = 0
+    packages = set()
     for path in _port_sources():
+        packages.add(os.path.relpath(os.path.dirname(path), REPO))
         with open(path, encoding="utf-8") as f:
             tree = ast.parse(f.read(), filename=path)
         for node in ast.walk(tree):
@@ -59,6 +61,9 @@ def test_no_module_imports_jax_or_the_jax_package():
                 assert not _forbidden(name), f"{path} imports {name}"
         seen += 1
     assert seen > 15
+    # every subpackage is scanned, the device-resident query path too
+    assert {os.path.join("cobrix_tpu_torch", p) for p in
+            ("ops", "reader", "engine", "parallel")} <= packages
     assert not _forbidden("cobrix_tpu_torch")
     assert not _forbidden("cobrix_tpu_torch.ops")
 
