@@ -82,9 +82,13 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    ``fetch``: device-pipeline and end-to-end MB/s and the peak device
    memory; (c) ``ShardedColumnarDecoder.decode_stats`` on 1,000,000 exp1
    records in one device-resident batch: device-compute MB/s. The
-   aggregate kernel is held against its plain version on the card at the
-   shapes of (a) and (b) (counts, min and max exact, sums to rtol
-   1e-12); (a) equals the sums, counts, min and max of the exp3 read's
+   aggregate kernel is held against its plain version on the card
+   (counts, min and max exact, sums to rtol 1e-12) at the shapes of (a)
+   and (b), and first for every value kind (K_I32, K_I64, K_WIDE) and
+   scale mode (none, const, dots, digits): the planes of the first 3,000
+   exp1 records and of the wide COMP-3 and PIC P rows of
+   ``testing/aggregate_cases.py``, each in a block of 4,096 rows and at
+   N = 37 rows with `n` a 0-d tensor on the card (37, 20, 0 and 46); (a) equals the sums, counts, min and max of the exp3 read's
    planes (phase 4), (b) equals (a) (sums to rtol 1e-9), the capped scan
    equals the full scan's wide records and, on the whole image, its
    plain version (offsets, lengths and count, exact), the pack at the
@@ -93,7 +97,12 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    runs under ``torch.cuda.set_sync_debug_mode("error")`` and a traced
    ``submit`` and ``fetch`` make no HtoD and one DtoH copy (a trace with
    no device events fails). The aggregate kernel is timed at both
-   shapes beside its plain version and its byte bound, and the
+   shapes beside its plain version and its byte bound: with fresh
+   outputs as ``submit`` makes them (``ms``, ``device_ms``) and alone on outputs
+   made before (``kernel_device_ms``), beside an empty
+   launch and one ``torch.sum`` over the i32 plane (a bandwidth
+   reference, not the same function), and so are every numeric field of
+   the 3,000 exp1 records (190 columns of every kind and mode); and the
    projection's gather after the pack alone.
 
 Every failure exits non-zero. The last two lines are the kernels JSON and
@@ -143,6 +152,9 @@ AGG_SOURCE = "cobrix_tpu_torch/csrc/aggregate.cu"
 AGG_REPLACES = "cobrix_tpu/parallel/query.py:123"
 # the query path's exp3 fields (bench.py run_device_query)
 QUERY_FIELDS = ("NUM1", "NUM2")
+# the aggregate kernel's value kinds and scale modes (ops/aggregate.py)
+AGG_KINDS = {0: "K_I32", 1: "K_I64", 2: "K_WIDE"}
+AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 
 
 class SmokeFailure(Exception):
@@ -270,6 +282,7 @@ class Smoke:
         self.n_check = ({"exp3": 120, "exp2": 1500} if self.rehearsal
                         else {"exp3": 3000, "exp2": 20_000})
         self.max_err = dict.fromkeys(KERNELS, 0.0)
+        self.agg_rel_err = 0.0  # the aggregate's sums: largest relative error
         self.launches = {}   # path -> kernel -> launches on that path
         self.tmp = tempfile.mkdtemp(prefix="cobrix_smoke_")
 
@@ -1415,33 +1428,86 @@ class Smoke:
             self.same(ha[k], hb[k], f"{what} aggregate {key}", "aggregate")
         err = float(np.max(np.abs(ha[0] - hb[0]))) if len(ha[0]) else 0.0
         self.max_err["aggregate"] = max(self.max_err["aggregate"], err)
+        nz = hb[0] != 0
+        if nz.any():
+            self.agg_rel_err = max(self.agg_rel_err, float(np.max(
+                np.abs(ha[0][nz] - hb[0][nz]) / np.abs(hb[0][nz]))))
         check(np.allclose(ha[0], hb[0], rtol=1e-12, atol=0),
               f"{what}: aggregate sums differ from the plain version by "
               f"{err}")
 
+    def check_aggregate_modes(self):
+        """The aggregate kernel against aggregate_plain on the card for
+        every kind and scale mode: the exp1 planes (the first records of
+        the phase 3 file) and the ``WIDE_COPYBOOK`` rows, each in a block
+        of 4,096 rows with `n` on the host, and at N = 37 rows (no
+        multiple of 16) with `n` a 0-d int32 on the card at N, below it,
+        0 and past N."""
+        np, torch = self.np, self.torch
+        from cobrix_tpu_torch import parse_copybook
+        from cobrix_tpu_torch.ops import aggregate as ag
+        from cobrix_tpu_torch.parallel import DeviceAggregator
+        from cobrix_tpu_torch.testing.aggregate_cases import (WIDE_COPYBOOK,
+                                                              wide_rows)
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        n_exp1 = 300 if self.rehearsal else 3000
+        exp1 = np.fromfile(self.exp1_path, dtype=np.uint8,
+                           count=n_exp1 * 1493).reshape(-1, 1493)
+        held = set()
+        for name, cb, rows in (("exp1", EXP1_COPYBOOK, exp1),
+                               ("wide", WIDE_COPYBOOK, wide_rows())):
+            agg = DeviceAggregator(parse_copybook(cb), device=self.device)
+            held |= {(int(d[ag._D_KIND]), int(d[ag._D_MODE]))
+                     for d in agg.spec.desc}
+            x, n = agg.put(rows, block=4096)
+            self._check_aggregate(agg, x, n, f"{name} block of 4,096")
+            if name == "exp1":  # timed with the query's shapes
+                self.agg_exp1 = (agg, x, n)
+            x37, _ = agg.put(np.resize(rows, (37, rows.shape[1])))
+            check(x37.shape[0] == 37, "the N = 37 batch is padded")
+            for k in (37, 20, 0, 46):
+                n37 = torch.tensor(k, dtype=torch.int32, device=self.device)
+                self._check_aggregate(agg, x37, n37,
+                                      f"{name} N = 37, n = {k} on the card")
+        check({k for k, _ in held} == set(AGG_KINDS)
+              and {m for _, m in held} == set(AGG_MODES),
+              f"the aggregate checks hold (kind, mode) {sorted(held)} only")
+        self.agg_modes_held = sorted(f"{AGG_KINDS[k]}/{AGG_MODES[m]}"
+                                     for k, m in held)
+        log(f"[query] aggregate kernel == plain (counts, min, max exact; "
+            f"sums to rtol 1e-12) for kind/mode {self.agg_modes_held}: exp1 "
+            f"({n_exp1} records) and wide rows in blocks of 4,096, and at "
+            f"N = 37 with n = 37, 20, 0, 46 on the card")
+
     def _agg_bytes(self, agg, n):
         """Bytes the aggregate must move for `n` live rows: each fused
-        column's value (and lo and sign, dots), its valid flag, and the
-        per-field outputs."""
-        from cobrix_tpu_torch.ops import aggregate as ag
-
-        size = {ag.KIND_I32: 4, ag.KIND_I64: 8, ag.KIND_WIDE: 17}
-        per_row = sum(size[int(d[ag._D_KIND])] + 1
-                      + (4 if d[ag._D_DOTS] >= 0 else 0)
-                      for d in agg.spec.desc)
-        return n * per_row + 28 * agg.spec.n_fields
+        column's value (and lo and sign; dots in the dots mode) and its
+        valid flag (the spec's row bytes), and the per-field outputs."""
+        return n * agg.spec.row_bytes + 28 * agg.spec.n_fields
 
     def _time_aggregate(self, agg, x, n, what):
-        """The aggregate kernel at one main-path shape: `ms` (events around
-        a wrapper call on an idle stream), `device_ms` (stream held busy
-        first), the plain version, the byte bound."""
+        """The aggregate kernel at one main-path shape. `ms` (events
+        around a call on an idle stream) and `device_ms` (stream held busy
+        first) time fresh outputs and the wrapper, as ``submit`` runs them;
+        `kernel_device_ms` the wrapper alone on outputs made before;
+        beside them the fresh outputs alone, an empty launch
+        (``torch.cuda._sleep(0)``), one ``torch.sum`` over the i32 plane
+        (a bandwidth reference: not the same function), the plain version
+        and the byte bound."""
+        torch = self.torch
         from cobrix_tpu_torch.ops import aggregate as ag
 
         dp = agg.decoder.decode_planes(x)
         F = agg.spec.n_fields
+        stats = ag.new_stats(F, x.device)
+        i32 = dp.planes["i32"]
+
+        def submit():
+            ag.aggregate(dp.planes, agg.spec, n, agg.spec.new_stats(x.device))
 
         def kernel():
-            ag.aggregate(dp.planes, agg.spec, n, ag.new_stats(F, x.device))
+            ag.aggregate(dp.planes, agg.spec, n, stats)
 
         def plain():
             ag.aggregate_plain(dp.planes, agg.spec, n,
@@ -1450,12 +1516,27 @@ class Smoke:
         live = int(n)
         row = dict(shape=what, rows=int(x.shape[0]), live=live,
                    columns=agg.spec.n_cols, fields=F,
-                   ms=self._time(kernel, 20),
-                   device_ms=self._time(kernel, 20, busy=True),
+                   ms=self._time(submit, 20),
+                   device_ms=self._time(submit, 20, busy=True),
+                   kernel_device_ms=self._time(kernel, 20, busy=True),
+                   new_stats_device_ms=self._time(
+                       lambda: agg.spec.new_stats(x.device), 20, busy=True),
+                   empty_launch_device_ms=(
+                       None if self.rehearsal else
+                       self._time(lambda: torch.cuda._sleep(0), 20,
+                                  busy=True)),
+                   torch_sum_i32_plane=dict(
+                       shape=list(i32.shape), bytes=i32.numel() * 4,
+                       device_ms=self._time(lambda: i32.sum(), 20,
+                                            busy=True)),
                    plain_ms=self._time(plain, 3),
                    bound_ms=self._agg_bytes(agg, live) / HBM_BYTES_PER_S
                    * 1e3, library_ms=None)
+        if not self.rehearsal:
+            row["grid"] = int(ag.class_grids(x.device)[0])
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        row["kernel_share_of_bound"] = (row["bound_ms"]
+                                        / row["kernel_device_ms"])
         return row
 
     def phase_query(self):
@@ -1486,6 +1567,7 @@ class Smoke:
                     if fn.launches}
 
         self.query = {}
+        self.check_aggregate_modes()
         raw = self.rdw_walk["exp3"][0]
         size = len(raw)
         mb = size / 1e6
@@ -1738,7 +1820,9 @@ class Smoke:
         px, plive = fn(image)
         self.query["aggregate"] = [
             self._time_aggregate(agg, x, n, "exp3 block"),
-            self._time_aggregate(agg, px, plive, "exp3 on-HBM pipeline")]
+            self._time_aggregate(agg, px, plive, "exp3 on-HBM pipeline"),
+            self._time_aggregate(*self.agg_exp1,
+                                 "exp1 every numeric field")]
         for row in self.query["aggregate"]:
             log(f"[query] {self.card}: aggregate {json.dumps(row)}")
         del image, px, x, mats
@@ -1833,7 +1917,9 @@ class Smoke:
             name="aggregate", route="cuda", source=AGG_SOURCE,
             replaces=AGG_REPLACES, ms=agg["ms"], device_ms=agg["device_ms"],
             plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
-            library_ms=None, shapes=self.query["aggregate"]))
+            library_ms=None, shapes=self.query["aggregate"],
+            max_rel_err_sums=self.agg_rel_err,
+            modes_held=self.agg_modes_held))
         for e in entries:
             e.update(launches=sum(by_path[e["name"]].values()),
                      launches_by_path=by_path[e["name"]],

@@ -8,17 +8,23 @@ what bounds it.
 
 * `AggregateSpec` is the static table of one query: a row per fused
   column a field owns (its plane rows, kind, scale and field id, sorted
-  by field), uploaded once per device, and the float groups' slots.
+  by kind, scale mode and field), the kernel's plan over them (classes
+  of one kind and mode, runs of one field in a class, each column's
+  bytes a row), uploaded once per device, and the float groups' slots.
 * `new_stats(n_fields, device)` makes the outputs: one device buffer
   holding per field a float64 sum, an int32 count, and min and max as
   order-preserving int64 keys of the double (`order_key`), so that a
-  query's whole result comes back in one copy (`read_stats`).
+  query's whole result comes back in one copy (`read_stats`);
+  `AggregateSpec.new_stats(device)` copies the same buffer from one
+  uploaded with the query's tables (one copy on the card, not four
+  fills).
 * `aggregate(planes, spec, n, stats)` adds the fused columns' statistics
-  to `stats`: a CUDA plane launches the kernel (counted in
-  ``aggregate.launches``), a CPU plane runs `aggregate_plain`, the same
-  arithmetic in torch ops; nothing else is taken. `n` (the live rows)
-  is a host int or a 0-d int32 tensor on the planes' device, which the
-  kernel reads there: no host round trip.
+  to `stats`: a CUDA plane launches the kernel (a launch for each class
+  and one to combine, counted once in ``aggregate.launches``), a
+  CPU plane runs `aggregate_plain`, the same arithmetic in torch ops;
+  nothing else is taken. `n` (the live rows) is a host int or a 0-d
+  int32 tensor on the planes' device, which the kernel reads there: no
+  host round trip.
 * `aggregate_floats(groups, spec, n, stats)` reduces the float and
   double groups (``batch_torch`` outputs, never fused in either package)
   with torch ops on any device; double bit patterns are viewed as
@@ -58,10 +64,22 @@ _FLIP = 0x7FFFFFFFFFFFFFFF
 # reads back as NaN, as the JAX program's jnp.minimum propagates it
 NAN_MIN_KEY, NAN_MAX_KEY = _INT64_MIN, _INT64_MAX
 
-# the kernel's blocks: a tile of columns x a chunk of rows, about
-# BLOCK_VALUES values each
-BLOCK_VALUES = 16384
-_BLOCK_ROWS_STEP = 256
+# csrc/aggregate.cu plan tables: a class is the columns of one kind and
+# scale mode (their bytes a row `weight`, the row bytes of all of them,
+# their runs); a run is a class's columns of one field (its row bytes
+# before it in the class, its field, its class)
+_CLASS_FIELDS = 6
+(_C_KIND, _C_MODE, _C_WEIGHT, _C_ROW_BYTES, _C_RUN0,
+ _C_RUN1) = range(_CLASS_FIELDS)
+_RUN_FIELDS = 5
+_R_COL0, _R_COL1, _R_START, _R_FIELD, _R_CLASS = range(_RUN_FIELDS)
+# bytes the kernel reads a row for a value of each kind (a wide value:
+# its hi and lo limbs and its sign), beside the valid flag and, in
+# MODE_DOTS, the dot count
+VALUE_BYTES = {KIND_I32: 4, KIND_I64: 8, KIND_WIDE: 17}
+# the kernel's rows a work unit, and the bytes of a block's partial
+UNIT_ROWS = 16
+PARTIAL_BYTES = 32
 
 
 class AggregateColumn(NamedTuple):
@@ -91,19 +109,58 @@ class FloatSlot(NamedTuple):
     field: int
 
 
+def row_weight(kind: int, mode: int) -> int:
+    """Bytes the kernel reads a row of a column: value, valid flag and,
+    in MODE_DOTS, the dot count."""
+    return VALUE_BYTES[kind] + 1 + (4 if mode == MODE_DOTS else 0)
+
+
 class AggregateSpec:
-    """The fused columns of a query, sorted by field (stable), and its
-    float slots; `n_fields` output slots."""
+    """The fused columns of a query, sorted by kind, scale mode and field
+    (stable), the kernel's plan over them and the float slots;
+    `n_fields` output slots.
+
+    The plan: `classes` (a row per (kind, mode) present), `runs` (a row
+    per stretch of one field in a class) and, for the combine, each
+    output field's runs in class order (`field_runs` from
+    `field_ptr[i]` to `field_ptr[i + 1]`)."""
 
     def __init__(self, columns: Sequence[AggregateColumn],
                  floats: Sequence[FloatSlot], n_fields: int):
-        cols = sorted(columns, key=lambda c: c.field)
+        cols = sorted(columns, key=lambda c: (c.kind, c.mode, c.field))
         self.n_fields = n_fields
         self.floats = list(floats)
         self.desc = np.asarray([c[:_DESC_FIELDS] for c in cols],
                                dtype=np.int32).reshape(-1, _DESC_FIELDS)
         self.factor = np.asarray([c.factor for c in cols], dtype=np.float64)
+        classes: List[List[int]] = []
+        runs: List[List[int]] = []
+        for i, c in enumerate(cols):
+            if not classes or (classes[-1][_C_KIND],
+                               classes[-1][_C_MODE]) != (c.kind, c.mode):
+                classes.append([c.kind, c.mode, row_weight(c.kind, c.mode),
+                                0, len(runs), len(runs)])
+            cls = classes[-1]
+            if cls[_C_RUN1] > cls[_C_RUN0] and runs[-1][_R_FIELD] == c.field:
+                runs[-1][_R_COL1] = i + 1
+            else:
+                runs.append([i, i + 1, cls[_C_ROW_BYTES], c.field,
+                             len(classes) - 1])
+                cls[_C_RUN1] += 1
+            cls[_C_ROW_BYTES] += cls[_C_WEIGHT]
+        self.classes = np.asarray(classes, dtype=np.int64).reshape(
+            -1, _CLASS_FIELDS)
+        self.runs = np.asarray(runs, dtype=np.int64).reshape(-1, _RUN_FIELDS)
+        order = np.argsort(self.runs[:, _R_FIELD], kind="stable")
+        self.field_runs = order.astype(np.int64)
+        fields = self.runs[order, _R_FIELD]
+        starts = np.flatnonzero(np.r_[True, fields[1:] != fields[:-1]]) \
+            if len(fields) else np.zeros(0, dtype=np.int64)
+        self.field_ptr = np.r_[starts, len(fields)].astype(np.int64)
+        self.row_bytes = int(self.classes[:, _C_ROW_BYTES].sum())
         self._tables: Dict[str, tuple] = {}
+        self._plans: Dict[str, tuple] = {}
+        self._fresh: Dict[str, torch.Tensor] = {}
         self._lock = threading.Lock()
 
     @property
@@ -111,9 +168,10 @@ class AggregateSpec:
         return self.desc.shape[0]
 
     def tables_on(self, device: torch.device) -> tuple:
-        """(descriptors, factors, powers of ten) on `device`, uploaded
-        once under a lock with a blocking copy, and the float slots'
-        field ids and positions (device tensors, by slot)."""
+        """(descriptors, factors, powers of ten) on `device` and the float
+        slots' field ids and positions (device tensors, by slot); the
+        kernel's plan tables (`plan_on`) with them. All are uploaded once
+        under a lock with a blocking copy."""
         key = str(device)
         with self._lock:
             t = self._tables.get(key)
@@ -126,7 +184,26 @@ class AggregateSpec:
                        torch.tensor([s.field], dtype=torch.int64,
                                     device=device)) for s in self.floats])
                 self._tables[key] = t
+                self._plans[key] = tuple(
+                    torch.from_numpy(a.copy()).to(device)
+                    for a in (self.classes, self.runs, self.field_ptr,
+                              self.field_runs))
+                self._fresh[key] = new_stats(self.n_fields, "cpu").buffer \
+                    .to(device)
         return t
+
+    def new_stats(self, device: torch.device) -> Stats:
+        """Fresh outputs for the query on `device`: one device copy of
+        the `new_stats` buffer uploaded with the tables (`tables_on`), in
+        place of four fills."""
+        self.tables_on(device)
+        return _stats_of(self._fresh[str(device)].clone(), self.n_fields)
+
+    def plan_on(self, device: torch.device) -> tuple:
+        """(classes, runs, field_ptr, field_runs) int64 tables on `device`
+        (`tables_on`)."""
+        self.tables_on(device)
+        return self._plans[str(device)]
 
 
 class Stats(NamedTuple):
@@ -160,19 +237,23 @@ def key_values(keys: np.ndarray) -> np.ndarray:
     return np.where(keys >= 0, keys, keys ^ _FLIP).view(np.float64)
 
 
+def _stats_of(buf: torch.Tensor, f: int) -> Stats:
+    """The `Stats` views of a 28 * f byte buffer."""
+    return Stats(buf, buf[:8 * f].view(torch.float64),
+                 buf[8 * f:16 * f].view(torch.int64),
+                 buf[16 * f:24 * f].view(torch.int64),
+                 buf[24 * f:].view(torch.int32))
+
+
 def new_stats(n_fields: int, device) -> Stats:
     """Zero sums and counts, +inf and -inf keys, in one buffer."""
-    f = n_fields
-    buf = torch.empty(28 * f, dtype=torch.uint8, device=device)
-    sums = buf[:8 * f].view(torch.float64)
-    mins = buf[8 * f:16 * f].view(torch.int64)
-    maxs = buf[16 * f:24 * f].view(torch.int64)
-    counts = buf[24 * f:].view(torch.int32)
-    sums.zero_()
-    counts.zero_()
-    mins.fill_(KEY_POS_INF)
-    maxs.fill_(KEY_NEG_INF)
-    return Stats(buf, sums, mins, maxs, counts)
+    stats = _stats_of(torch.empty(28 * n_fields, dtype=torch.uint8,
+                                  device=device), n_fields)
+    stats.sums.zero_()
+    stats.counts.zero_()
+    stats.mins.fill_(KEY_POS_INF)
+    stats.maxs.fill_(KEY_NEG_INF)
+    return stats
 
 
 def read_stats(host: np.ndarray, n_fields: int):
@@ -334,27 +415,34 @@ def aggregate_floats(groups: Sequence[tuple], spec: AggregateSpec, n,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def plan_blocks(N: int, n_cols: int) -> Tuple[int, int]:
-    """(columns a block, rows a block): a chunk of rows a multiple of
-    256 up to BLOCK_VALUES, and as many columns as keep a block near
-    BLOCK_VALUES values."""
-    rows = min(-(-max(N, 1) // _BLOCK_ROWS_STEP) * _BLOCK_ROWS_STEP,
-               BLOCK_VALUES)
-    return max(1, min(64, BLOCK_VALUES // rows, n_cols)), rows
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The C entries with their argument types (ctypes would otherwise
+    pass every Python int as a 32-bit int and cut the pointers)."""
+    from ._build import load
+
+    lib = load("aggregate")
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.cobrix_aggregate.argtypes = [
+        p, p, p, i64, p, p, p, i32, p, p, i32, p, p, p, i32, p, i64, p, p, p,
+        p, p, p, p]
+    lib.cobrix_aggregate.restype = ctypes.c_int
+    lib.cobrix_aggregate_grids.argtypes = [p]
+    lib.cobrix_aggregate_grids.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry with its argument types (ctypes would otherwise pass
-    every Python int as a 32-bit int and cut the pointers)."""
-    from ._build import load
-
-    fn = load("aggregate").cobrix_aggregate
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    fn.argtypes = [p, p, p, i64, p, p, i64, p, i32, p, i64, p, p, p, p, i32,
-                   i64, p]
-    fn.restype = ctypes.c_int
-    return fn
+def class_grids(device: torch.device) -> np.ndarray:
+    """The kernel's grid of each (kind, mode) class on `device` (at
+    kind * 4 + mode): as many blocks as fit on every SM at once."""
+    grids = np.zeros(12, dtype=np.int32)
+    with torch.cuda.device(device):
+        rc = _lib().cobrix_aggregate_grids(grids.ctypes.data)
+    if rc != 0 or (grids <= 0).any():
+        raise RuntimeError(f"aggregate kernel: occupancy query failed "
+                           f"(CUDA error {rc}, grids {grids.tolist()})")
+    return grids
 
 
 def aggregate(planes: Dict[str, torch.Tensor], spec: AggregateSpec, n,
@@ -389,16 +477,28 @@ def aggregate(planes: Dict[str, torch.Tensor], spec: AggregateSpec, n,
     if spec.n_cols == 0 or N == 0:
         return stats
     desc, factor, table, _ = spec.tables_on(device)
-    cols, rows = plan_blocks(N, spec.n_cols)
+    classes, runs, field_ptr, field_runs = spec.plan_on(device)
+    grids = class_grids(device)
+    grid = grids[spec.classes[:, _C_KIND] * 4 + spec.classes[:, _C_MODE]]
+    if spec.row_bytes * -(-N // UNIT_ROWS) * int(grid.max()) >= 1 << 62:
+        raise ValueError(f"aggregate: {spec.n_cols} columns x {N} rows is "
+                         f"past the kernel's 64-bit work split")
+    slots = int((grid - 1).sum()) + spec.runs.shape[0]
+    partials = torch.empty(slots * PARTIAL_BYTES, dtype=torch.uint8,
+                           device=device)
     with torch.cuda.device(device):
-        rc = _kernel()(
+        rc = _lib().cobrix_aggregate(
             planes["i32"].data_ptr(), planes["i64"].data_ptr(),
             planes["bool"].data_ptr(), N, desc.data_ptr(), factor.data_ptr(),
-            spec.n_cols, table.data_ptr(), POW10_SIZE,
+            table.data_ptr(), POW10_SIZE, classes.data_ptr(),
+            spec.classes.ctypes.data, spec.classes.shape[0],
+            runs.data_ptr(), field_ptr.data_ptr(), field_runs.data_ptr(),
+            len(spec.field_ptr) - 1,
             n_dev.data_ptr() if n_dev is not None else None,
-            0 if n_dev is not None else int(n), stats.sums.data_ptr(),
+            0 if n_dev is not None else int(n), grids.ctypes.data,
+            partials.data_ptr(), stats.sums.data_ptr(),
             stats.counts.data_ptr(), stats.mins.data_ptr(),
-            stats.maxs.data_ptr(), cols, rows,
+            stats.maxs.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"aggregate kernel launch failed: CUDA error {rc}")

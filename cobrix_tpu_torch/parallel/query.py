@@ -19,9 +19,9 @@ there), read by the kernel where it lies. Counts are exact; a field with
 no valid value reports None for sum, min and max.
 
 Changes from the JAX package: the count is int32 as there, but the sums
-run in another order (atomics across the kernel's blocks), so they agree
-with the JAX program's to rounding, not bit for bit; the aggregator takes
-`device` in place of ``backend``.
+run in another order (the kernel's blocks' partials, combined in a fixed
+order), so they agree with the JAX program's to rounding, not bit for
+bit; the aggregator takes `device` in place of ``backend``.
 """
 from __future__ import annotations
 
@@ -35,8 +35,7 @@ from ..copybook.copybook import Copybook
 from ..ops.aggregate import (KIND_I32, KIND_I64, KIND_WIDE, MODE_CONST,
                              MODE_DIGITS, MODE_DOTS, MODE_NONE,
                              AggregateColumn, AggregateSpec, FloatSlot,
-                             Stats, aggregate, aggregate_floats, new_stats,
-                             read_stats)
+                             Stats, aggregate, aggregate_floats, read_stats)
 from ..plan.compiler import Codec
 from ..profiling import annotate
 from ..reader.columnar import (_FLOAT_CODECS, _NUMERIC_CODECS, _dyn_scale,
@@ -200,7 +199,7 @@ class DeviceAggregator:
             x = torch.nn.functional.pad(x, (0, extent - x.shape[1]))
         with annotate("cobrix.aggregate", self.device):
             dp = self.decoder.decode_planes(x.contiguous())
-            stats = new_stats(self.spec.n_fields, self.device)
+            stats = self.spec.new_stats(self.device)
             if dp.planes is not None:
                 aggregate(dp.planes, self.spec, n, stats)
             aggregate_floats(dp.groups, self.spec, n, stats)

@@ -51,6 +51,7 @@ from cobrix_tpu_torch.parallel import (DeviceAggregator,
                                        sharded_decode)
 from cobrix_tpu_torch.parallel.mesh import mesh_device
 from cobrix_tpu_torch.reader.columnar import ColumnarDecoder
+from cobrix_tpu_torch.testing.aggregate_cases import WIDE_COPYBOOK, wide_rows
 
 pytestmark = pytest.mark.jax
 
@@ -292,33 +293,8 @@ def test_projected_aggregator_then_read_cobol(books, dataset, tmp_path):
 # wide numerics, PIC P and decode_stats (tests/test_wide_numerics.py)
 # ---------------------------------------------------------------------------
 
-WIDE_COPYBOOK = """
-       01 REC.
-          05 WIDE-BCD PIC S9(21)V99 COMP-3.
-          05 P-BIN    PIC SPPP9(18) COMP.
-          05 P-DISP   PIC SVPP9(5).
-"""
-
-
-def _wide_rows():
-    rng = np.random.default_rng(7)
-    digits = rng.integers(0, 10, size=(12, 23)).astype(np.uint8)
-    neg = rng.integers(0, 2, size=12).astype(bool)
-    pbin = [int(v) for v in rng.integers(-10 ** 17, 10 ** 17, size=12)]
-    # float64(999999999999999999) == 1e18: a float digit count is 19
-    pbin[0] = 999_999_999_999_999_999
-    pbin[1] = -999_999_999_999_999_999
-    pbin[2] = 10 ** 17
-    return np.concatenate([
-        encode_bcd_digits(digits, np.where(neg, 0x0D, 0x0C).astype(np.uint8)),
-        np.stack([np.frombuffer(v.to_bytes(8, "big", signed=True),
-                                dtype=np.uint8) for v in pbin]),
-        (0xF0 + digits[:, :5]).astype(np.uint8),
-    ], axis=1)
-
-
 def test_wide_and_pic_p_aggregate_equal_the_jax_package():
-    rows = _wide_rows()
+    rows = wide_rows()
     got = DeviceAggregator(port_parse(WIDE_COPYBOOK), device=CPU) \
         .aggregate(rows)
     jcb = jax_parse(WIDE_COPYBOOK)
@@ -707,26 +683,34 @@ def test_filter_and_stats_options_still_raise(option, value, select_files):
 @pytest.mark.cuda
 def test_aggregate_kernel_matches_plain_on_card(books, dataset):
     """The aggregate kernel against aggregate_plain on the same planes:
-    counts, min and max exact, sums to rtol 1e-12 (chip_smoke.py phase 10
-    does the same at exp3's and exp1's shapes)."""
+    counts, min and max exact, sums to rtol 1e-12, in blocks of 1,024
+    rows with a host `n`, and at N = 37 rows (no multiple of 16) with `n`
+    a 0-d int32 on the card at N, below it, 0 and past N (chip_smoke.py
+    phase 10 does the same at exp3's and exp1's shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the aggregate kernel has no CPU "
                     "mode")
     for cb, data, columns in [(books[1], dataset[0], None),
-                              (port_parse(WIDE_COPYBOOK), _wide_rows(), None),
+                              (port_parse(WIDE_COPYBOOK), wide_rows(), None),
                               (port_parse(EXP1_COPYBOOK),
                                generate_exp1(500, seed=2), None)]:
         agg = DeviceAggregator(cb, columns=columns, device="cuda")
-        x, n = agg.put(data, block=1024)
-        dp = agg.decoder.decode_planes(x)
-        a = ag.aggregate(dp.planes, agg.spec, n,
-                         ag.new_stats(agg.spec.n_fields, x.device))
-        b = ag.aggregate_plain(dp.planes, agg.spec, n,
-                               ag.new_stats(agg.spec.n_fields, x.device))
-        torch.cuda.synchronize()
-        assert torch.equal(a.counts, b.counts)
-        assert torch.equal(a.mins, b.mins) and torch.equal(a.maxs, b.maxs)
-        torch.testing.assert_close(a.sums, b.sums, rtol=1e-12, atol=0)
+        rows37 = np.resize(data, (N, data.shape[1]))
+        cases = [agg.put(data, block=1024)]
+        x37, _ = agg.put(rows37)
+        assert x37.shape[0] == N
+        cases += [(x37, torch.tensor(k, dtype=torch.int32, device="cuda"))
+                  for k in (N, 20, 0, N + 9)]
+        for x, n in cases:
+            dp = agg.decoder.decode_planes(x)
+            a = ag.aggregate(dp.planes, agg.spec, n,
+                             ag.new_stats(agg.spec.n_fields, x.device))
+            b = ag.aggregate_plain(dp.planes, agg.spec, n,
+                                   ag.new_stats(agg.spec.n_fields, x.device))
+            torch.cuda.synchronize()
+            assert torch.equal(a.counts, b.counts)
+            assert torch.equal(a.mins, b.mins) and torch.equal(a.maxs, b.maxs)
+            torch.testing.assert_close(a.sums, b.sums, rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
