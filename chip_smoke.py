@@ -104,6 +104,28 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    reference, not the same function), and so are every numeric field of
    the 3,000 exp1 records (190 columns of every kind and mode); and the
    projection's gather after the pack alone.
+11. Arrow output and the record-shaping options (pyarrow's and pandas'
+   versions first): (a) the phase 3 exp1 file and the phase 4 exp3 and
+   exp2 files read on the default device, then ``to_arrow()``: read and
+   ``to_arrow`` seconds, MB/s over both, the table's rows, columns and
+   bytes; the tables of the first records (exp1: the first 2,000 and
+   the random tail; RDW: the phase 4 prefixes) equal a
+   ``device="cpu"`` read's (schema with metadata; structs flattened,
+   floats by bit pattern); (b) each file read pipelined (workers 2 and
+   auto, ``chunk_size_mb=64``) with a ``batch_callback``: the tables
+   delivered, in index order, equal ``to_arrow()`` without its
+   metadata; MB/s beside phase 9's same reads; (c) an ASCII
+   fixed-length file (``generate_ascii``, 3,300,000 records, 258 MiB),
+   200,000 exp1 records with a 4-byte record prefix, a 3-byte record
+   suffix, a 100-byte file header and a torn 700-byte tail, read with
+   ``record_start_offset``, ``record_end_offset``,
+   ``file_start_offset``, ``generate_record_id`` and
+   ``with_input_file_name_col``, and a fixed-length multisegment file
+   (``generate_fixed_segments``, 2,000,000 records) with
+   ``segment_field`` and its redefine map: each table equals a
+   ``device="cpu"`` read's of the same file. ``fused_decode`` must
+   launch on every phase 11 read; its launches join the kernels line's
+   ``launches_by_path``.
 
 Every failure exits non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1861,6 +1883,241 @@ class Smoke:
                     check(self.launches[path].get(k, 0) > 0,
                           f"{k} never launched on the {path} path")
 
+    # -- phase 11: Arrow output and the record-shaping options ------------
+
+    def _counted_read(self, tag, path, **opts):
+        """read_cobol on the default device with each read kernel's
+        launches counted from 0 and recorded under path `tag`;
+        (data, seconds)."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+
+        counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                    "pack_records": df.pack_records}
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        for fn in counters.values():
+            fn.launches = 0
+        self.sync()
+        t0 = time.perf_counter()
+        data = read_cobol(path, **opts, **kw)
+        self.sync()
+        secs = time.perf_counter() - t0
+        self.launches[tag] = {k: fn.launches for k, fn in counters.items()
+                              if fn.launches or k == "fused_decode"}
+        if not self.rehearsal:
+            check(self.launches[tag]["fused_decode"] > 0,
+                  f"fused_decode never launched on the {tag} path")
+        return data, secs
+
+    def _same_table(self, got, want, what):
+        """Equal schemas (metadata included) and equal columns, structs
+        flattened and floats compared by bit pattern (so NaNs compare)."""
+        np = self.np
+        import pyarrow as pa
+
+        check(got.schema.equals(want.schema, check_metadata=True),
+              f"{what}: schemas differ")
+        check(got.num_rows == want.num_rows,
+              f"{what}: {got.num_rows} rows vs {want.num_rows}")
+        while any(pa.types.is_struct(f.type) for f in got.schema):
+            got, want = got.flatten(), want.flatten()
+        for name in want.column_names:
+            a, b = got.column(name), want.column(name)
+            if pa.types.is_floating(a.type):
+                a, b = a.combine_chunks(), b.combine_chunks()
+                same = a.is_null().equals(b.is_null()) and np.array_equal(
+                    a.fill_null(0).to_numpy().view(np.uint8),
+                    b.fill_null(0).to_numpy().view(np.uint8))
+            else:
+                same = a.equals(b)
+            check(same, f"{what}: column {name} differs from the CPU read")
+
+    def _cpu_table(self, raw, name, **opts):
+        """The table of a device="cpu" read of the bytes `raw`."""
+        from cobrix_tpu_torch import read_cobol
+
+        path = os.path.join(self.tmp, name)
+        with open(path, "wb") as f:
+            f.write(raw)
+        try:
+            return read_cobol(path, device="cpu", **opts).to_arrow()
+        finally:
+            os.remove(path)
+
+    def phase_arrow(self):
+        """Phase 11: (a) to_arrow of the phase 3 and 4 files, (b) the
+        pipelined read's assemble stage with batch_callback, (c) the
+        record-shaping options on the card, each against a CPU read."""
+        np = self.np
+        import pyarrow as pa
+        import pandas
+
+        from cobrix_tpu_torch.testing.generators import (EXP1_COPYBOOK,
+                                                         EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        log(f"[arrow] pyarrow {pa.__version__} pandas {pandas.__version__}")
+        self.arrow = {}
+        rs = 1493
+        files = [("exp1", self.exp1_path, dict(
+                     copybook_contents=EXP1_COPYBOOK)),
+                 ("exp3", self.rdw_files["exp3"], dict(
+                     copybook_contents=EXP3_COPYBOOK, **RDW_OPTIONS)),
+                 ("exp2", self.rdw_files["exp2"], dict(
+                     copybook_contents=EXP2_COPYBOOK, **RDW_OPTIONS))]
+        for kind, path, opts in files:
+            size = os.path.getsize(path)
+            data, read_s = self._counted_read(f"arrow_{kind}", path, **opts)
+            t0 = time.perf_counter()
+            table = data.to_arrow()
+            arrow_s = time.perf_counter() - t0
+            res = dict(bytes=size, read_s=read_s, to_arrow_s=arrow_s,
+                       MBps=size / (read_s + arrow_s) / 1e6,
+                       rows=table.num_rows, columns=table.num_columns,
+                       nbytes=table.nbytes,
+                       launches=self.launches[f"arrow_{kind}"])
+            self.arrow[kind] = res
+            log(f"[arrow] {self.card}: {kind} read {read_s:.3f} s + "
+                f"to_arrow {arrow_s:.3f} s = {res['MBps']:.1f} MB/s over "
+                f"read + to_arrow; {table.num_rows} rows, "
+                f"{table.num_columns} columns, {table.nbytes} bytes; "
+                f"launches {json.dumps(res['launches'])}")
+            check(table.num_rows == len(data), f"{kind}: table rows")
+            with open(path, "rb") as f:
+                raw = f.read()
+            if kind == "exp1":
+                head = 2000
+                self._same_table(table.slice(0, head),
+                                 self._cpu_table(raw[:head * rs], "h.dat",
+                                                 **opts), "exp1 head")
+                n = table.num_rows
+                self._same_table(
+                    table.slice(n - self.n_tail, self.n_tail),
+                    self._cpu_table(raw[(n - self.n_tail) * rs:], "t.dat",
+                                    **opts), "exp1 random tail")
+                what = f"the first {head} records and the random tail"
+            else:
+                k = self.n_check[kind]
+                offsets, lengths = self.rdw_walk[kind][1]
+                end = offsets[k - 1] + lengths[k - 1]
+                self._same_table(table.slice(0, k),
+                                 self._cpu_table(raw[:end], "p.dat", **opts),
+                                 f"{kind} prefix")
+                what = f"the first {k} records"
+            log(f"[arrow] {kind}: the table of {what} == device='cpu' read")
+            del data, table, raw
+
+        # (b) the pipelined read's assemble stage, with batch_callback
+        for kind, path, opts in files:
+            size = os.path.getsize(path)
+            runs = []
+            for workers in (2, -1):
+                got = {}
+
+                def on_batch(i, t, got=got):
+                    check(i not in got, f"chunk {i} delivered twice")
+                    got[i] = t
+
+                data, secs = self._counted_read(
+                    f"arrow_pipeline_{kind}", path, batch_callback=on_batch,
+                    pipeline_workers=str(workers),
+                    chunk_size_mb=self.pipe_chunk_mb, **opts)
+                table = data.to_arrow()
+                parts = [got[i] for i in sorted(got) if got[i] is not None]
+                check(len(parts) == len(data.parts), f"{kind}: "
+                      f"{len(parts)} tables delivered for "
+                      f"{len(data.parts)} chunks")
+                check(pa.concat_tables(parts).equals(
+                    table.replace_schema_metadata(None)),
+                      f"{kind} workers {workers}: the delivered tables "
+                      f"differ from to_arrow()")
+                check(table.num_rows == self.arrow[kind]["rows"],
+                      f"{kind} workers {workers}: rows")
+                report = data.metrics.as_dict()["stage_busy"]
+                runs.append(dict(workers=workers, secs=secs,
+                                 MBps=size / secs / 1e6,
+                                 chunks=len(data.parts),
+                                 stage_busy=report))
+                log(f"[arrow] {self.card}: {kind} pipelined with assembly, "
+                    f"workers {workers}: {secs:.3f} s = "
+                    f"{size / secs / 1e6:.1f} MB/s ({len(data.parts)} "
+                    f"chunks; stage busy {json.dumps(report)}); phase 9 "
+                    f"(same read, no batch_callback): " + " / ".join(
+                        f"{r['mb_per_s']:.1f}" for r in self.pipeline[kind]
+                        if r["workers"] == workers) + " MB/s")
+                del data, table, parts, got
+            self.arrow[f"pipeline_{kind}"] = runs
+        log("[arrow] delivered tables in index order == to_arrow() minus "
+            "its metadata, every read")
+        self._arrow_options()
+
+    def _arrow_options(self):
+        """Phase 11 (c): an ASCII fixed-length file, the exp1 records
+        with record and file offsets, record ids and the input-file-name
+        column, and a fixed-length multisegment file, each read on the
+        card and held against a device="cpu" read of the same file."""
+        np = self.np
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.testing import generators as g
+
+        n_ascii = 60_000 if self.rehearsal else 3_300_000
+        n_pad = 2_000 if self.rehearsal else 200_000
+        n_seg = 60_000 if self.rehearsal else 2_000_000
+        cases = []
+        path = os.path.join(self.tmp, "ascii.dat")
+        with open(path, "wb") as f:
+            for k, start in enumerate(range(0, n_ascii, 500_000)):
+                f.write(g.generate_ascii(min(500_000, n_ascii - start),
+                                         seed=300 + k).tobytes())
+        cases.append(("ascii", path, dict(
+            copybook_contents=g.ASCII_COPYBOOK, encoding="ascii")))
+        path = os.path.join(self.tmp, "exp1_padded.dat")
+        rng = np.random.default_rng(31)
+        with open(path, "wb") as f:
+            f.write(rng.integers(0, 256, 100, dtype=np.uint8).tobytes())
+            for k, start in enumerate(range(0, n_pad, 50_000)):
+                body = g.generate_exp1(min(50_000, n_pad - start),
+                                       seed=400 + k)
+                m = body.shape[0]
+                f.write(np.concatenate([
+                    rng.integers(0, 256, (m, 4), dtype=np.uint8), body,
+                    rng.integers(0, 256, (m, 3), dtype=np.uint8)],
+                    axis=1).tobytes())
+            f.write(rng.integers(0, 256, 700, dtype=np.uint8).tobytes())
+        cases.append(("exp1_offsets", path, dict(
+            copybook_contents=g.EXP1_COPYBOOK, record_start_offset="4",
+            record_end_offset="3", file_start_offset="100",
+            generate_record_id="true", with_input_file_name_col="SRC")))
+        path = os.path.join(self.tmp, "segments.dat")
+        g.generate_fixed_segments(n_seg, seed=500).tofile(path)
+        cases.append(("fixed_segments", path, dict(
+            copybook_contents=g.FIXED_SEGMENTS_COPYBOOK,
+            **g.FIXED_SEGMENTS_OPTIONS)))
+        for kind, path, opts in cases:
+            size = os.path.getsize(path)
+            data, read_s = self._counted_read(f"options_{kind}", path,
+                                              **opts)
+            t0 = time.perf_counter()
+            table = data.to_arrow()
+            arrow_s = time.perf_counter() - t0
+            want = read_cobol(path, device="cpu", **opts).to_arrow()
+            self._same_table(table, want, kind)
+            res = dict(bytes=size, records=table.num_rows, read_s=read_s,
+                       to_arrow_s=arrow_s,
+                       MBps=size / (read_s + arrow_s) / 1e6,
+                       parts=len(data.parts),
+                       launches=self.launches[f"options_{kind}"])
+            self.arrow[f"options_{kind}"] = res
+            log(f"[arrow] {self.card}: {kind}: {table.num_rows} records "
+                f"({size} bytes, {len(data.parts)} parts) read "
+                f"{read_s:.3f} s + to_arrow {arrow_s:.3f} s = "
+                f"{res['MBps']:.1f} MB/s; launches "
+                f"{json.dumps(res['launches'])}; table == device='cpu' "
+                f"read")
+            os.remove(path)
+            del data, table, want
+
     def run(self):
         try:
             self.phase_env()
@@ -1874,6 +2131,7 @@ class Smoke:
             self.phase_profile()
             self.phase_pipeline()
             self.phase_query()
+            self.phase_arrow()
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
 

@@ -1,26 +1,36 @@
 """`read_cobol`: fixed-length and RDW variable-length files, decoding on
 the device.
 
-Port of ``cobrix_tpu.api.read_cobol`` for two routes:
+Port of ``cobrix_tpu.api.read_cobol`` for two routes, chosen as the JAX
+package chooses its reader (``ReaderParameters.needs_var_len_reader``):
 
 * fixed-length files (``_read_fixed_len_chunked`` and
   ``FixedLenReader.read_result``): the file is read in 64 MiB
   record-aligned chunks; each chunk is framed on the host as an
-  [n, record_size] uint8 matrix, moved to the device, decoded by
-  `ColumnarDecoder` (one fused kernel launch for every numeric group) and
-  kept as a `DecodedBatch` of host planes;
+  [n, record_size] uint8 matrix (the record start and end offsets cut
+  off), moved to the device, decoded by `ColumnarDecoder` (one fused
+  kernel launch for every numeric group) and kept as a `DecodedBatch` of
+  host planes, or as a `FileResult` of one batch per active segment when
+  a segment field routes the records to segment redefines;
 * RDW files (``is_record_sequence`` or ``is_xcom``), single- or
-  multisegment: ``reader.var_len_reader.VarLenReader`` frames each file on
-  the device, window by window, and decodes the records of each active
-  segment there, one `FileResult` per file.
+  multisegment, and fixed-length files with a file header or footer,
+  record ids or the input-file-name column:
+  ``reader.var_len_reader.VarLenReader`` frames each file on the device,
+  window by window, and decodes the records of each active segment
+  there, one `FileResult` per file.
 
 With ``pipeline_workers`` > 0 (or -1: min(8, cpu_count)) either route
 runs through the chunk pipeline (``engine.pipeline``): a reader thread
 reads record-aligned chunks (``chunk_size_mb``) or sparse-index shards
-into a bounded pool of pinned host buffers, and worker threads, each on
-its own CUDA stream, move them to the card, frame and decode them; the
-results come back in file and chunk order, equal to the sequential
-read's. ``pipeline_workers=0``, the default, is the sequential path.
+into a bounded pool of pinned host buffers, worker threads, each on its
+own CUDA stream, move them to the card, frame and decode them, and one
+assembler thread builds each chunk's Arrow table; the results come back
+in file and chunk order, equal to the sequential read's.
+``pipeline_workers=0``, the default, is the sequential path.
+
+`CobolData` gives the decoded records as rows, dicts, JSON lines, a
+pyarrow Table (``reader.arrow_out``, built from the host planes) or a
+pandas DataFrame; `batch_callback` receives each chunk's table.
 
 Every input is sniffed for a compression codec first (the JAX
 package's ``compression`` detection): the port does not inflate yet
@@ -28,12 +38,10 @@ package's ``compression`` detection): the port does not inflate yet
 ``compression="none"`` asks for its raw bytes. ``file://`` paths are
 local files; any other scheme raises ValueError naming it.
 
-Rows are materialized only when asked for. The options below are parsed
-with the JAX package's spellings and error messages
-(``parse_options``); the RDW ones are taken for RDW files only. Every
-other option of the JAX package's reader raises ValueError naming it:
-none is silently ignored. `CobolData.metrics` is the read's
-`profiling.ReadMetrics`.
+The options below are parsed with the JAX package's spellings and error
+messages (``parse_options``). Every other option of the JAX package's
+reader raises ValueError naming it: none is silently ignored.
+`CobolData.metrics` is the read's `profiling.ReadMetrics`.
 """
 from __future__ import annotations
 
@@ -46,19 +54,21 @@ import numpy as np
 
 from .copybook.ast import transform_identifier
 from .device import resolve_device
-from .engine.chunks import (auto_split_mb, check_fixed_size,
-                            plan_var_len_chunks)
+from .engine.chunks import auto_split_mb, plan_var_len_chunks
 from .engine.pipeline import pipelined_fixed_scan, pipelined_var_len_scan
 from .io.compress import active_codec, codec_by_name
 from .copybook.datatypes import (
+    CommentPolicy,
+    DebugFieldsPolicy,
     FloatingPointFormat,
     SchemaRetentionPolicy,
     TrimPolicy,
 )
-from .plan.cache import copybook_for_params
 from .profiling import ReadMetrics
-from .reader.columnar import ColumnarDecoder, DecodedBatch
-from .reader.diagnostics import ShardErrorPolicy, ShardFailureInfo
+from .reader.diagnostics import (ShardErrorPolicy, ShardFailureInfo,
+                                 read_diagnostics_json)
+from .reader.fixed_len_reader import FixedLenReader
+from .reader.json_out import rows_to_json
 from .reader.parameters import MultisegmentParameters, ReaderParameters
 from .reader.result import FileResult
 from .reader.schema import CobolOutputSchema, output_schema_for
@@ -70,23 +80,33 @@ from .reader.var_len_reader import (VarLenReader, default_segment_id_prefix,
 # stays about one chunk plus its decoded columns
 FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
 
-# options of RDW reads, taken with is_record_sequence / is_xcom only
-_RDW_OPTIONS = frozenset((
-    "is_rdw_big_endian", "is_rdw_part_of_record_length", "rdw_adjustment",
+# the options the port takes, on every read as in the JAX package:
+# framing, record length and offsets, segments, record ids, the sparse
+# index, the data encoding and copybook shaping, the pipeline and its
+# supervision, the input's compression mode and the column projection
+# (`filter` and `use_stats` are not taken yet)
+_OPTIONS = frozenset((
+    "is_record_sequence", "is_xcom", "is_rdw_big_endian",
+    "is_rdw_part_of_record_length", "rdw_adjustment", "record_length",
     "file_start_offset", "file_end_offset", "record_start_offset",
-    "segment_field", "segment_filter", "segment_id_root",
-    "segment_id_prefix", "generate_record_id", "input_split_records",
-    "input_split_size_mb", "enable_indexes"))
-# options of every read: the pipeline's, its supervision's, the input's
-# compression mode and the column projection (`filter` and `use_stats`
-# are not taken yet)
-_READ_OPTIONS = frozenset((
+    "record_end_offset", "debug_ignore_file_size", "segment_field",
+    "segment_filter", "segment_id_root", "segment_id_prefix",
+    "generate_record_id", "with_input_file_name_col",
+    "input_split_records", "input_split_size_mb", "enable_indexes",
+    "encoding", "ascii_charset", "is_utf16_big_endian",
+    "ebcdic_code_page_class", "drop_group_fillers", "drop_value_fillers",
+    "non_terminals", "debug", "comments_lbound", "comments_ubound",
+    "truncate_comments",
     "pipeline_workers", "chunk_size_mb", "max_inflight_chunks",
     "shard_timeout_s", "scan_deadline_s", "shard_error_policy",
     "shard_max_retries", "compression", "select"))
-_RDW_OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
-                        "redefine_segment_id_map")
-_FRAMING_OPTIONS = ("is_record_sequence", "is_xcom")
+_OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
+                    "redefine_segment_id_map")
+# the framing options `record_length` is refused beside, in the JAX
+# package's order (its other ones are refused by name before)
+_RECORD_LENGTH_EXCLUSIVE = ("is_record_sequence", "is_xcom",
+                            "is_rdw_big_endian",
+                            "is_rdw_part_of_record_length", "rdw_adjustment")
 
 _ENUMS = {
     "schema_retention_policy": {
@@ -102,6 +122,11 @@ _ENUMS = {
         "ibm_little_endian": FloatingPointFormat.IBM_LE,
         "ieee754": FloatingPointFormat.IEEE754,
         "ieee754_little_endian": FloatingPointFormat.IEEE754_LE,
+    },
+    "debug": {
+        "false": DebugFieldsPolicy.NONE, "none": DebugFieldsPolicy.NONE,
+        "true": DebugFieldsPolicy.HEX, "hex": DebugFieldsPolicy.HEX,
+        "raw": DebugFieldsPolicy.RAW,
     },
 }
 
@@ -176,9 +201,8 @@ def _parse_prefixed_map(opts: Options,
     return out
 
 
-def _is_rdw_option(name: str) -> bool:
-    return name in _RDW_OPTIONS or name.lower().startswith(
-        _RDW_OPTION_PREFIXES)
+def _is_taken(name: str) -> bool:
+    return name in _OPTIONS or name.lower().startswith(_OPTION_PREFIXES)
 
 
 def parse_options(options: Dict[str, object],
@@ -187,26 +211,31 @@ def parse_options(options: Dict[str, object],
                   string_trimming_policy: str = "both",
                   floating_point_format: str = "ibm") -> ReaderParameters:
     """Options -> typed ReaderParameters, as ``cobrix_tpu.api
-    .parse_options`` builds them for the options the port takes. Raises
-    ValueError naming the first option the port does not take, and naming
-    an RDW option given for a file that is not RDW-framed."""
+    .parse_options`` builds them for the options the port takes, with
+    its checks and messages. Raises ValueError naming the first option
+    the port does not take."""
     for name in sorted(options):
-        if name not in _FRAMING_OPTIONS and name not in _READ_OPTIONS \
-                and not _is_rdw_option(name):
+        if not _is_taken(name):
             raise ValueError(
                 f"Option '{name}' is not supported by cobrix_tpu_torch."
                 f"read_cobol, which reads fixed-length and RDW "
                 f"(is_record_sequence) files")
     opts = Options(options)
+    encoding = (opts.get("encoding", "") or "").strip().lower()
+    if encoding not in ("", "ebcdic", "ascii"):
+        raise ValueError(f"Invalid value '{encoding}' for 'encoding' option. "
+                         "Should be either 'EBCDIC' or 'ASCII'.")
+    comment_policy = CommentPolicy(
+        truncate_comments=opts.get_bool("truncate_comments", True),
+        comments_up_to_char=opts.get_int("comments_lbound", 6),
+        comments_after_char=opts.get_int("comments_ubound", 72))
+    if not comment_policy.truncate_comments and (
+            "comments_lbound" in opts or "comments_ubound" in opts):
+        raise ValueError(
+            "When 'truncate_comments=false' the following parameters cannot be "
+            "used: 'comments_lbound', 'comments_ubound'.")
     is_record_sequence = (opts.get_bool("is_xcom") or
                           opts.get_bool("is_record_sequence"))
-    if not is_record_sequence:
-        for name in sorted(options):
-            if _is_rdw_option(name):
-                raise ValueError(
-                    f"Option '{name}' is supported by cobrix_tpu_torch."
-                    f"read_cobol for RDW files only "
-                    f"(is_record_sequence=true)")
     multisegment = None
     if "segment_field" in opts:
         filter_str = opts.get("segment_filter")
@@ -218,7 +247,11 @@ def parse_options(options: Dict[str, object],
             segment_id_redefine_map=_parse_prefixed_map(
                 opts, ("redefine-segment-id-map", "redefine_segment_id_map")))
     params = ReaderParameters(
+        is_ebcdic=encoding in ("", "ebcdic"),
         ebcdic_code_page=ebcdic_code_page,
+        ebcdic_code_page_class=opts.get("ebcdic_code_page_class"),
+        ascii_charset=opts.get("ascii_charset", "") or "us-ascii",
+        is_utf16_big_endian=opts.get_bool("is_utf16_big_endian", True),
         floating_point_format=_parse_enum("floating_point_format",
                                           floating_point_format),
         is_record_sequence=is_record_sequence,
@@ -226,10 +259,12 @@ def parse_options(options: Dict[str, object],
         is_rdw_part_of_record_length=opts.get_bool(
             "is_rdw_part_of_record_length"),
         rdw_adjustment=opts.get_int("rdw_adjustment", 0),
+        record_length_override=opts.get_int("record_length"),
         is_index_generation_needed=opts.get_bool("enable_indexes", True),
         input_split_records=opts.get_int("input_split_records"),
         input_split_size_mb=opts.get_int("input_split_size_mb"),
         start_offset=opts.get_int("record_start_offset", 0),
+        end_offset=opts.get_int("record_end_offset", 0),
         file_start_offset=opts.get_int("file_start_offset", 0),
         file_end_offset=opts.get_int("file_end_offset", 0),
         generate_record_id=opts.get_bool("generate_record_id"),
@@ -238,6 +273,13 @@ def parse_options(options: Dict[str, object],
         string_trimming_policy=_parse_enum("string_trimming_policy",
                                            string_trimming_policy),
         multisegment=multisegment,
+        comment_policy=comment_policy,
+        drop_group_fillers=opts.get_bool("drop_group_fillers"),
+        drop_value_fillers=opts.get_bool("drop_value_fillers", True),
+        non_terminals=tuple(
+            s for s in (opts.get("non_terminals", "") or "").split(",") if s),
+        debug_fields_policy=_parse_enum("debug", opts.get("debug", "false")),
+        input_file_name_column=opts.get("with_input_file_name_col", ""),
         compression=(opts.get("compression", "auto") or "auto").lower(),
         pipeline_workers=opts.get_int("pipeline_workers", 0),
         pipeline_chunk_mb=float(opts.get("chunk_size_mb", "") or 16.0),
@@ -249,13 +291,26 @@ def parse_options(options: Dict[str, object],
         scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0),
         select=tuple(s.strip() for s in opts.get("select", "").split(",")
                      if s.strip()) or None)
-    _validate(params)
+    _validate(params, opts)
     return params
 
 
-def _validate(params: ReaderParameters) -> None:
-    """The JAX package's checks (``cobrix_tpu.api.parse_options``) of
-    the compression, pipeline and supervision options, same messages."""
+def _validate(params: ReaderParameters, opts: Options) -> None:
+    """The JAX package's checks (``cobrix_tpu.api._validate_options``)
+    of the options the port takes, same messages."""
+    if "record_length" in opts:
+        bad = [k for k in _RECORD_LENGTH_EXCLUSIVE if k in opts]
+        if bad:
+            raise ValueError(
+                f"Option 'record_length' and {', '.join(bad)} cannot be "
+                "used together.")
+    if params.input_file_name_column and not params.is_variable_length:
+        raise ValueError(
+            "Option 'with_input_file_name_col' is supported only when "
+            "one of this holds: 'is_record_sequence' = true or "
+            "'variable_size_occurs' = true or one of these options is "
+            "set: 'record_length_field', 'file_start_offset', "
+            "'file_end_offset' or a custom record extractor is specified")
     if params.compression not in ("auto", "none", "off", "raw"):
         try:
             codec_by_name(params.compression)
@@ -343,9 +398,10 @@ def list_input_files(path) -> List[str]:
 
 class CobolData:
     """Decoded result of a read: the fixed-length route's `DecodedBatch`
-    per chunk, or the RDW route's `FileResult` per file (per shard on a
-    pipelined read), in record order, plus the output schema and the
-    read's metrics."""
+    per chunk, or `FileResult` per file (per shard on a pipelined read,
+    per chunk for multisegment fixed-length records), in record order,
+    plus the output schema and the read's metrics; materializable as
+    rows, dicts, JSON lines, a pyarrow Table or a pandas DataFrame."""
 
     def __init__(self, batches: List[DecodedBatch],
                  schema: CobolOutputSchema,
@@ -363,6 +419,12 @@ class CobolData:
     @property
     def schema(self):
         return self.output_schema.schema
+
+    @property
+    def parts(self) -> list:
+        """The read's decoded parts in record order: each has
+        `to_arrow(output_schema)`."""
+        return self.batches + self.results
 
     def __len__(self) -> int:
         return (sum(b.n_records for b in self.batches)
@@ -382,6 +444,62 @@ class CobolData:
         names = self.schema.field_names()
         return [dict(zip(names, row)) for row in self.to_rows()]
 
+    def to_json_lines(self) -> List[str]:
+        return rows_to_json(self.to_rows(), self.schema)
+
+    def to_pandas(self):
+        return self.to_arrow().to_pandas()
+
+    def to_arrow(self):
+        """pyarrow Table with the schema's declared types, built from the
+        host planes without row materialization: one table per part
+        (cached by the pipelined read's assemble stage), concatenated.
+        A read that lost shards under shard_error_policy='partial'
+        carries its ledger in the schema metadata
+        (``cobrix_tpu.read_diagnostics``), as the JAX package's does."""
+        import pyarrow as pa
+
+        from .reader.arrow_out import arrow_schema
+
+        tables = [part.to_arrow(self.output_schema) for part in self.parts]
+        if not tables:
+            table = arrow_schema(self.schema).empty_table()
+        else:
+            table = tables[0] if len(tables) == 1 else pa.concat_tables(
+                tables)
+        if not self.shard_failures:
+            return table
+        metadata = dict(table.schema.metadata or {})
+        metadata[b"cobrix_tpu.read_diagnostics"] = read_diagnostics_json(
+            self.shard_failures).encode()
+        return table.replace_schema_metadata(metadata)
+
+
+class _BatchTap:
+    """Adapter between the pipeline's `on_batch(index, table)` hook and a
+    user `batch_callback`: counts deliveries so read_cobol knows whether
+    the pipelined path already streamed, and delivers a finished read's
+    tables otherwise."""
+
+    __slots__ = ("callback", "count")
+
+    def __init__(self, callback):
+        self.callback = callback
+        self.count = 0
+
+    def emit(self, index: int, table) -> None:
+        if table is not None:
+            # failed-chunk signals (table=None) forward but don't count
+            # as deliveries: an all-chunks-failed pipelined scan still
+            # takes the whole-result delivery below
+            self.count += 1
+        self.callback(index, table)
+
+    def emit_data(self, data: CobolData) -> None:
+        """Per-part tables of a finished read, in record order."""
+        for i, part in enumerate(data.parts):
+            self.emit(i, part.to_arrow(data.output_schema))
+
 
 def read_cobol(path=None,
                copybook: Optional[str] = None,
@@ -391,6 +509,7 @@ def read_cobol(path=None,
                schema_retention_policy: str = "keep_original",
                string_trimming_policy: str = "both",
                floating_point_format: str = "ibm",
+               batch_callback=None,
                **options) -> CobolData:
     """Read fixed-length or RDW mainframe file(s) into decoded columns.
 
@@ -398,20 +517,37 @@ def read_cobol(path=None,
     `copybook_contents` passes the text directly. `device=None` decodes
     on the CUDA device and raises RuntimeError when there is none;
     ``device="cpu"`` runs the plain PyTorch versions. The other keyword
-    arguments take the JAX package's option names and values: with
-    ``is_record_sequence="true"`` (or ``is_xcom``) the files are RDW
-    framed, and the RDW options (header endianness and adjustment, file
-    and record offsets, segment field, filter, levels, prefix and
-    redefine map, record ids, sparse-index splits) apply. Every read
-    takes `compression`, the pipeline's options (`pipeline_workers`,
-    `chunk_size_mb`, `max_inflight_chunks`, `shard_error_policy`,
-    `shard_timeout_s`, `shard_max_retries`, `scan_deadline_s`) and
-    `select` (comma-separated field or group names: only those leaves,
-    and the DEPENDING ON counters, are decoded; every other leaf is
-    None)."""
+    arguments take the JAX package's option names and values, on any
+    file: RDW framing (``is_record_sequence="true"`` or ``is_xcom``,
+    header endianness and adjustment), the record-length override, file
+    and record offsets, ``debug_ignore_file_size``, the segment field,
+    filter, levels, prefix and redefine map, record ids, the
+    input-file-name column, sparse-index splits, the data encoding
+    (``encoding``, ``ascii_charset``, ``is_utf16_big_endian``,
+    ``ebcdic_code_page_class``), copybook shaping (filler dropping,
+    ``non_terminals``, ``debug`` fields, comment bounds), `compression`,
+    the pipeline's options (`pipeline_workers`, `chunk_size_mb`,
+    `max_inflight_chunks`, `shard_error_policy`, `shard_timeout_s`,
+    `shard_max_retries`, `scan_deadline_s`) and `select`
+    (comma-separated field or group names: only those leaves, and the
+    DEPENDING ON counters, are decoded; every other leaf is None).
+
+    `batch_callback(chunk_index, table)` receives each chunk's pyarrow
+    Table: on a pipelined read as soon as it is assembled (in completion
+    order; `(chunk_index, None)` for a chunk lost under the partial
+    shard policy), otherwise each part's table after the read, in
+    order. The tables in index order concatenate to `to_arrow()` minus
+    its diagnostics metadata; a callback exception fails the read (or
+    the chunk, under the partial policy)."""
+    if batch_callback is not None and not callable(batch_callback):
+        raise ValueError("'batch_callback' must be callable (it receives "
+                         "(chunk_index, pyarrow.Table) pairs).")
+    tap = _BatchTap(batch_callback) if batch_callback else None
+    on_batch = tap.emit if tap is not None else None
     params = parse_options(options, ebcdic_code_page,
                            schema_retention_policy, string_trimming_policy,
                            floating_point_format)
+    ignore_file_size = Options(options).get_bool("debug_ignore_file_size")
     contents = load_copybook_contents(copybook, copybook_contents)
     if path is None:
         raise ValueError("'path' must be specified for read_cobol.")
@@ -430,7 +566,8 @@ def read_cobol(path=None,
     device = resolve_device(device)
     workers = params.resolved_pipeline_workers()
     use_pipeline = workers > 0
-    if use_pipeline and params.is_record_sequence:
+    is_var_len = params.needs_var_len_reader
+    if use_pipeline and is_var_len:
         split_mb = auto_split_mb(params)
         if split_mb is not None:
             # default the sparse-index split to the pipeline chunk size
@@ -440,8 +577,11 @@ def read_cobol(path=None,
     metrics = ReadMetrics(files=len(files), bytes_read=sum(
         os.path.getsize(f) for f in files))
     failures: List[ShardFailureInfo] = []
-    if params.is_record_sequence:
+    batches: List[DecodedBatch] = []
+    results: List[FileResult] = []
+    if is_var_len:
         reader = VarLenReader(contents, params, device=device)
+        schema = output_schema_for(reader.copybook, params, is_var_len=True)
         seg = params.multisegment
         prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
                   else default_segment_id_prefix())
@@ -449,45 +589,55 @@ def read_cobol(path=None,
             shards = plan_var_len_chunks(reader, files, params)
             metrics.shards = len(shards)
             results, failures = pipelined_var_len_scan(
-                reader, shards, prefix, workers, metrics)
-            results = [r for r in results if r is not None]
+                reader, shards, prefix, workers, schema, metrics,
+                on_batch=on_batch)
         else:
             results = [reader.read_result(
                 file_path, file_id=file_order, segment_id_prefix=prefix,
                 start_record_id=file_record_id_base(file_order))
                 for file_order, file_path in enumerate(files)]
             metrics.shards = len(results)
-        data = CobolData([], output_schema_for(reader.copybook, params,
-                                               is_var_len=True), results,
-                         metrics, failures)
     else:
-        cb = copybook_for_params(contents, params)
-        decoder = ColumnarDecoder(cb, select=params.select, device=device)
+        reader = FixedLenReader(contents, params, device=device)
+        schema = output_schema_for(reader.copybook, params, is_var_len=False)
         if use_pipeline:
-            batches, failures = pipelined_fixed_scan(
-                decoder, files, params, workers, metrics)
-            batches = [b for b in batches if b is not None]
+            parts, failures = pipelined_fixed_scan(
+                reader, files, params, workers, schema, metrics,
+                ignore_file_size=ignore_file_size, on_batch=on_batch)
         else:
-            batches = _read_fixed_sequential(decoder, cb.record_size,
-                                             files)
-            metrics.shards = len(batches)
-        data = CobolData(batches, output_schema_for(cb, params,
-                                                    is_var_len=False),
-                         None, metrics, failures)
+            parts = _read_fixed_sequential(reader, files, ignore_file_size)
+            metrics.shards = len(parts)
+        # one kind of part per read: batches, or (multisegment records)
+        # results
+        for part in parts:
+            if isinstance(part, FileResult):
+                results.append(part)
+            elif part is not None:
+                batches.append(part)
+    data = CobolData(batches, schema,
+                     [r for r in results if r is not None], metrics,
+                     failures)
     metrics.records = len(data)
+    if tap is not None and tap.count == 0:
+        # a sequential read, or a pipelined one that delivered nothing:
+        # the parts' tables go out now, in record order
+        tap.emit_data(data)
     return data
 
 
-def _read_fixed_sequential(decoder: ColumnarDecoder, rs: int,
-                           files: List[str]) -> List[DecodedBatch]:
+def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
+                           ignore_file_size: bool) -> list:
     """The sequential fixed-length read: each file in record-aligned
     chunks of FIXED_READ_CHUNK_BYTES, read into a fresh host buffer and
-    decoded in turn."""
+    decoded in turn (`FixedLenReader.read_chunk`). Under
+    debug_ignore_file_size a torn tail is left unread."""
+    rs = reader.record_size
     chunk_bytes = max(rs, FIXED_READ_CHUNK_BYTES // rs * rs)
-    batches: List[DecodedBatch] = []
+    parts: list = []
     for file_path in files:
         size = os.path.getsize(file_path)
-        check_fixed_size(file_path, size, rs)
+        reader.check_binary_data_validity(size, ignore_file_size, file_path)
+        size -= size % rs
         with open(file_path, "rb") as f:
             done = 0
             while done < size:
@@ -495,7 +645,7 @@ def _read_fixed_sequential(decoder: ColumnarDecoder, rs: int,
                 got = f.readinto(buf)
                 if got != len(buf):
                     raise IOError(f"Short read from {file_path} at {done}")
-                matrix = np.frombuffer(buf, dtype=np.uint8).reshape(-1, rs)
-                batches.append(decoder.decode(matrix))
+                parts.append(reader.read_chunk(
+                    np.frombuffer(buf, dtype=np.uint8)))
                 done += got
-    return batches
+    return parts

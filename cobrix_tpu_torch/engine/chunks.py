@@ -19,8 +19,7 @@ Changes from the JAX package: the stats chunk skipper (``use_stats``,
 ROADMAP A6/A8) is not carried over; the port reads local, uncompressed
 files only, so sizes come from ``os.path.getsize`` and there is no
 retry policy or compressed-chunk check; `plan_fixed_chunks` takes the
-record size in place of a fixed-length reader, which the port does not
-have, nor the ``debug_ignore_file_size`` option; `WorkShard`
+record size in place of the fixed-length reader; `WorkShard`
 (``parallel.planner.WorkShard`` in the JAX package) lives here.
 """
 from __future__ import annotations
@@ -71,30 +70,18 @@ class WorkShard:
 
 
 def fixed_file_chunkable(size: int, record_size: int, params,
-                         chunk_bytes: int) -> bool:
+                         chunk_bytes: int, ignore_file_size: bool) -> bool:
     """THE fixed-length split predicate: no file-level header/footer
-    trims and a record-divisible payload (the port takes no
-    ``debug_ignore_file_size``)."""
+    trims and a record-divisible payload (or debug_ignore_file_size)."""
     payload = size - params.file_start_offset - params.file_end_offset
     return (size > chunk_bytes
             and not params.file_start_offset
             and not params.file_end_offset
-            and payload % record_size == 0)
+            and (payload % record_size == 0 or ignore_file_size))
 
 
-def check_fixed_size(file_path: str, size: int, record_size: int) -> None:
-    """Raise the fixed-length read's error when `record_size` does not
-    divide a file of `size` bytes."""
-    if size % record_size:
-        raise ValueError(
-            f"Binary record size {record_size} does not divide data size "
-            f"{size} of '{file_path}': the last {size % record_size} "
-            f"byte(s) (at file offset {size - size % record_size}) do not "
-            f"form a whole record.")
-
-
-def plan_fixed_chunks(record_size: int, files, params,
-                      chunk_bytes: int) -> List[FixedChunk]:
+def plan_fixed_chunks(record_size: int, files, params, chunk_bytes: int,
+                      ignore_file_size: bool = False) -> List[FixedChunk]:
     """Byte-stride chunk plan over fixed-length input files.
 
     A file splits only when the conditions of `fixed_file_chunkable`
@@ -107,7 +94,8 @@ def plan_fixed_chunks(record_size: int, files, params,
     for file_order, file_path in enumerate(files):
         base = file_order * DEFAULT_FILE_RECORD_ID_INCREMENT
         size = os.path.getsize(file_path)
-        if not fixed_file_chunkable(size, rs, params, chunk_bytes):
+        if not fixed_file_chunkable(size, rs, params, chunk_bytes,
+                                    ignore_file_size):
             chunks.append(FixedChunk(file_path, file_order, 0, 0, base,
                                      whole_file=True))
             continue

@@ -1,4 +1,5 @@
-"""The chunked pipeline executor: overlap read, framing and decode.
+"""The chunked pipeline executor: overlap read, framing, decode and
+Arrow assembly.
 
 Port of ``cobrix_tpu.engine.pipeline``. A scan is split into chunks
 (engine/chunks.py) and executed as a producer/consumer pipeline:
@@ -6,6 +7,9 @@ Port of ``cobrix_tpu.engine.pipeline``. A scan is split into chunks
     reader thread:  chunk.read()  ──►  bounded queue  ──►  worker pool:
                     (into a staging    (backpressure)      H2D -> frame
                      buffer)                               -> decode -> D2H
+                                                                 │
+                    assembler thread: the chunk's Arrow table ◄──┘
+                    (and ``on_batch``, the read's batch_callback)
 
 Threads, not processes: the kernels are launched through ``ctypes``,
 which releases the GIL for the call, and so do file reads and PyTorch's
@@ -35,8 +39,8 @@ but for what the port does not have: the observability context (tracer
 spans, progress, the metrics registry; ROADMAP A8), the memory-pressure
 degrade (``utils.pressure``) and ``_cap_omp_width``, which caps a native
 OpenMP library the port does not load. `pipelined_fixed_scan` and
-`pipelined_var_len_scan` drive it over the port's decoder and RDW reader
-with the device plumbing the JAX package leaves to XLA
+`pipelined_var_len_scan` drive it over the port's fixed-length and
+variable-length readers with the device plumbing the JAX package leaves to XLA
 (engine/staging.py): the reader thread reads each chunk or shard into a
 buffer of a bounded pinned pool, each worker thread decodes on its own
 CUDA stream, and each decoded batch crosses back in one copy
@@ -54,8 +58,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..profiling import ReadMetrics, StageTimes
 from ..reader.diagnostics import ShardErrorPolicy, ShardFailureInfo
-from .chunks import (FixedChunk, WorkShard, check_fixed_size,
-                     plan_fixed_chunks)
+from .chunks import FixedChunk, WorkShard, plan_fixed_chunks
 from .staging import StagingPool, worker_stream
 
 # poll tick bounding every queue wait in the pipeline (so cancellation is
@@ -93,8 +96,10 @@ class PipelineExecutor:
       constraint no longer holds, so `parallel_finalize=True` lets
       assembly ride the decode workers — each worker finalizes the chunk
       it just decoded, and the dedicated assembler thread disappears.
-      The port has no assembly stage yet (ROADMAP A3): its scans pass
-      None, as the JAX package's ``assemble=False`` does.
+      The port's assembly is numpy and pyarrow glue, so its scans keep
+      the one assembler thread (``parallel_finalize`` stays off, as the
+      JAX package leaves it for every backend but numpy with its native
+      library).
 
     Results return in task order regardless of completion order. A chunk
     whose read/process raises is re-queued once before counting as
@@ -644,18 +649,67 @@ def _staged_read(pool: StagingPool, stage_times: StageTimes, path: str,
     return read
 
 
-def pipelined_fixed_scan(decoder, files, params, workers: int,
-                         metrics: Optional[ReadMetrics] = None
+def _assemble(result, output_schema, stage_times: StageTimes):
+    """Stage 4: the chunk's Arrow table, built on the assembler thread
+    and cached on the DecodedBatch or FileResult, so that
+    CobolData.to_arrow concatenates without rebuilding. A chunk with no
+    records (an empty file) gives the schema's empty table."""
+    from ..reader.arrow_out import arrow_schema
+
+    with stage_times.timed("assemble"):
+        if result is None:
+            return arrow_schema(output_schema.schema).empty_table()
+        table = result.to_arrow(output_schema)
+    result._arrow_cache = table
+    result._arrow_cache_schema = output_schema
+    return table
+
+
+def _finalizers(count: int, output_schema, ex: PipelineExecutor, on_batch):
+    """Per-chunk finalize closures (the assemble stage). With `on_batch`
+    set, each assembled chunk's table is handed out as
+    `on_batch(chunk_index, table)`: calls are serialized by the one
+    assembler thread but arrive in chunk completion order. An on_batch
+    exception fails the chunk like any assembly error: fail_fast aborts
+    the scan, partial ledgers the chunk. A chunk that fails terminally
+    under the partial policy is signalled as `(chunk_index, None)`."""
+    from ..reader.arrow_out import warm_pyarrow
+
+    warm_pyarrow()
+    if on_batch is not None:
+        ex.on_chunk_failed = lambda i: on_batch(i, None)
+
+    def make(i: int):
+        def finalize(result) -> None:
+            table = _assemble(result, output_schema, ex.stage_times)
+            if on_batch is not None:
+                on_batch(i, table)
+        return finalize
+
+    return [make(i) for i in range(count)]
+
+
+def pipelined_fixed_scan(reader, files, params, workers: int,
+                         output_schema,
+                         metrics: Optional[ReadMetrics] = None,
+                         ignore_file_size: bool = False, on_batch=None
                          ) -> Tuple[list, List[ShardFailureInfo]]:
     """Fixed-length files through the chunk pipeline: record-aligned byte
-    strides read into staging buffers, moved to the card and decoded there
-    (`ColumnarDecoder.decode_tensor`), row-identical to the sequential
-    chunked read. Returns (one DecodedBatch per chunk, None for an empty
-    file or a chunk that failed under the partial policy; failures)."""
-    rs = decoder.plan.record_size
-    device = decoder.device
+    strides read into staging buffers, decoded on the card (a chunk of
+    the plain layout straight from the staging buffer,
+    `ColumnarDecoder.decode_tensor`; trimmed or multisegment records
+    through `FixedLenReader.read_chunk` on a host copy), and assembled
+    into a table per chunk; row-identical to the sequential chunked
+    read. Returns (one DecodedBatch or FileResult per chunk, None for an
+    empty file or a chunk that failed under the partial policy;
+    failures). `on_batch(chunk_index, table)` taps each assembled chunk
+    out (`_finalizers`)."""
+    rs = reader.record_size
+    device = reader.device
+    decoder = reader.decoder()
     chunk_bytes = max(1, int(params.pipeline_chunk_mb * 1024 * 1024))
-    chunks = plan_fixed_chunks(rs, files, params, chunk_bytes)
+    chunks = plan_fixed_chunks(rs, files, params, chunk_bytes,
+                               ignore_file_size)
 
     def failure_info(index, attempts, reason, error):
         c = chunks[index]
@@ -675,22 +729,33 @@ def pipelined_fixed_scan(decoder, files, params, workers: int,
 
         def read():
             size = os.path.getsize(c.file_path)
-            check_fixed_size(c.file_path, size, rs)
+            reader.check_binary_data_validity(size, ignore_file_size,
+                                              c.file_path)
             return _staged_read(pool, ex.stage_times, c.file_path, 0,
                                 size)()
         return read
 
     def process(staged):
         with worker_stream(device), ex.stage_times.timed("decode"):
+            x = buf = None
             try:
-                if staged.nbytes == 0:
+                # whole records only: a torn tail is cut under
+                # debug_ignore_file_size (and raised before otherwise)
+                n = staged.nbytes // rs * rs
+                if n == 0:
                     return None
-                x = staged.to_device(device).view(-1, rs)
+                if reader.plain_layout:
+                    x = staged.to_device(device, 0, n).view(-1, rs)
+                else:
+                    buf = staged.host()[:n].numpy().copy()
             finally:
                 staged.close()
-            return decoder.decode_tensor(x)
+            return (decoder.decode_tensor(x) if x is not None
+                    else reader.read_chunk(buf))
 
-    results = ex.run([(read_fn(c), process, None) for c in chunks])
+    finalizers = _finalizers(len(chunks), output_schema, ex, on_batch)
+    results = ex.run([(read_fn(c), process, fin)
+                      for c, fin in zip(chunks, finalizers)])
     ex.report["staging"] = pool.report()
     ex.attach(metrics)
     if metrics is not None:
@@ -699,16 +764,18 @@ def pipelined_fixed_scan(decoder, files, params, workers: int,
 
 
 def pipelined_var_len_scan(reader, shards: Sequence[WorkShard],
-                           prefix: str, workers: int,
-                           metrics: Optional[ReadMetrics] = None
+                           prefix: str, workers: int, output_schema,
+                           metrics: Optional[ReadMetrics] = None,
+                           on_batch=None
                            ) -> Tuple[list, List[ShardFailureInfo]]:
     """Variable-length shards (sparse-index byte ranges) through the
-    pipeline: each shard is read into a staging buffer and framed and
-    decoded from it (`VarLenReader.read_shard`). The shard plan is
-    exactly the JAX package's, so record framing and Record_Ids match;
-    the pipeline only overlaps stage execution. Returns (one FileResult
-    per shard, None for a shard that failed under the partial policy;
-    failures)."""
+    pipeline: each shard is read into a staging buffer, framed and
+    decoded from it (`VarLenReader.read_shard`) and assembled into a
+    table. The shard plan is exactly the JAX package's, so record
+    framing and Record_Ids match; the pipeline only overlaps stage
+    execution. Returns (one FileResult per shard, None for a shard that
+    failed under the partial policy; failures); `on_batch` taps the
+    assembled shards out as `pipelined_fixed_scan` does."""
     params = reader.params
     device = reader.device
     sizes = {path: os.path.getsize(path)
@@ -738,12 +805,14 @@ def pipelined_var_len_scan(reader, shards: Sequence[WorkShard],
                     return reader.read_shard(
                         staged, shard.file_order, shard.offset_from,
                         shard.record_index, sizes[shard.file_path],
-                        prefix)
+                        prefix, path=shard.file_path)
                 finally:
                     staged.close()
         return process
 
-    results = ex.run([(read_fn(s), process_fn(s), None) for s in shards])
+    finalizers = _finalizers(len(shards), output_schema, ex, on_batch)
+    results = ex.run([(read_fn(s), process_fn(s), fin)
+                      for s, fin in zip(shards, finalizers)])
     ex.report["staging"] = pool.report()
     ex.attach(metrics)
     return results, ex.shard_failures

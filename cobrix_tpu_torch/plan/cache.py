@@ -48,9 +48,13 @@ def invalidate_code_page(name: str) -> None:
 
 def copybook_for_params(copybook_contents, params):
     """Parse the Copybook (merged when several texts are given) for one
-    reader configuration: its trimming, code page and float format, and
-    the segment redefines of its redefine map marked at parse time."""
+    reader configuration: its data encoding, comment bounds, filler
+    dropping, non-terminals, debug fields, trimming, code page (a custom
+    code-page class loaded and registered on first use), ASCII charset,
+    UTF-16 byte order and float format, and the segment redefines of
+    its redefine map marked at parse time."""
     from ..copybook.copybook import merge_copybooks, parse_copybook
+    from ..encoding.codepages import resolve_code_page
 
     contents_list = ([copybook_contents]
                      if isinstance(copybook_contents, str)
@@ -61,10 +65,19 @@ def copybook_for_params(copybook_contents, params):
     copybooks = [
         parse_copybook(
             c,
+            data_encoding=params.data_encoding,
+            drop_group_fillers=params.drop_group_fillers,
+            drop_value_fillers=params.drop_value_fillers,
             segment_redefines=redefines,
             string_trimming_policy=params.string_trimming_policy,
-            ebcdic_code_page=params.ebcdic_code_page,
+            comment_policy=params.comment_policy,
+            ebcdic_code_page=resolve_code_page(
+                params.ebcdic_code_page, params.ebcdic_code_page_class),
+            ascii_charset=params.ascii_charset,
+            is_utf16_big_endian=params.is_utf16_big_endian,
             floating_point_format=params.floating_point_format,
+            non_terminals=params.non_terminals,
+            debug_fields_policy=params.debug_fields_policy,
         ) for c in contents_list]
     return (copybooks[0] if len(copybooks) == 1
             else merge_copybooks(copybooks))

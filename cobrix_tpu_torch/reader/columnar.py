@@ -30,10 +30,16 @@ the two launch the same work. A decoder takes a column projection
 projection rewrote the plan's offsets builds a new fused layout, with
 its own device tables.
 
+`DecodedBatch.to_arrow` builds a batch's table from its host planes
+(``arrow_out.segment_table``), or returns the one the pipelined read's
+assemble stage cached on it.
+
 Left out of the port: the numpy and native backends, the lazy planes,
 the in-place raw kernels and segment row masks of ``decode_raw``, the
-Arrow caches, the multi-device ``shard_map`` split (ROADMAP A7), and the
-field-cost and observability hooks.
+native Arrow string buffers and their caches (``string_arrow_buffers``,
+``_build_arrow_strings``, ``_group_masks``: the port's strings are
+built from the code-point planes), the multi-device ``shard_map`` split
+(ROADMAP A7), and the field-cost and observability hooks.
 """
 from __future__ import annotations
 
@@ -274,9 +280,23 @@ class DecodedBatch:
         # row; columns past a record's end are null / truncated like
         # reference Primitive.decodeTypeValue (Primitive.scala:102)
         self.lengths = lengths
+        # the table the pipelined read's assemble stage built, and the
+        # output schema it was built for
+        self._arrow_cache = None
+        self._arrow_cache_schema = None
 
     def column_arrays(self, col: int) -> dict:
         return self._out[col]
+
+    def to_arrow(self, output_schema):
+        """The batch's records (of no segment redefine) as a pyarrow
+        Table, or the table the assemble stage cached for an equal
+        schema."""
+        from .arrow_out import cached_table, segment_table
+
+        table = cached_table(self, output_schema)
+        return (table if table is not None
+                else segment_table(self, None, output_schema))
 
     def row(self, i: int,
             policy: SchemaRetentionPolicy = SchemaRetentionPolicy.KEEP_ORIGINAL
@@ -720,6 +740,11 @@ class ColumnarDecoder:
         for c in self.plan.columns:
             if c.statement is not None and c.statement.is_dependee:
                 self.dependee_columns.setdefault(c.statement.name, c.index)
+        # statements with at least one compiled column: the Arrow builder
+        # emits a subtree the projection pruned as nulls at once
+        self.planned_statement_ids = frozenset(
+            id(c.statement) for c in self.plan.columns
+            if c.statement is not None)
         # every numeric group rides ONE fused launch
         self.fused_indices: List[int] = []
         specs = []

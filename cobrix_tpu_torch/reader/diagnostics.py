@@ -4,15 +4,23 @@ Port copy of ``cobrix_tpu.reader.diagnostics``, reduced to `hex_snapshot`
 and `FramingError`, plus `framing_error`, the copy of
 ``cobrix_tpu.native._framing_error``: a malformed RDW header raises the
 same exception class, message, offset and reason as the JAX package; and the shard-level policy of the pipeline's watchdog,
-`ShardErrorPolicy` and `ShardFailureInfo`, copied as they are. The port
-reads malformed records under the fail-fast policy only, so the error
-ledger, the corrupt-record entries and the record error policies are not
-carried over.
+`ShardErrorPolicy` and `ShardFailureInfo`, copied as they are; and
+`read_diagnostics_json`, the JSON that the JAX package's
+``ReadDiagnostics.to_json`` gives for a read whose only incidents are
+the shards it lost, which ``CobolData.to_arrow`` stamps on the table's
+schema. The port reads malformed records under the fail-fast policy
+only, so the error ledger, the corrupt-record entries and the record
+error policies are not carried over.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from enum import Enum
+from typing import Sequence
+
+# entries a ledger keeps (the JAX package's DEFAULT_LEDGER_CAP)
+DEFAULT_LEDGER_CAP = 100
 
 
 class ShardErrorPolicy(Enum):
@@ -110,3 +118,21 @@ class ShardFailureInfo:
             "reason": self.reason,
             "error": self.error,
         }
+
+
+def read_diagnostics_json(shard_failures: Sequence[ShardFailureInfo],
+                          max_entries: int = DEFAULT_LEDGER_CAP) -> str:
+    """``ReadDiagnostics.to_json`` of a read that lost `shard_failures`
+    and had no other incident, key for key."""
+    return json.dumps({
+        "corrupt_records": 0,
+        "records_dropped": 0,
+        "bytes_skipped": 0,
+        "resyncs": 0,
+        "io_retries": 0,
+        "shards_failed": len(shard_failures),
+        "entries_truncated": False,
+        "entries": [],
+        "shard_failures": [f.as_dict()
+                           for f in shard_failures[:max_entries]],
+    }, separators=(",", ":"))

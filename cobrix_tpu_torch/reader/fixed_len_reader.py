@@ -1,0 +1,151 @@
+"""Fixed-length reader: record size, validity, record trimming and
+multisegment records, decoding on the device.
+
+Port copy of ``cobrix_tpu.reader.fixed_len_reader`` (the reference's
+FixedLenNestedReader) for the reads that stay fixed-length in the JAX
+package: no file header or footer, no record ids and no input-file-name
+column, which route a read through the variable-length reader there as
+here (``ReaderParameters.needs_var_len_reader``; the port's
+``VarLenReader`` frames fixed-length records then). It carries
+`record_size` with the ``record_length`` override,
+`check_binary_data_validity` with ``debug_ignore_file_size``,
+`_trimmed_matrix` (the record start and end offsets), and
+`_read_multiseg_result` (``segment_field`` with a redefine map: each
+record's segment value picks its redefine, and each active segment is
+decoded with its own plan; as in the reference's fixed-length iterator,
+there is no segment filter).
+
+`read_chunk` takes a chunk of whole records on the host; the pipelined
+read decodes a chunk of a plain layout (`plain_layout`) straight from
+its staging buffer on the device instead (``engine.pipeline``).
+
+Changes from the JAX package: the host (oracle) walk, filter pushdown,
+the permissive policies' truncated-tail handling and the error ledger
+are not carried over (their options are refused; a torn tail raises the
+JAX package's error, word for word).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+
+from ..device import resolve_device
+from ..plan.cache import copybook_for_params
+from .columnar import ColumnarDecoder, DecodedBatch, decoder_for_segment
+from .extractors import DecodeOptions
+from .parameters import ReaderParameters
+from .result import FileResult, SegmentBatch
+from .vrl_reader import (SegmentIds, decode_segment_id_bytes,
+                         resolve_segment_id_field)
+
+
+class FixedLenReader:
+    """Fixed-length reader bound to one copybook + parameters, decoding
+    on `device` (None: the CUDA device; ``"cpu"``: the plain versions)."""
+
+    def __init__(self, copybook_contents, params: ReaderParameters,
+                 device=None):
+        seg = params.multisegment
+        self.device = resolve_device(device)
+        self.copybook = copybook_for_params(copybook_contents, params)
+        self.params = params
+        self.segment_redefine_map = dict(
+            seg.segment_id_redefine_map) if seg else {}
+        self._decoders: Dict[str, ColumnarDecoder] = {}
+
+    @property
+    def record_size(self) -> int:
+        return self.params.fixed_record_size(self.copybook)
+
+    def check_binary_data_validity(self, data_size: int,
+                                   ignore_file_size: bool = False,
+                                   file_name: str = "") -> None:
+        """reference FixedLenNestedReader.checkBinaryDataValidity."""
+        rs = self.record_size
+        if self.params.start_offset < 0:
+            raise ValueError(
+                f"Invalid record start offset = {self.params.start_offset}. "
+                "A record start offset cannot be negative.")
+        if self.params.end_offset < 0:
+            raise ValueError(
+                f"Invalid record end offset = {self.params.end_offset}. "
+                "A record end offset cannot be negative.")
+        if ignore_file_size or data_size % rs == 0:
+            return
+        where = f" of '{file_name}'" if file_name else ""
+        raise ValueError(
+            f"Binary record size {rs} does not divide data size "
+            f"{data_size}{where}: the last {data_size % rs} byte(s) "
+            f"(at file offset {data_size - data_size % rs}) do not form "
+            "a whole record. Set record_error_policy='permissive' (or "
+            "'drop_malformed') to tolerate a truncated tail, or "
+            "'debug_ignore_file_size' to ignore it.")
+
+    def decoder(self, active: str = "") -> ColumnarDecoder:
+        return decoder_for_segment(self._decoders, self.copybook, active,
+                                   self.device, select=self.params.select)
+
+    @property
+    def is_multisegment(self) -> bool:
+        seg = self.params.multisegment
+        return bool(seg and seg.segment_id_field and self.segment_redefine_map)
+
+    @property
+    def plain_layout(self) -> bool:
+        """Records are exactly the copybook's layout, of one segment: a
+        chunk decodes as it lies, with no trimming and no routing."""
+        return (not self.is_multisegment and not self.params.start_offset
+                and self.record_size == self.copybook.record_size)
+
+    def _trimmed_matrix(self, matrix: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Strip record start/end offsets to the copybook layout width.
+        Returns (trimmed, width) — width < the copybook's record size
+        means columns past a record's end are nulled via `lengths`."""
+        start = self.params.start_offset
+        rs_cb = self.copybook.record_size
+        width = min(rs_cb, matrix.shape[1] - start)
+        if start or self.params.end_offset or matrix.shape[1] != rs_cb:
+            trimmed = np.zeros((matrix.shape[0], rs_cb), dtype=np.uint8)
+            trimmed[:, :width] = matrix[:, start: start + width]
+            return trimmed, width
+        return matrix, width
+
+    def _segment_values(self, matrix: np.ndarray) -> SegmentIds:
+        """Per-record segment ids, dictionary-coded."""
+        seg_field = resolve_segment_id_field(self.params, self.copybook)
+        off = self.params.start_offset + seg_field.binary_properties.offset
+        w = seg_field.binary_properties.actual_size
+        return decode_segment_id_bytes(
+            matrix[:, off:off + w], seg_field,
+            DecodeOptions.from_copybook(self.copybook))
+
+    def read_chunk(self, buf: np.ndarray
+                   ) -> Union[DecodedBatch, FileResult]:
+        """Decode a chunk of whole records (`buf`: uint8 bytes on the
+        host): one DecodedBatch, or a FileResult with a SegmentBatch per
+        active segment for multisegment records."""
+        matrix = buf.reshape(-1, self.record_size)
+        trimmed, width = self._trimmed_matrix(matrix)
+        n = matrix.shape[0]
+        lengths = (np.full(n, width, dtype=np.int64)
+                   if width < self.copybook.record_size else None)
+        if not self.is_multisegment:
+            return self.decoder().decode(trimmed, lengths=lengths)
+        return self._read_multiseg_result(matrix, trimmed, lengths)
+
+    def _read_multiseg_result(self, matrix: np.ndarray, trimmed: np.ndarray,
+                              lengths: Optional[np.ndarray]) -> FileResult:
+        p = self.params
+        segment_ids = self._segment_values(matrix)
+        result = FileResult(n_rows=matrix.shape[0], policy=p.schema_policy)
+        for active in sorted(set(segment_ids.map_uniq(
+                self.segment_redefine_map))):
+            positions = np.nonzero(segment_ids.mask_of_mapped(
+                self.segment_redefine_map, active))[0].astype(np.int64)
+            decoded = self.decoder(active).decode(
+                trimmed[positions],
+                lengths=None if lengths is None else lengths[positions])
+            result.segments.append(SegmentBatch(
+                decoded, active or None, positions, positions))
+        return result

@@ -9,13 +9,17 @@ rule of the JAX package's vectorized index
 offsets that the port's scan kernel frames: split every
 `input_split_records` records or every `input_split_size_mb` MB (100 MB
 by default) with the size drift carried, only at roots when Seg_Id
-levels are set, and never at the last record; a file header counts as
-one record (reference IndexGenerator.scala:117-120).
+levels are set, and never at the last record unless bytes follow it; a
+file header counts as one record (reference
+IndexGenerator.scala:117-120). For fixed-length records it gives the
+entries of the JAX package's generic generator
+(``sparse_index_generator`` with a fixed-length header parser) over
+their arithmetic offsets.
 
 Left out: the on-disk index store (``io.cache_dir``) and compressed
 inputs, which ``api.read_cobol`` refuses before planning (ROADMAP A4f);
-the per-record generic generator and `IncrementalIndexer`, whose readers
-the port does not take.
+the generic generator itself and `IncrementalIndexer`, whose other
+framings the port does not take.
 """
 from __future__ import annotations
 
@@ -52,11 +56,16 @@ def file_index_entries(reader, file_path: str, file_order: int,
 
 def sparse_index_entries(starts: np.ndarray, file_id: int, params,
                          root_indices: Optional[np.ndarray], base: int,
-                         bytes_per_entry: float) -> List[SparseIndexEntry]:
+                         bytes_per_entry: float,
+                         trailing: Optional[bool] = None
+                         ) -> List[SparseIndexEntry]:
     """The entries over records whose headers start at `starts` (file
     offsets, in order). `root_indices`: the positions a split may land
     on (None: any); `base`: 1 when a file header counts as a record;
-    `bytes_per_entry`: the size split in bytes."""
+    `bytes_per_entry`: the size split in bytes; `trailing`: for
+    fixed-length records (the JAX package's generic index pass), whether
+    bytes follow the last record, which lets a split land on it; None
+    for the vectorized RDW index, where a footer does."""
     n = len(starts)
 
     def next_root(i: int) -> Optional[int]:
@@ -73,7 +82,9 @@ def sparse_index_entries(starts: np.ndarray, file_id: int, params,
     # processing the last record ends the stream before the split check
     # (IndexGenerator loop order) — unless a footer region follows it,
     # which is consumed as one more counted iteration
-    last_candidate = n - 1 if params.file_end_offset > 0 else n - 2
+    if trailing is None:
+        trailing = params.file_end_offset > 0
+    last_candidate = n - 1 if trailing else n - 2
     subtracted = 0
     chunk_start_counted = 0
     i = -1  # a first-chunk split at record 0 is possible (header counted)

@@ -1,14 +1,17 @@
 """Typed reader configuration.
 
 Port copy of ``cobrix_tpu.reader.parameters``, reduced to the fields that
-``api.parse_options`` sets: the code page, float format, trimming and
-schema policy, RDW framing, record and file offsets, the multisegment
-options and record ids, the pipeline's options and the column
-projection (`select`), plus `input_file_name_column` and
-`corrupt_record_column`, which ``schema.output_schema_for`` reads and
-which stay empty. Every other field of the JAX package belongs to an
-option the port refuses by name (``api.read_cobol``); a field comes back
-with the slice that takes its option.
+``api.parse_options`` sets: the data encoding, code page (and custom
+code-page class), ASCII charset, UTF-16 byte order, float format,
+trimming and schema policy, the copybook shaping (comments, fillers,
+non-terminals, debug fields), RDW framing, the record-length override,
+record and file offsets, the multisegment options and record ids, the
+input-file-name column, the pipeline's options and the column projection
+(`select`), plus `corrupt_record_column`, which
+``schema.output_schema_for`` reads and which stays empty. Every other
+field of the JAX package belongs to an option the port refuses by name
+(``api.read_cobol``); a field comes back with the slice that takes its
+option.
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ from dataclasses import dataclass, field as dc_field
 from typing import Dict, List, Optional, Sequence
 
 from ..copybook.datatypes import (
+    CommentPolicy,
+    DebugFieldsPolicy,
+    Encoding,
     FloatingPointFormat,
     SchemaRetentionPolicy,
     TrimPolicy,
@@ -40,22 +46,33 @@ class MultisegmentParameters:
 class ReaderParameters:
     """Flattened reader configuration (the options the port takes)."""
 
+    is_ebcdic: bool = True
     ebcdic_code_page: str = "common"
+    ebcdic_code_page_class: Optional[str] = None
+    ascii_charset: str = "us-ascii"
+    is_utf16_big_endian: bool = True
     floating_point_format: FloatingPointFormat = FloatingPointFormat.IBM
     is_record_sequence: bool = False
     is_rdw_big_endian: bool = False
     is_rdw_part_of_record_length: bool = False
     rdw_adjustment: int = 0
+    record_length_override: Optional[int] = None
     is_index_generation_needed: bool = False
     input_split_records: Optional[int] = None
     input_split_size_mb: Optional[float] = None
     start_offset: int = 0
+    end_offset: int = 0
     file_start_offset: int = 0
     file_end_offset: int = 0
     generate_record_id: bool = False
     schema_policy: SchemaRetentionPolicy = SchemaRetentionPolicy.KEEP_ORIGINAL
     string_trimming_policy: TrimPolicy = TrimPolicy.BOTH
     multisegment: Optional[MultisegmentParameters] = None
+    comment_policy: CommentPolicy = dc_field(default_factory=CommentPolicy)
+    drop_group_fillers: bool = False
+    drop_value_fillers: bool = True
+    non_terminals: Sequence[str] = ()
+    debug_fields_policy: DebugFieldsPolicy = DebugFieldsPolicy.NONE
     input_file_name_column: str = ""
     corrupt_record_column: str = ""
     # input compression: 'auto' sniffs every input, 'none'/'off'/'raw'
@@ -96,6 +113,37 @@ class ReaderParameters:
         import os
 
         return min(8, os.cpu_count() or 1)
+
+    @property
+    def data_encoding(self) -> Encoding:
+        return Encoding.EBCDIC if self.is_ebcdic else Encoding.ASCII
+
+    @property
+    def is_variable_length(self) -> bool:
+        """The option-validation predicate for per-record input-file
+        tracking (reference CobolParametersParser.scala:576-581 —
+        generate_record_id alone does NOT enable it), over the options
+        the port takes."""
+        return bool(self.is_record_sequence or self.file_start_offset > 0
+                    or self.file_end_offset > 0)
+
+    @property
+    def needs_var_len_reader(self) -> bool:
+        """True when the configuration routes through the variable-length
+        reader: `is_variable_length`, or generate_record_id alone, which
+        makes the reference's variableLengthParams Some(...), so that
+        fixed-length records are framed by the variable-length reader
+        (CobolParametersParser.parseVariableLengthParameters:~253-262,
+        DefaultSource.buildEitherReader:72-81)."""
+        return self.is_variable_length or self.generate_record_id
+
+    def fixed_record_size(self, copybook) -> int:
+        """On-disk size of a fixed-length record: the record-length
+        override (the full record, offsets not re-added), else the
+        copybook's size with the record start and end offsets
+        (``FixedLenReader.record_size``)."""
+        return (self.record_length_override or copybook.record_size
+                + self.start_offset + self.end_offset)
 
     @property
     def supports_fast_framing(self) -> bool:

@@ -1,16 +1,22 @@
 """Read results: decoded batches carried to the API boundary.
 
-Port copy of ``cobrix_tpu.reader.result`` for rows and dicts: a
-`FileResult` holds the `SegmentBatch`es of one file (each a
-`DecodedBatch` of host planes plus the positions, record ids and Seg_Id
-levels of its rows) and materializes rows only when asked for.
+Port copy of ``cobrix_tpu.reader.result``: a `FileResult` holds the
+`SegmentBatch`es of one file (each a `DecodedBatch` of host planes plus
+the positions, record ids and Seg_Id levels of its rows) and
+materializes rows or an Arrow table only when asked for; the pipelined
+read's assemble stage builds the table early and caches it
+(``_arrow_cache``).
 
-Changes from the JAX package: there is no Arrow output (ROADMAP A2), so
-`SegLevelColumns.arrow_level` and `FileResult.to_arrow` are not carried
-over, nor are the row-backed, lazy-factory, input-file-name,
-corrupt-record and diagnostics fields, whose options the port refuses;
-`FileResult.to_rows` orders the rows of its segments by their positions
-with `_record_order_indices` (an O(n) scatter) in place of a sort.
+Changes from the JAX package: the row-backed, lazy-factory,
+corrupt-record and diagnostics fields are not carried over, since their
+options (the host backend, hierarchical reads, the permissive policies)
+are refused; nor are the decode-once batches' redefine masks, since the
+port decodes each active segment on its own. `FileResult.to_rows`
+orders the rows of its segments by their positions with
+`_record_order_indices` (an O(n) scatter) in place of a sort.
+`SegLevelColumns.arrow_level` formats the Seg_Id strings with Arrow's
+compute kernels in place of ``native.format_seg_id_level``, and returns
+the Arrow array.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ class SegLevelColumns:
     def __init__(self, coded: dict):
         self.coded = coded
         self._levels: Optional[List[np.ndarray]] = None
+        self._arrow_root = None  # level 0's Arrow strings, all rows
 
     @property
     def levels(self) -> List[np.ndarray]:
@@ -60,6 +67,28 @@ class SegLevelColumns:
             col[~valid] = None
             levels.append(col)
         return levels
+
+    def arrow_level(self, k: int):
+        """Level k as an Arrow string array (null where the level is not
+        shown), formatted by Arrow's compute kernels (integer to decimal
+        text, as Python's str), with no Python string per row."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        c = self.coded
+        if self._arrow_root is None:
+            rid = pa.array(c["root_rid"])
+            self._arrow_root = pc.if_else(
+                pc.greater_equal(rid, 0),
+                pc.binary_join_element_wise(
+                    c["prefix"], pc.cast(rid, pa.string()), ""), "")
+        text = self._arrow_root
+        if k > 0:
+            text = pc.binary_join_element_wise(
+                text, f"_L{k}_",
+                pc.cast(pa.array(c["counters"][k]), pa.string()), "")
+        return pc.if_else(pa.array(c["valids"][k]), text,
+                          pa.scalar(None, pa.string()))
 
     def __len__(self) -> int:
         return len(self.coded["root_rid"])
@@ -104,14 +133,21 @@ class FileResult:
 
     n_rows: int
     file_id: int = 0
+    input_file_name: str = ""
     policy: SchemaRetentionPolicy = SchemaRetentionPolicy.KEEP_ORIGINAL
     generate_record_id: bool = False
+    generate_input_file_field: bool = False
     segments: List[SegmentBatch] = dc_field(default_factory=list)
     rows: Optional[List[List[object]]] = None   # cache of to_rows
     # records the framer CONSUMED (and numbered) producing this result —
     # >= n_rows when segment filters / level gating drop rows after
     # numbering
     records_framed: Optional[int] = None
+    # the table the pipelined read's assemble stage built, and the
+    # output schema it was built for
+    _arrow_cache: Optional[object] = dc_field(default=None, repr=False)
+    _arrow_cache_schema: Optional[object] = dc_field(default=None,
+                                                     repr=False)
 
     def to_rows(self) -> List[List[object]]:
         if self.rows is not None:
@@ -127,6 +163,8 @@ class FileResult:
                 generate_record_id=self.generate_record_id,
                 file_id=self.file_id,
                 record_ids=[int(r) for r in record_ids],
+                generate_input_file_field=self.generate_input_file_field,
+                input_file_name=self.input_file_name,
                 segment_level_ids=seg.seg_level_ids,
                 active_segments=[seg.active] * n))
             order.append(np.asarray(seg.positions, dtype=np.int64))
@@ -135,6 +173,37 @@ class FileResult:
             rows = [rows[k] for k in take.tolist()]
         self.rows = rows
         return self.rows
+
+    def to_arrow(self, output_schema):
+        """pyarrow Table in record order: one table per segment batch
+        (``arrow_out.segment_table``), concatenated and put in record
+        order; a table the assemble stage cached for an equal schema is
+        returned as it is."""
+        import pyarrow as pa
+
+        from .arrow_out import arrow_schema, cached_table, segment_table
+
+        table = cached_table(self, output_schema)
+        if table is not None:
+            return table
+        if not self.segments:
+            return arrow_schema(output_schema.schema).empty_table()
+        tables = [segment_table(
+            seg.batch, seg.active, output_schema, file_id=self.file_id,
+            record_ids=np.asarray(seg.record_ids if seg.record_ids
+                                  is not None else seg.positions,
+                                  dtype=np.int64),
+            seg_level_ids=seg.seg_level_ids,
+            input_file_name=self.input_file_name)
+            for seg in self.segments]
+        table = tables[0] if len(tables) == 1 else pa.concat_tables(tables)
+        pos = np.concatenate([np.asarray(seg.positions, dtype=np.int64)
+                              for seg in self.segments])
+        # batches that tile the positions in ascending order are in
+        # record order already: no gather
+        if len(pos) == 0 or bool(np.all(np.diff(pos) > 0)):
+            return table
+        return table.take(_record_order_indices(pos))
 
 
 def _record_order_indices(pos: np.ndarray) -> np.ndarray:

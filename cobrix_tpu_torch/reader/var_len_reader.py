@@ -1,5 +1,4 @@
-"""Variable-length (RDW) reader: framing, segment ids and decode on the
-device.
+"""Variable-length reader: framing, segment ids and decode on the device.
 
 Port of the fast path of ``cobrix_tpu.reader.var_len_reader`` (the
 reference's VarLenNestedReader with VarLenNestedIterator): plain RDW
@@ -21,6 +20,12 @@ segment redefines and record ids. A file is read in windows of
    and the decoder decodes it on the device (``ColumnarDecoder
    .decode_raw``: the fused kernel and ``batch_torch``), giving one
    `SegmentBatch` of host planes each.
+
+Fixed-length records that the JAX package reads with its variable-length
+reader (a file header or footer, record ids or the input-file-name
+column; ``ReaderParameters.needs_var_len_reader``) take the same steps,
+framed by arithmetic in place of the scan (`frame_fixed_windows`: the
+records its FixedLengthHeaderParser frames, `fixed_records`).
 
 Seg_Id levels are computed once per file from the segment ids of all its
 records (`_segment_level_ids_vectorized`), so they carry across windows.
@@ -48,10 +53,13 @@ Changes from the JAX package:
   from a host staging buffer, numbering records from the entry's record
   index, as the JAX package's shard reads do; there the record-id shift
   comes from the plan itself.
+* Fixed-length records in index shards: the JAX package's generic
+  per-record reader does not end on such a shard (ROADMAP C6); the port
+  frames each shard's whole records, with the record ids of its index.
 * Not carried over: the hierarchical (segment-children) reads, the
-  generic per-record reader (text, record-length fields, custom header
-  parsers or extractors, variable OCCURS), the permissive error
-  policies, filter pushdown, the persisted index and the Arrow output.
+  generic per-record reader's other framings (text, record-length
+  fields, custom header parsers or extractors, variable OCCURS), the
+  permissive error policies, filter pushdown and the persisted index.
   The column projection (`select`) reaches every segment decoder.
 """
 from __future__ import annotations
@@ -157,6 +165,23 @@ def file_record_id_base(file_order: int) -> int:
     return file_order * DEFAULT_FILE_RECORD_ID_INCREMENT
 
 
+def _window_image(f, staged: bool, pos: int, length: int, device):
+    """`length` bytes of `f` from `pos`: on the host (for error
+    snapshots) and on `device`. A `StagedBytes` crosses from its staging
+    buffer without a wait; a file is read into a fresh host buffer."""
+    with annotate("cobrix.h2d", device):
+        if staged:
+            host = f.host()[pos:pos + length].numpy()
+            image = f.to_device(device, pos, pos + length)
+        else:
+            host = np.empty(length, dtype=np.uint8)
+            f.seek(pos)
+            if f.readinto(memoryview(host)) != length:
+                raise IOError(f"Short read at file offset {pos}")
+            image = torch.from_numpy(host).to(device)
+    return host, image
+
+
 def frame_windows(f, size: int, device, big_endian: bool, adjustment: int,
                   file_header_bytes: int = 0, file_footer_bytes: int = 0,
                   window_bytes: Optional[int] = None):
@@ -182,16 +207,7 @@ def frame_windows(f, size: int, device, big_endian: bool, adjustment: int,
     while pos + 4 <= end:
         window_len = min(max(window_bytes, need), end - pos)
         last = pos + window_len == end
-        with annotate("cobrix.h2d", device):
-            if staged:
-                host = f.host()[pos:pos + window_len].numpy()
-                image = f.to_device(device, pos, pos + window_len)
-            else:
-                host = np.empty(window_len, dtype=np.uint8)
-                f.seek(pos)
-                if f.readinto(memoryview(host)) != window_len:
-                    raise IOError(f"Short read at file offset {pos}")
-                image = torch.from_numpy(host).to(device)
+        host, image = _window_image(f, staged, pos, window_len, device)
         with annotate("cobrix.scan", device):
             offsets, lengths, status = scan_window(image, 0, last,
                                                    big_endian, adjustment)
@@ -209,6 +225,44 @@ def frame_windows(f, size: int, device, big_endian: bool, adjustment: int,
         if last:
             return
         pos += status.position
+
+
+def fixed_records(size: int, record_size: int, file_header_bytes: int = 0,
+                  file_footer_bytes: int = 0):
+    """(offset of the first record, record count) of fixed-length records
+    in `size` bytes, as the JAX package's FixedLengthHeaderParser frames
+    them: a file header is skipped at position 0; a record starts
+    wherever at least `record_size` bytes remain and more than the footer
+    does; the bytes after the last record (a short tail, the footer) are
+    no record."""
+    pos = min(file_header_bytes, size) if file_header_bytes > 0 else 0
+    need = (max(record_size, file_footer_bytes + 1) if file_footer_bytes > 0
+            else record_size)
+    n = (size - pos - need) // record_size + 1 if size - pos >= need else 0
+    return pos, n
+
+
+def frame_fixed_windows(f, size: int, device, record_size: int,
+                        file_header_bytes: int = 0,
+                        file_footer_bytes: int = 0,
+                        window_bytes: Optional[int] = None):
+    """`frame_windows` for fixed-length records (`fixed_records`): the
+    same (base, image, offsets, lengths) per window of whole records,
+    with no scan, since every record's offset is arithmetic."""
+    window_bytes = window_bytes or READ_WINDOW_BYTES
+    staged = isinstance(f, StagedBytes)
+    pos, n = fixed_records(size, record_size, file_header_bytes,
+                           file_footer_bytes)
+    per = max(1, window_bytes // record_size)
+    for first in range(0, n, per):
+        k = min(per, n - first)
+        base = pos + first * record_size
+        _, image = _window_image(f, staged, base, k * record_size, device)
+        offsets = torch.arange(k, dtype=torch.int64,
+                               device=image.device) * record_size
+        lengths = torch.full((k,), record_size, dtype=torch.int64,
+                             device=image.device)
+        yield base, image, offsets, lengths
 
 
 class _FileSegmentIds:
@@ -274,7 +328,7 @@ class VarLenReader:
     def read_result(self, path: str, file_id: int = 0,
                     segment_id_prefix: Optional[str] = None,
                     start_record_id: int = 0) -> FileResult:
-        """Frame and decode one RDW file whole, window by window (see the
+        """Frame and decode one file whole, window by window (see the
         module docstring). Record ids count every framed record from
         `start_record_id`, shifted by one from the sparse index's first
         split when a file header counts there."""
@@ -285,12 +339,13 @@ class VarLenReader:
             result, file_ids, starts = self._read(
                 f, size, file_id, segment_id_prefix, start_record_id,
                 p.file_start_offset, p.file_end_offset,
-                keep_starts=shifted)
+                keep_starts=shifted, path=path)
         if shifted:
             roots = self._root_indices(file_ids.segment_ids())
             entries = sparse_index_entries(
                 starts, file_id, p, roots, base=1,
-                bytes_per_entry=self._bytes_per_entry())
+                bytes_per_entry=self._bytes_per_entry(),
+                trailing=self._trailing(size))
             if len(entries) > 1:
                 shift_from = entries[1].record_index - 1
                 for s in result.segments:
@@ -302,9 +357,10 @@ class VarLenReader:
 
     def read_shard(self, staged: StagedBytes, file_id: int,
                    offset_from: int, record_index: int, file_size: int,
-                   segment_id_prefix: Optional[str] = None) -> FileResult:
+                   segment_id_prefix: Optional[str] = None,
+                   path: str = "") -> FileResult:
         """Frame and decode one shard of the pipelined read: the bytes
-        [offset_from, offset_from + staged.nbytes) of a file of
+        [offset_from, offset_from + staged.nbytes) of the file `path` of
         `file_size` bytes, held in `staged`, with record ids from
         `record_index` (the JAX package's ``read_result_columnar`` over a
         shard stream). The file header applies to the shard that starts
@@ -317,12 +373,13 @@ class VarLenReader:
         window = n if n <= 2 * READ_WINDOW_BYTES else None
         result, _, _ = self._read(staged, n, file_id, segment_id_prefix,
                                   record_index, header, footer,
-                                  window_bytes=window)
+                                  window_bytes=window, path=path)
         return result
 
     def _read(self, f, size: int, file_id: int, segment_id_prefix,
               start_record_id: int, header: int, footer: int,
-              window_bytes: Optional[int] = None, keep_starts: bool = False):
+              window_bytes: Optional[int] = None, keep_starts: bool = False,
+              path: str = ""):
         """Frame and decode `size` bytes of `f` (`frame_windows`): the
         FileResult, the segment ids of every framed record, and the
         record header offsets when `keep_starts`."""
@@ -335,8 +392,11 @@ class VarLenReader:
         segment_filter = (set(seg.segment_id_filter)
                           if seg and seg.segment_id_filter else None)
         result = FileResult(n_rows=0, file_id=file_id,
+                            input_file_name=path,
                             policy=p.schema_policy,
-                            generate_record_id=p.generate_record_id)
+                            generate_record_id=p.generate_record_id,
+                            generate_input_file_field=bool(
+                                p.input_file_name_column))
         file_ids = _FileSegmentIds()
         starts: List[np.ndarray] = []
         matched = False       # a record of a Seg_Id level was seen
@@ -345,7 +405,7 @@ class VarLenReader:
                 f, size, header, footer, window_bytes, file_ids):
             n = offs_d.numel()
             if keep_starts:
-                starts.append(base + offs_d.cpu().numpy() - 4)
+                starts.append(base + offs_d.cpu().numpy() - self._header_len)
             keep = np.ones(n, dtype=bool)
             if window_ids is not None:
                 if levels and not matched:
@@ -376,9 +436,15 @@ class VarLenReader:
         device, decoded on the host) are also added to `file_ids`."""
         p = self.params
         seg_field = resolve_segment_id_field(p, self.copybook)
-        for base, image, offs_d, lens_d in frame_windows(
-                f, size, self.device, p.is_rdw_big_endian,
-                p.rdw_length_adjustment, header, footer, window_bytes):
+        if p.is_record_sequence:
+            windows = frame_windows(f, size, self.device, p.is_rdw_big_endian,
+                                    p.rdw_length_adjustment, header, footer,
+                                    window_bytes)
+        else:
+            windows = frame_fixed_windows(
+                f, size, self.device, p.fixed_record_size(self.copybook),
+                header, footer, window_bytes)
+        for base, image, offs_d, lens_d in windows:
             lengths = lens_d.cpu().numpy()
             window_ids = None
             if seg_field is not None:
@@ -414,6 +480,26 @@ class VarLenReader:
         is_hierarchical = bool(seg and seg.segment_level_ids)
         root_segment_id = seg.segment_level_ids[0] if is_hierarchical else ""
         return is_hierarchical, root_segment_id
+
+    @property
+    def _header_len(self) -> int:
+        """Bytes of a record's header before its payload (an RDW's 4)."""
+        return 4 if self.params.is_record_sequence else 0
+
+    def _trailing(self, size: int) -> Optional[bool]:
+        """For fixed-length records, whether bytes follow the last record
+        of a file of `size` bytes (a short tail or the footer): the JAX
+        package's generic index pass then reaches the last record before
+        the end of the stream, so a split may land on it. None for RDW
+        files (`sparse_index_entries` keeps the vectorized index's
+        footer rule)."""
+        p = self.params
+        if p.is_record_sequence:
+            return None
+        rs = p.fixed_record_size(self.copybook)
+        pos, n = fixed_records(size, rs, p.file_start_offset,
+                               p.file_end_offset)
+        return size > pos + n * rs
 
     def _bytes_per_entry(self) -> float:
         return ((self.params.input_split_size_mb
@@ -458,13 +544,14 @@ class VarLenReader:
             for base, _, offs_d, _, _ in self._frame(
                     f, os.path.getsize(path), p.file_start_offset,
                     p.file_end_offset, None, file_ids):
-                starts.append(base + offs_d.cpu().numpy() - 4)
+                starts.append(base + offs_d.cpu().numpy() - self._header_len)
         starts = (np.concatenate(starts) if starts
                   else np.zeros(0, dtype=np.int64))
         return sparse_index_entries(
             starts, file_id, p, self._root_indices(file_ids.segment_ids()),
             base=1 if p.file_start_offset > 0 else 0,
-            bytes_per_entry=self._bytes_per_entry())
+            bytes_per_entry=self._bytes_per_entry(),
+            trailing=self._trailing(os.path.getsize(path)))
 
     def _decode_window(self, result: FileResult, image: torch.Tensor,
                        offs_d: torch.Tensor, lengths: np.ndarray,

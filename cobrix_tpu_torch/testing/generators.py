@@ -3,7 +3,10 @@
 Port copy of the parts of ``cobrix_tpu.testing.generators`` that
 ``chip_smoke.py`` and the port's tests need: `EXP1_COPYBOOK`,
 `generate_exp1`, `EXP2_COPYBOOK`, `generate_exp2`, `EXP3_COPYBOOK`,
-`generate_exp3` and their helpers, unchanged. The other generators are not carried over.
+`generate_exp3` and their helpers, unchanged. The other generators are
+not carried over. `generate_ascii` (an ASCII fixed-length layout) and
+`generate_fixed_segments` (a fixed-length multisegment layout) are the
+port's own, for the record-shaping options.
 
 Reimplements the behavior of the reference's example data generators
 (TestDataGen4CompaniesWide for the exp3 multisegment-wide profile,
@@ -556,3 +559,137 @@ def generate_exp1(num_records: int, seed: int = 100) -> np.ndarray:
 # generate_exp2(big_endian_rdw=True)). Each reproduces the reference
 # record layout byte for byte; the value pools come from CommonLists.
 # ---------------------------------------------------------------------------
+
+
+# -- fixed-length files for the record-shaping options ----------------------
+
+def _digit_bytes(values: np.ndarray, width: int, zero: int) -> np.ndarray:
+    """[n] non-negative ints -> [n, width] zero-padded decimal digit
+    bytes, the digit 0 encoded as `zero` (0x30 ASCII, 0xF0 EBCDIC)."""
+    out = np.empty((len(values), width), dtype=np.uint8)
+    v = values.astype(np.int64).copy()
+    for k in range(width - 1, -1, -1):
+        out[:, k] = zero + v % 10
+        v //= 10
+    return out
+
+
+def _letters(rng, n: int, width: int, lut=None) -> np.ndarray:
+    """[n, width] random upper-case words padded with spaces at random
+    lengths (ASCII, or through `lut` to EBCDIC)."""
+    text = rng.integers(ord("A"), ord("Z") + 1, size=(n, width),
+                        dtype=np.uint8)
+    lengths = rng.integers(1, width + 1, size=n)
+    text[np.arange(width)[None, :] >= lengths[:, None]] = ord(" ")
+    return text if lut is None else lut[text]
+
+
+def _comp3(rng_values: np.ndarray, digits: int,
+           negative: np.ndarray) -> np.ndarray:
+    """[n] magnitudes -> [n, digits//2+1] signed packed BCD (C/D)."""
+    width = digits // 2 + 1
+    nib = np.zeros((len(rng_values), width * 2), dtype=np.uint8)
+    v = rng_values.astype(np.int64).copy()
+    for k in range(width * 2 - 2, width * 2 - 2 - digits, -1):
+        nib[:, k] = v % 10
+        v //= 10
+    nib[:, -1] = np.where(negative, 0xD, 0xC)
+    return (nib[:, 0::2] << 4) | nib[:, 1::2]
+
+
+# An ASCII fixed-length layout (encoding=ascii): signed DISPLAY with a
+# sign character in the field and with separate leading and trailing
+# signs, explicit decimal points, big-endian COMP, COMP-3 and strings;
+# 82 bytes a record.
+ASCII_COPYBOOK = """
+       01  ASCII-RECORD.
+           05  ID              PIC 9(8).
+           05  NAME            PIC X(20).
+           05  AMOUNT          PIC S9(7)V99.
+           05  BALANCE         PIC S9(9)V99 SIGN LEADING SEPARATE.
+           05  DELTA           PIC S9(5)V99 SIGN TRAILING SEPARATE.
+           05  RATE            PIC 9(3).9(4).
+           05  QTY             PIC S9(9) COMP.
+           05  PRICE           PIC S9(11)V99 COMP-3.
+           05  CODE            PIC X(6).
+"""
+ASCII_RECORD_SIZE = 82
+
+
+def generate_ascii(num_records: int, seed: int = 100) -> np.ndarray:
+    """[n, 82] uint8 records of `ASCII_COPYBOOK`, from `seed`."""
+    rng = np.random.default_rng(seed)
+    n = num_records
+    neg = rng.integers(0, 2, size=(4, n)).astype(bool)
+    cols = [_digit_bytes(np.arange(n) + 10 * seed, 8, 0x30),
+            _letters(rng, n, 20)]
+    # the sign as a leading character inside the field: '-', '+' or a
+    # digit (unsigned)
+    amount = _digit_bytes(rng.integers(0, 10 ** 9, size=n), 9, 0x30)
+    lead = rng.integers(0, 3, size=n)
+    amount[:, 0] = np.where(lead == 0, ord("-"),
+                            np.where(lead == 1, ord("+"), amount[:, 0]))
+    cols.append(amount)
+    sign = np.where(neg[1], ord("-"), ord("+")).astype(np.uint8)[:, None]
+    cols += [sign, _digit_bytes(rng.integers(0, 10 ** 11, size=n), 11, 0x30)]
+    sign = np.where(neg[2], ord("-"), ord("+")).astype(np.uint8)[:, None]
+    cols += [_digit_bytes(rng.integers(0, 10 ** 7, size=n), 7, 0x30), sign]
+    rate = rng.integers(0, 10 ** 7, size=n)
+    cols += [_digit_bytes(rate // 10 ** 4, 3, 0x30),
+             np.full((n, 1), ord("."), dtype=np.uint8),
+             _digit_bytes(rate % 10 ** 4, 4, 0x30)]
+    qty = rng.integers(-(10 ** 9 - 1), 10 ** 9, size=n).astype(">i4")
+    cols.append(qty.view(np.uint8).reshape(n, 4))
+    cols.append(_comp3(rng.integers(0, 10 ** 13, size=n), 13, neg[3]))
+    cols.append(_letters(rng, n, 6))
+    return np.concatenate(cols, axis=1)
+
+
+# An EBCDIC fixed-length multisegment layout (segment_field SEGMENT-ID,
+# redefine map COMPANY => C, PERSON => P); 41 bytes a record.
+FIXED_SEGMENTS_COPYBOOK = """
+       01  SEG-RECORD.
+           05  SEGMENT-ID      PIC X(1).
+           05  COMPANY-ID      PIC X(10).
+           05  COMPANY.
+              10  NAME         PIC X(20).
+              10  AMOUNT       PIC S9(9)V99 COMP-3.
+              10  EMPLOYEES    PIC 9(6) COMP.
+           05  PERSON REDEFINES COMPANY.
+              10  FIRST-NAME   PIC X(12).
+              10  AGE          PIC 9(3).
+              10  SALARY       PIC S9(7)V99 COMP-3.
+              10  FILLER       PIC X(10).
+"""
+FIXED_SEGMENTS_RECORD_SIZE = 41
+FIXED_SEGMENTS_OPTIONS = {
+    "segment_field": "SEGMENT-ID",
+    "redefine-segment-id-map:0": "COMPANY => C",
+    "redefine-segment-id-map:1": "PERSON => P"}
+
+
+def generate_fixed_segments(num_records: int, seed: int = 100
+                            ) -> np.ndarray:
+    """[n, 41] uint8 EBCDIC records of `FIXED_SEGMENTS_COPYBOOK`: one
+    company ('C') in four records, the rest its people ('P'), from
+    `seed`."""
+    rng = np.random.default_rng(seed)
+    n = num_records
+    is_c = rng.integers(0, 4, size=n) == 0
+    out = np.zeros((n, FIXED_SEGMENTS_RECORD_SIZE), dtype=np.uint8)
+    out[:, 0] = np.where(is_c, _ENCODE_LUT[ord("C")], _ENCODE_LUT[ord("P")])
+    out[:, 1:11] = _digit_bytes(rng.integers(0, 10 ** 10, size=n), 10, 0xF0)
+    company = np.concatenate([
+        _letters(rng, n, 20, _ENCODE_LUT),
+        _comp3(rng.integers(0, 10 ** 11, size=n), 11,
+               rng.integers(0, 2, size=n).astype(bool)),
+        rng.integers(0, 10 ** 6, size=n).astype(">u4").view(
+            np.uint8).reshape(n, 4)], axis=1)
+    person = np.concatenate([
+        _letters(rng, n, 12, _ENCODE_LUT),
+        _digit_bytes(rng.integers(0, 1000, size=n), 3, 0xF0),
+        _comp3(rng.integers(0, 10 ** 9, size=n), 9,
+               rng.integers(0, 2, size=n).astype(bool)),
+        np.full((n, 10), 0x40, dtype=np.uint8)], axis=1)
+    out[:, 11:41] = np.where(is_c[:, None], company, person[:, :30])
+    return out

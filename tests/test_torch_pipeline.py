@@ -27,6 +27,7 @@ import torch
 
 import cobrix_tpu
 import cobrix_tpu_torch
+from cobrix_tpu import native as jax_native
 from cobrix_tpu.encode import encode_file
 from cobrix_tpu.reader import index as jax_index
 from cobrix_tpu.reader import parameters as jax_parameters
@@ -79,8 +80,24 @@ def _write(tmp_path, name, data):
 
 
 def _reads(path, options, pipe):
-    """(JAX package pipelined, port pipelined, port sequential)."""
-    want = cobrix_tpu.read_cobol(path, backend="numpy", **options, **pipe)
+    """(JAX package sequential, port pipelined, port sequential). The
+    reference is the JAX package's sequential read on one thread, which
+    its own tests hold equal to its pipelined one: the pipelined read
+    builds Arrow tables on several worker threads at once, whose first
+    pyarrow calls race pyarrow's lazy pandas import and can crash the
+    process later (ROADMAP C4); and its threaded shard scan runs the
+    native library's OpenMP teams on 16 threads at once, which a loaded
+    test machine slows past the test's deadline. Its native calls run
+    with a one-thread OpenMP team for the same reason: an all-core team
+    a shard, on a machine whose cores other test processes hold, waits
+    at every barrier."""
+    jax_native.set_thread_omp_width(1)
+    try:
+        want = cobrix_tpu.read_cobol(path, backend="numpy", parallelism="1",
+                                     **options)
+        want.to_rows()
+    finally:
+        jax_native.set_thread_omp_width(os.cpu_count() or 1)
     got = cobrix_tpu_torch.read_cobol(path, device="cpu", **options, **pipe)
     seq = cobrix_tpu_torch.read_cobol(path, device="cpu", **options)
     return want, got, seq
@@ -282,10 +299,16 @@ def test_option_errors_match_the_jax_package(tmp_path, option, value,
 
 
 def test_split_options_are_rdw_options(tmp_path):
+    """The split options shard variable-length reads only: a plain
+    fixed-length file reads whole, as in the JAX package, which takes
+    them on every read."""
     path = _write(tmp_path, "e1.dat", gen.generate_exp1(3, seed=1).tobytes())
-    with pytest.raises(ValueError, match="input_split_records"):
-        cobrix_tpu_torch.read_cobol(path, device="cpu",
-                                    input_split_records="2", **EXP1)
+    got = cobrix_tpu_torch.read_cobol(path, device="cpu",
+                                      input_split_records="2", **EXP1)
+    want = cobrix_tpu.read_cobol(path, backend="numpy",
+                                 input_split_records="2", **EXP1)
+    assert got.metrics.shards == 1 and len(got.batches) == 1
+    assert _typed(got.to_rows()) == _typed(want.to_rows())
 
 
 @pytest.mark.parametrize("workers", [0, 3, -1, -5])

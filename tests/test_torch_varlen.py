@@ -261,7 +261,7 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
     ("record_error_policy", "permissive"),
     ("record_length_field", "SEGMENT-ID"),
     ("is_text", "true"),
-    ("record_end_offset", "2"),
+    ("corrupt_record_column", "BAD"),
     ("variable_size_occurs", "true"),
 ])
 def test_options_this_slice_does_not_take_are_refused(option, value,
@@ -276,12 +276,24 @@ def test_options_this_slice_does_not_take_are_refused(option, value,
                                     "generate_record_id",
                                     "redefine-segment-id-map:0"])
 def test_rdw_options_need_an_rdw_file(option, tmp_path):
+    """The options that RDW reads took first are taken on fixed-length
+    files too, as the JAX package takes them: the same rows, or the same
+    error."""
     path = tmp_path / "fixed.dat"
     path.write_bytes(gen.generate_exp1(2, seed=1).tobytes())
-    with pytest.raises(ValueError, match=option):
-        cobrix_tpu_torch.read_cobol(
-            str(path), copybook_contents=gen.EXP1_COPYBOOK, device="cpu",
-            **{option: "SEGMENT-ID => C" if ":" in option else "1"})
+    opts = {"copybook_contents": gen.EXP1_COPYBOOK,
+            option: "SEGMENT-ID => C" if ":" in option else "1"}
+    try:
+        want = cobrix_tpu.read_cobol(str(path), backend="numpy",
+                                     **opts).to_rows()
+    except Exception as exc:  # the JAX package's error, to match
+        with pytest.raises(type(exc)) as got:
+            cobrix_tpu_torch.read_cobol(str(path), device="cpu",
+                                        **opts).to_rows()
+        assert str(got.value) == str(exc)
+        return
+    got = cobrix_tpu_torch.read_cobol(str(path), device="cpu", **opts)
+    assert got.to_rows() == want
 
 
 def test_rdw_read_defaults_to_cuda(paths):
