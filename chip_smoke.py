@@ -127,6 +127,41 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    launch on every phase 11 read; its launches join the kernels line's
    ``launches_by_path``.
 
+12. the permissive record error policies and the generic per-record
+   reader: (a) the phase 4 exp2 file with seven
+   fault sites (``testing/faults.py``: three zeroed headers, the first
+   just before the first 64 MiB window's end; a header declaring 65,535
+   bytes; a 64-byte garbage splice; a flipped header bit; a torn tail)
+   and (b) the phase 4 exp3 file with a zeroed header within the resync
+   window of the first window's end and a garbage run across the second
+   window's end, each read with the segment field and redefine map:
+   fail_fast raises at the first site's offset with its hex snapshot;
+   under ``permissive`` (with ``corrupt_record_column``) and
+   ``drop_malformed`` the device framing (``frame_windows``: the scan
+   relaunched on the same image after each resync) equals the plain
+   ``rdw_scan_permissive`` over the same host bytes (offsets, lengths,
+   reasons, ledger); the read's ledger JSON equals the plain scan's; the
+   rows within 3 records of every site and ledger entry and the first
+   and last 1,000 rows equal ``device="cpu"`` reads of the records
+   there, whose ledger entries are the same; the reads in
+   31,250-record index shards, sequential and pipelined (2 workers),
+   equal each other (tables, ledgers) and the whole-file read (rows,
+   entries); (c) the phase 3 exp1 file with a 700-byte torn tail under
+   the three policies (fail_fast names ``permissive``; the last row kept
+   with its reason, or dropped; the ledger entry; the last 1,000 rows
+   against a CPU read); (d) the generic framings on the card: 50,000
+   exp3 records with big-endian RDWs read through ``RECORD-LENGTH PIC
+   9(4) COMP`` (clean, and permissive with three length fields broken),
+   1,000,000 text lines (LF and CRLF, ``encoding=ascii``), 1,000,000
+   ``generate_custom_rdw`` records through a custom header parser and
+   through a custom record extractor (``testing/custom_framing.py``), and
+   12,000 records of a trailing ``OCCURS 1 TO 2000 DEPENDING ON`` table
+   (``variable_size_occurs``): the first and last 1,000 rows against CPU
+   reads. Before them, the cost of the policies on the clean exp2, exp3
+   and exp1 files in turns (fail_fast, permissive, permissive,
+   fail_fast): the same scan launches. Every read prints its MB/s, its
+   frame and decode seconds, its launches and its ledger counts.
+
 Every failure exits non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits 2 and prints no result.
@@ -166,6 +201,12 @@ RDW_OPTIONS = {
     "segment_id_prefix": "SMOKE", "generate_record_id": "true",
     "redefine-segment-id-map:0": "STATIC-DETAILS => C",
     "redefine-segment-id-map:1": "CONTACTS => P"}
+# phase 12's RDW options: the segment routing alone, so that a read of a
+# slice of records gives the same rows as the whole file's read there
+P12_SEG = {"segment_field": "SEGMENT-ID",
+           "redefine-segment-id-map:0": "STATIC-DETAILS => C",
+           "redefine-segment-id-map:1": "CONTACTS => P"}
+P12_RDW = dict(is_record_sequence="true", **P12_SEG)
 # the kernels of the reads, and the query path's aggregate
 READ_KERNELS = ("fused_decode", "rdw_scan", "pack_records")
 KERNELS = READ_KERNELS + ("aggregate",)
@@ -2118,6 +2159,494 @@ class Smoke:
             os.remove(path)
             del data, table, want
 
+    # -- phase 12: the permissive policies and the generic framings -------
+
+    def _read_row(self, tag, path, size, **opts):
+        """`_counted_read` with its rate, framing split, launches and
+        ledger counts logged; (data, seconds, record of the read)."""
+        data, secs = self._counted_read(tag, path, **opts)
+        m = data.metrics.as_dict()
+        diag = data.diagnostics
+        res = dict(bytes=size, records=len(data), secs=secs,
+                   MBps=size / secs / 1e6, framing=m["framing"],
+                   shards=m["shards"], launches=self.launches[tag],
+                   ledger=(None if diag is None else dict(
+                       corrupt_records=diag.corrupt_records,
+                       records_dropped=diag.records_dropped,
+                       resyncs=diag.resyncs,
+                       bytes_skipped=diag.bytes_skipped,
+                       entries=len(diag.entries))))
+        if m["pipeline"] is not None:
+            res["pipeline"] = dict(
+                wall_s=m["pipeline"].get("wall_s"),
+                overlap=m["pipeline"].get("overlap"),
+                stage_busy=m["stage_busy"])
+        log(f"[p12] {self.card}: {tag}: {len(data)} records, {size} bytes "
+            f"in {secs:.3f} s = {res['MBps']:.1f} MB/s; frame/decode s "
+            f"{json.dumps(m['framing'])}; shards {m['shards']}; launches "
+            f"{json.dumps(res['launches'])}; ledger "
+            f"{json.dumps(res['ledger'])}"
+            + (f"; pipeline {json.dumps(res['pipeline'])}"
+               if "pipeline" in res else ""))
+        self.p12["reads"][tag] = res
+        return data, secs, res
+
+    def _fault_sites(self, kind, raw, walk):
+        """The fault sites of phase 12 (a) and (b) in the clean file
+        `raw` of `walk` (payload offsets, lengths): record indices away
+        from the 31,250-record shard edges, and where the first window
+        (and, for exp3, the second) ends."""
+        np = self.np
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+
+        offsets = np.asarray(walk[0], dtype=np.int64)
+        lengths = np.asarray(walk[1], dtype=np.int64)
+        starts = offsets - 4
+        n = len(starts)
+        split = self.p12_split
+
+        def near(byte_pos, before=True):
+            """A record index whose header is just before (after)
+            `byte_pos`, not within 40 records of a shard edge and not
+            the last record of a window."""
+            k = int(np.searchsorted(starts, byte_pos)) - (2 if before
+                                                           else -1)
+            step = -1 if before else 1
+            while 3 < k < n - 2 and not (40 < k % split < split - 40):
+                k += step
+            return max(k, 3)
+
+        w = vlr.READ_WINDOW_BYTES
+        ends = offsets + lengths
+        # where the second window starts: the first record that does not
+        # fit in the first; and the header that the second window's end
+        # cuts (the first record that does not fit in it)
+        p1 = int(starts[min(n - 1, int(np.searchsorted(
+            ends, w, side="right")))])
+        p2 = int(starts[min(n - 1, int(np.searchsorted(
+            ends, p1 + w, side="right")))])
+        return starts, n, p1, p2, near
+
+    def _inject(self, kind, raw, walk):
+        """The faulted copy of `raw` and its sites (offsets into the
+        faulted bytes, in file order)."""
+        from cobrix_tpu_torch.testing import faults
+
+        starts, n, p1, p2, near = self._fault_sites(kind, raw, walk)
+        data = bytes(raw)
+        sites = []
+        if kind == "exp2":
+            size = len(raw)
+            plan = [("zero", near(p1 - 600)),
+                    ("oversized", near(int(size * 0.62))),
+                    ("splice", near(int(size * 0.70))),
+                    ("bit_flip", near(int(size * 0.78))),
+                    ("zero", near(int(size * 0.86))),
+                    ("zero", near(int(size * 0.93)))]
+            shift = 0
+            for what, k in plan:
+                at = int(starts[k]) + shift
+                if what == "zero":
+                    data = faults.zero_rdw(data, at)
+                elif what == "oversized":
+                    data = faults.oversize_rdw(data, at)
+                elif what == "splice":
+                    data = faults.splice_garbage(
+                        data, at, faults.garbage_run(64, seed=12))
+                    shift += 64
+                else:
+                    data = faults.flip_bit(data, at + 2, 6)
+                sites.append((what, at))
+            data = faults.truncate(data, len(data) - 23)
+            sites.append(("torn_tail", len(data)))
+        else:
+            # a zeroed header within the resync window of the first
+            # window's end, and a garbage run from the last header before
+            # the second window's end to 48 bytes past it
+            k = near(p1 - 30_000)
+            data = faults.zero_rdw(data, int(starts[k]))
+            sites.append(("zero", int(starts[k])))
+            from cobrix_tpu_torch.reader import var_len_reader as vlr
+
+            edge = p1 + vlr.READ_WINDOW_BYTES
+            data = faults.overwrite(data, p2, faults.garbage_run(
+                edge - p2 + 48, seed=13))
+            sites.append(("garbage_run", p2))
+        return data, sites, p1, p2
+
+    def phase_recovery(self):
+        """Phase 12 (a)-(c): the permissive policies on the faulted exp2
+        and exp3 files and the torn exp1 file, and their cost on the
+        clean ones."""
+        np = self.np
+        from cobrix_tpu_torch.reader.diagnostics import (
+            FramingError, ReadDiagnostics, RecordErrorPolicy)
+        from cobrix_tpu_torch.reader.recovery import rdw_scan_permissive
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+        from cobrix_tpu_torch.testing.generators import (EXP1_COPYBOOK,
+                                                         EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        t_phase = time.perf_counter()
+        self.p12 = {"reads": {}}
+        self.p12_split = 500 if self.rehearsal else 31_250
+        if self.rehearsal:
+            vlr.READ_WINDOW_BYTES = 64 * 1024  # several windows
+        self._policy_cost(EXP1_COPYBOOK, EXP2_COPYBOOK, EXP3_COPYBOOK)
+        for kind, cb in (("exp2", EXP2_COPYBOOK), ("exp3", EXP3_COPYBOOK)):
+            raw, walk = self.rdw_walk[kind]
+            data, sites, p1, p2 = self._inject(kind, raw, walk)
+            path = os.path.join(self.tmp, f"{kind}_faults.dat")
+            with open(path, "wb") as f:
+                f.write(data)
+            size = len(data)
+            log(f"[p12] {kind}: {size} bytes, sites "
+                f"{json.dumps(sites)}; first window ends at {p1}, the "
+                f"second at {p2}")
+            opts = dict(copybook_contents=cb, **P12_RDW)
+            # fail_fast: the first site's offset and snapshot
+            try:
+                self._counted_read(f"p12_{kind}_fail_fast", path, **opts)
+                raise SmokeFailure(f"{kind}: fail_fast read a faulted file")
+            except FramingError as e:
+                check(e.offset == sites[0][1] and "00 00 00 00" in str(e),
+                      f"{kind} fail_fast: {e} (offset {e.offset}, first "
+                      f"site {sites[0][1]})")
+                log(f"[p12] {kind} fail_fast raised at {e.offset}: {e}")
+            for policy in ("permissive", "drop_malformed"):
+                pol = RecordErrorPolicy(policy)
+                # the device framing against the plain permissive scan
+                plain = ReadDiagnostics()
+                t0 = time.perf_counter()
+                want = rdw_scan_permissive(data, False, 0, 0, 0, pol,
+                                           65536, plain, path)
+                plain_s = time.perf_counter() - t0
+                ledger, reasons, offs, lens = ReadDiagnostics(), {}, [], []
+                self.sync()
+                t0 = time.perf_counter()
+                with open(path, "rb") as f:
+                    for base, _, o, ln in vlr.frame_windows(
+                            f, size, self.device, False, 0, policy=pol,
+                            ledger=ledger, file_name=path,
+                            corrupt_reasons=reasons):
+                        offs.append(base + o.cpu().numpy())
+                        lens.append(ln.cpu().numpy())
+                card_s = time.perf_counter() - t0
+                check(np.array_equal(np.concatenate(offs), want[0])
+                      and np.array_equal(np.concatenate(lens), want[1])
+                      and reasons == want[2]
+                      and ledger.to_json() == plain.to_json(),
+                      f"{kind} {policy}: device framing differs from the "
+                      f"plain permissive scan")
+                log(f"[p12] {kind} {policy}: device framing {card_s:.3f} s "
+                    f"== plain rdw_scan_permissive {plain_s:.3f} s "
+                    f"(offsets, lengths, reasons, ledger: "
+                    f"{plain.resyncs} resyncs, {plain.bytes_skipped} bytes "
+                    f"skipped, {len(plain.entries)} entries)")
+                popts = dict(opts, record_error_policy=policy)
+                if policy == "permissive":
+                    popts["corrupt_record_column"] = "_corrupt_record"
+                whole, _, _ = self._read_row(
+                    f"p12_{kind}_{policy}", path, size,
+                    enable_indexes="false", **popts)
+                check(whole.diagnostics.to_json() == plain.to_json(),
+                      f"{kind} {policy}: the read's ledger differs from the "
+                      f"plain scan's")
+                check(len(whole) == len(want[0]), f"{kind} {policy}: rows")
+                table = whole.to_arrow()
+                self._held_rows(kind, data, want[0], plain, table, popts,
+                                sites)
+                runs = []
+                for workers in (0, 2):
+                    got, _, _ = self._read_row(
+                        f"p12_{kind}_{policy}_split_w{workers}", path,
+                        size, pipeline_workers=str(workers),
+                        input_split_records=str(self.p12_split), **popts)
+                    runs.append(got)
+                    check(got.to_arrow().replace_schema_metadata(None)
+                          .equals(table.replace_schema_metadata(None)),
+                          f"{kind} {policy} workers {workers}: rows differ "
+                          f"from the whole-file read")
+                    a, b = got.diagnostics.as_dict(), plain.as_dict()
+                    strip = lambda d: [dict(e, record_index=None)
+                                       for e in d["entries"]]
+                    check(strip(a) == strip(b) and all(
+                        a[k] == b[k] for k in ("corrupt_records",
+                                               "records_dropped",
+                                               "bytes_skipped", "resyncs")),
+                          f"{kind} {policy} workers {workers}: ledger")
+                check(runs[0].diagnostics.to_json()
+                      == runs[1].diagnostics.to_json(),
+                      f"{kind} {policy}: pipelined ledger != sequential")
+                log(f"[p12] {kind} {policy}: pipelined (2 workers) == "
+                    f"sequential, {self.p12_split}-record shards: tables "
+                    f"and ledgers; == the whole-file read's rows and "
+                    f"ledger entries")
+                del whole, table, runs, got
+            os.remove(path)
+        self._torn_exp1(EXP1_COPYBOOK)
+        log(f"[p12] (a)-(c) and the policies' cost: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+    def _held_rows(self, kind, data, offsets, plain, table, opts, sites):
+        """Rows within 3 records of every ledger entry, the first and
+        last 1,000 rows, and each entry, against device="cpu" reads of
+        the records around them (slices of `data` from a record header:
+        `offsets` are the plain scan's payload offsets)."""
+        np = self.np
+        from cobrix_tpu_torch import read_cobol
+
+        n = len(offsets)
+        starts = np.asarray(offsets) - 4
+        first = min(1000, n)
+        spans = [(0, first), (max(0, n - first), n)]
+        for at in [e.offset for e in plain.entries] + [s for _, s in sites]:
+            k = int(np.searchsorted(starts, at))
+            spans.append((max(0, k - 3), min(n, k + 3)))
+        held = 0
+        for lo, hi in spans:
+            # the slice reaches 10 records past the span (the resync
+            # chains through 3), or the end of the file
+            end = (len(data) if hi + 10 >= n
+                   else int(starts[hi + 10]))
+            name = os.path.join(self.tmp, "slice.dat")
+            with open(name, "wb") as f:
+                f.write(data[int(starts[lo]):end])
+            cpu = read_cobol(name, device="cpu", **opts)
+            want = cpu.to_arrow()
+            self._same_table(
+                table.slice(lo, hi - lo).replace_schema_metadata(None),
+                want.slice(0, hi - lo).replace_schema_metadata(None),
+                f"{kind} rows {lo}-{hi}")
+            base = int(starts[lo])
+            mine = [e for e in plain.entries
+                    if base <= e.offset < end - (0 if end == len(data)
+                                                 else 1)]
+            theirs = [(e.offset + base, e.length, e.reason,
+                       e.header_snapshot) for e in cpu.diagnostics.entries]
+            check(theirs[:len(mine)] == [(e.offset, e.length, e.reason,
+                                          e.header_snapshot)
+                                         for e in mine],
+                  f"{kind} rows {lo}-{hi}: ledger entries differ from the "
+                  f"CPU read's")
+            held += hi - lo
+            os.remove(name)
+        log(f"[p12] {kind}: {held} rows around {len(sites)} fault sites "
+            f"and {len(plain.entries)} ledger entries, the first and last "
+            f"{first} == device='cpu' reads of their records; entries == "
+            f"the CPU reads'")
+
+    def _torn_exp1(self, cb):
+        """Phase 12 (c): the exp1 file with a 700-byte torn tail, under
+        the three policies."""
+        from cobrix_tpu_torch.reader.diagnostics import hex_snapshot
+
+        rs = 1493
+        path = self.exp1_path
+        tail = self.np.random.default_rng(41).integers(
+            0, 256, 700, dtype=self.np.uint8).tobytes()
+        with open(path, "ab") as f:
+            f.write(tail)
+        size = os.path.getsize(path)
+        n = size // rs
+        opts = dict(copybook_contents=cb)
+        try:
+            self._counted_read("p12_exp1_fail_fast", path,
+                               record_error_policy="fail_fast", **opts)
+            raise SmokeFailure("exp1: fail_fast read a torn file")
+        except ValueError as e:
+            check("permissive" in str(e), f"exp1 fail_fast: {e}")
+            log(f"[p12] exp1 fail_fast raised: {e}")
+        with open(path, "rb") as f:
+            f.seek((n - 1000) * rs)
+            last = f.read()
+        for policy in ("permissive", "drop_malformed"):
+            data, _, _ = self._read_row(
+                f"p12_exp1_{policy}", path, size, record_error_policy=policy,
+                corrupt_record_column="_bad", **opts)
+            keep = policy == "permissive"
+            check(len(data) == n + keep, f"exp1 {policy}: {len(data)} rows")
+            (e,) = data.diagnostics.entries
+            check((e.offset, e.record_index, e.header_snapshot)
+                  == (n * rs, n if keep else None, hex_snapshot(tail[:16]))
+                  and data.diagnostics.records_dropped == (not keep),
+                  f"exp1 {policy}: ledger {data.diagnostics.to_json()}")
+            popts = dict(opts, record_error_policy=policy,
+                         corrupt_record_column="_bad")
+            want = self._cpu_table(last, "t.dat", **popts
+                                   ).replace_schema_metadata(None)
+            k = want.num_rows
+            got = self._rows_at(data, len(data) - k, len(data))
+            self._same_table(got, want, f"exp1 {policy} last rows")
+            check(got.column("_bad")[k - 1].as_py()
+                  == (e.reason if keep else None),
+                  f"exp1 {policy}: the last row's reason")
+            log(f"[p12] exp1 {policy}: {len(data)} rows; the last {k} == "
+                f"device='cpu' read; ledger {json.dumps(e.as_dict())}")
+            del data
+
+    def _policy_cost(self, cb1, cb2, cb3):
+        """Permissive against fail_fast on the clean exp2, exp3 and exp1
+        files, in turns: the same scan launches (one a window)."""
+        cost = {}
+        for kind, path, cb, extra in [
+                ("exp2", self.rdw_files["exp2"], cb2, P12_RDW),
+                ("exp3", self.rdw_files["exp3"], cb3, P12_RDW),
+                ("exp1", self.exp1_path, cb1, {})]:
+            size = os.path.getsize(path)
+            runs = []
+            for policy in ("fail_fast", "permissive", "permissive",
+                           "fail_fast"):
+                _, _, res = self._read_row(
+                    f"p12_cost_{kind}_{policy}_{len(runs)}", path, size,
+                    copybook_contents=cb, record_error_policy=policy,
+                    **extra)
+                runs.append(dict(policy=policy, **res))
+            scans = {r["launches"].get("rdw_scan", 0) for r in runs}
+            check(len(scans) == 1, f"{kind}: scan launches differ between "
+                  f"the policies: {[r['launches'] for r in runs]}")
+            cost[kind] = runs
+            log(f"[p12] {self.card}: {kind} clean MB/s fail_fast / "
+                f"permissive / permissive / fail_fast: " + " / ".join(
+                    f"{r['MBps']:.1f}" for r in runs)
+                + f"; scan launches {scans.pop()} each")
+        self.p12["cost"] = cost
+
+    def phase_generic(self):
+        """Phase 12 (d): the generic per-record framings, framed on the
+        host and decoded on the card; the rows of the first and last
+        1,000 records against device="cpu" reads of them."""
+        np = self.np
+        from cobrix_tpu_torch.testing import generators as g
+
+        t_phase = time.perf_counter()
+        r = self.rehearsal
+        cases = []
+        # exp3 with big-endian RDWs read through a record-length field:
+        # the phase 4 file's first records, their headers turned around
+        raw, (offsets, lengths) = self.rdw_walk["exp3"]
+        n3 = 300 if r else 50_000
+        starts = np.asarray(offsets[:n3], dtype=np.int64) - 4
+        end = int(offsets[n3 - 1] + lengths[n3 - 1])
+        arr = np.frombuffer(raw[:end], dtype=np.uint8).copy()
+        hdr = arr[starts[:, None] + np.arange(4)]
+        arr[starts[:, None] + np.arange(4)] = hdr[:, [3, 2, 1, 0]]
+        bounds = np.append(starts, end)
+        opts = dict(copybook_contents=g.LENGTH_FIELD_EXP3_COPYBOOK,
+                    record_length_field="RECORD-LENGTH", rdw_adjustment="4",
+                    **P12_SEG)
+        cases.append(("exp3_length_field", arr.tobytes(), bounds, opts, []))
+        # three length fields broken: two records that read as one with
+        # their successor, and a last record that declares 65,535 bytes
+        bad = arr.copy()
+        for k in (n3 // 3, (2 * n3) // 3):
+            merged = int(bounds[k + 2] - bounds[k]) - 4
+            bad[bounds[k]:bounds[k] + 2] = [merged >> 8, merged & 0xFF]
+        bad[bounds[n3 - 1]:bounds[n3 - 1] + 2] = [0xFF, 0xFF]
+        bad_bounds = np.delete(bounds, [n3 // 3 + 1, (2 * n3) // 3 + 1])
+        cases.append(("exp3_length_field_permissive", bad.tobytes(),
+                      bad_bounds, dict(opts, record_error_policy="permissive",
+                                       corrupt_record_column="_corrupt"),
+                      [n3 // 3, (2 * n3) // 3 - 1]))
+        # text lines, LF and CRLF mixed, trailing blanks cut
+        nt = 3000 if r else 1_000_000
+        text = g.generate_text(nt, seed=42)
+        nl = np.nonzero(np.frombuffer(text, dtype=np.uint8) == 0x0A)[0]
+        cases.append(("text", text, np.append(0, nl + 1),
+                      dict(copybook_contents=g.TEXT_COPYBOOK,
+                           is_text="true", encoding="ascii"), []))
+        # records behind a custom 5-byte header, written by children
+        nc = 3000 if r else 1_000_000
+        crdw = self._write_custom_rdw(nc)
+        valid, pos, view = [], 0, memoryview(crdw)
+        while pos + 5 <= len(crdw):
+            if view[pos] == 1:
+                valid.append(pos)
+            pos += 5 + view[pos + 3] + 256 * view[pos + 4]
+        cbounds = np.asarray(valid + [len(crdw)], dtype=np.int64)
+        custom = "cobrix_tpu_torch.testing.custom_framing."
+        cases.append(("custom_header_parser", crdw, cbounds, dict(
+            copybook_contents=g.CUSTOM_RDW_COPYBOOK,
+            is_record_sequence="true",
+            record_header_parser=custom + "CustomRdw5ByteParser",
+            rhp_additional_info="chip_smoke", **P12_SEG), []))
+        cases.append(("custom_record_extractor", crdw, cbounds, dict(
+            copybook_contents=g.CUSTOM_RDW_COPYBOOK,
+            record_extractor=custom + "CustomRdw5ByteExtractor",
+            re_additional_info="chip_smoke", **P12_SEG), []))
+        # variable-size OCCURS: a trailing 1 TO 2000 table
+        nv = 40 if r else 12_000
+        vo = g.generate_var_occurs(nv, seed=43)
+        vb, pos = [], 0
+        while pos < len(vo):
+            vb.append(pos)
+            pos += g.VAR_OCCURS_HEAD + 8 * int.from_bytes(
+                vo[pos + 59:pos + 61], "big")
+        cases.append(("variable_size_occurs", vo,
+                      np.asarray(vb + [len(vo)], dtype=np.int64),
+                      dict(copybook_contents=g.VAR_OCCURS_COPYBOOK,
+                           variable_size_occurs="true"), []))
+        for kind, data, bounds, opts, sites in cases:
+            path = os.path.join(self.tmp, f"{kind}.dat")
+            with open(path, "wb") as f:
+                f.write(data)
+            got, _, res = self._read_row(f"p12_{kind}", path, len(data),
+                                         **opts)
+            n = len(bounds) - 1
+            check(len(got) == n - ("drop" in opts.get(
+                "record_error_policy", "")),
+                  f"{kind}: {len(got)} rows for {n} records")
+            k = min(1000, n)
+            schema = got.output_schema
+            first = got.parts[0].to_arrow(schema)
+            last = got.parts[-1].to_arrow(schema)
+            spans = [("first", 0, k, first.slice(0, k)),
+                     ("last", n - k, n, last.slice(last.num_rows - k, k))]
+            spans += [(f"around record {at}", at - 3, at + 3,
+                       self._rows_at(got, at - 3, at + 3)) for at in sites]
+            for what, lo, hi, table in spans:
+                want = self._cpu_table(
+                    data[int(bounds[lo]):int(bounds[hi])], "g.dat", **opts)
+                self._same_table(table, want.replace_schema_metadata(None),
+                                 f"{kind} {what} {k} rows")
+            if got.diagnostics is not None:
+                check(got.diagnostics.corrupt_records >= 1,
+                      f"{kind}: the truncated last record is not ledgered")
+                check(last.column("_corrupt")[last.num_rows - 1].as_py()
+                      is not None, f"{kind}: the last row has no reason")
+            check(res["launches"].get("pack_records", 0) > 0 or r,
+                  f"{kind}: the pack kernel never launched")
+            log(f"[p12] {kind}: the first and last {k} rows"
+                + "".join(f", the 6 around record {at}" for at in sites)
+                + " == device='cpu' reads of those records")
+            os.remove(path)
+            del got, first, last
+        log(f"[p12] (d): {time.perf_counter() - t_phase:.1f} s")
+
+    def _rows_at(self, data, lo, hi):
+        """The table of rows [lo, hi) of a read, from the parts that hold
+        them."""
+        import pyarrow as pa
+
+        tables, first = [], 0
+        for part in data.parts:
+            count = part.n_rows
+            if first < hi and lo < first + count:
+                t = part.to_arrow(data.output_schema)
+                a, b = max(lo, first) - first, min(hi, first + count) - first
+                tables.append(t.slice(a, b - a))
+            first += count
+        return pa.concat_tables(tables)
+
+    def _write_custom_rdw(self, n):
+        """`generate_custom_rdw` records, written by child interpreters
+        side by side (`_write_rdw`), as bytes."""
+        path = self._write_rdw("custom_rdw", n, 700)
+        with open(path, "rb") as f:
+            data = f.read()
+        os.remove(path)
+        return data
+
     def run(self):
         try:
             self.phase_env()
@@ -2132,6 +2661,8 @@ class Smoke:
             self.phase_pipeline()
             self.phase_query()
             self.phase_arrow()
+            self.phase_recovery()
+            self.phase_generic()
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
 

@@ -17,7 +17,17 @@ package chooses its reader (``ReaderParameters.needs_var_len_reader``):
   record ids or the input-file-name column:
   ``reader.var_len_reader.VarLenReader`` frames each file on the device,
   window by window, and decodes the records of each active segment
-  there, one `FileResult` per file.
+  there, one `FileResult` per file (per shard where a permissive read
+  met a malformed record in a file the JAX package splits);
+* the generic framings (``is_text``, ``record_length_field``,
+  ``record_header_parser``, ``record_extractor``,
+  ``variable_size_occurs``): the same reader frames the records on the
+  host, one at a time, and decodes them on the device.
+
+Under a permissive ``record_error_policy`` malformed records are
+resynced past, kept with their reason (``corrupt_record_column``) or
+dropped, and recorded in the read's ledger, `CobolData.diagnostics`,
+whose JSON the Arrow table carries as the JAX package's does.
 
 With ``pipeline_workers`` > 0 (or -1: min(8, cpu_count)) either route
 runs through the chunk pipeline (``engine.pipeline``): a reader thread
@@ -46,6 +56,7 @@ reader raises ValueError naming it: none is silently ignored.
 from __future__ import annotations
 
 import glob as _glob
+import json
 import os
 from dataclasses import replace as _dc_replace
 from typing import Dict, List, Optional, Tuple
@@ -64,9 +75,10 @@ from .copybook.datatypes import (
     SchemaRetentionPolicy,
     TrimPolicy,
 )
-from .profiling import ReadMetrics
-from .reader.diagnostics import (ShardErrorPolicy, ShardFailureInfo,
-                                 read_diagnostics_json)
+from .profiling import ReadMetrics, StageTimes
+from .reader.diagnostics import (DEFAULT_LEDGER_CAP, DEFAULT_RESYNC_WINDOW,
+                                 ReadDiagnostics, RecordErrorPolicy,
+                                 ShardErrorPolicy, ShardFailureInfo)
 from .reader.fixed_len_reader import FixedLenReader
 from .reader.json_out import rows_to_json
 from .reader.parameters import MultisegmentParameters, ReaderParameters
@@ -99,14 +111,21 @@ _OPTIONS = frozenset((
     "truncate_comments",
     "pipeline_workers", "chunk_size_mb", "max_inflight_chunks",
     "shard_timeout_s", "scan_deadline_s", "shard_error_policy",
-    "shard_max_retries", "compression", "select"))
+    "shard_max_retries", "compression", "select",
+    "record_error_policy", "resync_window", "max_corrupt_ledger_entries",
+    "corrupt_record_column", "is_text", "record_length_field",
+    "record_header_parser", "rhp_additional_info", "record_extractor",
+    "re_additional_info", "variable_size_occurs", "occurs_mappings",
+    "occurs_mapping"))
 _OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
                     "redefine_segment_id_map")
-# the framing options `record_length` is refused beside, in the JAX
-# package's order (its other ones are refused by name before)
-_RECORD_LENGTH_EXCLUSIVE = ("is_record_sequence", "is_xcom",
-                            "is_rdw_big_endian",
-                            "is_rdw_part_of_record_length", "rdw_adjustment")
+# the framing options a custom record extractor is refused beside, and
+# (from the third on, with is_text) `record_length`, in the JAX package's
+# order
+_RDW_ISH = ("is_text", "record_length", "is_record_sequence", "is_xcom",
+            "is_rdw_big_endian", "is_rdw_part_of_record_length",
+            "rdw_adjustment", "record_length_field",
+            "record_header_parser", "rhp_additional_info")
 
 _ENUMS = {
     "schema_retention_policy": {
@@ -218,8 +237,7 @@ def parse_options(options: Dict[str, object],
         if not _is_taken(name):
             raise ValueError(
                 f"Option '{name}' is not supported by cobrix_tpu_torch."
-                f"read_cobol, which reads fixed-length and RDW "
-                f"(is_record_sequence) files")
+                f"read_cobol yet")
     opts = Options(options)
     encoding = (opts.get("encoding", "") or "").strip().lower()
     if encoding not in ("", "ebcdic", "ascii"):
@@ -236,6 +254,10 @@ def parse_options(options: Dict[str, object],
             "used: 'comments_lbound', 'comments_ubound'.")
     is_record_sequence = (opts.get_bool("is_xcom") or
                           opts.get_bool("is_record_sequence"))
+    if "record_length_field" in opts and (
+            "is_record_sequence" in opts or "is_xcom" in opts):
+        raise ValueError("Option 'record_length_field' cannot be used together "
+                         "with 'is_record_sequence' or 'is_xcom'.")
     multisegment = None
     if "segment_field" in opts:
         filter_str = opts.get("segment_filter")
@@ -246,14 +268,30 @@ def parse_options(options: Dict[str, object],
             segment_id_prefix=opts.get("segment_id_prefix", ""),
             segment_id_redefine_map=_parse_prefixed_map(
                 opts, ("redefine-segment-id-map", "redefine_segment_id_map")))
+    occurs_mappings = {}
+    # the reference README documents the singular key (`occurs_mapping`);
+    # both spellings are accepted, but not together
+    occurs_keys = [k for k in ("occurs_mappings", "occurs_mapping")
+                   if k in opts]
+    if len(occurs_keys) > 1:
+        raise ValueError(
+            "Options 'occurs_mappings' and 'occurs_mapping' cannot be "
+            "specified at the same time")
+    if occurs_keys:
+        occurs_mappings = {
+            k: {sk: int(sv) for sk, sv in v.items()}
+            for k, v in json.loads(opts.get(occurs_keys[0])).items()}
     params = ReaderParameters(
         is_ebcdic=encoding in ("", "ebcdic"),
+        is_text=opts.get_bool("is_text"),
         ebcdic_code_page=ebcdic_code_page,
         ebcdic_code_page_class=opts.get("ebcdic_code_page_class"),
         ascii_charset=opts.get("ascii_charset", "") or "us-ascii",
         is_utf16_big_endian=opts.get_bool("is_utf16_big_endian", True),
         floating_point_format=_parse_enum("floating_point_format",
                                           floating_point_format),
+        variable_size_occurs=opts.get_bool("variable_size_occurs"),
+        length_field_name=opts.get("record_length_field"),
         is_record_sequence=is_record_sequence,
         is_rdw_big_endian=opts.get_bool("is_rdw_big_endian"),
         is_rdw_part_of_record_length=opts.get_bool(
@@ -278,8 +316,20 @@ def parse_options(options: Dict[str, object],
         drop_value_fillers=opts.get_bool("drop_value_fillers", True),
         non_terminals=tuple(
             s for s in (opts.get("non_terminals", "") or "").split(",") if s),
+        occurs_mappings=occurs_mappings,
         debug_fields_policy=_parse_enum("debug", opts.get("debug", "false")),
+        record_header_parser=opts.get("record_header_parser"),
+        record_extractor=opts.get("record_extractor"),
+        rhp_additional_info=opts.get("rhp_additional_info"),
+        re_additional_info=opts.get("re_additional_info", ""),
         input_file_name_column=opts.get("with_input_file_name_col", ""),
+        record_error_policy=RecordErrorPolicy.parse(
+            opts.get("record_error_policy", "fail_fast")),
+        resync_window_bytes=opts.get_int("resync_window",
+                                         DEFAULT_RESYNC_WINDOW),
+        max_corrupt_ledger_entries=opts.get_int(
+            "max_corrupt_ledger_entries", DEFAULT_LEDGER_CAP),
+        corrupt_record_column=opts.get("corrupt_record_column", ""),
         compression=(opts.get("compression", "auto") or "auto").lower(),
         pipeline_workers=opts.get_int("pipeline_workers", 0),
         pipeline_chunk_mb=float(opts.get("chunk_size_mb", "") or 16.0),
@@ -298,8 +348,15 @@ def parse_options(options: Dict[str, object],
 def _validate(params: ReaderParameters, opts: Options) -> None:
     """The JAX package's checks (``cobrix_tpu.api._validate_options``)
     of the options the port takes, same messages."""
+    if "record_extractor" in opts:
+        bad = [k for k in _RDW_ISH if k in opts]
+        if bad:
+            raise ValueError(
+                f"Option 'record_extractor' and {', '.join(bad)} cannot be "
+                "used together.")
     if "record_length" in opts:
-        bad = [k for k in _RECORD_LENGTH_EXCLUSIVE if k in opts]
+        bad = [k for k in _RDW_ISH[2:] if k in opts] \
+            + (["is_text"] if "is_text" in opts else [])
         if bad:
             raise ValueError(
                 f"Option 'record_length' and {', '.join(bad)} cannot be "
@@ -311,6 +368,16 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
             "'variable_size_occurs' = true or one of these options is "
             "set: 'record_length_field', 'file_start_offset', "
             "'file_end_offset' or a custom record extractor is specified")
+    if params.corrupt_record_column and not params.is_permissive:
+        raise ValueError(
+            "Option 'corrupt_record_column' requires "
+            "record_error_policy='permissive' or 'drop_malformed' "
+            "(under 'fail_fast' the first malformed record raises instead "
+            "of being recorded).")
+    if params.resync_window_bytes <= 0:
+        raise ValueError(
+            f"Invalid 'resync_window' of {params.resync_window_bytes} "
+            "bytes; it must be a positive byte count.")
     if params.compression not in ("auto", "none", "off", "raw"):
         try:
             codec_by_name(params.compression)
@@ -414,6 +481,9 @@ class CobolData:
         self.metrics = metrics
         # chunks a pipelined read lost under shard_error_policy='partial'
         self.shard_failures = shard_failures or []
+        # the read's error ledger (permissive policies, or lost shards;
+        # None otherwise), set by read_cobol
+        self.diagnostics: Optional[ReadDiagnostics] = None
         self._rows: Optional[List[List[object]]] = None
 
     @property
@@ -454,9 +524,10 @@ class CobolData:
         """pyarrow Table with the schema's declared types, built from the
         host planes without row materialization: one table per part
         (cached by the pipelined read's assemble stage), concatenated.
-        A read that lost shards under shard_error_policy='partial'
-        carries its ledger in the schema metadata
-        (``cobrix_tpu.read_diagnostics``), as the JAX package's does."""
+        A read with a ledger (a permissive policy, or shards lost under
+        shard_error_policy='partial') carries its JSON in the schema
+        metadata (``cobrix_tpu.read_diagnostics``), as the JAX package's
+        does."""
         import pyarrow as pa
 
         from .reader.arrow_out import arrow_schema
@@ -467,12 +538,30 @@ class CobolData:
         else:
             table = tables[0] if len(tables) == 1 else pa.concat_tables(
                 tables)
-        if not self.shard_failures:
+        if self.diagnostics is None:
             return table
         metadata = dict(table.schema.metadata or {})
-        metadata[b"cobrix_tpu.read_diagnostics"] = read_diagnostics_json(
-            self.shard_failures).encode()
+        metadata[b"cobrix_tpu.read_diagnostics"] = \
+            self.diagnostics.to_json().encode()
         return table.replace_schema_metadata(metadata)
+
+
+def _aggregate_diagnostics(params: ReaderParameters, parts,
+                           shard_failures: List[ShardFailureInfo]
+                           ) -> Optional[ReadDiagnostics]:
+    """The read's ledger (``cobrix_tpu.api._aggregate_diagnostics``): the
+    parts' ledgers merged by ``ReadDiagnostics.merged`` (entries sorted by
+    file and offset, then capped), so the sequential and the pipelined
+    reads of the same bytes give the same ledger, and the lost shards
+    recorded. None under fail_fast with no lost shard."""
+    if not params.is_permissive and not shard_failures:
+        return None
+    merged = ReadDiagnostics.merged(
+        (getattr(p, "diagnostics", None) for p in parts),
+        max_entries=params.max_corrupt_ledger_entries)
+    for failure in shard_failures:
+        merged.record_shard_failure(failure)
+    return merged
 
 
 class _BatchTap:
@@ -525,7 +614,13 @@ def read_cobol(path=None,
     input-file-name column, sparse-index splits, the data encoding
     (``encoding``, ``ascii_charset``, ``is_utf16_big_endian``,
     ``ebcdic_code_page_class``), copybook shaping (filler dropping,
-    ``non_terminals``, ``debug`` fields, comment bounds), `compression`,
+    ``non_terminals``, ``debug`` fields, comment bounds,
+    ``occurs_mappings``), the generic framings (``is_text``,
+    ``record_length_field``, ``record_header_parser`` with
+    ``rhp_additional_info``, ``record_extractor`` with
+    ``re_additional_info``, ``variable_size_occurs``), the record error
+    policy (``record_error_policy``, ``resync_window``,
+    ``max_corrupt_ledger_entries``, ``corrupt_record_column``), `compression`,
     the pipeline's options (`pipeline_workers`, `chunk_size_mb`,
     `max_inflight_chunks`, `shard_error_policy`, `shard_timeout_s`,
     `shard_max_retries`, `scan_deadline_s`) and `select`
@@ -592,10 +687,12 @@ def read_cobol(path=None,
                 reader, shards, prefix, workers, schema, metrics,
                 on_batch=on_batch)
         else:
-            results = [reader.read_result(
-                file_path, file_id=file_order, segment_id_prefix=prefix,
-                start_record_id=file_record_id_base(file_order))
-                for file_order, file_path in enumerate(files)]
+            reader.stage_times = metrics.framing = StageTimes()
+            results = [r for file_order, file_path in enumerate(files)
+                       for r in reader.read_result(
+                           file_path, file_id=file_order,
+                           segment_id_prefix=prefix,
+                           start_record_id=file_record_id_base(file_order))]
             metrics.shards = len(results)
     else:
         reader = FixedLenReader(contents, params, device=device)
@@ -617,6 +714,7 @@ def read_cobol(path=None,
     data = CobolData(batches, schema,
                      [r for r in results if r is not None], metrics,
                      failures)
+    data.diagnostics = _aggregate_diagnostics(params, data.parts, failures)
     metrics.records = len(data)
     if tap is not None and tap.count == 0:
         # a sequential read, or a pipelined one that delivered nothing:
@@ -630,22 +728,34 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
     """The sequential fixed-length read: each file in record-aligned
     chunks of FIXED_READ_CHUNK_BYTES, read into a fresh host buffer and
     decoded in turn (`FixedLenReader.read_chunk`). Under
-    debug_ignore_file_size a torn tail is left unread."""
+    debug_ignore_file_size a torn tail is left unread; under a permissive
+    policy the last chunk carries it (`FixedLenReader.read_torn_chunk`)
+    and every part is a FileResult with its ledger."""
     rs = reader.record_size
+    permissive = reader.params.is_permissive
     chunk_bytes = max(rs, FIXED_READ_CHUNK_BYTES // rs * rs)
     parts: list = []
     for file_path in files:
         size = os.path.getsize(file_path)
-        reader.check_binary_data_validity(size, ignore_file_size, file_path)
-        size -= size % rs
+        reader.check_binary_data_validity(
+            size, ignore_file_size or permissive, file_path)
+        rem = size % rs if permissive and not ignore_file_size else 0
+        whole = size - size % rs
         with open(file_path, "rb") as f:
-            done = 0
-            while done < size:
-                buf = bytearray(min(chunk_bytes, size - done))
-                got = f.readinto(buf)
-                if got != len(buf):
+            # a file of a torn record alone is one chunk of it
+            for done in range(0, whole or (1 if rem else 0), chunk_bytes):
+                n = min(chunk_bytes, whole - done)
+                torn = bool(rem) and done + n == whole
+                buf = bytearray(n + (rem if torn else 0))
+                if f.readinto(buf) != len(buf):
                     raise IOError(f"Short read from {file_path} at {done}")
-                parts.append(reader.read_chunk(
-                    np.frombuffer(buf, dtype=np.uint8)))
-                done += got
+                buf = np.frombuffer(buf, dtype=np.uint8)
+                if torn:
+                    parts.append(reader.read_torn_chunk(
+                        buf, rem, file_path, done // rs, size))
+                elif permissive:
+                    parts.append(reader.permissive_part(
+                        reader.read_chunk(buf)))
+                else:
+                    parts.append(reader.read_chunk(buf))
     return parts

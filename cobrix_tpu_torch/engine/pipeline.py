@@ -707,6 +707,7 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
     rs = reader.record_size
     device = reader.device
     decoder = reader.decoder()
+    permissive = params.is_permissive
     chunk_bytes = max(1, int(params.pipeline_chunk_mb * 1024 * 1024))
     chunks = plan_fixed_chunks(rs, files, params, chunk_bytes,
                                ignore_file_size)
@@ -729,32 +730,44 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
 
         def read():
             size = os.path.getsize(c.file_path)
-            reader.check_binary_data_validity(size, ignore_file_size,
-                                              c.file_path)
+            reader.check_binary_data_validity(
+                size, ignore_file_size or permissive, c.file_path)
             return _staged_read(pool, ex.stage_times, c.file_path, 0,
                                 size)()
         return read
 
-    def process(staged):
-        with worker_stream(device), ex.stage_times.timed("decode"):
-            x = buf = None
-            try:
+    def process_fn(c: FixedChunk):
+        def process(staged):
+            with worker_stream(device), ex.stage_times.timed("decode"):
+                x = buf = None
                 # whole records only: a torn tail is cut under
-                # debug_ignore_file_size (and raised before otherwise)
-                n = staged.nbytes // rs * rs
-                if n == 0:
-                    return None
-                if reader.plain_layout:
-                    x = staged.to_device(device, 0, n).view(-1, rs)
-                else:
-                    buf = staged.host()[:n].numpy().copy()
-            finally:
-                staged.close()
-            return (decoder.decode_tensor(x) if x is not None
-                    else reader.read_chunk(buf))
+                # debug_ignore_file_size (and raised before under
+                # fail_fast); a permissive read of a whole-file chunk
+                # keeps or drops it (`FixedLenReader.read_torn_chunk`)
+                rem = (staged.nbytes % rs if permissive and c.whole_file
+                       and not ignore_file_size else 0)
+                try:
+                    n = staged.nbytes // rs * rs
+                    if n == 0 and not rem:
+                        return None
+                    if rem:
+                        buf = staged.host().numpy().copy()
+                    elif reader.plain_layout:
+                        x = staged.to_device(device, 0, n).view(-1, rs)
+                    else:
+                        buf = staged.host()[:n].numpy().copy()
+                finally:
+                    staged.close()
+                if rem:
+                    return reader.read_torn_chunk(
+                        buf, rem, c.file_path, 0, len(buf))
+                part = (decoder.decode_tensor(x) if x is not None
+                        else reader.read_chunk(buf))
+                return reader.permissive_part(part) if permissive else part
+        return process
 
     finalizers = _finalizers(len(chunks), output_schema, ex, on_batch)
-    results = ex.run([(read_fn(c), process, fin)
+    results = ex.run([(read_fn(c), process_fn(c), fin)
                       for c, fin in zip(chunks, finalizers)])
     ex.report["staging"] = pool.report()
     ex.attach(metrics)

@@ -51,8 +51,8 @@ def copybook_for_params(copybook_contents, params):
     reader configuration: its data encoding, comment bounds, filler
     dropping, non-terminals, debug fields, trimming, code page (a custom
     code-page class loaded and registered on first use), ASCII charset,
-    UTF-16 byte order and float format, and the segment redefines of
-    its redefine map marked at parse time."""
+    UTF-16 byte order and float format, its OCCURS mappings, and the
+    segment redefines of its redefine map marked at parse time."""
     from ..copybook.copybook import merge_copybooks, parse_copybook
     from ..encoding.codepages import resolve_code_page
 
@@ -77,6 +77,7 @@ def copybook_for_params(copybook_contents, params):
             is_utf16_big_endian=params.is_utf16_big_endian,
             floating_point_format=params.floating_point_format,
             non_terminals=params.non_terminals,
+            occurs_mappings=params.occurs_mappings,
             debug_fields_policy=params.debug_fields_policy,
         ) for c in contents_list]
     return (copybooks[0] if len(copybooks) == 1

@@ -151,6 +151,11 @@ class ReadMetrics:
     # pipeline watchdog events (re-queued, failed and timed-out chunks,
     # respawned workers); None when the read ran unsupervised
     supervision: Optional[dict] = None
+    # a sequential variable-length read's split: seconds spent framing
+    # (the host walk of a generic framing; the window reads and scans of
+    # an RDW file) and decoding ({"frame": s, "decode": s}); None on
+    # other reads
+    framing: Optional[StageTimes] = None
 
     def as_dict(self) -> dict:
         return {
@@ -158,4 +163,6 @@ class ReadMetrics:
             "records": self.records, "bytes_read": self.bytes_read,
             "stage_busy": (self.stage_busy.as_dict()
                            if self.stage_busy is not None else None),
-            "pipeline": self.pipeline, "supervision": self.supervision}
+            "pipeline": self.pipeline, "supervision": self.supervision,
+            "framing": (self.framing.as_dict()
+                        if self.framing is not None else None)}

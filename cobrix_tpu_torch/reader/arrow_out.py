@@ -41,7 +41,7 @@ row-backed results, which no reader of the port gives.
 from __future__ import annotations
 
 import decimal
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -613,10 +613,13 @@ def segment_table(batch: DecodedBatch,
                   file_id: int = 0,
                   record_ids: Optional[np.ndarray] = None,
                   seg_level_ids=None,
-                  input_file_name: str = ""):
+                  input_file_name: str = "",
+                  corrupt_reasons: Optional[Sequence] = None):
     """One Arrow table for one decoded batch of a single active segment,
     with the generated columns the output schema asks for in front.
-    `seg_level_ids`: a `SegLevelColumns` view of the batch's rows."""
+    `seg_level_ids`: a `SegLevelColumns` view of the batch's rows;
+    `corrupt_reasons`: per-row values of the trailing corrupt-record
+    debug column (None entries = clean; None = every row clean)."""
     pa = _pa()
     builder = ArrowBatchBuilder(batch, active)
     n = batch.n_records
@@ -654,6 +657,9 @@ def segment_table(batch: DecodedBatch,
         if output_schema.input_file_name_field:
             cols.append(file_name_col())
     cols.extend(arr for _, arr in builder.body_columns(output_schema.policy))
+    if getattr(output_schema, "corrupt_record_field", ""):
+        cols.append(pa.nulls(n, pa.string()) if corrupt_reasons is None
+                    else pa.array(list(corrupt_reasons), type=pa.string()))
     target = arrow_schema(output_schema.schema)
     if len(cols) != len(target):
         raise ValueError(

@@ -19,10 +19,20 @@ there is no segment filter).
 read decodes a chunk of a plain layout (`plain_layout`) straight from
 its staging buffer on the device instead (``engine.pipeline``).
 
-Changes from the JAX package: the host (oracle) walk, filter pushdown,
-the permissive policies' truncated-tail handling and the error ledger
-are not carried over (their options are refused; a torn tail raises the
-JAX package's error, word for word).
+Under a permissive record error policy a torn tail (a last record cut
+short by the end of the file) is the JAX package's
+(``_matrix_with_tail``, ``_ledger_tail``): ``permissive`` keeps it as a
+zero-padded row with its available length, so the fields it cuts come
+back null, and gives its reason; ``drop_malformed`` drops it; both
+ledger it (`read_torn_chunk`). Every part of a permissive read is a
+`FileResult` with its ledger (`permissive_part`). Under fail_fast a torn
+tail raises the JAX package's error, word for word.
+
+Changes from the JAX package: the host (oracle) walk and filter
+pushdown are not carried over (their options are refused). The JAX
+package reads a file with a torn tail as one whole-file chunk; the
+sequential read here keeps its 64 MiB chunks, the last one carrying the
+tail, and the ledger and rows are the same.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import numpy as np
 from ..device import resolve_device
 from ..plan.cache import copybook_for_params
 from .columnar import ColumnarDecoder, DecodedBatch, decoder_for_segment
+from .diagnostics import CorruptRecordInfo, RecordErrorPolicy, hex_snapshot
 from .extractors import DecodeOptions
 from .parameters import ReaderParameters
 from .result import FileResult, SegmentBatch
@@ -120,19 +131,87 @@ class FixedLenReader:
             matrix[:, off:off + w], seg_field,
             DecodeOptions.from_copybook(self.copybook))
 
-    def read_chunk(self, buf: np.ndarray
+    def read_chunk(self, buf: np.ndarray, tail: Optional[np.ndarray] = None
                    ) -> Union[DecodedBatch, FileResult]:
         """Decode a chunk of whole records (`buf`: uint8 bytes on the
-        host): one DecodedBatch, or a FileResult with a SegmentBatch per
-        active segment for multisegment records."""
-        matrix = buf.reshape(-1, self.record_size)
+        host), and `tail`, the bytes of a torn last record kept as a
+        zero-padded row of their length: one DecodedBatch, or a FileResult
+        with a SegmentBatch per active segment for multisegment
+        records."""
+        rs = self.record_size
+        matrix = buf.reshape(-1, rs)
+        rec_lengths = None
+        if tail is not None:
+            n = matrix.shape[0]
+            padded = np.zeros((n + 1, rs), dtype=np.uint8)
+            padded[:n] = matrix
+            padded[n, :len(tail)] = tail
+            matrix = padded
+            rec_lengths = np.full(n + 1, rs, dtype=np.int64)
+            rec_lengths[n] = len(tail)
         trimmed, width = self._trimmed_matrix(matrix)
         n = matrix.shape[0]
-        lengths = (np.full(n, width, dtype=np.int64)
-                   if width < self.copybook.record_size else None)
+        if rec_lengths is not None:
+            lengths = np.minimum(np.maximum(
+                rec_lengths - self.params.start_offset, 0), width)
+        else:
+            lengths = (np.full(n, width, dtype=np.int64)
+                       if width < self.copybook.record_size else None)
         if not self.is_multisegment:
             return self.decoder().decode(trimmed, lengths=lengths)
         return self._read_multiseg_result(matrix, trimmed, lengths)
+
+    def permissive_part(self, part: Union[DecodedBatch, FileResult],
+                        ledger=None, reasons: Optional[dict] = None
+                        ) -> FileResult:
+        """A decoded chunk as a part of a permissive read: a FileResult
+        with `ledger` (a fresh one by default), the corrupt-record column
+        and the `reasons` of its malformed rows, by row position."""
+        p = self.params
+        if isinstance(part, FileResult):
+            result = part
+        else:
+            n = part.n_records
+            positions = np.arange(n, dtype=np.int64)
+            result = FileResult(
+                n_rows=n, policy=p.schema_policy,
+                segments=[SegmentBatch(part, None, positions, positions)])
+        result.corrupt_record_field = p.corrupt_record_column
+        result.diagnostics = (ledger if ledger is not None
+                              else p.new_diagnostics())
+        result.corrupt_row_reasons = reasons or None
+        return result
+
+    def read_torn_chunk(self, buf: np.ndarray, rem: int, file_name: str,
+                        first_index: int, data_size: int) -> FileResult:
+        """The last chunk of a file whose last `rem` bytes are a torn
+        record, under a permissive policy: the whole records of `buf`
+        (the first of them the file's record `first_index`), the tail
+        kept (``permissive``) or dropped (``drop_malformed``), and the
+        ledger entry of the JAX package's ``_ledger_tail`` (`data_size`:
+        the file's size)."""
+        rs = self.record_size
+        whole, tail = buf[:len(buf) - rem], buf[len(buf) - rem:]
+        keep = (self.params.record_error_policy
+                is RecordErrorPolicy.PERMISSIVE)
+        n = len(whole) // rs
+        reason = (f"fixed-length record truncated at end of data: "
+                  f"{rs} bytes declared, {rem} available")
+        ledger = self.params.new_diagnostics()
+        ledger.record(
+            CorruptRecordInfo(file_name, data_size - rem, 0, reason,
+                              hex_snapshot(tail[:16].tobytes()),
+                              record_index=first_index + n if keep
+                              else None),
+            dropped=not keep)
+        if not keep and n == 0:
+            return FileResult(n_rows=0, policy=self.params.schema_policy,
+                              corrupt_record_field=(
+                                  self.params.corrupt_record_column),
+                              diagnostics=ledger)
+        part = self.read_chunk(whole, tail if keep else None)
+        return self.permissive_part(part, ledger,
+                                    {n: reason} if keep else None)
 
     def _read_multiseg_result(self, matrix: np.ndarray, trimmed: np.ndarray,
                               lengths: Optional[np.ndarray]) -> FileResult:

@@ -4,11 +4,13 @@ Port copy of ``cobrix_tpu.reader.parameters``, reduced to the fields that
 ``api.parse_options`` sets: the data encoding, code page (and custom
 code-page class), ASCII charset, UTF-16 byte order, float format,
 trimming and schema policy, the copybook shaping (comments, fillers,
-non-terminals, debug fields), RDW framing, the record-length override,
-record and file offsets, the multisegment options and record ids, the
-input-file-name column, the pipeline's options and the column projection
-(`select`), plus `corrupt_record_column`, which
-``schema.output_schema_for`` reads and which stays empty. Every other
+non-terminals, debug fields, OCCURS mappings), RDW framing, the
+record-length override, record and file offsets, the multisegment
+options and record ids, the input-file-name column, the generic
+per-record framings (text, a record-length field, custom header parsers
+and record extractors, variable-size OCCURS), the record error policies
+with their resync window, ledger cap and corrupt-record column, the
+pipeline's options and the column projection (`select`). Every other
 field of the JAX package belongs to an option the port refuses by name
 (``api.read_cobol``); a field comes back with the slice that takes its
 option.
@@ -26,7 +28,8 @@ from ..copybook.datatypes import (
     SchemaRetentionPolicy,
     TrimPolicy,
 )
-from .diagnostics import ShardErrorPolicy
+from .diagnostics import (DEFAULT_LEDGER_CAP, DEFAULT_RESYNC_WINDOW,
+                          RecordErrorPolicy, ShardErrorPolicy)
 
 DEFAULT_FILE_RECORD_ID_INCREMENT = 2 ** 32      # reference reader Constants.scala:28
 DEFAULT_INDEX_ENTRY_SIZE_MB = 100
@@ -47,11 +50,14 @@ class ReaderParameters:
     """Flattened reader configuration (the options the port takes)."""
 
     is_ebcdic: bool = True
+    is_text: bool = False
     ebcdic_code_page: str = "common"
     ebcdic_code_page_class: Optional[str] = None
     ascii_charset: str = "us-ascii"
     is_utf16_big_endian: bool = True
     floating_point_format: FloatingPointFormat = FloatingPointFormat.IBM
+    variable_size_occurs: bool = False
+    length_field_name: Optional[str] = None
     is_record_sequence: bool = False
     is_rdw_big_endian: bool = False
     is_rdw_part_of_record_length: bool = False
@@ -72,8 +78,23 @@ class ReaderParameters:
     drop_group_fillers: bool = False
     drop_value_fillers: bool = True
     non_terminals: Sequence[str] = ()
+    occurs_mappings: Dict[str, Dict[str, int]] = dc_field(default_factory=dict)
     debug_fields_policy: DebugFieldsPolicy = DebugFieldsPolicy.NONE
+    record_header_parser: Optional[str] = None
+    record_extractor: Optional[str] = None
+    rhp_additional_info: Optional[str] = None
+    re_additional_info: str = ""
     input_file_name_column: str = ""
+    # -- fault tolerance (Spark parse-mode analogue; not a reference
+    # option — the reference is fail-fast only) --------------------------
+    record_error_policy: RecordErrorPolicy = RecordErrorPolicy.FAIL_FAST
+    # bounded forward search for the next plausible header after a corrupt
+    # run (permissive policies only)
+    resync_window_bytes: int = DEFAULT_RESYNC_WINDOW
+    # cap on detailed ledger entries (counts are always exact)
+    max_corrupt_ledger_entries: int = DEFAULT_LEDGER_CAP
+    # name of the optional per-row debug column holding the corruption
+    # reason for malformed-but-kept rows ('' = no column)
     corrupt_record_column: str = ""
     # input compression: 'auto' sniffs every input, 'none'/'off'/'raw'
     # read the raw bytes, a codec name pins it (io/compress.py)
@@ -115,6 +136,18 @@ class ReaderParameters:
         return min(8, os.cpu_count() or 1)
 
     @property
+    def is_permissive(self) -> bool:
+        """True when malformed records are tolerated (resync + ledger
+        instead of a raised error)."""
+        return self.record_error_policy is not RecordErrorPolicy.FAIL_FAST
+
+    def new_diagnostics(self):
+        """A fresh per-read/shard error ledger sized by this config."""
+        from .diagnostics import ReadDiagnostics
+
+        return ReadDiagnostics(max_entries=self.max_corrupt_ledger_entries)
+
+    @property
     def data_encoding(self) -> Encoding:
         return Encoding.EBCDIC if self.is_ebcdic else Encoding.ASCII
 
@@ -124,7 +157,9 @@ class ReaderParameters:
         tracking (reference CobolParametersParser.scala:576-581 —
         generate_record_id alone does NOT enable it), over the options
         the port takes."""
-        return bool(self.is_record_sequence or self.file_start_offset > 0
+        return bool(self.is_record_sequence or self.is_text
+                    or self.variable_size_occurs or self.length_field_name
+                    or self.record_extractor or self.file_start_offset > 0
                     or self.file_end_offset > 0)
 
     @property
@@ -147,10 +182,16 @@ class ReaderParameters:
 
     @property
     def supports_fast_framing(self) -> bool:
-        """True when whole-shard vectorized RDW framing applies: every
-        RDW read of the port (it takes no custom extractors or parsers,
-        text mode, length fields or variable OCCURS)."""
-        return self.is_record_sequence
+        """True when whole-shard vectorized RDW framing applies (no custom
+        extractors/parsers, no text mode, no length fields, no variable
+        OCCURS): the port frames such reads on the device; the others take
+        the generic per-record reader. Also the gate for pipeline
+        auto-splitting."""
+        return bool(self.is_record_sequence
+                    and not (self.record_extractor
+                             or self.record_header_parser
+                             or self.is_text or self.length_field_name
+                             or self.variable_size_occurs))
 
     @property
     def rdw_length_adjustment(self) -> int:

@@ -7,11 +7,17 @@ materializes rows or an Arrow table only when asked for; the pipelined
 read's assemble stage builds the table early and caches it
 (``_arrow_cache``).
 
-Changes from the JAX package: the row-backed, lazy-factory,
-corrupt-record and diagnostics fields are not carried over, since their
-options (the host backend, hierarchical reads, the permissive policies)
-are refused; nor are the decode-once batches' redefine masks, since the
-port decodes each active segment on its own. `FileResult.to_rows`
+A result carries its part of the read's error ledger (`diagnostics`)
+and, under a permissive policy, the reason of each malformed row it kept
+(`corrupt_row_reasons`, keyed by row position), which the optional
+corrupt-record column (`corrupt_record_field`) gives in rows and
+tables.
+
+Changes from the JAX package: the row-backed and lazy-factory fields are
+not carried over, since their readers (the host backend, hierarchical
+reads, variable-size OCCURS that shift later fields) are refused; nor
+are the decode-once batches' redefine masks, since the port decodes each
+active segment on its own. `FileResult.to_rows`
 orders the rows of its segments by their positions with
 `_record_order_indices` (an O(n) scatter) in place of a sort.
 `SegLevelColumns.arrow_level` formats the Seg_Id strings with Arrow's
@@ -143,6 +149,12 @@ class FileResult:
     # >= n_rows when segment filters / level gating drop rows after
     # numbering
     records_framed: Optional[int] = None
+    # fault-tolerance surface: the result's error ledger, the name of the
+    # optional per-row debug column ('' = none), and the reason per kept
+    # malformed row keyed by record POSITION within this result
+    diagnostics: Optional[object] = None
+    corrupt_record_field: str = ""
+    corrupt_row_reasons: Optional[dict] = None
     # the table the pipelined read's assemble stage built, and the
     # output schema it was built for
     _arrow_cache: Optional[object] = dc_field(default=None, repr=False)
@@ -168,9 +180,18 @@ class FileResult:
                 segment_level_ids=seg.seg_level_ids,
                 active_segments=[seg.active] * n))
             order.append(np.asarray(seg.positions, dtype=np.int64))
+        positions = (np.concatenate(order) if order
+                     else np.zeros(0, dtype=np.int64))
         if order:
-            take = _record_order_indices(np.concatenate(order))
+            take = _record_order_indices(positions)
             rows = [rows[k] for k in take.tolist()]
+            positions = positions[take]
+        if self.corrupt_record_field:
+            # the trailing debug column: the reason of a malformed row
+            # kept, None otherwise
+            reasons = self.corrupt_row_reasons or {}
+            for p, row in zip(positions.tolist(), rows):
+                row.append(reasons.get(p))
         self.rows = rows
         return self.rows
 
@@ -188,13 +209,17 @@ class FileResult:
             return table
         if not self.segments:
             return arrow_schema(output_schema.schema).empty_table()
+        reasons = (self.corrupt_row_reasons
+                   if self.corrupt_record_field else None)
         tables = [segment_table(
             seg.batch, seg.active, output_schema, file_id=self.file_id,
             record_ids=np.asarray(seg.record_ids if seg.record_ids
                                   is not None else seg.positions,
                                   dtype=np.int64),
             seg_level_ids=seg.seg_level_ids,
-            input_file_name=self.input_file_name)
+            input_file_name=self.input_file_name,
+            corrupt_reasons=([reasons.get(int(p)) for p in seg.positions]
+                             if reasons else None))
             for seg in self.segments]
         table = tables[0] if len(tables) == 1 else pa.concat_tables(tables)
         pos = np.concatenate([np.asarray(seg.positions, dtype=np.int64)

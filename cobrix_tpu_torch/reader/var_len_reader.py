@@ -56,37 +56,67 @@ Changes from the JAX package:
 * Fixed-length records in index shards: the JAX package's generic
   per-record reader does not end on such a shard (ROADMAP C6); the port
   frames each shard's whole records, with the record ids of its index.
-* Not carried over: the hierarchical (segment-children) reads, the
-  generic per-record reader's other framings (text, record-length
-  fields, custom header parsers or extractors, variable OCCURS), the
-  permissive error policies, filter pushdown and the persisted index.
-  The column projection (`select`) reaches every segment decoder.
+* Under a permissive record error policy `frame_windows` resyncs past
+  a malformed header on the host bytes after it (``reader.recovery``)
+  and relaunches the scan on the same device image, with the JAX
+  package's ``rdw_scan_permissive`` decisions; the ledger of each file
+  or shard rides its FileResult. Where the JAX package reads a file in
+  sparse-index shards, a permissive read that met a malformed record is
+  read again in those shards (`read_result`), so that its decisions are
+  the shards'.
+* The generic framings (text, a record-length field, custom header
+  parsers and record extractors, variable-size OCCURS: where
+  ``supports_fast_framing`` is false) are framed on the host by the JAX
+  package's per-record reader (`VRLRecordReader`, `make_record_reader`,
+  `frame_records`), gathered into windows of about READ_WINDOW_BYTES
+  of records that cross to the device once each (`_frame_generic`),
+  and decoded there like the RDW windows; files are split at the
+  generic generator's index (``index.sparse_index_generator``), which,
+  for a record-length field, walks the records that field frames
+  (`_LengthFieldRecords`; ROADMAP C7).
+* Not carried over: the hierarchical (segment-children) reads, the host
+  row walk of variable-size OCCURS layouts that shift later fields
+  (such a read raises, naming ROADMAP A4d), filter pushdown and the
+  persisted index. The column projection (`select`) reaches every
+  segment decoder.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..copybook.ast import Primitive
+from ..copybook.ast import Group, Primitive
 from ..device import resolve_device
 from ..engine.staging import StagedBytes
-from ..ops.device_framing import TOO_BIG, ZERO, pack_records, scan_window
+from ..ops.device_framing import (CARRY, DONE, TOO_BIG, ZERO, pack_records,
+                                  scan_window)
 from ..plan.cache import copybook_for_params
-from ..profiling import annotate
+from ..profiling import annotate, timed_stage
 from .columnar import ColumnarDecoder, decoder_for_segment
-from .diagnostics import framing_error
+from .diagnostics import (DEFAULT_RESYNC_WINDOW, FramingError,
+                          ReadDiagnostics, RecordErrorPolicy, framing_error,
+                          hex_snapshot)
 from .extractors import DecodeOptions
-from .index import SparseIndexEntry, sparse_index_entries
+from .header_parsers import (FixedLengthHeaderParser, RdwHeaderParser,
+                             RecordHeaderParser, create_record_header_parser)
+from .index import (SparseIndexEntry, sparse_index_entries,
+                    sparse_index_generator)
 from .parameters import (DEFAULT_FILE_RECORD_ID_INCREMENT,
                          DEFAULT_INDEX_ENTRY_SIZE_MB, MEGABYTE,
                          ReaderParameters)
+from .recovery import RESYNC_CHAIN_DEPTH, find_next_rdw, truncated_tail
+from .raw_extractors import (RawRecordContext, RawRecordExtractor,
+                             TextRecordExtractor,
+                             VarOccursRecordExtractor,
+                             create_raw_record_extractor)
 from .result import FileResult, SegmentBatch
-from .vrl_reader import (SegmentIds, decode_segment_id_bytes,
-                         resolve_segment_id_field)
+from .stream import FSStream, ShardStream, SimpleStream
+from .vrl_reader import (SegmentIds, VRLRecordReader,
+                         decode_segment_id_bytes, resolve_segment_id_field)
 
 # bytes of the file on the device at a time (one scan window)
 READ_WINDOW_BYTES = 64 * 1024 * 1024
@@ -160,6 +190,35 @@ def _segment_level_ids_vectorized(segment_ids: Sequence[str],
     return SegLevelColumns(coded), no_match_yet
 
 
+def _has_dynamic_occurs_layout(root: Group) -> bool:
+    """True when a variable-size OCCURS makes later field offsets
+    record-dependent: a DEPENDING ON array followed by any other field, or
+    nested inside another array. A single *trailing* depending array keeps
+    static element offsets and stays on the columnar path."""
+    state = {"after_var_array": False, "dynamic": False}
+
+    def walk(group: Group, in_array: bool) -> None:
+        for st in group.children:
+            if state["dynamic"]:
+                return
+            if state["after_var_array"]:
+                state["dynamic"] = True
+                return
+            is_dep_array = st.is_array and st.depending_on is not None
+            if is_dep_array and in_array:
+                state["dynamic"] = True
+                return
+            if isinstance(st, Group):
+                walk(st, in_array or st.is_array)
+                if state["dynamic"]:
+                    return
+            if is_dep_array:
+                state["after_var_array"] = True
+
+    walk(root, False)
+    return state["dynamic"]
+
+
 def file_record_id_base(file_order: int) -> int:
     """Deterministic Record_Id base per file (reference Constants.scala:28)."""
     return file_order * DEFAULT_FILE_RECORD_ID_INCREMENT
@@ -182,9 +241,35 @@ def _window_image(f, staged: bool, pos: int, length: int, device):
     return host, image
 
 
+def _host_bytes(f, staged: bool, lo: int, hi: int) -> np.ndarray:
+    """Bytes [lo, hi) of `f` on the host (a resync search's view)."""
+    if staged:
+        return f.host()[lo:hi].numpy()
+    out = np.empty(hi - lo, dtype=np.uint8)
+    f.seek(lo)
+    if f.readinto(memoryview(out)) != hi - lo:
+        raise IOError(f"Short read at file offset {lo}")
+    return out
+
+
+def resync_span(resync_window: int, adjustment: int) -> int:
+    """Bytes after a bad header that a resync search can look at: the
+    candidates in `resync_window`, each chained through up to
+    ``RESYNC_CHAIN_DEPTH`` + 1 headers of at most 65,535 bytes plus the
+    adjustment, and the last header's 4 bytes."""
+    return (1 + resync_window
+            + (RESYNC_CHAIN_DEPTH + 1) * (4 + 65535 + max(adjustment, 0))
+            + 4)
+
+
 def frame_windows(f, size: int, device, big_endian: bool, adjustment: int,
                   file_header_bytes: int = 0, file_footer_bytes: int = 0,
-                  window_bytes: Optional[int] = None):
+                  window_bytes: Optional[int] = None,
+                  policy: RecordErrorPolicy = RecordErrorPolicy.FAIL_FAST,
+                  ledger: Optional[ReadDiagnostics] = None,
+                  file_name: str = "", base_offset: int = 0,
+                  resync_window: int = DEFAULT_RESYNC_WINDOW,
+                  corrupt_reasons: Optional[Dict[int, str]] = None):
     """Frame the RDW records of `size` bytes, a window of at most
     `window_bytes` (READ_WINDOW_BYTES by default) at a time, more when
     one record is longer. `f` is an open file, read into a fresh host
@@ -195,36 +280,109 @@ def frame_windows(f, size: int, device, big_endian: bool, adjustment: int,
     records' int64 payload offsets (relative to base) and lengths there.
     The records are exactly those of ``native.rdw_scan`` over the same
     bytes: each window's scan starts where the last one's chain stopped,
-    and a malformed header raises the JAX package's FramingError at its
-    offset. As in the host walk, the footer is cut only when it is
-    shorter than the bytes framed, and a file header longer than 4 bytes
-    is skipped whole at position 0."""
+    and, under the fail-fast `policy`, a malformed header raises the JAX
+    package's FramingError at its offset. As in the host walk, the
+    footer is cut only when it is shorter than the bytes framed, and a
+    file header longer than 4 bytes is skipped whole at position 0.
+
+    Under a permissive policy the records are those of the JAX
+    package's ``rdw_scan_permissive`` over the same bytes: the records
+    the scan framed before a malformed header are kept; `find_next_rdw`
+    searches the host bytes after it (`resync_span` of them, with the
+    end of the bytes framed in view only when they reach it) for the
+    next plausible header; the skip goes into `ledger` at its offset
+    plus `base_offset` (the bytes' offset in file `file_name`); and the
+    scan is launched again from there on the same device image when the
+    header lies in the window, or on the window that starts at it. A
+    corrupt run longer than `resync_window` raises. A last record cut by
+    the end of the data is ledgered (`recovery.truncated_tail`): kept,
+    with its reason in `corrupt_reasons` (keyed by its position among
+    the records framed), under ``permissive``, dropped under
+    ``drop_malformed``. A clean file costs one scan per window under
+    every policy."""
     window_bytes = window_bytes or READ_WINDOW_BYTES
     staged = isinstance(f, StagedBytes)
+    permissive = policy is not RecordErrorPolicy.FAIL_FAST
+    if permissive and ledger is None:
+        ledger = ReadDiagnostics()
     end = size - file_footer_bytes if 0 < file_footer_bytes < size else size
     pos = file_header_bytes if file_header_bytes > 4 else 0
     need = 0
+    framed = 0  # records yielded so far
     while pos + 4 <= end:
         window_len = min(max(window_bytes, need), end - pos)
         last = pos + window_len == end
         host, image = _window_image(f, staged, pos, window_len, device)
-        with annotate("cobrix.scan", device):
-            offsets, lengths, status = scan_window(image, 0, last,
-                                                   big_endian, adjustment)
-        if status.code in (ZERO, TOO_BIG):
-            p = status.position
-            raise framing_error(host[p:p + 4].tobytes(), pos + p,
-                                "zero" if status.code == ZERO else "big")
-        if offsets.numel() == 0 and not last:
-            # the first record is longer than the window: read a window
-            # that holds it whole
-            need = 4 + status.length
-            continue
+        start = 0
+        parts = []
+        next_pos = None   # where the next window starts (None: done)
         need = 0
-        yield pos, image, offsets, lengths
-        if last:
+        while True:
+            with annotate("cobrix.scan", device):
+                offsets, lengths, status = scan_window(
+                    image, start, last, big_endian, adjustment)
+            if offsets.numel():
+                parts.append((offsets, lengths))
+            if status.code not in (ZERO, TOO_BIG):
+                if not last:
+                    if status.code == CARRY and status.position == 0:
+                        # the first record is longer than the window:
+                        # read a window that holds it whole
+                        need = 4 + status.length
+                    next_pos = pos + status.position
+                break
+            p = status.position
+            kind = "zero" if status.code == ZERO else "big"
+            if not permissive:
+                raise framing_error(host[p:p + 4].tobytes(), pos + p, kind)
+            err = pos + p
+            snapshot = host[p:p + 4].tobytes()
+            reason = framing_error(snapshot, err, kind).reason
+            hi = min(err + resync_span(resync_window, adjustment), end)
+            blob = _host_bytes(f, staged, err, hi)
+            nxt = find_next_rdw(blob, 1, 1 + resync_window, big_endian,
+                                adjustment, len(blob) if hi == end else None)
+            if nxt is None:
+                remaining = end - err
+                if remaining > resync_window:
+                    raise FramingError(
+                        f"Corrupt run at offset {base_offset + err} of "
+                        f"'{file_name}' exceeds the resync window "
+                        f"({resync_window} bytes) with no plausible record "
+                        f"header found (headers = {hex_snapshot(snapshot)});"
+                        " increase 'resync_window' or fix the input.",
+                        offset=base_offset + err, header=snapshot,
+                        file_name=file_name)
+                ledger.record_skip(file_name, base_offset + err, remaining,
+                                   reason, snapshot)
+                break
+            ledger.record_skip(file_name, base_offset + err, nxt, reason,
+                               snapshot)
+            if err + nxt - pos < window_len:
+                start = err + nxt - pos  # on the same device image
+                continue
+            next_pos = err + nxt
+            break
+        if parts:
+            offsets = (parts[0][0] if len(parts) == 1
+                       else torch.cat([o for o, _ in parts]))
+            lengths = (parts[0][1] if len(parts) == 1
+                       else torch.cat([ln for _, ln in parts]))
+            if permissive and last and status.code == DONE:
+                offs_h, lens_h, reasons = truncated_tail(
+                    host, offsets.cpu().numpy(), lengths.cpu().numpy(),
+                    big_endian, adjustment, policy, ledger, file_name,
+                    base_offset + pos, first=framed)
+                if len(offs_h) < offsets.numel():
+                    offsets, lengths = (offsets[:len(offs_h)],
+                                        lengths[:len(offs_h)])
+                if corrupt_reasons is not None:
+                    corrupt_reasons.update(reasons)
+            framed += offsets.numel()
+            yield pos, image, offsets, lengths
+        if next_pos is None:
             return
-        pos += status.position
+        pos = next_pos
 
 
 def fixed_records(size: int, record_size: int, file_header_bytes: int = 0,
@@ -285,6 +443,39 @@ class _FileSegmentIds:
         return SegmentIds(codes, list(self._index))
 
 
+class _LengthFieldRecords(RawRecordExtractor):
+    """The records a record-length field frames (`VRLRecordReader`), as
+    the record extractor `sparse_index_generator` walks: `offset` is the
+    stream offset after the record returned last."""
+
+    def __init__(self, reader: VRLRecordReader, start: int = 0):
+        self._reader = reader
+        self._offset = start
+        self._next = self._fetch()
+
+    def _fetch(self):
+        if not self._reader.has_next():
+            return None
+        # the reader holds the record it returns next: the stream stands
+        # at that record's end
+        end = self._reader._reader.offset
+        _, data = next(self._reader)
+        return data, end
+
+    @property
+    def offset(self) -> int:
+        return self._offset
+
+    def has_next(self) -> bool:
+        return self._next is not None
+
+    def __next__(self) -> bytes:
+        if self._next is None:
+            raise StopIteration
+        (record, self._offset), self._next = self._next, self._fetch()
+        return record
+
+
 class VarLenReader:
     """RDW reader bound to one copybook + parameters, decoding on
     `device` (None: the CUDA device; ``"cpu"``: the plain versions)."""
@@ -298,6 +489,172 @@ class VarLenReader:
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
         self._decoders: Dict[str, ColumnarDecoder] = {}
+        # framing and decode seconds of the reads (`profiling.StageTimes`;
+        # None: not timed)
+        self.stage_times = None
+        if params.variable_size_occurs \
+                and _has_dynamic_occurs_layout(self.copybook.ast):
+            raise ValueError(
+                "Option 'variable_size_occurs' on a copybook whose "
+                "DEPENDING ON array shifts later fields (or is nested in "
+                "another array) is not supported by cobrix_tpu_torch yet: "
+                "the JAX package decodes such records on the host, row by "
+                "row (ROADMAP A4d). A single trailing variable-size array "
+                "is read.")
+
+    @property
+    def generic_framing(self) -> bool:
+        """True when the records are framed on the host by the generic
+        per-record reader (`VRLRecordReader`): text, a record-length
+        field, a custom header parser or record extractor, or
+        variable-size OCCURS. Plain RDW files are framed by the scan
+        kernel, plain fixed-length records by arithmetic."""
+        p = self.params
+        return not p.supports_fast_framing and bool(
+            p.is_text or p.length_field_name or p.record_extractor
+            or p.record_header_parser or p.variable_size_occurs)
+
+    # -- the generic per-record framing ------------------------------------
+
+    def record_extractor(self, starting_record_number: int,
+                         stream: SimpleStream):
+        """reference VarLenNestedReader.recordExtractor (:60-79)."""
+        ctx = RawRecordContext(starting_record_number, stream, self.copybook,
+                               self.params.re_additional_info)
+        if self.params.record_extractor:
+            return create_raw_record_extractor(self.params.record_extractor,
+                                               ctx)
+        if self.params.is_text:
+            return TextRecordExtractor(ctx)
+        if self.params.variable_size_occurs \
+                and not self.params.is_record_sequence \
+                and not self.params.length_field_name:
+            return VarOccursRecordExtractor(ctx)
+        return None
+
+    def record_header_parser(self) -> RecordHeaderParser:
+        """reference VarLenNestedReader.getDefaultRecordHeaderParser (:267)."""
+        if self.params.record_header_parser:
+            parser = create_record_header_parser(
+                self.params.record_header_parser,
+                record_size=self.copybook.record_size,
+                file_header_bytes=self.params.file_start_offset,
+                file_footer_bytes=self.params.file_end_offset,
+                rdw_adjustment=self.params.rdw_adjustment)
+        elif self.params.is_record_sequence:
+            parser = RdwHeaderParser(self.params.is_rdw_big_endian,
+                                     self.params.file_start_offset,
+                                     self.params.file_end_offset,
+                                     self.params.rdw_length_adjustment)
+        else:
+            # record_length override wins over the copybook size (same
+            # semantics as FixedLenReader.record_size: the override is the
+            # full on-disk record, offsets not re-added)
+            parser = FixedLengthHeaderParser(
+                self.params.fixed_record_size(self.copybook),
+                self.params.file_start_offset, self.params.file_end_offset)
+        if self.params.rhp_additional_info is not None:
+            parser.on_receive_additional_info(self.params.rhp_additional_info)
+        return parser
+
+    def make_record_reader(self, stream: SimpleStream,
+                           start_record_id: int = 0,
+                           starting_file_offset: int = 0,
+                           ledger=None) -> VRLRecordReader:
+        """The per-record framing iterator (policy-aware; `ledger` carries
+        the error ledger)."""
+        return VRLRecordReader(
+            self.copybook, stream, self.params, self.record_header_parser(),
+            self.record_extractor(start_record_id, stream),
+            start_record_id, starting_file_offset, ledger=ledger)
+
+    def frame_records(self, stream: SimpleStream, start_record_id: int = 0,
+                      starting_file_offset: int = 0, ledger=None
+                      ) -> Iterator[Tuple[int, str, bytes]]:
+        """Yield (record_index, segment_id, record_bytes)."""
+        reader = self.make_record_reader(stream, start_record_id,
+                                         starting_file_offset, ledger)
+        while reader.has_next():
+            index = reader.record_index + 1
+            segment_id, data = next(reader)
+            yield index, segment_id, data
+
+    def _frame_generic(self, stream: SimpleStream, start_record_id: int,
+                       window_bytes: Optional[int],
+                       ledger: Optional[ReadDiagnostics],
+                       corrupt_reasons: Optional[Dict[int, str]]):
+        """The records `make_record_reader` frames on the host, gathered
+        into windows of about `window_bytes` (READ_WINDOW_BYTES) record
+        bytes: each window's records are laid end to end and cross to the
+        device in one copy, with their offsets and lengths and their
+        segment ids (or None). Yields (base, image, offsets on the device,
+        host lengths, segment ids) as `frame_windows` does; the reasons
+        of the malformed records the reader kept go into
+        `corrupt_reasons`, by record position."""
+        window_bytes = window_bytes or READ_WINDOW_BYTES
+        seg_field = resolve_segment_id_field(self.params, self.copybook)
+        reader = self.make_record_reader(stream, start_record_id,
+                                         stream.offset, ledger)
+        records: List[bytes] = []
+        ids: List[str] = []
+        held = 0
+
+        def window():
+            lengths = np.fromiter((len(r) for r in records), dtype=np.int64,
+                                  count=len(records))
+            offsets = np.zeros(len(records), dtype=np.int64)
+            np.cumsum(lengths[:-1], out=offsets[1:])
+            blob = np.frombuffer(bytearray(b"".join(records)) or
+                                 bytearray(1), dtype=np.uint8)
+            with annotate("cobrix.h2d", self.device):
+                image = torch.from_numpy(blob).to(self.device)
+            window_ids = None
+            if seg_field is not None:
+                index: Dict[str, int] = {}
+                codes = np.fromiter(
+                    (index.setdefault(i, len(index)) for i in ids),
+                    dtype=np.int32, count=len(ids))
+                window_ids = SegmentIds(codes, list(index))
+            return (0, image, torch.from_numpy(offsets).to(self.device),
+                    lengths, window_ids)
+
+        with annotate("cobrix.frame", self.device):
+            while reader.has_next():
+                segment_id, data = next(reader)
+                records.append(data)
+                ids.append(segment_id)
+                held += len(data)
+                if held >= window_bytes:
+                    yield window()
+                    records, ids, held = [], [], 0
+        if records:
+            yield window()
+        if corrupt_reasons is not None:
+            corrupt_reasons.update(
+                (index - start_record_id, reason)
+                for index, reason in reader.corrupt_reasons.items())
+
+    def _read_generic(self, path: str, size: int, file_id: int,
+                      segment_id_prefix: Optional[str],
+                      start_record_id: int) -> List[FileResult]:
+        """A file of a generic framing: whole, or, where the JAX package
+        splits it (`_index_applies`), in the shards of its sparse index
+        (`sparse_index_generator`), each a bounded stream of the file."""
+        entries = (self.generate_index(path, file_id)
+                   if self._index_applies(size) else None)
+        if not entries or len(entries) < 2:
+            entries = [SparseIndexEntry(0, -1, file_id, 0)]
+        results = []
+        for e in entries:
+            n = 0 if e.offset_to < 0 else e.offset_to - e.offset_from
+            with FSStream(path, start_offset=e.offset_from,
+                          maximum_bytes=n) as stream:
+                result, _, _ = self._read(
+                    stream, stream.size() - e.offset_from, file_id,
+                    segment_id_prefix, start_record_id + e.record_index,
+                    0, 0, path=path, base_offset=e.offset_from)
+            results.append(result)
+        return results
 
     def _decoder_for_segment(self, active_segment: str) -> ColumnarDecoder:
         return decoder_for_segment(self._decoders, self.copybook,
@@ -327,33 +684,84 @@ class VarLenReader:
 
     def read_result(self, path: str, file_id: int = 0,
                     segment_id_prefix: Optional[str] = None,
-                    start_record_id: int = 0) -> FileResult:
+                    start_record_id: int = 0) -> List[FileResult]:
         """Frame and decode one file whole, window by window (see the
-        module docstring). Record ids count every framed record from
-        `start_record_id`, shifted by one from the sparse index's first
-        split when a file header counts there."""
+        module docstring): the file's one FileResult, in a list. Record
+        ids count every framed record from `start_record_id`, shifted by
+        one from the sparse index's first split when a file header counts
+        there.
+
+        Where the JAX package reads the file in sparse-index shards
+        (`_index_applies`), a permissive read that met a malformed record
+        is read again in those shards (`read_shard`, one FileResult
+        each): a shard's resync search sees no further than the shard's
+        end, so its decisions, and the positions its ledger gives, are
+        the shard's. A clean file frames the same records either way and
+        is read once."""
         p = self.params
         size = os.path.getsize(path)
-        shifted = self._index_applies(size) and p.file_start_offset > 0
+        if self.generic_framing:
+            return self._read_generic(path, size, file_id,
+                                      segment_id_prefix, start_record_id)
+        indexed = self._index_applies(size)
+        shifted = indexed and p.file_start_offset > 0
+        try:
+            with open(path, "rb") as f:
+                result, file_ids, starts = self._read(
+                    f, size, file_id, segment_id_prefix, start_record_id,
+                    p.file_start_offset, p.file_end_offset,
+                    keep_starts=indexed, path=path)
+        except FramingError as exc:
+            if not indexed or exc.file_name != path:
+                raise
+            # the JAX package's index pass frames the file first and
+            # raises there, with no file name (its throwaway ledger's)
+            raise FramingError(
+                str(exc).replace(f" of '{path}' ", " of '' ", 1),
+                offset=exc.offset, reason=exc.reason,
+                header=exc.header) from None
+        if not indexed:
+            return [result]
+        entries = sparse_index_entries(
+            starts, file_id, p, self._root_indices(file_ids.segment_ids()),
+            base=1 if p.file_start_offset > 0 else 0,
+            bytes_per_entry=self._bytes_per_entry(),
+            trailing=self._trailing(size))
+        ledger = result.diagnostics
+        if ledger is not None and ledger.corrupt_records \
+                and len(entries) > 1:
+            del result
+            return [self._read_file_shard(path, size, e, file_id,
+                                          start_record_id,
+                                          segment_id_prefix)
+                    for e in entries]
+        if shifted and len(entries) > 1:
+            shift_from = entries[1].record_index - 1
+            for s in result.segments:
+                s.record_ids = s.record_ids + (s.positions >= shift_from)
+                if s.seg_level_ids is not None:
+                    rid = s.seg_level_ids.coded["root_rid"]
+                    rid += (rid >= start_record_id + shift_from)
+        return [result]
+
+    def _read_file_shard(self, path: str, size: int,
+                         entry: SparseIndexEntry, file_id: int,
+                         start_record_id: int,
+                         segment_id_prefix: Optional[str]) -> FileResult:
+        """`read_shard` of one sparse-index entry of the file `path`,
+        read into a host buffer."""
+        end = size if entry.offset_to < 0 else min(entry.offset_to, size)
+        n = max(0, end - entry.offset_from)
+        buf = np.empty(n, dtype=np.uint8)
         with open(path, "rb") as f:
-            result, file_ids, starts = self._read(
-                f, size, file_id, segment_id_prefix, start_record_id,
-                p.file_start_offset, p.file_end_offset,
-                keep_starts=shifted, path=path)
-        if shifted:
-            roots = self._root_indices(file_ids.segment_ids())
-            entries = sparse_index_entries(
-                starts, file_id, p, roots, base=1,
-                bytes_per_entry=self._bytes_per_entry(),
-                trailing=self._trailing(size))
-            if len(entries) > 1:
-                shift_from = entries[1].record_index - 1
-                for s in result.segments:
-                    s.record_ids = s.record_ids + (s.positions >= shift_from)
-                    if s.seg_level_ids is not None:
-                        rid = s.seg_level_ids.coded["root_rid"]
-                        rid += (rid >= start_record_id + shift_from)
-        return result
+            f.seek(entry.offset_from)
+            if f.readinto(memoryview(buf)) != n:
+                raise IOError(f"Short read from {path} at "
+                              f"{entry.offset_from}")
+        staged = StagedBytes(None, torch.from_numpy(buf), n)
+        return self.read_shard(staged, file_id, entry.offset_from,
+                               start_record_id + entry.record_index, size,
+                               segment_id_prefix, path=path)
 
     def read_shard(self, staged: StagedBytes, file_id: int,
                    offset_from: int, record_index: int, file_size: int,
@@ -368,21 +776,31 @@ class VarLenReader:
         READ_WINDOW_BYTES is framed as one window."""
         p = self.params
         n = staged.nbytes
+        if self.generic_framing:
+            stream = ShardStream(staged.host().numpy(), offset_from,
+                                 file_size, path)
+            result, _, _ = self._read(stream, n, file_id, segment_id_prefix,
+                                      record_index, 0, 0, path=path,
+                                      base_offset=offset_from)
+            return result
         header = p.file_start_offset if offset_from == 0 else 0
         footer = p.file_end_offset if offset_from + n >= file_size else 0
         window = n if n <= 2 * READ_WINDOW_BYTES else None
         result, _, _ = self._read(staged, n, file_id, segment_id_prefix,
                                   record_index, header, footer,
-                                  window_bytes=window, path=path)
+                                  window_bytes=window, path=path,
+                                  base_offset=offset_from)
         return result
 
     def _read(self, f, size: int, file_id: int, segment_id_prefix,
               start_record_id: int, header: int, footer: int,
               window_bytes: Optional[int] = None, keep_starts: bool = False,
-              path: str = ""):
-        """Frame and decode `size` bytes of `f` (`frame_windows`): the
-        FileResult, the segment ids of every framed record, and the
-        record header offsets when `keep_starts`."""
+              path: str = "", base_offset: int = 0):
+        """Frame and decode `size` bytes of `f` (`frame_windows`), at
+        `base_offset` of the file `path`: the FileResult (with its ledger
+        and the reasons of its malformed rows under a permissive policy),
+        the segment ids of every framed record, and the record header
+        offsets when `keep_starts`."""
         p = self.params
         seg = p.multisegment
         prefix = segment_id_prefix or default_segment_id_prefix()
@@ -396,13 +814,26 @@ class VarLenReader:
                             policy=p.schema_policy,
                             generate_record_id=p.generate_record_id,
                             generate_input_file_field=bool(
-                                p.input_file_name_column))
+                                p.input_file_name_column),
+                            corrupt_record_field=p.corrupt_record_column,
+                            diagnostics=(p.new_diagnostics()
+                                         if p.is_permissive else None))
+        reasons: Dict[int, str] = {}
         file_ids = _FileSegmentIds()
         starts: List[np.ndarray] = []
         matched = False       # a record of a Seg_Id level was seen
         n_total = 0           # records framed in earlier windows
-        for base, image, offs_d, lengths, window_ids in self._frame(
-                f, size, header, footer, window_bytes, file_ids):
+        windows = self._frame(
+            f, size, header, footer, window_bytes, file_ids,
+            ledger=result.diagnostics, file_name=path,
+            base_offset=base_offset, corrupt_reasons=reasons,
+            start_record_id=start_record_id)
+        while True:
+            with timed_stage(self.stage_times, "frame"):
+                window = next(windows, None)
+            if window is None:
+                break
+            base, image, offs_d, lengths, window_ids = window
             n = offs_d.numel()
             if keep_starts:
                 starts.append(base + offs_d.cpu().numpy() - self._header_len)
@@ -414,10 +845,12 @@ class VarLenReader:
                     keep[:hits[0] if matched else n] = False
                 if segment_filter is not None:
                     keep &= window_ids.mask_of(segment_filter)
-            self._decode_window(result, image, offs_d, lengths, keep,
-                                window_ids, n_total, start_record_id)
+            with timed_stage(self.stage_times, "decode"):
+                self._decode_window(result, image, offs_d, lengths, keep,
+                                    window_ids, n_total, start_record_id)
             n_total += n
         result.records_framed = n_total
+        result.corrupt_row_reasons = reasons or None
         if levels and seg_field is not None:
             level_cols, _ = _segment_level_ids_vectorized(
                 file_ids.segment_ids(), levels, prefix, file_id,
@@ -429,17 +862,39 @@ class VarLenReader:
         return result, file_ids, starts
 
     def _frame(self, f, size: int, header: int, footer: int,
-               window_bytes: Optional[int], file_ids: _FileSegmentIds):
-        """`frame_windows` over `size` bytes of `f`, yielding (base,
-        image, offsets on the device, host lengths, the window's segment
-        ids or None) per window; the ids (their id field packed on the
-        device, decoded on the host) are also added to `file_ids`."""
+               window_bytes: Optional[int], file_ids: _FileSegmentIds,
+               ledger: Optional[ReadDiagnostics] = None,
+               file_name: str = "", base_offset: int = 0,
+               corrupt_reasons: Optional[Dict[int, str]] = None,
+               start_record_id: int = 0):
+        """`frame_windows` over `size` bytes of `f` (at `base_offset` of
+        the file `file_name`, under the read's record error policy, its
+        incidents into `ledger`), yielding (base, image, offsets on the
+        device, host lengths, the window's segment ids or None) per
+        window; the ids (their id field packed on the device, decoded on
+        the host) are also added to `file_ids`."""
         p = self.params
         seg_field = resolve_segment_id_field(p, self.copybook)
+        if self.generic_framing:
+            # `f` is a SimpleStream; the header parser sees the file's
+            # header and footer itself
+            for window in self._frame_generic(f, start_record_id,
+                                              window_bytes, ledger,
+                                              corrupt_reasons):
+                if window[4] is not None:
+                    file_ids.add(window[4])
+                yield window
+            return
         if p.is_record_sequence:
-            windows = frame_windows(f, size, self.device, p.is_rdw_big_endian,
-                                    p.rdw_length_adjustment, header, footer,
-                                    window_bytes)
+            windows = frame_windows(
+                f, size, self.device, p.is_rdw_big_endian,
+                p.rdw_length_adjustment, header, footer, window_bytes,
+                policy=p.record_error_policy,
+                ledger=(ledger if ledger is not None
+                        else p.new_diagnostics()),
+                file_name=file_name, base_offset=base_offset,
+                resync_window=p.resync_window_bytes,
+                corrupt_reasons=corrupt_reasons)
         else:
             windows = frame_fixed_windows(
                 f, size, self.device, p.fixed_record_size(self.copybook),
@@ -537,10 +992,15 @@ class VarLenReader:
         `index.sparse_index_entries` applies the reference's entry
         rule."""
         p = self.params
+        if self.generic_framing:
+            return self._generate_index_generic(path, file_id)
         self._index_split_config()
         starts: List[np.ndarray] = []
         file_ids = _FileSegmentIds()
         with open(path, "rb") as f:
+            # the read's skip decisions (a throwaway ledger: the shards
+            # record the incidents), so that splits land on the records
+            # the shards frame
             for base, _, offs_d, _, _ in self._frame(
                     f, os.path.getsize(path), p.file_start_offset,
                     p.file_end_offset, None, file_ids):
@@ -552,6 +1012,35 @@ class VarLenReader:
             base=1 if p.file_start_offset > 0 else 0,
             bytes_per_entry=self._bytes_per_entry(),
             trailing=self._trailing(os.path.getsize(path)))
+
+    def _generate_index_generic(self, path: str, file_id: int
+                                ) -> List[SparseIndexEntry]:
+        """reference VarLenNestedReader.generateIndex (:125-180): the
+        generic per-record generator over the file, with the read's
+        resync decisions. For records framed by a record-length field
+        the generator takes the records the length field frames
+        (`_LengthFieldRecords`); the JAX package gives it the
+        fixed-length header parser there, so its splits land every
+        copybook-size bytes, inside records (ROADMAP C7)."""
+        p = self.params
+        is_hierarchical, root_segment_id = self._index_split_config()
+        with FSStream(path) as stream:
+            extractor = (_LengthFieldRecords(self.make_record_reader(stream))
+                         if p.length_field_name and not p.record_extractor
+                         else self.record_extractor(0, stream))
+            return sparse_index_generator(
+                file_id,
+                stream,
+                record_header_parser=self.record_header_parser(),
+                record_extractor=extractor,
+                records_per_index_entry=p.input_split_records,
+                size_per_index_entry_mb=p.input_split_size_mb,
+                copybook=self.copybook,
+                segment_field=resolve_segment_id_field(p, self.copybook),
+                is_hierarchical=is_hierarchical,
+                root_segment_id=root_segment_id,
+                record_error_policy=p.record_error_policy,
+                resync_window_bytes=p.resync_window_bytes)
 
     def _decode_window(self, result: FileResult, image: torch.Tensor,
                        offs_d: torch.Tensor, lengths: np.ndarray,

@@ -1,19 +1,64 @@
-"""Segment ids of framed records.
+"""Segment ids of framed records, and the generic per-record framing.
 
-Port copy of ``cobrix_tpu.reader.vrl_reader``, reduced to `SegmentIds`,
-`decode_segment_id_bytes` and `resolve_segment_id_field`, unchanged: the
-port frames RDW files on the device (``ops.device_framing``), so the
-per-record `VRLRecordReader` is not carried over.
+Port copy of ``cobrix_tpu.reader.vrl_reader``: `SegmentIds`,
+`decode_segment_id_bytes`, `resolve_segment_id_field`,
+`resolve_length_field` and `VRLRecordReader` (the reference
+VRLRecordReader, reader/iterator/VRLRecordReader.scala:39), which yields
+(segment_id, record_bytes) one record at a time from a raw extractor,
+record headers or a record-length field decoded mid-stream, resyncing
+past malformed headers and length fields under a permissive policy
+(``reader.recovery``). The port frames plain RDW files on the device
+(``ops.device_framing``); `VRLRecordReader` frames the others on the
+host, and ``reader.var_len_reader`` decodes what it frames on the
+device. `SegmentIds` keeps only the code-based methods (the JAX
+package's sequence methods are not carried over). One change in
+`VRLRecordReader`: the end of the stream ends its header walk, so fixed-
+length records framed by header parser in a sparse-index shard end at the
+shard's end (the JAX package's never end there, ROADMAP C6); every other
+walk ends where the JAX package's does.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 from ..copybook.ast import Primitive
 from ..copybook.copybook import Copybook
+from .diagnostics import (
+    CorruptRecordInfo,
+    FramingError,
+    ReadDiagnostics,
+    hex_snapshot,
+)
+from .header_parsers import RdwHeaderParser, RecordHeaderParser
 from .parameters import ReaderParameters
+from .raw_extractors import RawRecordExtractor
+from .recovery import (
+    PendingReader,
+    generic_blob_validator,
+    rdw_blob_validator,
+    resync_stream,
+)
+from .stream import SimpleStream
+
+
+def resolve_length_field(length_field_name: Optional[str],
+                         copybook: Copybook) -> Optional[Primitive]:
+    """reference ReaderParametersValidator.getLengthField."""
+    if not length_field_name:
+        return None
+    field = copybook.get_field_by_name(length_field_name)
+    if not isinstance(field, Primitive):
+        raise ValueError(
+            f"The record length field '{length_field_name}' must be a primitive.")
+    from ..copybook.datatypes import Integral
+    if not isinstance(field.dtype, Integral) and not field.depending_on_handlers:
+        raise ValueError(
+            f"The record length field '{length_field_name}' must be an integral type.")
+    return field
+
+
 
 
 class SegmentIds:
@@ -126,3 +171,245 @@ def resolve_segment_id_field(params: ReaderParameters,
             f"The segment id field '{params.multisegment.segment_id_field}' "
             "must be a primitive.")
     return field
+
+
+class VRLRecordReader:
+    """Iterator of (segment_id, record_bytes)."""
+
+    def __init__(self,
+                 copybook: Copybook,
+                 data_stream: SimpleStream,
+                 params: ReaderParameters,
+                 record_header_parser: RecordHeaderParser,
+                 record_extractor: Optional[RawRecordExtractor] = None,
+                 start_record_id: int = 0,
+                 starting_file_offset: int = 0,
+                 ledger: Optional[ReadDiagnostics] = None):
+        self.copybook = copybook
+        self.stream = data_stream
+        self.params = params
+        self.header_parser = record_header_parser
+        self.record_extractor = record_extractor
+        self._byte_index = starting_file_offset
+        self._record_index = start_record_id - 1
+        self.length_field = resolve_length_field(params.length_field_name, copybook)
+        self.segment_id_field = resolve_segment_id_field(params, copybook)
+        self._permissive = params.is_permissive
+        self.ledger = ledger if ledger is not None else (
+            params.new_diagnostics() if self._permissive else None)
+        # record index -> reason, for malformed records kept (permissive)
+        self.corrupt_reasons: Dict[int, str] = {}
+        self._reader = PendingReader(data_stream)
+        self._cached: Optional[Tuple[str, bytes]] = None
+        self._fetch()
+
+    def __iter__(self) -> Iterator[Tuple[str, bytes]]:
+        return self
+
+    def has_next(self) -> bool:
+        return self._cached is not None
+
+    @property
+    def record_index(self) -> int:
+        return self._record_index
+
+    @property
+    def byte_index(self) -> int:
+        return self._byte_index
+
+    def __next__(self) -> Tuple[str, bytes]:
+        if self._cached is None:
+            raise StopIteration
+        value = self._cached
+        # increment before the prefetch so ledger entries written inside
+        # _fetch name the record being fetched (self._record_index + 1),
+        # not the one just returned
+        self._record_index += 1
+        self._fetch()
+        return value
+
+    def _fetch(self) -> None:
+        if self.record_extractor is not None:
+            data = (next(self.record_extractor)
+                    if self.record_extractor.has_next() else None)
+        elif self.params.is_record_sequence or self.length_field is None:
+            data = self._fetch_using_headers()
+        else:
+            data = self._fetch_using_length_field()
+        if data is None:
+            self._cached = None
+            return
+        segment_id = ""
+        if self.segment_id_field is not None:
+            value = self.copybook.extract_primitive_field(
+                self.segment_id_field, data, self.params.start_offset)
+            segment_id = "" if value is None else str(value).strip()
+        self._cached = (segment_id, data)
+
+    def _length_of_head(self, head: bytes) -> Optional[int]:
+        """Record length decoded from a record's leading bytes, or None
+        when the length field is unreadable/non-positive."""
+        lf = self.length_field
+        try:
+            value = self.copybook.extract_primitive_field(
+                lf, head, self.params.start_offset)
+        except Exception:
+            return None
+        if value is None or isinstance(value, (bytes, float)):
+            return None
+        length = int(value) + self.params.rdw_adjustment
+        return length if length > 0 else None
+
+    def _fetch_using_length_field(self) -> Optional[bytes]:
+        lf = self.length_field
+        length_field_block = (lf.binary_properties.offset
+                              + lf.binary_properties.actual_size)
+        head_len = self.params.start_offset + length_field_block
+        while True:
+            start = self._reader.read(head_len)
+            self._byte_index += head_len
+            if len(start) < head_len:
+                if self._permissive and start and self.ledger is not None:
+                    self.ledger.record_skip(
+                        self.stream.input_file_name,
+                        self._reader.offset - len(start), len(start),
+                        "trailing bytes too short for a record length field",
+                        start)
+                return None
+            value = self.copybook.extract_primitive_field(
+                lf, start, self.params.start_offset)
+            bad = value is None or isinstance(value, (bytes, float))
+            if not bad and self._permissive \
+                    and int(value) + self.params.rdw_adjustment <= 0:
+                bad = True
+            if bad:
+                if not self._permissive:
+                    raise FramingError(
+                        f"Record length value of the field {lf.name} must "
+                        f"be an integral type (file offset "
+                        f"{self._reader.offset - head_len}, bytes: "
+                        f"{hex_snapshot(start)}).",
+                        offset=self._reader.offset - head_len,
+                        reason="unreadable record length field",
+                        header=start,
+                        file_name=self.stream.input_file_name)
+                start = self._resync_length_field(start, head_len)
+                if start is None:
+                    self._byte_index = self._reader.offset
+                    return None
+                self._reader.push_back(start)
+                self._byte_index = self._reader.offset
+                continue
+            record_length = int(value) + self.params.rdw_adjustment
+            rest = record_length - length_field_block + self.params.end_offset
+            self._byte_index += rest
+            if rest > 0:
+                body = self._reader.read(rest)
+                if self._note_truncation(start, rest, len(body)):
+                    return self._fetch_using_length_field()
+                return start + body
+            return start
+
+    def _resync_length_field(self, bad_head: bytes,
+                             head_len: int) -> Optional[bytes]:
+        """Bounded forward search for the next position whose length field
+        decodes and chains; returns the head bytes there (rest pushed
+        back), None at end of stream."""
+
+        def first_plausible(blob: bytes, start: int,
+                            at_eof: bool) -> Optional[int]:
+            for k in range(start, len(blob) - head_len + 1):
+                ln = self._length_of_head(blob[k:k + head_len])
+                if ln is None:
+                    continue
+                q = k + self.params.start_offset + ln + self.params.end_offset
+                if q + head_len > len(blob):
+                    return k  # unverifiable chain: re-validated live
+                if self._length_of_head(blob[q:q + head_len]) is not None:
+                    return k
+            return None
+
+        return resync_stream(
+            self._reader, bad_head, first_plausible, head_len,
+            self.params.resync_window_bytes, self.ledger,
+            self.stream.input_file_name, "unreadable record length field")
+
+    def _note_truncation(self, header: bytes, wanted: int,
+                         got: int) -> bool:
+        """Ledger a record cut short by end-of-data (permissive modes).
+        Returns True when the record must be dropped (drop_malformed)."""
+        if got >= wanted or not self._permissive or self.ledger is None:
+            return False
+        from .diagnostics import RecordErrorPolicy
+
+        drop = (self.params.record_error_policy
+                is RecordErrorPolicy.DROP_MALFORMED)
+        index = self._record_index + 1
+        reason = (f"record truncated at end of data: header declares "
+                  f"{wanted} bytes, {got} available")
+        if not drop:
+            self.corrupt_reasons[index] = reason
+        self.ledger.record(CorruptRecordInfo(
+            self.stream.input_file_name,
+            self._reader.offset - got, 0, reason, hex_snapshot(header),
+            record_index=None if drop else index), dropped=drop)
+        return drop
+
+    def _header_validator(self):
+        """Resync candidate validator for the active header parser:
+        vectorized for RDW, parser-driven for custom parsers."""
+        if type(self.header_parser) is RdwHeaderParser:
+            return rdw_blob_validator(self.header_parser)
+        return generic_blob_validator(self.header_parser,
+                                      self.stream.true_size,
+                                      self._reader.offset)
+
+    def _fetch_using_headers(self) -> Optional[bytes]:
+        header_block = self.header_parser.header_length
+        is_valid = False
+        end_of_file = False
+        header = b""
+        record = b""
+        while not is_valid and not end_of_file:
+            if self._reader.at_end:
+                # the stream's end ends the records, whatever the parser
+                # says of the file (ROADMAP C6: the JAX package's
+                # FixedLengthHeaderParser measures the whole file, so a
+                # shard that ends mid-file never ends there)
+                end_of_file = True
+                break
+            header = self._reader.read(header_block)
+            try:
+                meta = self.header_parser.get_record_metadata(
+                    header, self._reader.offset, self.stream.true_size,
+                    self._record_index)
+            except ValueError as exc:
+                if not self._permissive:
+                    raise
+                reason = getattr(exc, "reason", str(exc))
+                header = resync_stream(
+                    self._reader, header, self._header_validator(),
+                    header_block, self.params.resync_window_bytes,
+                    self.ledger, self.stream.input_file_name, reason)
+                if header is None:
+                    end_of_file = True
+                    break
+                self._reader.push_back(header)
+                self._byte_index = self._reader.offset
+                continue
+            self._byte_index += len(header)
+            if meta.record_length > 0:
+                record = self._reader.read(meta.record_length)
+                self._byte_index += len(record)
+                if meta.is_valid and self._note_truncation(
+                        header, meta.record_length, len(record)):
+                    record = b""
+                    continue  # drop_malformed: skip the truncated tail
+            else:
+                end_of_file = True
+            is_valid = meta.is_valid
+        if end_of_file:
+            return None
+        if self.header_parser.is_header_defined_in_copybook:
+            return header + record
+        return record

@@ -4,9 +4,14 @@ Port copy of the parts of ``cobrix_tpu.testing.generators`` that
 ``chip_smoke.py`` and the port's tests need: `EXP1_COPYBOOK`,
 `generate_exp1`, `EXP2_COPYBOOK`, `generate_exp2`, `EXP3_COPYBOOK`,
 `generate_exp3` and their helpers, unchanged. The other generators are
-not carried over. `generate_ascii` (an ASCII fixed-length layout) and
-`generate_fixed_segments` (a fixed-length multisegment layout) are the
-port's own, for the record-shaping options.
+not carried over but `generate_custom_rdw` (records behind a custom
+5-byte header), copied unchanged. `generate_ascii` (an ASCII
+fixed-length layout) and `generate_fixed_segments` (a fixed-length
+multisegment layout) are the port's own, for the record-shaping options;
+so are the inputs of the generic per-record framings: `generate_text`
+(text lines of `TEXT_COPYBOOK`), `LENGTH_FIELD_EXP3_COPYBOOK` (exp3 with
+its RDW read as a record-length field) and `generate_var_occurs`
+(variable-size OCCURS records of `VAR_OCCURS_COPYBOOK`).
 
 Reimplements the behavior of the reference's example data generators
 (TestDataGen4CompaniesWide for the exp3 multisegment-wide profile,
@@ -693,3 +698,156 @@ def generate_fixed_segments(num_records: int, seed: int = 100
         np.full((n, 10), 0x40, dtype=np.uint8)], axis=1)
     out[:, 11:41] = np.where(is_c[:, None], company, person[:, :30])
     return out
+
+
+CUSTOM_RDW_COPYBOOK = EXP2_COPYBOOK
+
+
+def generate_custom_rdw(num_records: int, seed: int = 100) -> bytes:
+    """COMPANY-DETAILS records behind a CUSTOM 5-byte record header
+    (TestDataGen11CustomRDW): byte 0 = validity flag, bytes 3-4 =
+    little-endian payload length. Invalid records (flag 0, length 15)
+    are interleaved and must be skipped by the custom header parser."""
+    rng = np.random.default_rng(seed)
+    chunks = []
+    i = 0
+
+    def header(valid: bool, length: int) -> bytes:
+        return bytes([1 if valid else 0, 0, 0,
+                      length & 0xFF, length >> 8])
+
+    while i < num_records:
+        company = _COMPANIES[rng.integers(0, len(_COMPANIES))]
+        company_id = (f"{rng.integers(10000, 99999)}"
+                      f"{rng.integers(10000, 99999)}")
+        if rng.integers(0, 2) == 1:
+            payload = bytearray()
+            payload += ebcdic_encode("C", 5)
+            payload += ebcdic_encode(company_id, 10)
+            payload += ebcdic_encode(company, 15)
+            payload += ebcdic_encode(f"{rng.integers(1, 500)} Main St", 25)
+            taxpayer = int(rng.integers(10000000, 99999999))
+            if rng.integers(0, 2) == 1:
+                payload += ebcdic_encode("A", 1)
+                payload += ebcdic_encode(str(taxpayer), 8)
+            else:
+                payload += ebcdic_encode("N", 1)
+                payload += taxpayer.to_bytes(4, "big") + b"\x00" * 4
+            chunks.append(header(True, 64) + bytes(payload))
+            i += 1
+            for _ in range(int(rng.integers(0, 5))):
+                if i >= num_records:
+                    break
+                contact = bytearray()
+                contact += ebcdic_encode("P", 5)
+                contact += ebcdic_encode(company_id, 10)
+                phone = (f"+({rng.integers(1, 921)}) "
+                         f"{rng.integers(100, 999)} "
+                         f"{rng.integers(10, 99)} {rng.integers(10, 99)}")
+                contact += ebcdic_encode(phone, 17)
+                person = (_FIRST[rng.integers(0, len(_FIRST))] + " "
+                          + _LAST[rng.integers(0, len(_LAST))])
+                contact += ebcdic_encode(person, 28)
+                chunks.append(header(True, 60) + bytes(contact))
+                i += 1
+        else:
+            chunks.append(header(False, 15) + b"\x00" * 15)
+    return b"".join(chunks)
+
+
+# -- inputs of the generic per-record framings -------------------------------
+
+# the DISPLAY fields of `ASCII_COPYBOOK`, one record a text line
+TEXT_COPYBOOK = """
+       01  TEXT-RECORD.
+           05  ID              PIC 9(8).
+           05  NAME            PIC X(20).
+           05  AMOUNT          PIC S9(7)V99.
+           05  BALANCE         PIC S9(9)V99 SIGN LEADING SEPARATE.
+           05  DELTA           PIC S9(5)V99 SIGN TRAILING SEPARATE.
+           05  RATE            PIC 9(3).9(4).
+           05  CODE            PIC X(6).
+"""
+TEXT_RECORD_SIZE = 71
+
+
+def generate_text(num_records: int, seed: int = 100) -> bytes:
+    """`num_records` ASCII lines of `TEXT_COPYBOOK` (the display columns
+    of `generate_ascii`), trailing blanks cut, ended by LF or CRLF at
+    random."""
+    rng = np.random.default_rng(seed)
+    rec = generate_ascii(num_records, seed=seed)
+    cols = np.concatenate([rec[:, :65], rec[:, 76:82]], axis=1)
+    assert cols.shape[1] == TEXT_RECORD_SIZE
+    crlf = rng.integers(0, 2, size=num_records).astype(bool).tolist()
+    return b"".join(line.rstrip(b" ") + (b"\r\n" if cr else b"\n")
+                    for line, cr in zip((r.tobytes() for r in cols), crlf))
+
+
+# exp3 with a big-endian RDW read through the copybook: the header's
+# length is a record-length field (`record_length_field="RECORD-LENGTH"`,
+# `rdw_adjustment=4`: the field counts the payload, the record is the
+# header's 4 bytes longer) in front of exp3's fields
+LENGTH_FIELD_EXP3_COPYBOOK = """
+        01  COMPANY-DETAILS.
+            05  RECORD-LENGTH     PIC 9(4) COMP.
+            05  FILLER            PIC X(2).
+            05  SEGMENT-ID        PIC X(5).
+            05  COMPANY-ID        PIC X(10).
+            05  STATIC-DETAILS.
+               10  COMPANY-NAME      PIC X(15).
+               10  ADDRESS           PIC X(25).
+               10  TAXPAYER.
+                  15  TAXPAYER-TYPE  PIC X(1).
+                  15  TAXPAYER-STR   PIC X(8).
+                  15  TAXPAYER-NUM  REDEFINES TAXPAYER-STR
+                                     PIC 9(8) COMP.
+               10  STRATEGY.
+                 15  STRATEGY-DETAIL OCCURS 2000.
+                   25  NUM1 PIC 9(7) COMP.
+                   25  NUM2 PIC 9(7) COMP-3.
+            05  CONTACTS REDEFINES STATIC-DETAILS.
+               10  PHONE-NUMBER      PIC X(17).
+               10  CONTACT-PERSON    PIC X(28).
+"""
+
+# exp3's wide segment with a variable-size strategy table: DETAIL-COUNT
+# elements of (COMP, COMP-3), the table the record's last field, so every
+# field keeps a static offset
+VAR_OCCURS_COPYBOOK = """
+        01  COMPANY-DETAILS.
+            05  SEGMENT-ID        PIC X(5).
+            05  COMPANY-ID        PIC X(10).
+            05  COMPANY-NAME      PIC X(15).
+            05  ADDRESS           PIC X(25).
+            05  TAXPAYER-NUM      PIC 9(8) COMP.
+            05  DETAIL-COUNT      PIC 9(4) COMP.
+            05  STRATEGY-DETAIL OCCURS 1 TO 2000 TIMES
+                                DEPENDING ON DETAIL-COUNT.
+               10  NUM1 PIC 9(7) COMP.
+               10  NUM2 PIC 9(7) COMP-3.
+"""
+VAR_OCCURS_HEAD = 61
+
+
+def generate_var_occurs(num_records: int, seed: int = 100,
+                        max_count: int = 2000) -> bytes:
+    """`num_records` records of `VAR_OCCURS_COPYBOOK`, each with 1 to
+    `max_count` strategy elements, laid end to end (no header: the
+    variable-size OCCURS extractor frames them by their count)."""
+    rng = np.random.default_rng(seed)
+    n = num_records
+    counts = rng.integers(1, max_count + 1, size=n)
+    head = np.concatenate([
+        encode_strings_column(["C"] * n, 5, pad=0x40),
+        _digit_bytes(rng.integers(0, 10 ** 10, size=n), 10, 0xF0),
+        _letters(rng, n, 15, _ENCODE_LUT),
+        _letters(rng, n, 25, _ENCODE_LUT),
+        encode_comp_be(rng.integers(0, 10 ** 8, size=n), 4),
+        encode_comp_be(counts, 2)], axis=1)
+    assert head.shape[1] == VAR_OCCURS_HEAD
+    nums = rng.integers(0, 9999999, size=int(counts.sum()))
+    detail = np.concatenate([encode_comp_be(nums, 4),
+                             encode_comp3_unsigned(nums, 7)], axis=1)
+    body = np.split(detail.reshape(-1), np.cumsum(counts * 8)[:-1])
+    return b"".join(h.tobytes() + d.tobytes() for h, d in zip(head, body))

@@ -417,10 +417,10 @@ def test_comment_bounds(tmp_path, opts):
 # -- options outside this slice -----------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("record_error_policy", "permissive"), ("filter", "A == 'x'"),
+    ("pedantic", "true"), ("filter", "A == 'x'"),
     ("use_stats", "true"), ("field_costs", "true"), ("trace_file", "t.json"),
-    ("segment-children:0", "A => B"), ("occurs_mappings", "{}"),
-    ("is_text", "true")])
+    ("segment-children:0", "A => B"), ("hosts", "2"),
+    ("cache_dir", "cache")])
 def test_options_outside_the_slice_still_raise(tmp_path, option, value):
     path = _write(tmp_path, "e1.dat", gen.generate_exp1(2, seed=17))
     with pytest.raises(ValueError, match=option):

@@ -111,8 +111,8 @@ def test_entry_points_default_to_cuda(tmp_path):
 def test_read_cobol_names_every_option_it_does_not_take(tmp_path):
     path = tmp_path / "one.dat"
     path.write_bytes(pgen.generate_exp1(2, seed=1).tobytes())
-    for option in ("record_format", "record_error_policy", "is_text",
-                   "occurs_mappings", "hosts"):
+    for option in ("record_format", "pedantic", "use_stats", "cache_dir",
+                   "hosts"):
         with pytest.raises(ValueError, match=option):
             cobrix_tpu_torch.read_cobol(
                 str(path), copybook_contents=pgen.EXP1_COPYBOOK,

@@ -258,11 +258,11 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
 
 @pytest.mark.parametrize("option,value", [
     ("segment-children:0", "STATIC-DETAILS => CONTACTS"),
-    ("record_error_policy", "permissive"),
-    ("record_length_field", "SEGMENT-ID"),
-    ("is_text", "true"),
-    ("corrupt_record_column", "BAD"),
-    ("variable_size_occurs", "true"),
+    ("pedantic", "true"),
+    ("hosts", "2"),
+    ("cache_dir", "cache"),
+    ("io_retry_attempts", "2"),
+    ("filter", "COMPANY_ID == 'x'"),
 ])
 def test_options_this_slice_does_not_take_are_refused(option, value,
                                                       paths):
