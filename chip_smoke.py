@@ -162,13 +162,35 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    fail_fast): the same scan launches. Every read prints its MB/s, its
    frame and decode seconds, its launches and its ledger counts.
 
+13. hierarchical (segment-children) reads and the host row walk: (a) the
+   phase 4 exp3 file with CONTACTS under STATIC-DETAILS and record ids,
+   decoded once on the card at the full plan (the scan, pack and fused
+   kernels must each launch) and read with ``to_arrow``, sequential and
+   pipelined (2 workers, shards on roots): the pipelined table equals
+   the sequential one, ``Record_Id`` is the flush trigger's record
+   index, the first and last 500 roots equal ``device="cpu"`` reads of
+   their records, and ``to_rows()`` of a 3,000-record prefix equals its
+   table and a CPU read; (b) the 7-segment hierarchy
+   (``generate_hierarchical``, 60,000 companies in 8 parts of seeds
+   100-107, about 80 MB), whose roots cross a 64 MiB window: its table
+   and rows equal a CPU read's (JSON lines around the crossing root and
+   of the first and last 2,000 rows), the pipelined table the
+   sequential one; (c) the host row walk, on the host: the first 5,000
+   companies read with ``select``, and 100,000 records of a DEPENDING
+   ON table followed by a trailer (``generate_dynamic_occurs``), against
+   CPU reads. Every read prints its MB/s and rows a second, its frame /
+   decode / assemble seconds, its launches, the peak device memory, the
+   host RSS and ``assembly_stats`` (columnar, no bail, on (a) and (b)).
+
 Every failure exits non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
-lines: it checks the script's paths, not the card.
+lines: it checks the script's paths, not the card. ``--phases 13`` (or
+``12``, or both) runs the environment, phase 4 and the phases named, and
+also exits 3 without the result lines.
 """
 from __future__ import annotations
 
@@ -177,6 +199,7 @@ import hashlib
 import io
 import json
 import os
+import resource
 import shutil
 import signal
 import statistics
@@ -207,6 +230,13 @@ P12_SEG = {"segment_field": "SEGMENT-ID",
            "redefine-segment-id-map:0": "STATIC-DETAILS => C",
            "redefine-segment-id-map:1": "CONTACTS => P"}
 P12_RDW = dict(is_record_sequence="true", **P12_SEG)
+# phase 13's exp3 hierarchy: CONTACTS under STATIC-DETAILS
+P13_EXP3 = {
+    "is_record_sequence": "true", "segment_field": "SEGMENT-ID",
+    "generate_record_id": "true",
+    "redefine-segment-id-map:0": "STATIC-DETAILS => C",
+    "redefine-segment-id-map:1": "CONTACTS => P",
+    "segment-children:0": "STATIC-DETAILS => CONTACTS"}
 # the kernels of the reads, and the query path's aggregate
 READ_KERNELS = ("fused_decode", "rdw_scan", "pack_records")
 KERNELS = READ_KERNELS + ("aggregate",)
@@ -218,6 +248,8 @@ QUERY_FIELDS = ("NUM1", "NUM2")
 # the aggregate kernel's value kinds and scale modes (ops/aggregate.py)
 AGG_KINDS = {0: "K_I32", 1: "K_I64", 2: "K_WIDE"}
 AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
+# phases `--phases` can run alone (after the environment and phase 4)
+PHASES = {"12": "phase_generic", "13": "phase_hierarchical"}
 
 
 class SmokeFailure(Exception):
@@ -334,6 +366,7 @@ class Smoke:
 
         self.np, self.torch = np, torch
         self.rehearsal = args.cpu_rehearsal
+        self.only = [p for p in (args.phases or "").split(",") if p]
         self.device = torch.device("cpu" if self.rehearsal else "cuda")
         self.n_exp1 = 3000 if self.rehearsal else 1_000_000
         self.n_tail = 64 if self.rehearsal else 1024
@@ -2647,7 +2680,329 @@ class Smoke:
         os.remove(path)
         return data
 
+
+    # -- phase 13: hierarchical reads and the host row walk ---------------
+
+    def _p13_read(self, tag, path, size, walk=False, **opts):
+        """read_cobol on the default device, then ``to_arrow``, each
+        read kernel's launches counted from 0 over the read; logs MB/s
+        over read + to_arrow, the frame / decode / assemble seconds, the
+        launches, the peak device memory, the host RSS after it (and the
+        process's peak so far) and ``assembly_stats``. `walk`: the host row walk,
+        which launches no kernel. (data, table, record of the read)."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+        from cobrix_tpu_torch.reader.hierarchical_arrow import assembly_stats
+
+        counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                    "pack_records": df.pack_records}
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        if not self.rehearsal:
+            self.torch.cuda.reset_peak_memory_stats()
+        assembly_stats(reset=True)
+        for fn in counters.values():
+            fn.launches = 0
+        self.sync()
+        t0 = time.perf_counter()
+        data = read_cobol(path, **opts, **kw)
+        self.sync()
+        read_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        table = data.to_arrow()
+        arrow_s = time.perf_counter() - t0
+        self.launches[tag] = {k: v for k, v in launches.items()
+                              if v or k == "fused_decode"}
+        if not self.rehearsal and not walk:
+            for k, v in launches.items():
+                check(v > 0, f"{k} never launched on the {tag} read")
+        m = data.metrics.as_dict()
+        peak_dev = (None if self.rehearsal
+                    else self.torch.cuda.max_memory_allocated())
+        rss = None
+        try:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError, IndexError):
+            pass
+        # the process's peak so far (ru_maxrss is in KiB on Linux)
+        hwm = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        busy = m["stage_busy"] or {}
+        res = dict(bytes=size, rows=len(data), read_s=read_s,
+                   to_arrow_s=arrow_s,
+                   MBps=size / (read_s + arrow_s) / 1e6,
+                   rows_per_s=len(data) / (read_s + arrow_s),
+                   framing=m["framing"], assemble_s=busy.get(
+                       "assemble", arrow_s),
+                   stage_busy=busy or None, shards=m["shards"],
+                   launches=launches, peak_device_bytes=peak_dev,
+                   host_rss_bytes=rss, peak_host_rss_bytes=hwm,
+                   assembly=assembly_stats())
+        log(f"[p13] {self.card}: {tag}: {len(data)} rows from {size} bytes: "
+            f"read {read_s:.3f} s + to_arrow {arrow_s:.3f} s = "
+            f"{res['MBps']:.1f} MB/s, {res['rows_per_s']:.0f} rows/s; "
+            f"frame/decode s {json.dumps(m['framing'])}; stage busy "
+            f"{json.dumps(busy)}; shards {m['shards']}; launches "
+            f"{json.dumps(launches)}; peak device {peak_dev} B, host RSS "
+            f"{rss} B after (process peak {hwm} B); assembly_stats "
+            f"{json.dumps(res['assembly'])}")
+        self.p13["reads"][tag] = res
+        return data, table, res
+
+    def _p13_columnar(self, res, tag):
+        bails = {k: v for k, v in res["assembly"].items()
+                 if k != "columnar" and v}
+        check(res["assembly"]["columnar"] >= 1 and not bails,
+              f"{tag}: assembly_stats {res['assembly']}, not the columnar "
+              f"route")
+
+    def _p13_cpu(self, raw, name, **opts):
+        """A device="cpu" read of the bytes `raw` (data, table)."""
+        from cobrix_tpu_torch import read_cobol
+
+        path = os.path.join(self.tmp, name)
+        with open(path, "wb") as f:
+            f.write(raw)
+        try:
+            data = read_cobol(path, device="cpu", **opts)
+            return data, data.to_arrow()
+        finally:
+            os.remove(path)
+
+    def _p13_ids_aside(self, table):
+        return table.drop_columns([c for c in ("File_Id", "Record_Id")
+                                   if c in table.column_names])
+
+    def _p13_seven_options(self, g):
+        """The 7-segment hierarchy's options (TestDataGen17Hierarchical):
+        its segment ids, their redefines and the parent of each child."""
+        return dict(
+            copybook_contents=g.HIERARCHICAL_COPYBOOK,
+            is_record_sequence="true", segment_field="SEGMENT-ID",
+            generate_record_id="true",
+            **{f"redefine_segment_id_map:{i}": f"{name} => {sid}"
+               for i, (sid, name) in enumerate(
+                   g.HIERARCHICAL_SEGMENT_MAP.items())},
+            **{f"segment-children:{i}": f"{parent} => {child}"
+               for i, (child, parent) in enumerate(
+                   g.HIERARCHICAL_PARENT_MAP.items())})
+
+    def phase_hierarchical(self):
+        """Phase 13: (a) the exp3 file as a hierarchy (CONTACTS under
+        STATIC-DETAILS), decoded once on the card; (b) the 7-segment
+        hierarchy across a 64 MiB window; (c) the host row walk."""
+        t_phase = time.perf_counter()
+        self.p13 = {"reads": {}}
+        self._p13_exp3()
+        self._p13_seven()
+        self._p13_walk()
+        self.p13["secs"] = time.perf_counter() - t_phase
+        log(f"[p13] phase 13: {self.p13['secs']:.1f} s")
+
+    def _p13_exp3(self):
+        np = self.np
+        import pyarrow as pa
+        from cobrix_tpu_torch.reader.arrow_out import rows_to_table
+        from cobrix_tpu_torch.testing.generators import EXP3_COPYBOOK
+
+        t0 = time.perf_counter()
+        path = self.rdw_files["exp3"]
+        raw, (offsets, lengths) = self.rdw_walk["exp3"]
+        size = len(raw)
+        offsets = np.asarray(offsets, dtype=np.int64)
+        starts = np.append(offsets - 4, size)
+        opts = dict(copybook_contents=EXP3_COPYBOOK, **P13_EXP3)
+        seq, table, res = self._p13_read("p13_exp3", path, size, **opts)
+        self._p13_columnar(res, "exp3")
+        pip, ptable, pres = self._p13_read(
+            "p13_exp3_pipelined", path, size, pipeline_workers="2",
+            chunk_size_mb=self.pipe_chunk_mb, **opts)
+        self._p13_columnar(pres, "exp3 pipelined")
+        check(ptable.equals(table), "exp3: the pipelined table differs from "
+              "the sequential one")
+        # the roots ('C' records) and the flush-trigger Record_Ids
+        ids = np.frombuffer(raw, dtype=np.uint8)[offsets]
+        roots = np.nonzero(ids == 0xC3)[0]
+        n = len(offsets)
+        check(table.num_rows == len(roots) == len(seq),
+              f"exp3: {table.num_rows} rows for {len(roots)} roots")
+        want_ids = np.append(roots[1:], n)
+        check(np.array_equal(table.column("Record_Id").to_numpy(), want_ids),
+              "exp3: Record_Id is not the flush trigger's record index")
+        k = min(500, len(roots))
+        spans = [("first", 0, k, 0, int(starts[roots[k]]) if k < len(roots)
+                  else size),
+                 ("last", len(roots) - k, len(roots),
+                  int(starts[roots[-k]]), size)]
+        for what, lo, hi, a, b in spans:
+            _, want = self._p13_cpu(raw[a:b], "p13s.dat", **opts)
+            self._same_table(self._p13_ids_aside(table.slice(lo, hi - lo)),
+                             self._p13_ids_aside(want),
+                             f"exp3 {what} {k} roots")
+        log(f"[p13] exp3: pipelined table == sequential; Record_Id == the "
+            f"flush trigger's index; the first and last {k} roots == "
+            f"device='cpu' reads of those records")
+        # to_rows of a prefix: the nesting walk against the table and the
+        # CPU read
+        m = min(3000, n)
+        prefix = raw[:int(starts[m])]
+        ppath = os.path.join(self.tmp, "p13p.dat")
+        with open(ppath, "wb") as f:
+            f.write(prefix)
+        got, gtable, _ = self._p13_read("p13_exp3_prefix", ppath,
+                                        len(prefix), **opts)
+        t1 = time.perf_counter()
+        rows = got.to_rows()
+        rows_s = time.perf_counter() - t1
+        os.remove(ppath)
+        check(rows_to_table(rows, got.schema).equals(gtable),
+              "exp3 prefix: to_rows differs from to_arrow")
+        cpu, ctable = self._p13_cpu(prefix, "p13c.dat", **opts)
+        check(rows == cpu.to_rows(), "exp3 prefix: rows differ from the "
+              "device='cpu' read")
+        self._same_table(gtable, ctable, "exp3 prefix table")
+        log(f"[p13] exp3: to_rows of {m} records ({len(rows)} roots) in "
+            f"{rows_s:.3f} s == to_arrow() == device='cpu' read; (a) "
+            f"{time.perf_counter() - t0:.1f} s")
+        del seq, table, pip, ptable, got, gtable, cpu, ctable, rows
+
+    def _p13_seven(self):
+        np = self.np
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+        from cobrix_tpu_torch.reader.json_out import rows_to_json
+        from cobrix_tpu_torch.testing import generators as g
+
+        t0 = time.perf_counter()
+        companies = 600 if self.rehearsal else 60_000
+        path = self._write_rdw("hierarchical", companies, 100)
+        with open(path, "rb") as f:
+            raw = f.read()
+        size = len(raw)
+        offsets, lengths = host_walk(raw)
+        offsets = np.asarray(offsets, dtype=np.int64)
+        starts = np.append(offsets - 4, size)
+        sids = np.frombuffer(raw, dtype=np.uint8)[offsets]
+        roots = np.nonzero(sids == 0xF1)[0]
+        ends = np.append(starts[roots[1:]], size)
+        window = vlr.READ_WINDOW_BYTES
+        crossing = [int(r) for r, a, b in zip(roots, starts[roots], ends)
+                    if a // window != (b - 1) // window]
+        check(bool(crossing), "the 7-segment file has no root whose "
+              "children cross a window's end")
+        log(f"[p13] wrote {companies} companies, {len(offsets)} records "
+            f"({size} bytes) in {time.perf_counter() - t0:.1f} s; root "
+            f"{crossing[0]} has children on both sides of byte {window}")
+        opts = self._p13_seven_options(g)
+        seq, table, res = self._p13_read("p13_seven", path, size, **opts)
+        self._p13_columnar(res, "7-segment")
+        t1 = time.perf_counter()
+        rows = seq.to_rows()
+        lines = seq.to_json_lines()
+        rows_s = time.perf_counter() - t1
+        split = "500" if self.rehearsal else "200000"
+        pip, ptable, pres = self._p13_read(
+            "p13_seven_pipelined", path, size, pipeline_workers="2",
+            input_split_records=split, **opts)
+        self._p13_columnar(pres, "7-segment pipelined")
+        check(ptable.equals(table), "7-segment: the pipelined table differs "
+              "from the sequential one")
+        cpu, ctable = self._p13_cpu(raw, "p13h.dat", **opts)
+        self._same_table(table, ctable, "7-segment table")
+        cpu_rows = cpu.to_rows()
+        check(rows == cpu_rows, "7-segment: rows differ from the "
+              "device='cpu' read")
+        # JSON lines: the CPU read's of the rows around the crossing root
+        # and of the first and last 2,000 (rows_to_json is what
+        # to_json_lines runs over the rows)
+        c = int(np.searchsorted(roots, crossing[0]))
+        j = min(2000, len(rows))
+        for lo, hi in ((0, j), (max(0, c - 50), c + 50),
+                       (len(rows) - j, len(rows))):
+            check(lines[lo:hi] == rows_to_json(cpu_rows[lo:hi], cpu.schema),
+                  f"7-segment: JSON lines {lo}-{hi} differ from the "
+                  f"device='cpu' read's")
+        log(f"[p13] 7-segment: to_rows + to_json_lines {rows_s:.3f} s; "
+            f"{len(rows)} rows; pipelined ({pres['shards']} shards) table "
+            f"== sequential; table and rows == device='cpu' read, JSON "
+            f"lines of the first, last and crossing rows too; (b) "
+            f"{time.perf_counter() - t0:.1f} s")
+        self.p13["seven"] = dict(companies=companies, records=len(offsets),
+                                 bytes=size, crossing_root=crossing[0],
+                                 rows_and_json_s=rows_s)
+        self.p13_seven_raw = (raw, starts, roots)
+        os.remove(path)
+        del seq, table, pip, ptable, cpu, ctable, rows, lines, cpu_rows
+
+    def _p13_walk(self):
+        np = self.np
+        from cobrix_tpu_torch.testing import generators as g
+
+        t0 = time.perf_counter()
+        raw, starts, roots = self.p13_seven_raw
+        del self.p13_seven_raw
+        k = 50 if self.rehearsal else 5000
+        cut = raw[:int(starts[roots[k]])]
+        path = os.path.join(self.tmp, "p13w.dat")
+        with open(path, "wb") as f:
+            f.write(cut)
+        opts = dict(self._p13_seven_options(g),
+                    select="COMPANY-NAME,CUSTOMER-NAME")
+        got, table, res = self._p13_read("p13_walk_select", path, len(cut),
+                                         walk=True, **opts)
+        os.remove(path)
+        check(res["assembly"]["columnar"] == 0, "the select read did not "
+              "take the row walk")
+        cpu, ctable = self._p13_cpu(cut, "p13wc.dat", **opts)
+        check(got.to_rows() == cpu.to_rows(), "row walk (select): rows "
+              "differ from the device='cpu' read")
+        self._same_table(table, ctable, "row walk (select) table")
+        log(f"[p13] row walk (select, {k} companies): rows and table == "
+            f"device='cpu' read")
+        del got, table, cpu, ctable
+        # a DEPENDING ON table followed by a trailer: the first and last
+        # 1,000 rows against CPU reads of those records
+        n = 400 if self.rehearsal else 100_000
+        data = g.generate_dynamic_occurs(n, seed=44)
+        bounds, pos = [], 0
+        while pos < len(data):
+            bounds.append(pos)
+            pos += 28 + 8 * int.from_bytes(data[pos + 20:pos + 22], "big")
+        bounds.append(len(data))
+        path = os.path.join(self.tmp, "p13d.dat")
+        with open(path, "wb") as f:
+            f.write(data)
+        opts = dict(copybook_contents=g.DYNAMIC_OCCURS_COPYBOOK,
+                    variable_size_occurs="true")
+        got, table, res = self._p13_read("p13_walk_dynamic_occurs", path,
+                                         len(data), walk=True, **opts)
+        os.remove(path)
+        check(len(got) == n, f"dynamic OCCURS: {len(got)} rows for {n}")
+        m = min(1000, n)
+        rows = got.to_rows()
+        for what, lo, hi in (("first", 0, m), ("last", n - m, n)):
+            cpu, _ = self._p13_cpu(data[bounds[lo]:bounds[hi]], "p13dc.dat",
+                                   **opts)
+            check(rows[lo:hi] == cpu.to_rows(), f"dynamic OCCURS: the "
+                  f"{what} {m} rows differ from the device='cpu' read")
+        log(f"[p13] row walk (dynamic OCCURS, {n} records): the first and "
+            f"last {m} rows == device='cpu' reads; (c) "
+            f"{time.perf_counter() - t0:.1f} s")
+        del got, table, rows
+
     def run(self):
+        if self.only:
+            # a subset: the environment, the RDW files, then the phases
+            # named (each needs the files phase 4 writes)
+            try:
+                self.phase_env()
+                self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
+                self.phase_rdw()
+                for name in self.only:
+                    getattr(self, PHASES[name])()
+            finally:
+                shutil.rmtree(self.tmp, ignore_errors=True)
+            return
         try:
             self.phase_env()
             self.phase_grid()
@@ -2663,6 +3018,7 @@ class Smoke:
             self.phase_arrow()
             self.phase_recovery()
             self.phase_generic()
+            self.phase_hierarchical()
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -2724,7 +3080,15 @@ def main(argv=None) -> int:
     parser.add_argument("--cpu-rehearsal", action="store_true",
                         help="small run on the CPU with the plain versions; "
                              "exits 3 without result lines")
+    parser.add_argument("--phases", default="",
+                        help="run only these phases (comma-separated: "
+                             + ", ".join(sorted(PHASES)) + "), after the "
+                             "environment and phase 4; exits 3 without "
+                             "result lines")
     args = parser.parse_args(argv)
+    bad = [p for p in args.phases.split(",") if p and p not in PHASES]
+    if bad:
+        parser.error(f"unknown phases {bad}")
     try:
         import torch
     except ImportError:
@@ -2750,8 +3114,10 @@ def main(argv=None) -> int:
         if left:
             print(f"chip_smoke: stopped child processes {left}",
                   file=sys.stderr)
-    if args.cpu_rehearsal:
-        log("[rehearsal] all phases passed on the CPU; no result lines")
+    if args.cpu_rehearsal or smoke.only:
+        log("[rehearsal] all phases passed on the CPU; no result lines"
+            if args.cpu_rehearsal else
+            f"[phases] phases {args.phases} passed; no result lines")
         return 3
     for line in smoke.result_lines():
         print(line, flush=True)

@@ -1,8 +1,8 @@
 """cobrix_tpu_torch — the PyTorch/CUDA port of cobrix_tpu.
 
 Parses COBOL copybooks and decodes fixed-length and RDW variable-length
-(single- or multisegment) EBCDIC files into columnar data on an NVIDIA
-GPU: RDW files are framed and their records packed on the card by
+(single- or multisegment, flat or hierarchical) EBCDIC files into
+columnar data on an NVIDIA GPU: RDW files are framed and their records packed on the card by
 hand-written CUDA kernels (``csrc/rdw_framing.cu``), every numeric field
 of a record batch is decoded by one launch of a hand-written CUDA kernel
 (``csrc/fused_decode.cu``), strings and floats by PyTorch ops on the same
@@ -23,16 +23,22 @@ from .copybook.datatypes import (
 from .device import resolve_device
 from .reader.columnar import ColumnarDecoder, DecodedBatch
 from .reader.diagnostics import FramingError
+from .reader.handlers import (DictHandler, JsonHandler, RecordHandler,
+                              TupleHandler)
 
 __all__ = [
     "CobolData",
     "ColumnarDecoder",
     "Copybook",
     "DecodedBatch",
+    "DictHandler",
     "FloatingPointFormat",
     "FramingError",
+    "JsonHandler",
+    "RecordHandler",
     "SchemaRetentionPolicy",
     "TrimPolicy",
+    "TupleHandler",
     "merge_copybooks",
     "parse_copybook",
     "read_cobol",

@@ -22,7 +22,14 @@ package chooses its reader (``ReaderParameters.needs_var_len_reader``):
 * the generic framings (``is_text``, ``record_length_field``,
   ``record_header_parser``, ``record_extractor``,
   ``variable_size_occurs``): the same reader frames the records on the
-  host, one at a time, and decodes them on the device.
+  host, one at a time, and decodes them on the device;
+* hierarchical reads (``segment-children:N``, with the redefine map):
+  RDW records are framed on the device and decoded there once, at the
+  full plan, and their nesting (which child belongs to which root) is
+  built on the host; where the JAX package walks the records on the
+  host instead (a variable-size OCCURS layout that shifts later fields,
+  or a hierarchical read with ``select``, a record start offset or
+  another framing), so does the port.
 
 Under a permissive ``record_error_policy`` malformed records are
 resynced past, kept with their reason (``corrupt_record_column``) or
@@ -118,7 +125,8 @@ _OPTIONS = frozenset((
     "re_additional_info", "variable_size_occurs", "occurs_mappings",
     "occurs_mapping"))
 _OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
-                    "redefine_segment_id_map")
+                    "redefine_segment_id_map", "segment-children",
+                    "segment_children")
 # the framing options a custom record extractor is refused beside, and
 # (from the third on, with is_text) `record_length`, in the JAX package's
 # order
@@ -202,8 +210,9 @@ def _parse_segment_levels(opts: Options) -> List[str]:
 
 def _parse_prefixed_map(opts: Options,
                         prefixes: Tuple[str, ...]) -> Dict[str, str]:
-    """Parse 'redefine-segment-id-map:N' options ('FIELD => A,B') into
-    {segment id: redefine name}."""
+    """Parse 'redefine-segment-id-map:N' / 'segment-children:N' options
+    ('FIELD => A,B') into {item: field} (segment id -> redefine name, or
+    child -> parent respectively)."""
     out: Dict[str, str] = {}
     for key in list(opts.keys()):
         k = key.lower()
@@ -267,7 +276,9 @@ def parse_options(options: Dict[str, object],
             segment_level_ids=_parse_segment_levels(opts),
             segment_id_prefix=opts.get("segment_id_prefix", ""),
             segment_id_redefine_map=_parse_prefixed_map(
-                opts, ("redefine-segment-id-map", "redefine_segment_id_map")))
+                opts, ("redefine-segment-id-map", "redefine_segment_id_map")),
+            field_parent_map=_parse_prefixed_map(
+                opts, ("segment-children", "segment_children")))
     occurs_mappings = {}
     # the reference README documents the singular key (`occurs_mapping`);
     # both spellings are accepted, but not together
@@ -405,6 +416,15 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
             f"Invalid 'shard_max_retries' of {params.shard_max_retries}; "
             "it must be >= 0 (0 means a failed shard is never "
             "re-dispatched).")
+    seg = params.multisegment
+    if seg and seg.field_parent_map and seg.segment_level_ids:
+        raise ValueError(
+            "Options 'segment_id_level*'/'segment_id_root' and "
+            "'segment-children:*' cannot be used together.")
+    if seg and seg.field_parent_map and not seg.segment_id_redefine_map:
+        raise ValueError(
+            "Option 'segment-children:*' requires 'redefine-segment-id-map:*' "
+            "to be set as well.")
 
 
 def load_copybook_contents(copybook, copybook_contents):
@@ -610,7 +630,8 @@ def read_cobol(path=None,
     file: RDW framing (``is_record_sequence="true"`` or ``is_xcom``,
     header endianness and adjustment), the record-length override, file
     and record offsets, ``debug_ignore_file_size``, the segment field,
-    filter, levels, prefix and redefine map, record ids, the
+    filter, levels, prefix and redefine map, the parent of each child
+    segment (``segment-children``), record ids, the
     input-file-name column, sparse-index splits, the data encoding
     (``encoding``, ``ascii_charset``, ``is_utf16_big_endian``,
     ``ebcdic_code_page_class``), copybook shaping (filler dropping,

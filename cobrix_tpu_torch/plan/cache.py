@@ -51,8 +51,13 @@ def copybook_for_params(copybook_contents, params):
     reader configuration: its data encoding, comment bounds, filler
     dropping, non-terminals, debug fields, trimming, code page (a custom
     code-page class loaded and registered on first use), ASCII charset,
-    UTF-16 byte order and float format, its OCCURS mappings, and the
-    segment redefines of its redefine map marked at parse time."""
+    UTF-16 byte order and float format, its OCCURS mappings, the
+    segment redefines of its redefine map marked at parse time, and the
+    parent of each child segment (`segment-children`). Each call parses
+    anew, so the plan cache, keyed by the Copybook's identity, never
+    serves one configuration's plan to another: a hierarchical and a
+    flat read of one copybook text get different plans, which the JAX
+    package's parse cache ensures by keying on the parent map."""
     from ..copybook.copybook import merge_copybooks, parse_copybook
     from ..encoding.codepages import resolve_code_page
 
@@ -69,6 +74,7 @@ def copybook_for_params(copybook_contents, params):
             drop_group_fillers=params.drop_group_fillers,
             drop_value_fillers=params.drop_value_fillers,
             segment_redefines=redefines,
+            field_parent_map=dict(seg.field_parent_map) if seg else None,
             string_trimming_policy=params.string_trimming_policy,
             comment_policy=params.comment_policy,
             ebcdic_code_page=resolve_code_page(

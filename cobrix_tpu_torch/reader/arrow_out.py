@@ -24,19 +24,25 @@ declares), is null in the table, as Spark makes a decimal overflow
 null; the JAX package's ``to_arrow`` raises ArrowInvalid on such a
 record (ROADMAP C5).
 
+A decode-once batch (every record of a hierarchical read decoded at the
+full plan) carries per-redefine row masks (`redefine_masks`): a segment
+redefine's struct is null on the rows of other segments, whose decoded
+values are garbage by design and are never read (strings blanked,
+numbers invalid, OCCURS planes built for the visible rows only:
+`_compact_visibility`). `leaf_strings_at` and `leaf_numeric_at` build a
+leaf at given record positions from the batch's planes in numpy, where
+the JAX package's transcodes strings from the raw file image with its
+native library. `rows_to_table` builds the table of a row-backed result
+(the host row walk), with the value-list route's decimal rule above.
+
 Left out, because they need ``cobrix_tpu.native`` (the port builds the
 same arrays on the routes above) or serve only the JAX package's host
 backend and lazy decode: the fused decode->Arrow assembly
 (``_asm_descriptor``, ``_asm_call``, ``_build_native_scalars``,
-``_native_flat_values``), the raw-image ``leaf_strings_at`` and
-``leaf_numeric_at``, the grouped and limb decimal builds
+``_native_flat_values``), the grouped and limb decimal builds
 (``_decimal_group_array``, ``_decimal128_native``), the native string
 buffers, ``const_string_col`` and ``pack_validity``; and the per-field
-cost attribution (``obs.fieldcost``). Also left out: the decode-once
-batches' redefine masks and the compact OCCURS route that rides them,
-since the port decodes each active segment on its own and gives an
-inactive redefine a null struct; and ``rows_to_table``, the route of
-row-backed results, which no reader of the port gives.
+cost attribution (``obs.fieldcost``).
 """
 from __future__ import annotations
 
@@ -277,21 +283,101 @@ def _string_from_codepoints(mat: np.ndarray, trimming: TrimPolicy):
 
 
 class ArrowBatchBuilder:
-    """Builds Arrow arrays for one DecodedBatch of a single active
-    segment (`active`; None for records of no redefine): a segment
-    redefine other than `active` is a null struct."""
+    """Builds Arrow arrays for one DecodedBatch — either a single active
+    segment (`active`; None for records of no redefine: a segment
+    redefine other than `active` is a null struct), or a decode-once
+    whole-plan batch where `redefine_masks` gates each segment redefine
+    per row via the struct validity bitmap (inactive rows' decoded bytes
+    are garbage, but a null parent struct masks its children by Arrow
+    semantics)."""
 
-    def __init__(self, batch: DecodedBatch, active: Optional[str]):
+    def __init__(self, batch: DecodedBatch, active: Optional[str],
+                 redefine_masks: Optional[dict] = None):
         self.batch = batch
         self.decoder = batch.decoder
         self.active = active
+        self.redefine_masks = redefine_masks
         self.n = batch.n_records
 
     # -- leaves ------------------------------------------------------------
 
-    def _python_fallback(self, col: int, pa_type):
+    def leaf_strings_at(self, sts, positions: np.ndarray) -> dict:
+        """String-leaf values built AT `positions` from the batch's
+        code-point planes, for every eligible statement of one struct.
+        Returns {id(st): pa.StringArray} for the leaves it could build;
+        callers fall back to the full-length build + take for the rest
+        (UTF-16 / HEX / RAW / custom charsets, non-ASCII code points,
+        truncated rows). Rows hidden by a redefine mask are blanked: the
+        null parent struct hides them."""
+        out = {}
+        for st in sts:
+            col = self.decoder.slot_map.get((id(st), ()))
+            if col is None:
+                continue
+            spec = self.decoder.plan.columns[col]
+            if spec.codec not in _STRING_CODECS \
+                    or not self.batch._vectorizable_string(spec):
+                continue
+            lengths = self.batch.lengths
+            if lengths is not None and bool(
+                    (lengths[positions] < spec.offset + spec.width).any()):
+                continue  # truncated tails keep the scalar-owned path
+            mat = self.batch.column_arrays(col)["bytes"]
+            if mat.ndim != 2 or mat.shape[1] == 0:
+                continue
+            mat = mat[positions]
+            relevant = self._relevant_of(spec)
+            if relevant is not None:
+                hidden = ~relevant[positions]
+                if hidden.any():
+                    mat[hidden] = 0x20
+            if mat.dtype == np.uint16 and bool((mat > 0x7F).any()):
+                continue
+            out[id(st)] = _string_from_codepoints(
+                mat, self.decoder.plan.trimming)
+        return out
+
+    def leaf_numeric_at(self, st: Primitive, positions: np.ndarray):
+        """Integer/float leaf values gathered AT `positions` — the numpy
+        gather happens before the Arrow build instead of a full-length
+        array + take. None -> caller uses the full path (decimals, wide
+        planes, truncation, host fallback)."""
         pa = _pa()
-        values = self.batch.column_values(col)
+        col = self.decoder.slot_map.get((id(st), ()))
+        if col is None:
+            return None
+        spec = self.decoder.plan.columns[col]
+        pa_type = to_arrow_type(primitive_data_type(st))
+        if not (pa.types.is_integer(pa_type)
+                or pa.types.is_floating(pa_type)):
+            return None
+        if spec.codec in _STRING_CODECS:
+            return None
+        lengths = self.batch.lengths
+        if lengths is not None and bool(
+                (lengths[positions] < spec.offset + spec.width).any()):
+            return None  # truncated tails keep the scalar-owned path
+        out = self.batch.column_arrays(col)
+        if "values" not in out or "values_hi" in out:
+            return None
+        values = np.asarray(out["values"])[positions]
+        valid = np.asarray(out["valid"])[positions]
+        return pa.array(
+            values.astype(_numpy_dtype_for(pa_type), copy=False),
+            mask=None if valid.all() else ~valid)
+
+    def _relevant_of(self, spec):
+        """Row-visibility mask for a column of a decode-once batch (None =
+        visible everywhere)."""
+        if self.redefine_masks is not None and spec.segment:
+            return self.redefine_masks.get(spec.segment.upper())
+        return None
+
+    def _python_fallback(self, col: int, pa_type, relevant=None):
+        pa = _pa()
+        # `relevant` (decode-once batches): rows hidden by a null parent
+        # struct materialize as None and skip the truncation fixups
+        values = self.batch.column_values(col, relevant=relevant)
         try:
             return pa.array(values, type=pa_type)
         except pa.ArrowInvalid:
@@ -308,29 +394,43 @@ class ArrowBatchBuilder:
         if col is None:
             return pa.nulls(self.n, type=pa_type)
         spec = self.decoder.plan.columns[col]
+        # rows where this column is visible: in a decode-once batch a
+        # redefine-gated column only matters where its segment is active
+        # (elsewhere the parent struct is null and the decoded bytes are
+        # garbage by design)
+        relevant = self._relevant_of(spec)
         lengths = self.batch.lengths
-        if lengths is not None and bool(
-                (lengths < spec.offset + spec.width).any()):
-            # truncated variable-length tails: the scalar path owns the
-            # partial-field rules
-            return self._python_fallback(col, pa_type)
+        if lengths is not None:
+            trunc = lengths < spec.offset + spec.width
+            if relevant is not None:
+                trunc = trunc & relevant
+            if bool(trunc.any()):
+                # truncated variable-length tails: the scalar path owns
+                # the partial-field rules
+                return self._python_fallback(col, pa_type, relevant)
         out = self.batch.column_arrays(col)
         if "host" in out:
-            return self._python_fallback(col, pa_type)
+            return self._python_fallback(col, pa_type, relevant)
         if spec.codec in _STRING_CODECS:
-            return self._string_array(spec, out, pa_type)
+            return self._string_array(spec, out, pa_type, relevant)
         values = np.asarray(out["values"])
         valid = np.asarray(out["valid"])
+        if relevant is not None:
+            # hidden rows: invalid, so that their garbage neither forces
+            # the value-list route nor reaches a buffer
+            valid = valid & relevant
         if "values_hi" not in out and (spec.codec in _FLOAT_CODECS
                                        or pa.types.is_integer(pa_type)):
             return pa.array(
                 values.astype(_numpy_dtype_for(pa_type), copy=False),
                 mask=None if valid.all() else ~valid)
         if not pa.types.is_decimal(pa_type):
-            return self._python_fallback(col, pa_type)
+            return self._python_fallback(col, pa_type, relevant)
         if spec.params.explicit_decimal or _dyn_scale(spec):
             shift = pa_type.scale - np.asarray(out["dot_scale"],
                                                dtype=np.int64)
+            if relevant is not None:
+                shift = np.where(relevant, shift, 0)
         else:
             shift = pa_type.scale + fixed_point_exponent(spec)
         if "values_hi" in out or pa_type.precision > 18:
@@ -348,23 +448,30 @@ class ArrowBatchBuilder:
             arr = _decimal128_array(hi, lo, neg, shift, valid, pa_type,
                                     max_digits=pa_type.precision)
             return (arr if arr is not None
-                    else self._python_fallback(col, pa_type))
+                    else self._python_fallback(col, pa_type, relevant))
         if np.any((shift < 0) | (shift > 18)):
-            return self._python_fallback(col, pa_type)
+            return self._python_fallback(col, pa_type, relevant)
         return _decimal128_from_mantissa(values.astype(np.int64, copy=False),
                                          shift, valid, pa_type)
 
-    def _string_array(self, spec, out, pa_type):
+    def _string_array(self, spec, out, pa_type, relevant=None):
         pa = _pa()
         if not self.batch._vectorizable_string(spec):
             # UTF-16 / HEX / RAW / custom charsets: per-value host decode
-            return self._python_fallback(spec.index, pa_type)
+            return self._python_fallback(spec.index, pa_type, relevant)
         mat = out["bytes"]
         if mat.ndim != 2 or mat.shape[1] == 0:
             return pa.array([""] * self.n, type=pa_type)
+        if relevant is not None and not relevant.all():
+            # hidden rows' garbage code points must not poison the
+            # column (their >0x7F values would truncate to invalid
+            # UTF-8 below) — blank them; the null parent struct hides
+            # whatever value they produce
+            mat = mat.copy()
+            mat[~relevant] = 0x20
         if mat.dtype == np.uint16 and bool((mat > 0x7F).any()):
             # non-ASCII code points need real UTF-8 encoding
-            return self._python_fallback(spec.index, pa_type)
+            return self._python_fallback(spec.index, pa_type, relevant)
         return _string_from_codepoints(mat, self.decoder.plan.trimming)
 
     # -- arrays / groups ---------------------------------------------------
@@ -385,10 +492,15 @@ class ArrowBatchBuilder:
         return np.where((v >= st.array_min_size) & (v <= st.array_max_size),
                         v, st.array_max_size)
 
-    def _flat_slot_values(self, st: Primitive, slot_path, max_size: int):
+    def _flat_slot_values(self, st: Primitive, slot_path, max_size: int,
+                          compact_rows=None):
         """One record-major flat array covering every OCCURS slot of a
         numeric leaf (slot s of record i at i*S+s), stacked from the
-        slots' planes. None -> caller uses the per-slot path."""
+        slots' planes. `compact_rows` (decode-once): build values for
+        ONLY these rows — the caller verified hidden rows are nulled at
+        an enclosing struct, where child buffers are invisible. Rows a
+        redefine mask hides are otherwise invalid. None -> caller uses
+        the per-slot path."""
         pa = _pa()
         pa_type = to_arrow_type(primitive_data_type(st))
         is_decimal = pa.types.is_decimal(pa_type)
@@ -404,16 +516,26 @@ class ArrowBatchBuilder:
                            or _dyn_scale(spec0)
                            or pa_type.precision > 18):
             return None  # per-value exponents and wide values stay per slot
+        relevant = self._relevant_of(spec0)
         lengths = self.batch.lengths
         if lengths is not None:
             last = self.decoder.plan.columns[cols[-1]]
-            if bool((lengths < last.offset + last.width).any()):
+            trunc = lengths < last.offset + last.width
+            if relevant is not None:
+                trunc = trunc & relevant
+            if bool(trunc.any()):
                 return None  # truncated tails own the partial-field rules
         outs = [self.batch.column_arrays(c) for c in cols]
         if any("values" not in o or "values_hi" in o for o in outs):
             return None
-        vals = np.stack([o["values"] for o in outs], axis=1)
-        valid = np.stack([o["valid"] for o in outs], axis=1)
+        if compact_rows is not None:
+            vals = np.stack([o["values"][compact_rows] for o in outs], axis=1)
+            valid = np.stack([o["valid"][compact_rows] for o in outs], axis=1)
+        else:
+            vals = np.stack([o["values"] for o in outs], axis=1)
+            valid = np.stack([o["valid"] for o in outs], axis=1)
+            if relevant is not None:
+                valid &= relevant[:, None]
         flat = vals.reshape(-1)
         fvalid = valid.reshape(-1)
         if is_decimal:
@@ -426,7 +548,8 @@ class ArrowBatchBuilder:
             flat.astype(_numpy_dtype_for(pa_type), copy=False),
             mask=None if fvalid.all() else ~fvalid)
 
-    def _flat_struct_values(self, group: Group, slot_path, max_size: int):
+    def _flat_struct_values(self, group: Group, slot_path, max_size: int,
+                            compact_rows=None):
         """Record-major flat StructArray over all OCCURS slots of a group
         element whose fields are all numeric leaves (exp3's
         STRATEGY-DETAIL). None -> per-slot path."""
@@ -437,7 +560,8 @@ class ArrowBatchBuilder:
                 continue
             if isinstance(child, Group) or child.is_array:
                 return None
-            flat = self._flat_slot_values(child, slot_path, max_size)
+            flat = self._flat_slot_values(child, slot_path, max_size,
+                                          compact_rows=compact_rows)
             if flat is None:
                 return None
             names.append(child.name)
@@ -445,6 +569,37 @@ class ArrowBatchBuilder:
         if not children:
             return None
         return pa.StructArray.from_arrays(children, names=names)
+
+    def _compact_visibility(self, st: Statement):
+        """Row mask under which `st` (a decode-once OCCURS subtree) is
+        visible, IF the hidden rows are guaranteed nulled at an enclosing
+        segment-redefine struct: there, child buffers are logically
+        invisible, so values need building only for the visible rows
+        (exp3: the 2000-slot STRATEGY plane shrinks from every record to
+        just the C records). None = no mask, or no null-struct
+        guarantee — callers must then build positionally."""
+        if self.redefine_masks is None:
+            return None
+        node, redef = st.parent, None
+        while node is not None:
+            if getattr(node, "is_segment_redefine", False):
+                redef = node
+                break
+            node = node.parent
+        # the redefine root only receives its struct null mask when it is
+        # built as a row-level struct: itself not an array, and not
+        # nested inside one (element structs are built unmasked)
+        if redef is None or redef.is_array:
+            return None
+        p = redef.parent
+        while p is not None:
+            if p.is_array:
+                return None
+            p = p.parent
+        mask = self.redefine_masks.get(redef.name.upper())
+        if mask is None or bool(mask.all()):
+            return None  # fully visible: the positional path IS compact
+        return mask
 
     def _subtree_planned(self, st: Statement) -> bool:
         """True when any leaf under `st` has a compiled column. False
@@ -490,6 +645,24 @@ class ArrowBatchBuilder:
             flat = None
             if not self._subtree_planned(st):
                 flat = self._flat_null_values(st, max_size)
+            if flat is None and counts is None:
+                # decode-once + segment mask: values for visible rows
+                # only; hidden rows get EMPTY lists, invisible under
+                # their null redefine struct
+                cmask = self._compact_visibility(st)
+                if cmask is not None:
+                    rows = np.nonzero(cmask)[0]
+                    cflat = (self._flat_struct_values(
+                                 st, slot_path, max_size, compact_rows=rows)
+                             if isinstance(st, Group)
+                             else self._flat_slot_values(
+                                 st, slot_path, max_size, compact_rows=rows))
+                    if cflat is not None:
+                        offsets = np.zeros(n + 1, dtype=np.int32)
+                        np.cumsum(np.where(cmask, max_size, 0),
+                                  out=offsets[1:])
+                        return pa.ListArray.from_arrays(pa.array(offsets),
+                                                        cflat)
             if flat is None:
                 flat = (self._flat_struct_values(st, slot_path, max_size)
                         if isinstance(st, Group)
@@ -558,7 +731,7 @@ class ArrowBatchBuilder:
                     child.name, ArrayType(t) if child.is_array else t))
         return fields
 
-    def _struct_array(self, group: Group, slot_path):
+    def _struct_array(self, group: Group, slot_path, null_mask=None):
         pa = _pa()
         names, children = [], []
         for child in group.children:
@@ -570,7 +743,9 @@ class ArrowBatchBuilder:
             children.append(self._statement_array(child, slot_path))
         if not children:
             return pa.nulls(self.n, type=pa.struct([]))
-        return pa.StructArray.from_arrays(children, names=names)
+        return pa.StructArray.from_arrays(
+            children, names=names,
+            mask=None if null_mask is None else pa.array(null_mask))
 
     def _statement_array(self, st: Statement, slot_path,
                          as_element: bool = False):
@@ -578,11 +753,18 @@ class ArrowBatchBuilder:
         if st.is_array and not as_element:
             return self._list_array(st, slot_path)
         if isinstance(st, Group):
-            if st.is_segment_redefine and not as_element and (
-                    self.active is None
-                    or st.name.upper() != self.active.upper()):
-                t = to_arrow_type(StructType(self._group_fields(st)))
-                return pa.nulls(self.n, type=t)
+            if st.is_segment_redefine and not as_element:
+                if self.redefine_masks is not None:
+                    mask = self.redefine_masks.get(st.name.upper())
+                    if mask is None or not mask.any():
+                        t = to_arrow_type(StructType(self._group_fields(st)))
+                        return pa.nulls(self.n, type=t)
+                    return self._struct_array(st, slot_path,
+                                              null_mask=~mask)
+                if (self.active is None
+                        or st.name.upper() != self.active.upper()):
+                    t = to_arrow_type(StructType(self._group_fields(st)))
+                    return pa.nulls(self.n, type=t)
             return self._struct_array(st, slot_path)
         return self._leaf_array(st, slot_path)
 
@@ -669,6 +851,50 @@ def segment_table(batch: DecodedBatch,
               if c.type != target.field(i).type else c
               for i, c in enumerate(cols)]
     return pa.Table.from_arrays(arrays, schema=target)
+
+
+def rows_to_table(rows: List[List[object]], struct: StructType):
+    """A typed table from materialized Python rows (row-backed results:
+    the host row walk, hierarchical rows). Same declared types as the
+    vectorized routes, so both produce schema-identical tables; a
+    decimal that does not fit its type is null, as on the value-list
+    route (ROADMAP C5)."""
+    pa = _pa()
+    target = arrow_schema(struct)
+    arrays = []
+    for i, f in enumerate(struct.fields):
+        col = [row[i] for row in rows]
+        pa_type = target.field(i).type
+        try:
+            arr = pa.array(_normalize_objects(col, f.dtype), type=pa_type)
+        except pa.ArrowInvalid:
+            arr = pa.array(_normalize_objects(col, f.dtype, fit=True),
+                           type=pa_type)
+        arrays.append(arr)
+    return pa.Table.from_arrays(arrays, schema=target)
+
+
+def _normalize_objects(values, dtype, fit: bool = False):
+    """Tuples (group values) -> dicts keyed by field name so pa.array can
+    build struct arrays from the nested row shape. `fit`: decimals that
+    do not fit their declared type become None."""
+    if isinstance(dtype, StructType):
+        names = [f.name for f in dtype.fields]
+        return [None if v is None else
+                {nm: nv for nm, nv in zip(
+                    names, (_normalize_objects([x], f.dtype, fit)[0]
+                            for x, f in zip(v, dtype.fields)))}
+                for v in values]
+    if isinstance(dtype, ArrayType):
+        return [None if v is None
+                else _normalize_objects(list(v), dtype.element, fit)
+                for v in values]
+    if fit and isinstance(dtype, SimpleType) \
+            and dtype.name.startswith("decimal("):
+        pa_type = to_arrow_type(dtype)
+        return [v if v is None or _fits_decimal(decimal.Decimal(v), pa_type)
+                else None for v in values]
+    return list(values)
 
 
 def cached_table(holder, output_schema):

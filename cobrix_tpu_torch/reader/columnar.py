@@ -30,6 +30,8 @@ the two launch the same work. A decoder takes a column projection
 projection rewrote the plan's offsets builds a new fused layout, with
 its own device tables.
 
+`DecodedBatch.concat` joins the batches of one file's records into one
+batch (the hierarchical read assembles a file's records as one).
 `DecodedBatch.to_arrow` builds a batch's table from its host planes
 (``arrow_out.segment_table``), or returns the one the pipelined read's
 assemble stage cached on it.
@@ -284,6 +286,37 @@ class DecodedBatch:
         # output schema it was built for
         self._arrow_cache = None
         self._arrow_cache_schema = None
+
+    @classmethod
+    def concat(cls, batches: Sequence["DecodedBatch"]) -> "DecodedBatch":
+        """One batch over the records of `batches` (of one decoder), in
+        order: each column's host planes concatenated, and the lengths;
+        the host bytes of records cut short keyed by their position in
+        the whole. The hierarchical read decodes a file's records in
+        batches and assembles them as one."""
+        if len(batches) == 1:
+            return batches[0]
+        first = batches[0]
+        outputs: Dict[int, dict] = {}
+        for col, planes in first._out.items():
+            outputs[col] = {
+                k: ([v for b in batches for v in b._out[col][k]]
+                    if k == "host"
+                    else np.concatenate([b._out[col][k] for b in batches]))
+                for k in planes}
+        host_rows: Dict[int, np.ndarray] = {}
+        lengths = []
+        base = 0
+        for b in batches:
+            if b.data is not None:
+                raise ValueError("DecodedBatch.concat takes batches that "
+                                 "keep no host record matrix")
+            host_rows.update((base + i, row) for i, row in b.host_rows.items())
+            lengths.append(b.lengths)
+            base += b.n_records
+        return cls(first.decoder, None, outputs,
+                   lengths=np.concatenate(lengths), host_rows=host_rows,
+                   n_records=base)
 
     def column_arrays(self, col: int) -> dict:
         return self._out[col]

@@ -43,6 +43,7 @@ class MultisegmentParameters:
     segment_level_ids: List[str] = dc_field(default_factory=list)
     segment_id_prefix: str = ""
     segment_id_redefine_map: Dict[str, str] = dc_field(default_factory=dict)
+    field_parent_map: Dict[str, str] = dc_field(default_factory=dict)
 
 
 @dataclass

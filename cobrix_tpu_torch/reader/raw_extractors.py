@@ -1,9 +1,13 @@
 """Raw record extractors: record-boundary discovery when neither the
 copybook's fixed size nor RDW headers give the record length.
 
-Port copy of ``cobrix_tpu.reader.raw_extractors``, unchanged; a custom
-extractor must subclass THIS module's `RawRecordExtractor` (the port
-imports nothing of the JAX package). Mirrors the reference trait and
+Port copy of ``cobrix_tpu.reader.raw_extractors``; a custom extractor
+must subclass THIS module's `RawRecordExtractor` (the port imports
+nothing of the JAX package). One change: `TextRecordExtractor` starts a
+shard from the line end before it, where the JAX package's starts every
+shard as if after an LF, so a shard that opens on an over-long line
+after a CRLF line cut it a byte later than the whole-file read
+(ROADMAP C8). Mirrors the reference trait and
 implementations
 (raw/RawRecordExtractor.scala:22, raw/TextRecordExtractor.scala:27-103,
 raw/VarOccursRecordExtractor.scala:30-154, raw/RawRecordContext.scala:27,
@@ -45,15 +49,30 @@ class RawRecordExtractor:
         raise NotImplementedError
 
 
+def _footer_before(before: bytes) -> int:
+    """The line-end size of the record that ends where a text stream
+    starts, from the bytes just before it: 2 after CR LF, 1 after LF or
+    at the file's start, 0 after the cut piece of an over-long line."""
+    if not before:
+        return 1
+    if before.endswith(b"\r\n"):
+        return 2
+    return 1 if before.endswith(b"\n") else 0
+
+
 class TextRecordExtractor(RawRecordExtractor):
     """CR/LF record boundaries with a copybook-size+2 look-ahead buffer;
-    an over-long line is split at the buffer boundary like the reference."""
+    an over-long line is split at the buffer boundary like the reference.
+    The previous record's line-end size, by which the split falls, starts
+    from the bytes before the stream's offset (`_footer_before`), so a
+    shard of the file splits its lines as the whole-file read does."""
 
     def __init__(self, ctx: RawRecordContext):
         self.ctx = ctx
         self.max_record_size = ctx.copybook.record_size + 2
         self._buf = b""
-        self._last_footer_size = 1
+        self._last_footer_size = _footer_before(
+            ctx.input_stream.preceding(2))
 
     def has_next(self) -> bool:
         return not self.ctx.input_stream.is_end_of_stream or len(self._buf) > 0

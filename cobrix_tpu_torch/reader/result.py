@@ -13,13 +13,17 @@ and, under a permissive policy, the reason of each malformed row it kept
 corrupt-record column (`corrupt_record_field`) gives in rows and
 tables.
 
-Changes from the JAX package: the row-backed and lazy-factory fields are
-not carried over, since their readers (the host backend, hierarchical
-reads, variable-size OCCURS that shift later fields) are refused; nor
-are the decode-once batches' redefine masks, since the port decodes each
-active segment on its own. `FileResult.to_rows`
-orders the rows of its segments by their positions with
-`_record_order_indices` (an O(n) scatter) in place of a sort.
+A FileResult is either columnar (segments of DecodedBatches with record
+positions) or row-backed (`rows`: the host row walk of shapes with no
+static columnar plan), or lazy (`rows_factory` / `arrow_factory`: a
+hierarchical read decoded once, whose rows and table are built only when
+asked for, each factory dropped after its first use).
+
+Changes from the JAX package: the decode-once batches' redefine masks
+ride only the hierarchical factories, since the port decodes each
+active segment of a flat read on its own. `FileResult.to_rows` orders
+the rows of its segments by their positions with `_record_order_indices`
+(an O(n) scatter) in place of a sort.
 `SegLevelColumns.arrow_level` formats the Seg_Id strings with Arrow's
 compute kernels in place of ``native.format_seg_id_level``, and returns
 the Arrow array.
@@ -135,7 +139,7 @@ class SegmentBatch:
 
 @dataclass
 class FileResult:
-    """Decoded result of one input file."""
+    """Decoded result of one input file (or one shard of it)."""
 
     n_rows: int
     file_id: int = 0
@@ -144,7 +148,8 @@ class FileResult:
     generate_record_id: bool = False
     generate_input_file_field: bool = False
     segments: List[SegmentBatch] = dc_field(default_factory=list)
-    rows: Optional[List[List[object]]] = None   # cache of to_rows
+    # the rows of a row-backed result, or the cache of to_rows
+    rows: Optional[List[List[object]]] = None
     # records the framer CONSUMED (and numbered) producing this result —
     # >= n_rows when segment filters / level gating drop rows after
     # numbering
@@ -155,14 +160,35 @@ class FileResult:
     diagnostics: Optional[object] = None
     corrupt_record_field: str = ""
     corrupt_row_reasons: Optional[dict] = None
-    # the table the pipelined read's assemble stage built, and the
-    # output schema it was built for
+    # lazy producers (hierarchical decode-once reads): rows and Arrow are
+    # materialized only when actually asked for; each factory is dropped
+    # after first use so the captured decode batch can be released once
+    # both products (cached) exist
+    rows_factory: Optional[object] = None
+    arrow_factory: Optional[object] = None
+    # the table the pipelined read's assemble stage (or the arrow
+    # factory) built, and the output schema it was built for
     _arrow_cache: Optional[object] = dc_field(default=None, repr=False)
     _arrow_cache_schema: Optional[object] = dc_field(default=None,
                                                      repr=False)
+    _corrupt_col_added: bool = dc_field(default=False, repr=False)
+
+    def _append_corrupt_column(self, rows: List[List[object]]) -> None:
+        """Trailing debug-column values of row-backed rows (a row walk
+        attributes no reason to a row: None each), appended once."""
+        if not self.corrupt_record_field or self._corrupt_col_added:
+            return
+        reasons = self.corrupt_row_reasons or {}
+        for p, row in enumerate(rows):
+            row.append(reasons.get(p))
+        self._corrupt_col_added = True
 
     def to_rows(self) -> List[List[object]]:
+        if self.rows is None and self.rows_factory is not None:
+            self.rows = self.rows_factory()
+            self.rows_factory = None
         if self.rows is not None:
+            self._append_corrupt_column(self.rows)
             return self.rows
         rows: List[List[object]] = []
         order = []
@@ -192,6 +218,7 @@ class FileResult:
             reasons = self.corrupt_row_reasons or {}
             for p, row in zip(positions.tolist(), rows):
                 row.append(reasons.get(p))
+        self._corrupt_col_added = True
         self.rows = rows
         return self.rows
 
@@ -199,15 +226,31 @@ class FileResult:
         """pyarrow Table in record order: one table per segment batch
         (``arrow_out.segment_table``), concatenated and put in record
         order; a table the assemble stage cached for an equal schema is
-        returned as it is."""
+        returned as it is. A lazy result builds its table with its arrow
+        factory, or from its rows when the factory gives none (a shape
+        the columnar assembly does not build); a row-backed result from
+        its rows (``arrow_out.rows_to_table``)."""
         import pyarrow as pa
 
-        from .arrow_out import arrow_schema, cached_table, segment_table
+        from .arrow_out import (arrow_schema, cached_table, rows_to_table,
+                                segment_table)
 
         table = cached_table(self, output_schema)
         if table is not None:
             return table
         if not self.segments:
+            if self.arrow_factory is not None:
+                table = self.arrow_factory(output_schema)
+                if table is not None:
+                    self._arrow_cache = table
+                    self._arrow_cache_schema = output_schema
+                    self.arrow_factory = None
+                    return table
+            if self.rows is None and self.rows_factory is not None:
+                self.rows = self.rows_factory()
+                self.rows_factory = None
+            if self.rows is not None:
+                return rows_to_table(self.to_rows(), output_schema.schema)
             return arrow_schema(output_schema.schema).empty_table()
         reasons = (self.corrupt_row_reasons
                    if self.corrupt_record_field else None)

@@ -3,8 +3,11 @@
 Port copy of ``cobrix_tpu.reader.stream``, reduced to the stream
 contract the generic per-record reader, its custom header parsers and
 record extractors read through (`SimpleStream`, with `MemoryStream` and
-the local-file `FSStream`, unchanged) and the path helpers `path_scheme`
-and `normalize_local`. The port reads local files only, so the retry
+the local-file `FSStream`) and the path helpers `path_scheme` and
+`normalize_local`. One addition: `SimpleStream.preceding` gives the
+bytes just before a stream's offset, so that a text shard starts from
+the previous line end as the whole-file read does (ROADMAP C8). The
+port reads local files only, so the retry
 policy, the buffered byte-range sources and the registry of storage
 backends (``scheme://`` paths) are not carried over (ROADMAP A4f);
 ``api.list_input_files`` refuses any scheme but ``file://`` by name.
@@ -42,6 +45,13 @@ class SimpleStream:
     def next(self, n: int) -> bytes:
         raise NotImplementedError
 
+    def preceding(self, n: int) -> bytes:
+        """Up to `n` bytes of the underlying file just before the current
+        offset: fewer at the file's start, none where the stream cannot
+        see them. A text shard's record extractor reads the previous
+        line end here (`raw_extractors.TextRecordExtractor`)."""
+        return b""
+
     def next_view(self, n: int):
         """Like `next`, but may return a zero-copy bytes-like view of the
         underlying storage (FSStream: an mmap window — whole-file framing
@@ -67,6 +77,7 @@ class MemoryStream(SimpleStream):
         end = len(data)
         if maximum_bytes > 0:
             end = min(end, start_offset + maximum_bytes)
+        self._whole = data
         self._data = data[start_offset:end]
         self._base = start_offset
         self._pos = 0
@@ -74,6 +85,10 @@ class MemoryStream(SimpleStream):
 
     def size(self) -> int:
         return self._base + len(self._data)
+
+    def preceding(self, n: int) -> bytes:
+        off = self.offset
+        return bytes(self._whole[max(0, off - n):off])
 
     @property
     def offset(self) -> int:
@@ -121,6 +136,10 @@ class FSStream(SimpleStream):
     @property
     def input_file_name(self) -> str:
         return self._path
+
+    def preceding(self, n: int) -> bytes:
+        lo = max(0, self._pos - n)
+        return os.pread(self._f.fileno(), self._pos - lo, lo)
 
     def next(self, n: int) -> bytes:
         n = min(n, self._limit - self._pos)
@@ -172,15 +191,23 @@ class ShardStream(SimpleStream):
     """A byte range of a file already held on the host (a pipelined
     shard's staging buffer), read as the JAX package's bounded `FSStream`
     over the same range reads it: offsets are file offsets from `base`,
-    `size()` is the range's end and `true_size` the file's size."""
+    `size()` is the range's end and `true_size` the file's size.
+    `before`: the file's bytes just before `base` (`preceding`)."""
 
     def __init__(self, data, base: int, true_size: int,
-                 file_name: str = ""):
+                 file_name: str = "", before: bytes = b""):
         self._data = data
         self._base = base
         self._pos = 0
         self._true_size = true_size
         self._file_name = file_name
+        self._before = before
+
+    def preceding(self, n: int) -> bytes:
+        head = bytes(self._data[max(0, self._pos - n):self._pos])
+        more = n - len(head)
+        return self._before[max(0, len(self._before) - more):] + head \
+            if more > 0 else head
 
     def size(self) -> int:
         return self._base + len(self._data)

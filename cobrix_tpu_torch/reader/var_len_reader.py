@@ -74,11 +74,28 @@ Changes from the JAX package:
   generic generator's index (``index.sparse_index_generator``), which,
   for a record-length field, walks the records that field frames
   (`_LengthFieldRecords`; ROADMAP C7).
-* Not carried over: the hierarchical (segment-children) reads, the host
-  row walk of variable-size OCCURS layouts that shift later fields
-  (such a read raises, naming ROADMAP A4d), filter pushdown and the
-  persisted index. The column projection (`select`) reaches every
-  segment decoder.
+* A hierarchical (segment-children) read of RDW records decodes once
+  (`decode_once`, the JAX package's ``_hierarchical_columnar_setup``):
+  each window is framed on the device as above, and every framed record
+  is decoded with the full plan's decoder (``decode_raw``: the pack
+  kernel and one fused launch per batch of at most PACK_BATCH_BYTES);
+  the batches' host planes join into one `DecodedBatch` over the file
+  or shard (``DecodedBatch.concat``), since a root's children may lie
+  in the next window. The table (``hierarchical_arrow
+  .hierarchical_table``) and the rows (`_read_rows_hierarchical_columnar`,
+  the nesting walk) are built from it on the host when asked for. A
+  file the JAX package splits is read in its root-aligned index shards,
+  as there.
+* The host row walk (`row_walk`, `iter_rows` over ``extractors
+  .extract_record`` and ``extract_hierarchical_record``) decodes, where
+  the JAX package does, the variable-size OCCURS layouts whose
+  DEPENDING ON arrays shift later fields and the hierarchical reads off
+  the decode-once route (a column projection, which the walk ignores, a
+  record start offset, no segment field, a generic framing, or
+  fixed-length records): a row-backed FileResult per file or index
+  shard, read through a stream of it.
+* Not carried over: filter pushdown and the persisted index. The column
+  projection (`select`) reaches every segment decoder of a flat read.
 """
 from __future__ import annotations
 
@@ -96,11 +113,13 @@ from ..ops.device_framing import (CARRY, DONE, TOO_BIG, ZERO, pack_records,
                                   scan_window)
 from ..plan.cache import copybook_for_params
 from ..profiling import annotate, timed_stage
-from .columnar import ColumnarDecoder, decoder_for_segment
+from .columnar import (ColumnarDecoder, DecodedBatch, _resolve_occurs,
+                       decoder_for_segment)
 from .diagnostics import (DEFAULT_RESYNC_WINDOW, FramingError,
                           ReadDiagnostics, RecordErrorPolicy, framing_error,
                           hex_snapshot)
-from .extractors import DecodeOptions
+from .extractors import (DecodeOptions, _apply_post_processing,
+                         extract_hierarchical_record, extract_record)
 from .header_parsers import (FixedLengthHeaderParser, RdwHeaderParser,
                              RecordHeaderParser, create_record_header_parser)
 from .index import (SparseIndexEntry, sparse_index_entries,
@@ -123,6 +142,46 @@ READ_WINDOW_BYTES = 64 * 1024 * 1024
 # packed bytes of one decode batch: bounds the device memory a segment of
 # wide records takes
 PACK_BATCH_BYTES = 64 * 1024 * 1024
+
+
+class SegmentIdAccumulator:
+    """Generates Seg_Id0..N values record by record for the host row
+    walk: root = `prefix_fileId_recordIndex`, children
+    `<root>_L<level>_<counter>` (reference SegmentIdAccumulator)."""
+
+    def __init__(self, segment_ids: Sequence[str], segment_id_prefix: str,
+                 file_id: int):
+        self._ids = [s.split(",") for s in segment_ids]
+        self._count = len(segment_ids)
+        self._acc = [0] * (self._count + 1)
+        self._current_level = -1
+        self._current_root = ""
+        self.prefix = segment_id_prefix
+        self.file_id = file_id
+
+    def acquired_segment_id(self, segment_id: str, record_index: int) -> None:
+        if self._count == 0:
+            return
+        level = None
+        for i, ids in enumerate(self._ids):
+            if segment_id in ids:
+                level = i
+                break
+        if level is None:
+            return
+        self._current_level = level
+        if level == 0:
+            self._current_root = f"{self.prefix}_{self.file_id}_{record_index}"
+            self._acc = [0] * len(self._acc)
+        else:
+            self._acc[level] += 1
+
+    def get_segment_level_id(self, level: int) -> Optional[str]:
+        if 0 <= level <= self._current_level:
+            if level == 0:
+                return self._current_root
+            return f"{self._current_root}_L{level}_{self._acc[level]}"
+        return None
 
 
 def default_segment_id_prefix() -> str:
@@ -250,6 +309,14 @@ def _host_bytes(f, staged: bool, lo: int, hi: int) -> np.ndarray:
     if f.readinto(memoryview(out)) != hi - lo:
         raise IOError(f"Short read at file offset {lo}")
     return out
+
+
+def _bytes_before(path: str, offset: int, n: int = 2) -> bytes:
+    """The (up to) `n` bytes of the file `path` before `offset`."""
+    if offset <= 0 or not path:
+        return b""
+    with open(path, "rb") as f:
+        return os.pread(f.fileno(), min(n, offset), max(0, offset - n))
 
 
 def resync_span(resync_window: int, adjustment: int) -> int:
@@ -492,15 +559,39 @@ class VarLenReader:
         # framing and decode seconds of the reads (`profiling.StageTimes`;
         # None: not timed)
         self.stage_times = None
-        if params.variable_size_occurs \
-                and _has_dynamic_occurs_layout(self.copybook.ast):
-            raise ValueError(
-                "Option 'variable_size_occurs' on a copybook whose "
-                "DEPENDING ON array shifts later fields (or is nested in "
-                "another array) is not supported by cobrix_tpu_torch yet: "
-                "the JAX package decodes such records on the host, row by "
-                "row (ROADMAP A4d). A single trailing variable-size array "
-                "is read.")
+        # variable-size OCCURS that shift later fields make the static
+        # columnar plan inapplicable — those records decode on the host.
+        # Walked over the whole record (all 01-level roots in one pass): a
+        # variable array at the end of one root shifts every later root.
+        self.dynamic_occurs_layout = bool(
+            params.variable_size_occurs
+            and _has_dynamic_occurs_layout(self.copybook.ast))
+
+    @property
+    def decode_once(self) -> bool:
+        """True when a hierarchical read decodes every record once, on
+        the device, at the full plan (the JAX package's
+        ``_hierarchical_columnar_setup`` does not bail): a segment field,
+        no column projection (the row walk ignores it), no record start
+        offset (the walk reads child records without it), and RDW
+        records the scan kernel frames."""
+        p = self.params
+        return bool(self.copybook.is_hierarchical
+                    and not self.dynamic_occurs_layout
+                    and not p.variable_size_occurs
+                    and resolve_segment_id_field(p, self.copybook)
+                    is not None
+                    and not p.select and not p.start_offset
+                    and p.supports_fast_framing)
+
+    @property
+    def row_walk(self) -> bool:
+        """True when the records are decoded by the host row walk
+        (`iter_rows`), exactly where the JAX package takes it: a
+        hierarchical read off the decode-once route, or a variable-size
+        OCCURS layout that shifts later fields."""
+        return bool(self.copybook.is_hierarchical
+                    or self.dynamic_occurs_layout) and not self.decode_once
 
     @property
     def generic_framing(self) -> bool:
@@ -578,6 +669,411 @@ class VarLenReader:
             index = reader.record_index + 1
             segment_id, data = next(reader)
             yield index, segment_id, data
+
+    # -- the host row walk (`row_walk`) -----------------------------------
+
+    def iter_rows(self, stream: SimpleStream, file_id: int = 0,
+                  start_record_id: int = 0, starting_file_offset: int = 0,
+                  segment_id_prefix: Optional[str] = None,
+                  ledger=None) -> Iterator[List[object]]:
+        """Each record of `stream` framed and decoded on the host (the
+        JAX package's ``iter_rows``, without its per-row corrupt-reason
+        output, which only its host backend reads): Seg_Id levels
+        and the segment filter record by record, or the hierarchical
+        rows."""
+        if self.copybook.is_hierarchical:
+            # hierarchical assemblies carry no per-row corruption
+            # attribution (the ledger still records every incident)
+            yield from self._iter_rows_hierarchical(
+                stream, file_id, start_record_id, starting_file_offset,
+                ledger=ledger)
+            return
+        params = self.params
+        seg = params.multisegment
+        prefix = segment_id_prefix or default_segment_id_prefix()
+        accumulator = (SegmentIdAccumulator(seg.segment_level_ids, prefix, file_id)
+                       if seg else None)
+        level_count = len(seg.segment_level_ids) if seg else 0
+        segment_filter = set(seg.segment_id_filter) if seg and seg.segment_id_filter else None
+        options = DecodeOptions.from_copybook(self.copybook)
+        generate_input_file = bool(params.input_file_name_column)
+
+        record_reader = self.make_record_reader(
+            stream, start_record_id, starting_file_offset, ledger)
+        while record_reader.has_next():
+            record_index = record_reader.record_index + 1
+            segment_id, data = next(record_reader)
+            level_ids: List[Optional[str]] = []
+            if level_count and accumulator is not None:
+                accumulator.acquired_segment_id(segment_id, record_index)
+                level_ids = [accumulator.get_segment_level_id(i)
+                             for i in range(level_count)]
+            if level_ids and level_ids[0] is None:
+                continue  # before the first root segment
+            if segment_filter is not None and segment_id not in segment_filter:
+                continue
+            active_redefine = self.segment_redefine_map.get(segment_id, "")
+            yield extract_record(
+                self.copybook.ast,
+                data,
+                offset_bytes=params.start_offset,
+                policy=params.schema_policy,
+                variable_length_occurs=params.variable_size_occurs,
+                generate_record_id=params.generate_record_id,
+                segment_level_ids=level_ids,
+                file_id=file_id,
+                record_id=record_index,
+                active_segment_redefine=active_redefine,
+                generate_input_file_field=generate_input_file,
+                input_file_name=stream.input_file_name,
+                options=options)
+
+    def _hierarchy_maps(self):
+        """(segment id -> redefine group, parent -> child groups, root
+        group names) — shared by the scalar and columnar hierarchical
+        paths so they cannot disagree on the hierarchy."""
+        segment_redefines = {g.name: g
+                             for g in self.copybook.get_all_segment_redefines()}
+        sid_map = {sid: segment_redefines[name]
+                   for sid, name in self.segment_redefine_map.items()
+                   if name in segment_redefines}
+        parent_child_map = self.copybook.get_parent_children_segment_map()
+        root_names = {g.name for g in segment_redefines.values()
+                      if g.parent_segment is None}
+        return sid_map, parent_child_map, root_names
+
+    def _iter_rows_hierarchical(self, stream: SimpleStream, file_id: int,
+                                start_record_id: int,
+                                starting_file_offset: int,
+                                ledger=None) -> Iterator[List[object]]:
+        """Buffer one root record plus its children, then assemble
+        (reference VarLenHierarchicalIterator.fetchNext :99)."""
+        params = self.params
+        segment_id_redefine_map, parent_child_map, root_names = \
+            self._hierarchy_maps()
+        options = DecodeOptions.from_copybook(self.copybook)
+        generate_input_file = bool(params.input_file_name_column)
+
+        buffer: List[Tuple[str, bytes]] = []
+        root_record_index = 0
+
+        def flush():
+            return extract_hierarchical_record(
+                self.copybook.ast,
+                buffer,
+                segment_id_redefine_map,
+                parent_child_map,
+                offset_bytes=params.start_offset,
+                policy=params.schema_policy,
+                variable_length_occurs=params.variable_size_occurs,
+                generate_record_id=params.generate_record_id,
+                file_id=file_id,
+                record_id=root_record_index,
+                generate_input_file_field=generate_input_file,
+                input_file_name=stream.input_file_name,
+                options=options)
+
+        # Record_Id parity quirk: the reference's hierarchical iterator
+        # stamps each assembled row with the raw record index of the record
+        # that TRIGGERS the flush — the next root (or the total record
+        # count at end of stream), VarLenHierarchicalIterator.scala:99-135
+        last_index = start_record_id - 1
+        for record_index, segment_id, data in self.frame_records(
+                stream, start_record_id, starting_file_offset,
+                ledger=ledger):
+            redefine = segment_id_redefine_map.get(segment_id)
+            is_root = redefine is not None and redefine.name in root_names
+            if is_root:
+                if buffer:
+                    root_record_index = record_index
+                    yield flush()
+                buffer = [(segment_id, data)]
+            elif buffer:
+                buffer.append((segment_id, data))
+            last_index = record_index
+        if buffer:
+            root_record_index = last_index + 1
+            yield flush()
+
+    def _read_rows(self, stream: SimpleStream, file_id: int,
+                   segment_id_prefix: Optional[str], start_record_id: int,
+                   path: str = "") -> FileResult:
+        """The row-backed result of the host row walk over `stream` (the
+        JAX package's ``read_result_columnar`` row branch): every record
+        framed and decoded on the host, its incidents in the result's
+        ledger; the walk attributes no reason to a row."""
+        p = self.params
+        ledger = p.new_diagnostics() if p.is_permissive else None
+        result = FileResult(n_rows=0, file_id=file_id,
+                            input_file_name=path or stream.input_file_name,
+                            policy=p.schema_policy,
+                            generate_record_id=p.generate_record_id,
+                            generate_input_file_field=bool(
+                                p.input_file_name_column),
+                            corrupt_record_field=p.corrupt_record_column,
+                            diagnostics=ledger)
+        with timed_stage(self.stage_times, "walk"):
+            result.rows = list(self.iter_rows(
+                stream, file_id=file_id, start_record_id=start_record_id,
+                starting_file_offset=stream.offset,
+                segment_id_prefix=segment_id_prefix, ledger=ledger))
+        result.n_rows = len(result.rows)
+        return result
+
+    # -- the decode-once hierarchical read (`decode_once`) ------------------
+
+    def _read_hierarchical(self, f, size: int, file_id: int,
+                           start_record_id: int, header: int, footer: int,
+                           window_bytes: Optional[int], keep_starts: bool,
+                           path: str, base_offset: int):
+        """Frame `size` bytes of `f` window by window on the device
+        (`_frame`: the scan kernel and the segment-id pack) and decode
+        every framed record once with the full plan's decoder
+        (``decode_raw``: the pack kernel, then one fused launch per batch
+        of at most PACK_BATCH_BYTES packed bytes), so that no window image
+        outlives its window. The batches' host planes are joined into one
+        `DecodedBatch` over every record (``DecodedBatch.concat``): a
+        root's children may lie in the next window. The result is lazy:
+        its table comes from ``hierarchical_table`` and its rows from the
+        nesting walk, both on the host (the JAX package's
+        ``_hierarchical_columnar_setup`` and its two factories). Returns
+        (result, the file's segment ids, record header offsets when
+        `keep_starts`)."""
+        from .hierarchical_arrow import hierarchical_table
+
+        p = self.params
+        result = FileResult(n_rows=0, file_id=file_id,
+                            input_file_name=path,
+                            policy=p.schema_policy,
+                            generate_record_id=p.generate_record_id,
+                            generate_input_file_field=bool(
+                                p.input_file_name_column),
+                            corrupt_record_field=p.corrupt_record_column,
+                            diagnostics=(p.new_diagnostics()
+                                         if p.is_permissive else None))
+        decoder = self._decoder_for_segment("")
+        rows = max(1, PACK_BATCH_BYTES // max(decoder.plan.max_extent, 1))
+        file_ids = _FileSegmentIds()
+        starts: List[np.ndarray] = []
+        batches: List[DecodedBatch] = []
+        n_total = 0
+        windows = self._frame(
+            f, size, header, footer, window_bytes, file_ids,
+            ledger=result.diagnostics, file_name=path,
+            base_offset=base_offset, corrupt_reasons={},
+            start_record_id=start_record_id)
+        while True:
+            with timed_stage(self.stage_times, "frame"):
+                window = next(windows, None)
+            if window is None:
+                break
+            base, image, offs_d, lengths, _ = window
+            n = offs_d.numel()
+            if keep_starts:
+                starts.append(base + offs_d.cpu().numpy() - self._header_len)
+            with timed_stage(self.stage_times, "decode"):
+                for b in range(0, n, rows):
+                    batches.append(decoder.decode_raw(
+                        image, offs_d[b:b + rows], lengths[b:b + rows]))
+            n_total += n
+        result.records_framed = n_total
+        with timed_stage(self.stage_times, "join"):
+            batch = DecodedBatch.concat(batches) if batches else None
+        del batches
+        ctx = self._hierarchical_context(batch, file_ids.segment_ids(),
+                                         decoder, path)
+        result.n_rows = ctx["n_roots"]
+        result.rows_factory = (
+            lambda: self._read_rows_hierarchical_columnar(
+                ctx, file_id, start_record_id))
+        result.arrow_factory = (
+            lambda output_schema: hierarchical_table(
+                ctx["batch"], ctx["segment_names"], self.copybook,
+                output_schema, ctx["sid_map"], ctx["parent_child_map"],
+                ctx["root_names"], file_id=file_id,
+                start_record_id=start_record_id,
+                input_file_name=ctx["input_file_name"])
+            if ctx["n"] else None)
+        starts = (np.concatenate(starts) if starts
+                  else np.zeros(0, dtype=np.int64))
+        return result, file_ids, starts
+
+    def _hierarchical_context(self, batch: Optional[DecodedBatch],
+                              segment_ids: SegmentIds,
+                              decoder: ColumnarDecoder,
+                              input_file_name: str) -> dict:
+        """What the nesting walk and the Arrow assembly share (the JAX
+        package's ``_hierarchical_columnar_setup`` after its decode):
+        the hierarchy maps, the per-redefine row masks, the
+        dictionary-coded segment names and the number of roots."""
+        sid_map, parent_child_map, root_names = self._hierarchy_maps()
+        name_of_sid = {sid: g.name for sid, g in sid_map.items()}
+        # per-redefine row masks: a redefine's columns are read only on
+        # its own segment's records
+        seg_masks = {name: segment_ids.mask_of_mapped(name_of_sid, name)
+                     for name in {g.name for g in sid_map.values()}}
+        # dictionary-coded segment names: one name per DISTINCT sid plus
+        # the int32 code vector
+        uniq_named = [name_of_sid.get(u) for u in segment_ids.uniq]
+        root_uniq = np.asarray([nm in root_names for nm in uniq_named])
+        n_roots = (int(root_uniq[segment_ids.codes].sum())
+                   if len(uniq_named) else 0)
+        return dict(batch=batch, segment_names=(uniq_named,
+                                                segment_ids.codes),
+                    segment_ids=segment_ids, sid_map=sid_map,
+                    parent_child_map=parent_child_map,
+                    root_names=root_names, seg_masks=seg_masks,
+                    decoder=decoder, n=len(segment_ids), n_roots=n_roots,
+                    input_file_name=input_file_name)
+
+    def _read_rows_hierarchical_columnar(self, ctx: dict, file_id: int,
+                                         start_record_id: int
+                                         ) -> List[List[object]]:
+        """Hierarchical rows with batched value decode: every record's
+        fields come from ONE full-plan columnar batch (kernels, not the
+        per-field scalar walk); only the parent/child nesting assembly
+        runs per record, mirroring extract_hierarchical_record's scan
+        semantics exactly (forward scan per child segment, stop when a
+        parent id reappears, flush-trigger Record_Id)."""
+        params = self.params
+        n = ctx["n"]
+        if n == 0:
+            return []
+        batch = ctx["batch"]
+        segment_ids = ctx["segment_ids"].tolist()
+        sid_map = ctx["sid_map"]
+        parent_child_map = ctx["parent_child_map"]
+        root_names = ctx["root_names"]
+        seg_masks = ctx["seg_masks"]
+        decoder = ctx["decoder"]
+        stream_name = ctx["input_file_name"]
+        slot_map = decoder.slot_map
+        col_values: Dict[int, list] = {}
+
+        def values_of(col):
+            lst = col_values.get(col)
+            if lst is None:
+                spec = decoder.plan.columns[col]
+                # dependee columns are READ at every row — the walk runs
+                # non-emitted parts to register DEPENDING-ON counters from
+                # whatever bytes overlay them (oracle parity) — so they
+                # must never be masked
+                is_dependee = (spec.statement is not None
+                               and spec.statement.is_dependee)
+                mask = (seg_masks.get(spec.segment)
+                        if spec.segment is not None and not is_dependee
+                        else None)
+                lst = batch.column_values(col, relevant=mask)
+                col_values[col] = lst
+            return lst
+
+        # the walk compiles once per (group, slot_path) into closures over
+        # the column value lists — per-record work is list indexing, not
+        # slot-map dict lookups per element (the hierarchical twin of
+        # ColumnarDecoder._row_maker)
+        maker_cache: Dict[tuple, object] = {}
+
+        def build_group(group, slot_path):
+            key = (id(group), slot_path)
+            maker = maker_cache.get(key)
+            if maker is not None:
+                return maker
+            parts = []  # (emit, fn) — fn(i, scan_i, span_end, pids, depend)
+            for st in group.children:
+                emit = not st.is_filler and not st.is_child_segment
+                if st.is_array:
+                    if isinstance(st, Group):
+                        elems = [build_group(st, slot_path + (k,))
+                                 for k in range(st.array_max_size)]
+                        fn = (lambda i, s, e, pd, dep, st=st, el=elems:
+                              [mk(i, s, e, pd, dep)
+                               for mk in el[:_resolve_occurs(
+                                   st, dep.get(st.depending_on))]])
+                    else:
+                        cols = [slot_map.get((id(st), slot_path + (k,)))
+                                for k in range(st.array_max_size)]
+                        lists = [None if c is None else values_of(c)
+                                 for c in cols]
+                        fn = (lambda i, s, e, pd, dep, st=st, ls=lists:
+                              [None if l is None else l[i]
+                               for l in ls[:_resolve_occurs(
+                                   st, dep.get(st.depending_on))]])
+                elif isinstance(st, Group):
+                    fn = build_group(st, slot_path)
+                else:
+                    col = slot_map.get((id(st), slot_path))
+                    if col is None:
+                        fn = lambda i, s, e, pd, dep: None
+                    elif st.is_dependee:
+                        lst = values_of(col)
+                        name = st.name
+                        def fn(i, s, e, pd, dep, lst=lst, name=name):
+                            value = lst[i]
+                            if value is not None:
+                                dep[name] = (value if isinstance(value, str)
+                                             else int(value))
+                            return value
+                    else:
+                        lst = values_of(col)
+                        fn = lambda i, s, e, pd, dep, lst=lst: lst[i]
+                parts.append((emit, fn))
+            children_groups = (tuple(parent_child_map.get(group.name, ()))
+                               if group.is_segment_redefine else ())
+
+            def maker(i, scan_i, span_end, parent_ids, depend,
+                      parts=tuple(parts), children_groups=children_groups):
+                # declaration order throughout: dependees must register
+                # before any later OCCURS resolves, emitted or not
+                fields = []
+                for emit, fn in parts:
+                    value = fn(i, scan_i, span_end, parent_ids, depend)
+                    if emit:
+                        fields.append(value)
+                for child in children_groups:
+                    fields.append(extract_children(
+                        child, scan_i + 1, span_end, parent_ids, depend))
+                return tuple(fields)
+
+            maker_cache[key] = maker
+            return maker
+
+        def extract_children(field, from_i, span_end, parent_ids, depend):
+            child_maker = build_group(field, ())
+            children = []
+            j = from_i
+            while j < span_end:
+                sid_j = segment_ids[j]
+                redefine = sid_map.get(sid_j)
+                if redefine is not None and redefine.name == field.name:
+                    children.append(child_maker(
+                        j, j, span_end, [sid_j] + parent_ids, depend))
+                elif sid_j in parent_ids:
+                    break
+                j += 1
+            return children
+
+        roots = [p for p in range(n)
+                 if (g := sid_map.get(segment_ids[p])) is not None
+                 and g.name in root_names]
+        generate_input_file = bool(params.input_file_name_column)
+        ast_roots = [r for r in self.copybook.ast.children
+                     if isinstance(r, Group) and r.parent_segment is None]
+        rows = []
+        for ri, p in enumerate(roots):
+            span_end = roots[ri + 1] if ri + 1 < len(roots) else n
+            # Record_Id parity quirk: the id of the record that TRIGGERS
+            # the flush — the next root, or one past the last record at
+            # end of stream (VarLenHierarchicalIterator.scala:99-135)
+            trigger_id = start_record_id + span_end
+            depend: Dict[str, object] = {}
+            records = [build_group(root, ())(p, p, span_end,
+                                             [segment_ids[p]], depend)
+                       for root in ast_roots]
+            rows.append(_apply_post_processing(
+                records, params.schema_policy, params.generate_record_id,
+                [], file_id, trigger_id, generate_input_file,
+                stream_name))
+        return rows
 
     def _frame_generic(self, stream: SimpleStream, start_record_id: int,
                        window_bytes: Optional[int],
@@ -700,10 +1196,21 @@ class VarLenReader:
         is read once."""
         p = self.params
         size = os.path.getsize(path)
-        if self.generic_framing:
+        if self.generic_framing or self.row_walk:
             return self._read_generic(path, size, file_id,
                                       segment_id_prefix, start_record_id)
         indexed = self._index_applies(size)
+        if indexed and self.decode_once:
+            # a hierarchical file is read in the index's root-aligned
+            # shards, where the JAX package reads it so: each shard's
+            # records decode once, as one batch
+            with timed_stage(self.stage_times, "index"):
+                entries = self.generate_index(path, file_id)
+            if len(entries) > 1:
+                return [self._read_file_shard(path, size, e, file_id,
+                                              start_record_id,
+                                              segment_id_prefix)
+                        for e in entries]
         shifted = indexed and p.file_start_offset > 0
         try:
             with open(path, "rb") as f:
@@ -753,7 +1260,7 @@ class VarLenReader:
         end = size if entry.offset_to < 0 else min(entry.offset_to, size)
         n = max(0, end - entry.offset_from)
         buf = np.empty(n, dtype=np.uint8)
-        with open(path, "rb") as f:
+        with open(path, "rb") as f, timed_stage(self.stage_times, "read"):
             f.seek(entry.offset_from)
             if f.readinto(memoryview(buf)) != n:
                 raise IOError(f"Short read from {path} at "
@@ -776,9 +1283,10 @@ class VarLenReader:
         READ_WINDOW_BYTES is framed as one window."""
         p = self.params
         n = staged.nbytes
-        if self.generic_framing:
+        if self.generic_framing or self.row_walk:
             stream = ShardStream(staged.host().numpy(), offset_from,
-                                 file_size, path)
+                                 file_size, path,
+                                 before=_bytes_before(path, offset_from))
             result, _, _ = self._read(stream, n, file_id, segment_id_prefix,
                                       record_index, 0, 0, path=path,
                                       base_offset=offset_from)
@@ -800,7 +1308,16 @@ class VarLenReader:
         `base_offset` of the file `path`: the FileResult (with its ledger
         and the reasons of its malformed rows under a permissive policy),
         the segment ids of every framed record, and the record header
-        offsets when `keep_starts`."""
+        offsets when `keep_starts`. A hierarchical read decodes once
+        (`_read_hierarchical`); the row walk reads `f`, a SimpleStream,
+        on the host (`_read_rows`) and gives no ids nor offsets."""
+        if self.row_walk:
+            return (self._read_rows(f, file_id, segment_id_prefix,
+                                    start_record_id, path), None, None)
+        if self.decode_once:
+            return self._read_hierarchical(
+                f, size, file_id, start_record_id, header, footer,
+                window_bytes, keep_starts, path, base_offset)
         p = self.params
         seg = p.multisegment
         prefix = segment_id_prefix or default_segment_id_prefix()
@@ -918,9 +1435,9 @@ class VarLenReader:
     def _index_split_config(self):
         """Validated split options and the root-boundary config
         (reference VarLenNestedReader.generateIndex :125-180: splits align
-        to root-segment boundaries whenever Seg_Id generation is
-        requested, so per-shard Seg_Id accumulators restart exactly at a
-        root). The port takes no parent-child segment map."""
+        to root-segment boundaries whenever Seg_Id generation or a
+        parent-child segment map is requested, so per-shard Seg_Id
+        accumulators and hierarchical rows restart exactly at a root)."""
         params = self.params
         if params.input_split_records is not None and not (
                 1 <= params.input_split_records <= 1_000_000_000):
@@ -932,8 +1449,17 @@ class VarLenReader:
             raise ValueError(
                 f"Invalid input split size of {params.input_split_size_mb} MB.")
         seg = params.multisegment
-        is_hierarchical = bool(seg and seg.segment_level_ids)
-        root_segment_id = seg.segment_level_ids[0] if is_hierarchical else ""
+        is_hierarchical = bool(seg and (seg.segment_level_ids
+                                        or seg.field_parent_map))
+        root_segment_id = ""
+        if seg:
+            if seg.field_parent_map and self.segment_redefine_map:
+                # every root id is a valid split boundary (multi-root files,
+                # reference Test12MultiRootSparseIndex)
+                root_segment_id = ",".join(self.copybook.get_root_segment_ids(
+                    self.segment_redefine_map, seg.field_parent_map))
+            elif seg.segment_level_ids:
+                root_segment_id = seg.segment_level_ids[0]
         return is_hierarchical, root_segment_id
 
     @property

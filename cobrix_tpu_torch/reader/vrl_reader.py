@@ -66,7 +66,8 @@ class SegmentIds:
     (int32 per record) indexing `uniq` (decoded strings, one per distinct
     byte pattern). Segment masks, redefine routing and level mapping
     work on the integer codes and never materialize per-record Python
-    strings (the JAX package's sequence methods are not carried over)."""
+    strings; `tolist` gives them for the hierarchical nesting walk (the
+    JAX package's other sequence methods are not carried over)."""
 
     __slots__ = ("codes", "uniq")
 
@@ -76,6 +77,12 @@ class SegmentIds:
 
     def __len__(self) -> int:
         return len(self.codes)
+
+    def tolist(self) -> list:
+        """Every record's id string, in order."""
+        if not len(self.uniq):
+            return [""] * len(self.codes)
+        return np.asarray(self.uniq, dtype=object)[self.codes].tolist()
 
     def map_uniq(self, mapping: dict, default: str = "") -> list:
         """Mapped value per DISTINCT id, aligned to `uniq` (one dict lookup

@@ -11,7 +11,13 @@ multisegment layout) are the port's own, for the record-shaping options;
 so are the inputs of the generic per-record framings: `generate_text`
 (text lines of `TEXT_COPYBOOK`), `LENGTH_FIELD_EXP3_COPYBOOK` (exp3 with
 its RDW read as a record-length field) and `generate_var_occurs`
-(variable-size OCCURS records of `VAR_OCCURS_COPYBOOK`).
+(variable-size OCCURS records of `VAR_OCCURS_COPYBOOK`), and
+`generate_dynamic_occurs` (`DYNAMIC_OCCURS_COPYBOOK`: a DEPENDING ON
+table followed by a trailer, read by the host row walk). The
+hierarchical stream (`HIERARCHICAL_COPYBOOK`, `HIERARCHICAL_SEGMENT_MAP`,
+`HIERARCHICAL_PARENT_MAP`, `generate_hierarchical`, the reference's
+TestDataGen17Hierarchical) is copied unchanged, with
+`encode_display_unsigned` and its value lists.
 
 Reimplements the behavior of the reference's example data generators
 (TestDataGen4CompaniesWide for the exp3 multisegment-wide profile,
@@ -58,6 +64,17 @@ def encode_strings_column(values, width: int, pad: int = 0x00) -> np.ndarray:
     for i, v in enumerate(values):
         enc = np.frombuffer(v.encode("ascii", "replace")[:width], dtype=np.uint8)
         out[i, : len(enc)] = _ENCODE_LUT[np.minimum(enc, 127)]
+    return out
+
+
+def encode_display_unsigned(values: np.ndarray, digits: int) -> np.ndarray:
+    """[N] ints -> [N, digits] EBCDIC zoned (0xF0..0xF9)."""
+    n = len(values)
+    out = np.zeros((n, digits), dtype=np.uint8)
+    v = values.astype(np.int64).copy()
+    for pos in range(digits - 1, -1, -1):
+        out[:, pos] = 0xF0 + (v % 10)
+        v //= 10
     return out
 
 
@@ -851,3 +868,204 @@ def generate_var_occurs(num_records: int, seed: int = 100,
                              encode_comp3_unsigned(nums, 7)], axis=1)
     body = np.split(detail.reshape(-1), np.cumsum(counts * 8)[:-1])
     return b"".join(h.tobytes() + d.tobytes() for h, d in zip(head, body))
+
+
+# -- the hierarchical (segment-children) stream -----------------------------
+
+_DEPARTMENTS = ["Executive", "Finance", "Operations", "Development",
+                "Sales", "Marketing", "Research", "Risk Management",
+                "Production", "Logistics", "Transportation", "Planning",
+                "Engineering", "Accounting", "Legal", "Compliance",
+                "Creative"]
+_ROLES = ["CEO", "CFO", "CTO", "COO", "VP of Sales", "VP of Operations",
+          "VP of Marketing", "VP of Development", "VP of Legal",
+          "VP of Accounting", "director", "managing director",
+          "software developer", "software engineer", "big data engineer",
+          "devops", "support", "project manager", "scrum master", "sales",
+          "copyrightor", "accountant", "analytic", "legal", "assistant",
+          "researcher", "specialist"]
+_CONTRACT_STATES = ["Unsigned", "Signed", "Progress", "Rejected", "Done",
+                    "Archived"]
+
+HIERARCHICAL_COPYBOOK = """
+     01  ENTITY.
+         05  SEGMENT-ID           PIC 9(1).
+         05  COMPANY.
+            10  COMPANY-NAME      PIC X(20).
+            10  ADDRESS           PIC X(30).
+            10  TAXPAYER          PIC 9(9) BINARY.
+         05  DEPT REDEFINES COMPANY.
+            10  DEPT-NAME         PIC X(22).
+            10  EXTENSION         PIC 9(6).
+         05  EMPLOYEE REDEFINES COMPANY.
+            10  FIRST-NAME        PIC X(16).
+            10  LAST-NAME         PIC X(16).
+            10  ROLE              PIC X(18).
+            10  HOME-ADDRESS      PIC X(40).
+            10  PHONE-NUM         PIC X(17).
+         05  OFFICE REDEFINES COMPANY.
+            10  ADDRESS           PIC X(30).
+            10  FLOOR             PIC 9(3).
+            10  ROOM-NUMBER       PIC 9(4).
+         05  CUSTOMER REDEFINES COMPANY.
+            10  CUSTOMER-NAME     PIC X(20).
+            10  POSTAL-ADDRESS    PIC X(30).
+            10  ZIP               PIC X(10).
+         05  CONTACT REDEFINES COMPANY.
+            10  FIRST-NAME        PIC X(16).
+            10  LAST-NAME         PIC X(16).
+            10  PHONE-NUM         PIC X(17).
+         05  CONTRACT REDEFINES COMPANY.
+            10  CONTRACT-NUMBER   PIC X(15).
+            10  STATE             PIC X(8).
+            10  DUE-DATE          PIC X(10).
+            10  AMOUNT            PIC 9(10)V9(2) COMP-3.
+"""
+
+HIERARCHICAL_SEGMENT_MAP = {
+    "1": "COMPANY", "2": "DEPT", "3": "EMPLOYEE", "4": "OFFICE",
+    "5": "CUSTOMER", "6": "CONTACT", "7": "CONTRACT"}
+HIERARCHICAL_PARENT_MAP = {
+    "DEPT": "COMPANY", "EMPLOYEE": "DEPT", "OFFICE": "DEPT",
+    "CUSTOMER": "COMPANY", "CONTACT": "CUSTOMER", "CONTRACT": "CUSTOMER"}
+
+
+def generate_hierarchical(num_companies: int, seed: int = 100) -> bytes:
+    """Little-endian-RDW hierarchical stream (TestDataGen17Hierarchical):
+    company -> departments (employees, offices) + customers (contacts,
+    contracts), segment ids 1-7."""
+    rng = np.random.default_rng(seed)
+    chunks = []
+
+    def phone() -> str:
+        return (f"+({rng.integers(1, 921)}) {rng.integers(100, 999)} "
+                f"{rng.integers(10, 99)} {rng.integers(10, 99)}")
+
+    def emit(seg: str, body: bytes) -> None:
+        payload = ebcdic_encode(seg, 1) + body
+        chunks.append(_rdw(len(payload)) + payload)
+
+    def put_contract() -> None:
+        amount_type = int(rng.integers(0, 4))
+        if amount_type == 0:
+            amount = int(rng.integers(0, 89999999)) + 10000
+        elif amount_type == 1:
+            amount = int(rng.integers(0, 99)) * 100 + 10000
+        elif amount_type == 2:
+            amount = int(rng.integers(0, 89999)) + 100000
+        else:
+            amount = int(rng.integers(0, 89999999)) + 10000000
+        due = (f"{rng.integers(1990, 2020):04d}-"
+               f"{rng.integers(1, 13):02d}-{rng.integers(1, 29):02d}")
+        body = (ebcdic_encode(str(rng.integers(0, 1000000)), 15)
+                + ebcdic_encode(
+                    _CONTRACT_STATES[rng.integers(
+                        0, len(_CONTRACT_STATES))], 8)
+                + ebcdic_encode(due, 10)
+                + encode_comp3_unsigned(
+                    np.asarray([amount]), 12).tobytes())
+        emit("7", body)
+
+    def put_customer() -> None:
+        body = (ebcdic_encode(
+                    _COMPANIES[rng.integers(0, len(_COMPANIES))], 20)
+                + ebcdic_encode(f"{rng.integers(1, 500)} Main Street", 30)
+                + ebcdic_encode(
+                    str(rng.integers(100000000, 999999999)), 10))
+        emit("5", body)
+        n_contacts, n_contracts = (int(rng.integers(0, 3)),
+                                   int(rng.integers(0, 5)))
+        for _ in range(n_contacts):
+            body = (ebcdic_encode(
+                        _EXP1_NAMES[rng.integers(0, len(_EXP1_NAMES))], 16)
+                    + ebcdic_encode(
+                        _LAST[rng.integers(0, len(_LAST))], 16)
+                    + ebcdic_encode(phone(), 17))
+            emit("6", body)
+        for _ in range(n_contracts):
+            put_contract()
+
+    def put_department() -> None:
+        body = (ebcdic_encode(
+                    _DEPARTMENTS[rng.integers(0, len(_DEPARTMENTS))], 22)
+                + encode_display_unsigned(
+                    np.asarray([rng.integers(100000, 999999)]),
+                    6).tobytes())
+        emit("2", body)
+        n_employees, n_offices = (int(rng.integers(0, 7)),
+                                  int(rng.integers(0, 4)))
+        for _ in range(n_employees):
+            body = (ebcdic_encode(
+                        _EXP1_NAMES[rng.integers(0, len(_EXP1_NAMES))], 16)
+                    + ebcdic_encode(
+                        _LAST[rng.integers(0, len(_LAST))], 16)
+                    + ebcdic_encode(
+                        _ROLES[rng.integers(0, len(_ROLES))], 18)
+                    + ebcdic_encode(
+                        f"{rng.integers(1, 500)} Main Street", 40)
+                    + ebcdic_encode(phone(), 17))
+            emit("3", body)
+        for _ in range(n_offices):
+            body = (ebcdic_encode(
+                        f"{rng.integers(1, 500)} Main Street", 30)
+                    + encode_display_unsigned(
+                        np.asarray([rng.integers(0, 120)]), 3).tobytes()
+                    + encode_display_unsigned(
+                        np.asarray([rng.integers(0, 3000)]), 4).tobytes())
+            emit("4", body)
+
+    for _ in range(num_companies):
+        body = (ebcdic_encode(
+                    _COMPANIES[rng.integers(0, len(_COMPANIES))], 20)
+                + ebcdic_encode(f"{rng.integers(1, 500)} Main Street", 30)
+                + int(rng.integers(100000000, 999999999)).to_bytes(
+                    4, "big"))
+        emit("1", body)
+        n_departments, n_customers = (int(rng.integers(0, 5)),
+                                      int(rng.integers(0, 5)))
+        for _ in range(n_departments):
+            put_department()
+        for _ in range(n_customers):
+            put_customer()
+    return b"".join(chunks)
+
+
+# -- a variable-size OCCURS layout that shifts a later field ----------------
+
+# a DEPENDING ON table followed by a trailer: the trailer's offset depends
+# on the record's count, so no static columnar plan exists and the JAX
+# package decodes such records on the host, row by row
+DYNAMIC_OCCURS_COPYBOOK = """
+        01  ORDER-RECORD.
+            05  ORDER-ID          PIC X(8).
+            05  CUSTOMER          PIC X(12).
+            05  ITEM-COUNT        PIC 9(2) COMP.
+            05  ITEMS OCCURS 1 TO 20 TIMES DEPENDING ON ITEM-COUNT.
+               10  ITEM-ID        PIC 9(5) COMP-3.
+               10  AMOUNT         PIC S9(7)V99 COMP-3.
+            05  TRAILER           PIC X(6).
+"""
+
+
+def generate_dynamic_occurs(num_records: int, seed: int = 100,
+                            max_count: int = 20) -> bytes:
+    """`num_records` records of `DYNAMIC_OCCURS_COPYBOOK`, each with 1 to
+    `max_count` items and the trailer after them, laid end to end (no
+    header: the variable-size OCCURS extractor frames them by their
+    count)."""
+    rng = np.random.default_rng(seed)
+    n = num_records
+    counts = rng.integers(1, max_count + 1, size=n)
+    head = np.concatenate([
+        _digit_bytes(rng.integers(0, 10 ** 8, size=n), 8, 0xF0),
+        _letters(rng, n, 12, _ENCODE_LUT),
+        encode_comp_be(counts, 2)], axis=1)
+    m = int(counts.sum())
+    amounts = rng.integers(0, 10 ** 9, size=m)
+    items = np.concatenate([
+        encode_comp3_unsigned(rng.integers(0, 10 ** 5, size=m), 5),
+        _comp3(amounts, 9, rng.random(m) < 0.3)], axis=1)
+    body = np.split(items.reshape(-1), np.cumsum(counts * 8)[:-1])
+    tail = _letters(rng, n, 6, _ENCODE_LUT)
+    return b"".join(h.tobytes() + d.tobytes() + t.tobytes()
+                    for h, d, t in zip(head, body, tail))

@@ -4,14 +4,15 @@ the CPU.
 Records framed by a record-length field, text lines, the header parsers
 by name, a custom header parser and a custom record extractor by dotted
 path (one class written against each package's base class) and
-variable-size OCCURS go with the same bytes to ``cobrix_tpu.read_cobol``
+variable-size OCCURS (the dynamic layouts through the host row walk) go
+with the same bytes to ``cobrix_tpu.read_cobol``
 (numpy backend, one thread) and to ``cobrix_tpu_torch.read_cobol(...,
 device="cpu")``: sequential, through the sparse index
 (``sparse_index_generator``) and pipelined, under every record error
 policy. The rows, the JSON lines, the Arrow table and the ledger must be
 equal, or both reads must raise the same error. Where the JAX package
-has a fault (ROADMAP C6, C7) the port is held to the JAX package's read
-without the index instead.
+has a fault (ROADMAP C6, C7, C8) the port is held to the JAX package's
+read without the index instead.
 """
 import json
 
@@ -472,13 +473,77 @@ DYNAMIC_OCCURS_COPYBOOK = """
 def test_dynamic_occurs_layout_is_refused(tmp_path):
     """A DEPENDING ON table followed by another field shifts that field
     per record; the JAX package decodes such records on the host, row by
-    row, and the port refuses them, naming ROADMAP A4d."""
+    row. The port, which refused them until it had that row walk, now
+    reads them the same: the same rows, table and JSON lines."""
     path = _write(tmp_path, "d.dat", b"2AABBXYZ0QRS")
     options = dict(copybook_contents=DYNAMIC_OCCURS_COPYBOOK,
                    encoding="ascii", variable_size_occurs="true")
-    assert len(cobrix_tpu.read_cobol(path, **options)) == 2
-    with pytest.raises(ValueError, match="A4d"):
-        cobrix_tpu_torch.read_cobol(path, device="cpu", **options)
+    got = _same(path, options)
+    assert [row[0][2] for row in got[1]] == ["XYZ", "QRS"]
+
+
+NESTED_OCCURS_COPYBOOK = """
+       01  REC.
+           05  CNT         PIC 9(1).
+           05  GROUPS      OCCURS 0 TO 2 TIMES DEPENDING ON CNT.
+              10  INNER    PIC 9(1).
+              10  ITEMS    OCCURS 0 TO 3 TIMES DEPENDING ON INNER.
+                 15  ITEM  PIC X(1).
+"""
+
+
+@pytest.mark.parametrize("split", [None, "2"], ids=["whole", "indexed"])
+@pytest.mark.parametrize("layout", ["trailer", "nested"])
+def test_dynamic_occurs_layouts(tmp_path, layout, split):
+    """The row walk of the dynamic layouts: a table followed by a
+    trailer, and a DEPENDING ON table nested in another; whole, split
+    and pipelined."""
+    if layout == "trailer":
+        data = b"2AABBXYZ0QRS1CCTUV3DDEEFFWWW"
+        copybook = DYNAMIC_OCCURS_COPYBOOK
+    else:
+        # counts 0; 1 of 2 items; 2 of (2, 0) items; 1 of 3 items
+        data = b"0" + b"12AB" + b"22BC0" + b"13DEF"
+        copybook = NESTED_OCCURS_COPYBOOK
+    options = dict(copybook_contents=copybook, encoding="ascii",
+                   variable_size_occurs="true", generate_record_id="true")
+    if split:
+        options["input_split_records"] = split
+    got = _same(_write(tmp_path, "dl.dat", data), options,
+                pipelined=bool(split))
+    assert len(got[1]) == 4
+
+
+# -- a shard of text that starts on an over-long line (ROADMAP C8) -------------
+
+@pytest.mark.parametrize("workers", ["0", "2"], ids=["sequential",
+                                                     "pipelined"])
+@pytest.mark.parametrize("split", ["20", "10"])
+@pytest.mark.parametrize("endings", ["crlf", "lf"])
+def test_split_text_starts_after_the_previous_line_end(tmp_path, endings,
+                                                       split, workers):
+    """Line 20 is 15 bytes longer than a record, and a shard starts at
+    it: the shard cuts it where the whole-file read does, after a CRLF
+    line as after an LF one. The JAX package's split read cuts it a byte
+    later after CRLF, so the port is held to its read without the
+    index."""
+    lines = gen.generate_text(40, seed=5).split(b"\n")
+    if endings == "lf":
+        lines = [line.rstrip(b"\r") for line in lines]
+    line = lines[20]
+    end = b"\r" if line.endswith(b"\r") else b""
+    lines[20] = line[:len(line) - len(end)] + b"X" * 15 + end
+    assert lines[19].endswith(b"\r") == (endings == "crlf")
+    path = _write(tmp_path, "t.txt", b"\n".join(lines))
+    options = dict(copybook_contents=gen.TEXT_COPYBOOK, is_text="true",
+                   encoding="ascii")
+    whole = cobrix_tpu.read_cobol(path, backend="numpy", parallelism="1",
+                                  enable_indexes="false", **options)
+    got = cobrix_tpu_torch.read_cobol(path, device="cpu",
+                                      input_split_records=split,
+                                      pipeline_workers=workers, **options)
+    assert got.to_rows() == whole.to_rows()
+    assert got.to_arrow().equals(whole.to_arrow())
 
 
 # -- the incremental indexer -----------------------------------------------------

@@ -419,7 +419,7 @@ def test_comment_bounds(tmp_path, opts):
 @pytest.mark.parametrize("option,value", [
     ("pedantic", "true"), ("filter", "A == 'x'"),
     ("use_stats", "true"), ("field_costs", "true"), ("trace_file", "t.json"),
-    ("segment-children:0", "A => B"), ("hosts", "2"),
+    ("stream_batch_rows", "10"), ("hosts", "2"),
     ("cache_dir", "cache")])
 def test_options_outside_the_slice_still_raise(tmp_path, option, value):
     path = _write(tmp_path, "e1.dat", gen.generate_exp1(2, seed=17))

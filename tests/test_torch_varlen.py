@@ -257,7 +257,7 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
 
 
 @pytest.mark.parametrize("option,value", [
-    ("segment-children:0", "STATIC-DETAILS => CONTACTS"),
+    ("use_stats", "true"),
     ("pedantic", "true"),
     ("hosts", "2"),
     ("cache_dir", "cache"),
