@@ -55,9 +55,9 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
 8. where one exp1 chunk's time goes: the file read, then one decode
    under ``torch.profiler`` (device time by kernel and copy, idle share);
 9. the pipelined read: the exp1, exp3 and exp2 files each read with
-   ``pipeline_workers`` 0, 2, -1 (auto) and 0 again, ``chunk_size_mb=64``
-   (decoded MB/s of each, in turns: sequential, pipelined, pipelined,
-   sequential), and exp2 once more in more than 50 shards
+   ``pipeline_workers`` 0 and 2, ``chunk_size_mb=64`` (decoded MB/s of
+   each; the auto width runs in phase 11 (b) and the traced read), and
+   exp2 once more in more than 50 shards
    (``input_split_records``), so that the pinned staging buffers are
    reused many times. Every read's host planes, record ids, Seg_Id
    columns and sampled rows are hashed: any difference from the
@@ -65,7 +65,8 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    (equal where the chunk or shard plan is the same). One pipelined exp1
    read runs under ``cobrix_tpu_torch.profiling.profile_trace``: the
    device's busy time and idle share of the wall, the host-to-device and
-   device-to-host copies (one pinned copy back per decoded batch), the
+   device-to-host copies (one pinned copy back per decoded batch, and
+   two more and two up for its table's assembly), the
    streams the work ran on and the copies' overlap with kernels, beside
    the executor's report (overlap factor, peak queue).
 
@@ -123,9 +124,11 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    ``with_input_file_name_col``, and a fixed-length multisegment file
    (``generate_fixed_segments``, 2,000,000 records) with
    ``segment_field`` and its redefine map: each table equals a
-   ``device="cpu"`` read's of the same file. ``fused_decode`` must
-   launch on every phase 11 read; its launches join the kernels line's
-   ``launches_by_path``.
+   ``device="cpu"`` read's of the same file. ``fused_decode`` and
+   ``arrow_scalars`` must launch on every phase 11 read (the tables are
+   built by the Arrow assembly kernels, in ``to_arrow`` or the pipelined
+   assemble stage), and each assembly kernel on one of them; their
+   launches join the kernels line's ``launches_by_path``.
 
 12. the permissive record error policies and the generic per-record
    reader: (a) the phase 4 exp2 file with seven
@@ -173,24 +176,51 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    table and a CPU read; (b) the 7-segment hierarchy
    (``generate_hierarchical``, 60,000 companies in 8 parts of seeds
    100-107, about 80 MB), whose roots cross a 64 MiB window: its table
-   and rows equal a CPU read's (JSON lines around the crossing root and
-   of the first and last 2,000 rows), the pipelined table the
-   sequential one; (c) the host row walk, on the host: the first 5,000
+   equals a CPU read's, the pipelined table the sequential one, and the
+   rows and JSON lines of its first 5,000 companies (about 6.7 MB) a
+   CPU read's; (c) the host row walk, on the host: the first 5,000
    companies read with ``select``, and 100,000 records of a DEPENDING
    ON table followed by a trailer (``generate_dynamic_occurs``), against
    CPU reads. Every read prints its MB/s and rows a second, its frame /
    decode / assemble seconds, its launches, the peak device memory, the
    host RSS and ``assembly_stats`` (columnar, no bail, on (a) and (b)).
+   The assembly kernels must launch on (a) and (b).
 
-Every failure exits non-zero. The last two lines are the kernels JSON and
+14. the Arrow assembly (``ops.arrow_assemble``, ``csrc/arrow_assemble
+   .cu``): (a) each of its four kernels against its plain version from
+   the same state, every byte of the output buffer, the tile sums and
+   the block counter, over the grid of ``testing/arrow_cases.py`` (every
+   kind and decimal mode; shifts 0, 18, 19, 38 and out of range;
+   precisions that overflow; all-valid, all-null and mixed validity;
+   hidden rows and row tables; 1, 31, 32, 33, 257, 4,097 and 44,949
+   rows; 2,000-slot arrays; strings of uint8 and uint16 code points,
+   non-ASCII, blank and empty, under each trim), the exp1 chunk's and
+   the exp3 'C' batch's (4,143 rows of the 2,000-slot plane) own plans,
+   and the assemblies of an exp2 prefix, the 7-segment hierarchy and
+   an exp3 hierarchy prefix (masks, positions, a joined batch's staged
+   planes); (b) the tables of phases 11 and 13 (a), built by these
+   kernels, equal the CPU reads' there; (c) at the exp1 chunk and the
+   exp3 'C' batch: each kernel's ``ms`` and ``device_ms``, its plain
+   version's time on the card, the bytes it must move over this run's
+   data and that bound's share, the copies up and back, one whole
+   assembly and the batch's table; and where the ``to_arrow`` of exp1,
+   exp3, exp2 and the exp3 hierarchy goes on one thread (the schema
+   walk, the plans, the assemblies with their copies, the rest on the
+   host); (d) the exp3 hierarchy's indexed
+   read and exp1's read + ``to_arrow`` at ``parallelism`` 1 and at its
+   default, min(16, cpu_count): equal tables, seconds.
+
+Every phase prints its seconds (``[phases]``). Every failure exits
+non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
 lines: it checks the script's paths, not the card. ``--phases 13`` (or
-``12``, or both) runs the environment, phase 4 and the phases named, and
-also exits 3 without the result lines.
+``12``, ``14``, or several) runs the environment, phase 4 (phase 14
+also phases 3 and 5) and the phases named, and also exits 3 without the
+result lines.
 """
 from __future__ import annotations
 
@@ -237,9 +267,20 @@ P13_EXP3 = {
     "redefine-segment-id-map:0": "STATIC-DETAILS => C",
     "redefine-segment-id-map:1": "CONTACTS => P",
     "segment-children:0": "STATIC-DETAILS => CONTACTS"}
-# the kernels of the reads, and the query path's aggregate
+# the kernels of the reads, the query path's aggregate and the Arrow
+# assembly's four
 READ_KERNELS = ("fused_decode", "rdw_scan", "pack_records")
-KERNELS = READ_KERNELS + ("aggregate",)
+ARROW_KERNELS = ("arrow_scalars", "arrow_str_lengths", "arrow_str_offsets",
+                 "arrow_str_copy")
+KERNELS = READ_KERNELS + ("aggregate",) + ARROW_KERNELS
+ARROW_SOURCE = "cobrix_tpu_torch/csrc/arrow_assemble.cu"
+# the host C++ of the JAX package's native decode->Arrow routes each
+# assembly kernel replaces (no TPU kernel)
+ARROW_REPLACES = {
+    "arrow_scalars": "cobrix_tpu/native/columnar.cpp:518",
+    "arrow_str_lengths": "cobrix_tpu/native/framing.cpp:600",
+    "arrow_str_offsets": "cobrix_tpu/native/framing.cpp:600",
+    "arrow_str_copy": "cobrix_tpu/native/framing.cpp:600"}
 AGG_SOURCE = "cobrix_tpu_torch/csrc/aggregate.cu"
 # the reduction body of DeviceAggregator._build the aggregate kernel replaces
 AGG_REPLACES = "cobrix_tpu/parallel/query.py:123"
@@ -249,7 +290,8 @@ QUERY_FIELDS = ("NUM1", "NUM2")
 AGG_KINDS = {0: "K_I32", 1: "K_I64", 2: "K_WIDE"}
 AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 # phases `--phases` can run alone (after the environment and phase 4)
-PHASES = {"12": "phase_generic", "13": "phase_hierarchical"}
+PHASES = {"12": "phase_generic", "13": "phase_hierarchical",
+          "14": "phase_assembly"}
 
 
 class SmokeFailure(Exception):
@@ -380,6 +422,7 @@ class Smoke:
         self.max_err = dict.fromkeys(KERNELS, 0.0)
         self.agg_rel_err = 0.0  # the aggregate's sums: largest relative error
         self.launches = {}   # path -> kernel -> launches on that path
+        self.phase_secs = {}  # phase -> seconds
         self.tmp = tempfile.mkdtemp(prefix="cobrix_smoke_")
 
     def sync(self):
@@ -1277,7 +1320,7 @@ class Smoke:
         for kind, path, cb, opts in files:
             size = os.path.getsize(path)
             runs = []
-            for workers in (0, 2, -1, 0):
+            for workers in (0, 2):
                 secs, digest, records, metrics, launches = \
                     self._pipelined_read(kind, path, cb, workers, **opts)
                 runs.append(dict(workers=workers, secs=secs,
@@ -1296,12 +1339,9 @@ class Smoke:
                 check(digest == runs[0]["digest"],
                       f"{kind} workers {workers}: planes or rows differ "
                       f"from the sequential read")
-            seq, pipe2, auto = runs[0], runs[1], runs[2]
+            seq, pipe2 = runs[0], runs[1]
             self.launches[f"pipeline_{kind}"] = pipe2["launches"]
             if not self.rehearsal:
-                check(pipe2["launches"] == auto["launches"],
-                      f"{kind}: the same shard plan launched "
-                      f"{pipe2['launches']} and {auto['launches']}")
                 if kind == "exp1":
                     check(pipe2["launches"] == seq["launches"],
                           f"exp1: the same chunk plan launched "
@@ -1315,7 +1355,7 @@ class Smoke:
                           f"{kind}: a kernel of the RDW path never "
                           f"launched: {pipe2['launches']}")
             log(f"[pipeline] {self.card}: {kind} MB/s in turns (workers 0, "
-                f"2, auto, 0): " + " / ".join(
+                f"2): " + " / ".join(
                     f"{r['mb_per_s']:.1f}" for r in runs)
                 + "; outputs equal by hash")
             self.pipeline[kind] = [{k: v for k, v in r.items()
@@ -1430,12 +1470,16 @@ class Smoke:
             pinned_h2d = sum(v for k, v in by_name.items()
                              if k.startswith("Memcpy HtoD")
                              and "Pinned" in k)
-            check(pinned_d2h == batches and pageable_d2h == 0,
+            # a batch: the decode's one copy back, and its table's
+            # assembly (the string data's size, then every Arrow buffer
+            # in one copy); up: the chunk, and the assembly's planes and
+            # tables
+            check(pinned_d2h == 3 * batches and pageable_d2h == 0,
                   f"traced read: {pinned_d2h} pinned and {pageable_d2h} "
-                  f"pageable copies back for {batches} batches")
-            check(pinned_h2d == report["chunks"],
+                  f"pageable copies back for {batches} batches (3 each)")
+            check(pinned_h2d == 3 * report["chunks"],
                   f"traced read: {pinned_h2d} pinned copies to the card "
-                  f"for {report['chunks']} chunks")
+                  f"for {report['chunks']} chunks (3 each)")
             check(len(streams["kernel"]) >= 2,
                   f"traced read: kernels ran on {len(streams['kernel'])} "
                   f"stream(s)")
@@ -1951,7 +1995,8 @@ class Smoke:
         if not self.rehearsal:
             for path, kernels in (("query_blocks", ("fused_decode",
                                                     "aggregate")),
-                                  ("query_pipeline", KERNELS),
+                                  ("query_pipeline",
+                                   READ_KERNELS + ("aggregate",)),
                                   ("query_stats", ("fused_decode",))):
                 for k in kernels:
                     check(self.launches[path].get(k, 0) > 0,
@@ -1961,12 +2006,16 @@ class Smoke:
 
     def _counted_read(self, tag, path, **opts):
         """read_cobol on the default device with each read kernel's
-        launches counted from 0 and recorded under path `tag`;
-        (data, seconds)."""
+        launches counted from 0 and recorded under path `tag`, and the
+        assembly kernels' counted from 0 too (`_count_arrow` adds them
+        after the table is built); (data, seconds)."""
         from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
         from cobrix_tpu_torch.ops import device_framing as df
         from cobrix_tpu_torch.ops.fused_decode import fused_decode
 
+        for fn in asm.KERNELS.values():
+            fn.launches = 0
         counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
                     "pack_records": df.pack_records}
         kw = {"device": "cpu"} if self.rehearsal else {}
@@ -1983,6 +2032,19 @@ class Smoke:
             check(self.launches[tag]["fused_decode"] > 0,
                   f"fused_decode never launched on the {tag} path")
         return data, secs
+
+    def _count_arrow(self, tag):
+        """The assembly kernels' launches since `_counted_read` began (its
+        `to_arrow`, or its pipelined assemble stage) join path `tag`;
+        the scalar kernel must have launched on the card."""
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+
+        got = {k: fn.launches for k, fn in asm.KERNELS.items()}
+        self.launches[tag].update({k: v for k, v in got.items() if v})
+        if not self.rehearsal:
+            check(got["arrow_scalars"] > 0,
+                  f"arrow_scalars never launched on the {tag} path")
+        return got
 
     def _same_table(self, got, want, what):
         """Equal schemas (metadata included) and equal columns, structs
@@ -2046,6 +2108,7 @@ class Smoke:
             t0 = time.perf_counter()
             table = data.to_arrow()
             arrow_s = time.perf_counter() - t0
+            self._count_arrow(f"arrow_{kind}")
             res = dict(bytes=size, read_s=read_s, to_arrow_s=arrow_s,
                        MBps=size / (read_s + arrow_s) / 1e6,
                        rows=table.num_rows, columns=table.num_columns,
@@ -2098,6 +2161,7 @@ class Smoke:
                     pipeline_workers=str(workers),
                     chunk_size_mb=self.pipe_chunk_mb, **opts)
                 table = data.to_arrow()
+                self._count_arrow(f"arrow_pipeline_{kind}")
                 parts = [got[i] for i in sorted(got) if got[i] is not None]
                 check(len(parts) == len(data.parts), f"{kind}: "
                       f"{len(parts)} tables delivered for "
@@ -2125,6 +2189,11 @@ class Smoke:
         log("[arrow] delivered tables in index order == to_arrow() minus "
             "its metadata, every read")
         self._arrow_options()
+        if not self.rehearsal:
+            for k in ARROW_KERNELS:
+                check(any(n.get(k) for tag, n in self.launches.items()
+                          if tag.startswith(("arrow_", "options_"))),
+                      f"{k} never launched on a phase 11 read")
 
     def _arrow_options(self):
         """Phase 11 (c): an ASCII fixed-length file, the exp1 records
@@ -2175,6 +2244,7 @@ class Smoke:
             t0 = time.perf_counter()
             table = data.to_arrow()
             arrow_s = time.perf_counter() - t0
+            self._count_arrow(f"options_{kind}")
             want = read_cobol(path, device="cpu", **opts).to_arrow()
             self._same_table(table, want, kind)
             res = dict(bytes=size, records=table.num_rows, read_s=read_s,
@@ -2691,12 +2761,15 @@ class Smoke:
         process's peak so far) and ``assembly_stats``. `walk`: the host row walk,
         which launches no kernel. (data, table, record of the read)."""
         from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
         from cobrix_tpu_torch.ops import device_framing as df
         from cobrix_tpu_torch.ops.fused_decode import fused_decode
         from cobrix_tpu_torch.reader.hierarchical_arrow import assembly_stats
 
         counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
                     "pack_records": df.pack_records}
+        for fn in asm.KERNELS.values():
+            fn.launches = 0
         kw = {"device": "cpu"} if self.rehearsal else {}
         if not self.rehearsal:
             self.torch.cuda.reset_peak_memory_stats()
@@ -2712,11 +2785,15 @@ class Smoke:
         t0 = time.perf_counter()
         table = data.to_arrow()
         arrow_s = time.perf_counter() - t0
+        # the assembly kernels launch in to_arrow, or in the pipelined
+        # read's assemble stage
+        launches.update((k, fn.launches) for k, fn in asm.KERNELS.items())
         self.launches[tag] = {k: v for k, v in launches.items()
                               if v or k == "fused_decode"}
         if not self.rehearsal and not walk:
             for k, v in launches.items():
-                check(v > 0, f"{k} never launched on the {tag} read")
+                check(v > 0 or k in ARROW_KERNELS[1:],
+                      f"{k} never launched on the {tag} read")
         m = data.metrics.as_dict()
         peak_dev = (None if self.rehearsal
                     else self.torch.cuda.max_memory_allocated())
@@ -2896,9 +2973,19 @@ class Smoke:
         opts = self._p13_seven_options(g)
         seq, table, res = self._p13_read("p13_seven", path, size, **opts)
         self._p13_columnar(res, "7-segment")
+        # rows and JSON lines: of the first `prefix_roots` companies
+        # (their nesting walk takes about 0.4 ms a row)
+        prefix_roots = min(len(roots), 50 if self.rehearsal else 5_000)
+        cut = (int(starts[roots[prefix_roots]])
+               if prefix_roots < len(roots) else size)
+        ppath = os.path.join(self.tmp, "p13hp.dat")
+        with open(ppath, "wb") as f:
+            f.write(raw[:cut])
+        pre, _, _ = self._p13_read("p13_seven_prefix", ppath, cut, **opts)
+        os.remove(ppath)
         t1 = time.perf_counter()
-        rows = seq.to_rows()
-        lines = seq.to_json_lines()
+        rows = pre.to_rows()
+        lines = pre.to_json_lines()
         rows_s = time.perf_counter() - t1
         split = "500" if self.rehearsal else "200000"
         pip, ptable, pres = self._p13_read(
@@ -2909,30 +2996,32 @@ class Smoke:
               "from the sequential one")
         cpu, ctable = self._p13_cpu(raw, "p13h.dat", **opts)
         self._same_table(table, ctable, "7-segment table")
-        cpu_rows = cpu.to_rows()
-        check(rows == cpu_rows, "7-segment: rows differ from the "
+        cpu_pre, _ = self._p13_cpu(raw[:cut], "p13hc.dat", **opts)
+        cpu_rows = cpu_pre.to_rows()
+        check(rows == cpu_rows, "7-segment prefix: rows differ from the "
               "device='cpu' read")
-        # JSON lines: the CPU read's of the rows around the crossing root
-        # and of the first and last 2,000 (rows_to_json is what
-        # to_json_lines runs over the rows)
-        c = int(np.searchsorted(roots, crossing[0]))
+        # JSON lines: the CPU read's of the prefix's first and last 2,000
+        # rows (rows_to_json is what to_json_lines runs over the rows);
+        # the crossing root's nesting is in the whole file's table
         j = min(2000, len(rows))
-        for lo, hi in ((0, j), (max(0, c - 50), c + 50),
-                       (len(rows) - j, len(rows))):
-            check(lines[lo:hi] == rows_to_json(cpu_rows[lo:hi], cpu.schema),
+        for lo, hi in ((0, j), (len(rows) - j, len(rows))):
+            check(lines[lo:hi] == rows_to_json(cpu_rows[lo:hi],
+                                               cpu_pre.schema),
                   f"7-segment: JSON lines {lo}-{hi} differ from the "
                   f"device='cpu' read's")
-        log(f"[p13] 7-segment: to_rows + to_json_lines {rows_s:.3f} s; "
-            f"{len(rows)} rows; pipelined ({pres['shards']} shards) table "
-            f"== sequential; table and rows == device='cpu' read, JSON "
-            f"lines of the first, last and crossing rows too; (b) "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[p13] 7-segment: to_rows + to_json_lines of the first "
+            f"{prefix_roots} companies {rows_s:.3f} s; {len(rows)} rows; "
+            f"pipelined ({pres['shards']} shards) table == sequential; "
+            f"table == device='cpu' read (the crossing root's too), the "
+            f"prefix's rows and JSON lines of its first and last rows "
+            f"too; (b) {time.perf_counter() - t0:.1f} s")
         self.p13["seven"] = dict(companies=companies, records=len(offsets),
                                  bytes=size, crossing_root=crossing[0],
+                                 prefix_companies=prefix_roots,
                                  rows_and_json_s=rows_s)
         self.p13_seven_raw = (raw, starts, roots)
         os.remove(path)
-        del seq, table, pip, ptable, cpu, ctable, rows, lines, cpu_rows
+        del seq, table, pip, ptable, cpu, ctable, rows, lines, cpu_rows, pre
 
     def _p13_walk(self):
         np = self.np
@@ -2990,6 +3079,400 @@ class Smoke:
             f"{time.perf_counter() - t0:.1f} s")
         del got, table, rows
 
+    # -- phase 14: the Arrow assembly on the card --------------------------
+
+    def _asm_steps(self, src, aux, plan):
+        """The assembly's four steps: (kernel, its wrapper and plain
+        version, whether the plan runs it, a call over a state)."""
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+
+        return [
+            ("arrow_scalars", asm.scalars, asm.scalars_plain,
+             plan.num_tiles > 0, lambda f, st: f(src, aux, plan, st[0])),
+            ("arrow_str_lengths", asm.str_lengths, asm.str_lengths_plain,
+             plan.str_tiles > 0,
+             lambda f, st: f(src, aux, plan, st[0], st[1])),
+            ("arrow_str_offsets", asm.str_offsets, asm.str_offsets_plain,
+             plan.str_tiles > 0,
+             lambda f, st: f(aux, plan, st[0], st[1], st[2])),
+            ("arrow_str_copy", asm.str_copy, asm.str_copy_plain,
+             plan.str_tiles > 0,
+             lambda f, st: f(src, aux, plan, st[0], st[1]))]
+
+    def _hold_assembly(self, plan, what):
+        """Each step's kernel against its plain version from the same
+        state, every byte of the output buffer, the tile sums and the
+        block counter; the next step starts from the kernel's state."""
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+
+        src, aux = asm.upload(plan)
+        state = asm.new_state(plan, self.device)
+        held = []
+        for name, kernel, plain, runs, call in self._asm_steps(src, aux,
+                                                               plan):
+            if not runs:
+                continue
+            want = tuple(t.clone() for t in state)
+            call(kernel, state)
+            call(plain, want)
+            for a, b, part in zip(state, want,
+                                  ("output buffer", "tile sums", "counter")):
+                self.same_on_card(a, b, f"{what}: {name} {part}", name)
+            held.append(name)
+        return held
+
+    def _batch_plan(self, batch, active, policy):
+        """The assembly plan of one decoded batch's table: the requests
+        of the builder's walk over the batch's own host buffer."""
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.reader.arrow_out import ArrowBatchBuilder
+
+        builder = ArrowBatchBuilder(batch, active)
+        builder.request_body(policy)
+        return asm.build_plan(builder.leaves.requests, batch.host_buffer,
+                              batch.decoder.device)
+
+    def _captured_plans(self, read):
+        """The plans of every assembly `read()` runs (its tables' leaves,
+        a hierarchy's masked and positioned ones included)."""
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.reader import arrow_out
+
+        seen = []
+        real = arrow_out._Leaves.run
+
+        def run(leaves):
+            if leaves.requests:
+                seen.append(leaves)
+            return real(leaves)
+        arrow_out._Leaves.run = run
+        try:
+            read()
+        finally:
+            arrow_out._Leaves.run = real
+        return [asm.build_plan(l.requests, l.batch.host_buffer,
+                               l.batch.decoder.device) for l in seen]
+
+    def phase_assembly(self):
+        """Phase 14: (a) the assembly's kernels against their plain
+        version, (c) their times beside the bound, (d) `parallelism`
+        (see the module docstring)."""
+        t_phase = time.perf_counter()
+        self.asm14 = {"held": {}}
+        self._p14_hold()
+        self._p14_times()
+        self._p14_split()
+        self._p14_parallelism()
+        self.asm14["secs"] = time.perf_counter() - t_phase
+        log(f"[p14] phase 14: {self.asm14['secs']:.1f} s")
+
+    def _p14_hold(self):
+        np = self.np
+        from cobrix_tpu_torch import ColumnarDecoder, parse_copybook
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.copybook.datatypes import SchemaRetentionPolicy
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.testing import arrow_cases
+        from cobrix_tpu_torch.testing import generators as g
+
+        t0 = time.perf_counter()
+        held = {k: 0 for k in ARROW_KERNELS}
+        pin = not self.rehearsal
+        cases = [(f"grid of {n} rows", n, 3)
+                 for n in (1, 31, 32, 33, 257, 4097)]
+        cases.append(("grid of an exp1 chunk's 44,949 rows"
+                      if not self.rehearsal else "grid of 600 rows",
+                      600 if self.rehearsal else 44_949, 3))
+        cases.append(("grid of 257 rows, 2,000 slots", 257,
+                      20 if self.rehearsal else 2_000))
+        for what, n, slots in cases:
+            requests, buf = arrow_cases.grid(n, seed=n, slots=slots, pin=pin)
+            plan = asm.build_plan(requests, buf, self.device)
+            check(not plan.staged, f"{what}: the plan staged its planes")
+            for k in self._hold_assembly(plan, what):
+                held[k] += 1
+        keep = SchemaRetentionPolicy.KEEP_ORIGINAL
+        # the main path's shapes: an exp1 chunk, an exp3 window's 'C'
+        # batch (4,143 records of the 2,000-slot plane)
+        exp1 = ColumnarDecoder(parse_copybook(g.EXP1_COPYBOOK),
+                               device=self.device).decode(self.exp1_chunk)
+        c_rows = 30 if self.rehearsal else 4_143
+        exp3 = ColumnarDecoder(parse_copybook(g.EXP3_COPYBOOK),
+                               active_segment="STATIC_DETAILS",
+                               device=self.device).decode(self.exp3[:c_rows])
+        self.asm14["batches"] = {"exp1 chunk": (exp1, None),
+                                 "exp3 'C' batch": (exp3, "STATIC_DETAILS")}
+        for what, (batch, active) in self.asm14["batches"].items():
+            plan = self._batch_plan(batch, active, keep)
+            check(not plan.staged, f"{what}: the plan staged its planes")
+            for k in self._hold_assembly(plan, what):
+                held[k] += 1
+        # the reads' own assemblies: exp2's strings, the hierarchies'
+        # hidden rows and positions (the planes of a joined batch staged)
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        raw, (offsets, lengths) = self.rdw_walk["exp2"]
+        k = self.n_check["exp2"]
+        e2 = os.path.join(self.tmp, "p14e2.dat")
+        with open(e2, "wb") as f:
+            f.write(raw[:offsets[k - 1] + lengths[k - 1]])
+        seven = self._write_rdw("hierarchical", 60 if self.rehearsal
+                                else 600, 100)
+        raw3, (o3, l3) = self.rdw_walk["exp3"]
+        m = min(3000, len(o3))
+        e3 = os.path.join(self.tmp, "p14e3.dat")
+        with open(e3, "wb") as f:
+            f.write(raw3[:o3[m - 1] + l3[m - 1]])
+        reads = [("exp2 prefix", e2, dict(copybook_contents=g.EXP2_COPYBOOK,
+                                          **RDW_OPTIONS)),
+                 ("7-segment hierarchy", seven,
+                  self._p13_seven_options(g)),
+                 ("exp3 hierarchy prefix", e3,
+                  dict(copybook_contents=g.EXP3_COPYBOOK, **P13_EXP3))]
+        for what, path, opts in reads:
+            plans = self._captured_plans(
+                lambda: read_cobol(path, **opts, **kw).to_arrow())
+            check(plans, f"{what}: no assembly ran")
+            for i, plan in enumerate(plans):
+                for kname in self._hold_assembly(plan, f"{what} {i}"):
+                    held[kname] += 1
+            os.remove(path)
+        self.asm14["held"] = held
+        if not self.rehearsal:
+            for kname, count in held.items():
+                check(count > 0, f"{kname} was never held to its plain "
+                      f"version")
+        log(f"[p14] (a) each assembly kernel == its plain version, every "
+            f"byte of the output buffer, tile sums and counter, from the "
+            f"same state: {json.dumps(held)} plans each (grid: every kind, "
+            f"decimal mode, shift window, validity, hidden rows, row "
+            f"tables, 2,000-slot arrays, strings of uint8 and uint16 code "
+            f"points under each trim; the exp1 chunk, the exp3 'C' batch, "
+            f"the exp2 prefix's and the hierarchies' own assemblies); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def _p14_bytes(self, plan, res):
+        """The bytes each step must move over this run's data: each input
+        read once (a hidden row's planes are not), each output written
+        once."""
+        np = self.np
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+
+        moved = dict.fromkeys(ARROW_KERNELS, 0)
+        for i, r in enumerate(plan.requests):
+            L, S = r.length, len(r.planes)
+            rows = (np.repeat(np.asarray(r.rows), S) if r.rows is not None
+                    else np.arange(L) // S)
+            seen = (L if r.mask is None
+                    else int(np.count_nonzero(np.asarray(r.mask)[rows])))
+            tables = 8 * (L // S) * (r.rows is not None) + (
+                L if r.mask is not None else 0)
+            if r.is_string:
+                cps = seen * r.width * (2 if r.src_kind == asm.SRC_CP16
+                                        else 1)
+                tiles = -(-L // asm.TILE)
+                moved["arrow_str_lengths"] += cps + tables + 4 * (L + 1) \
+                    + 8 * tiles
+                moved["arrow_str_offsets"] += 16 * tiles + 32
+                moved["arrow_str_copy"] += cps + tables + 8 * L + 8 * tiles \
+                    + int(res.counters[i, asm.C_TOTAL])
+                continue
+            per = sum(p.itemsize for p in r.planes[0].values())
+            moved["arrow_scalars"] += seen * per + tables + L * \
+                asm.OUT_ITEMSIZE[r.out_kind] + 4 * -(-L // 32)
+        return moved
+
+    def _p14_times(self):
+        """(c) each step's time at the exp1 chunk and the exp3 'C' batch
+        shapes (`ms`: events around the wrapper on an idle stream;
+        `device_ms`: device time alone), its plain version's on the
+        card, the bound of its bytes and its share; the copies up and
+        back and one whole assembly."""
+        torch = self.torch
+        from cobrix_tpu_torch.copybook.datatypes import SchemaRetentionPolicy
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.reader.arrow_out import segment_table
+
+        keep = SchemaRetentionPolicy.KEEP_ORIGINAL
+        self.asm14["times"] = []
+        for what, (batch, active) in self.asm14["batches"].items():
+            plan = self._batch_plan(batch, active, keep)
+            src, aux = asm.upload(plan)
+            state = asm.new_state(plan, self.device)
+            used = asm.run_steps(plan, src, aux, state)
+            res = asm.assemble(plan)
+            moved = self._p14_bytes(plan, res)
+            steps = self._asm_steps(src, aux, plan)
+            rec = dict(shape=what, rows=batch.n_records,
+                       requests=len(plan.requests),
+                       string_requests=len(plan.str_ids),
+                       source_bytes=int(plan.src.numel()),
+                       output_bytes=used, steps={})
+            # each step from the state before it, restored before a call
+            before = asm.new_state(plan, self.device)
+            for name, kernel, plain, runs, call in steps:
+                if not runs:
+                    continue
+                snap = tuple(t.clone() for t in before)
+
+                def reset(snap=snap):
+                    for a, b in zip(before, snap):
+                        a.copy_(b)
+                timing = {}
+                for key, fn, busy, reps in (
+                        ("ms", kernel, False, 20),
+                        ("device_ms", kernel, True, 20),
+                        ("plain_ms", plain, False, 3)):
+                    timing[key] = self._time_reset(
+                        lambda fn=fn: call(fn, before), reset, reps, busy)
+                reset()
+                call(kernel, before)
+                bound = moved[name] / HBM_BYTES_PER_S * 1e3
+                timing.update(bytes=moved[name], bound_ms=bound,
+                              share_of_bound=bound / timing["device_ms"])
+                rec["steps"][name] = timing
+            rec["device_ms"] = sum(t["device_ms"]
+                                   for t in rec["steps"].values())
+            rec["upload_ms"] = self._time(lambda: asm.upload(plan), 5)
+            out = state[0][:used]
+            host = torch.empty(used, dtype=torch.uint8,
+                               pin_memory=not self.rehearsal)
+            rec["download_ms"] = self._time(
+                lambda: host.copy_(out, non_blocking=True), 5)
+            rec["assemble_ms"] = self._time(lambda: asm.assemble(plan), 5)
+            t0 = time.perf_counter()
+            segment_table(batch, active, self._p14_schema(batch))
+            rec["table_s"] = time.perf_counter() - t0
+            self.asm14["times"].append(rec)
+            log(f"[p14] {self.card}: (c) {what}: {json.dumps(rec)}")
+            del src, aux, state, before, res
+
+    def _p14_split(self):
+        """(c) where `to_arrow` goes, on one thread: the walk of the
+        schema into requests (flat tables), the plans, the assemblies on
+        the card (copies up and back included) and the rest on the host
+        (the arrays over the buffers, structs and lists, the record-order
+        take, the concatenation)."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.reader.arrow_out import ArrowBatchBuilder
+        from cobrix_tpu_torch.testing import generators as g
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        spent = {}
+
+        def timed(owner, name, key):
+            real = getattr(owner, name)
+
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            setattr(owner, name, call)
+            return owner, name, real
+        self.asm14["split"] = {}
+        for what, path, opts in (
+                ("exp1", self.exp1_path,
+                 dict(copybook_contents=g.EXP1_COPYBOOK,
+                      debug_ignore_file_size="true")),
+                ("exp3", self.rdw_files["exp3"],
+                 dict(copybook_contents=g.EXP3_COPYBOOK, **RDW_OPTIONS)),
+                ("exp2", self.rdw_files["exp2"],
+                 dict(copybook_contents=g.EXP2_COPYBOOK, **RDW_OPTIONS)),
+                ("exp3 hierarchy", self.rdw_files["exp3"],
+                 dict(copybook_contents=g.EXP3_COPYBOOK, **P13_EXP3))):
+            data = read_cobol(path, parallelism="1", **opts, **kw)
+            spent.update(walk=0.0, plan=0.0, assemble=0.0)
+            saved = [timed(ArrowBatchBuilder, "request_body", "walk"),
+                     timed(asm, "build_plan", "plan"),
+                     timed(asm, "assemble", "assemble")]
+            try:
+                t0 = time.perf_counter()
+                data.to_arrow()
+                total = time.perf_counter() - t0
+            finally:
+                for owner, name, real in saved:
+                    setattr(owner, name, real)
+            rec = dict(to_arrow_s=total, parts=len(data.parts), **spent,
+                       rest_s=total - sum(spent.values()))
+            self.asm14["split"][what] = rec
+            log(f"[p14] {self.card}: (c) {what} to_arrow split, one "
+                f"thread: {json.dumps(rec)}")
+            del data
+
+    def _p14_schema(self, batch):
+        """An output schema for one batch's table (no generated
+        columns)."""
+        from cobrix_tpu_torch.reader.parameters import ReaderParameters
+        from cobrix_tpu_torch.reader.schema import output_schema_for
+
+        return output_schema_for(batch.decoder.copybook, ReaderParameters(),
+                                 is_var_len=False)
+
+    def _time_reset(self, fn, reset, reps, busy=False):
+        """`_time` with `reset()` run before each call, outside the
+        events (a step rewrites its state)."""
+        torch = self.torch
+        times = []
+        for i in range(reps + 2):
+            reset()
+            if self.rehearsal:
+                t0 = time.perf_counter()
+                fn()
+                dt = (time.perf_counter() - t0) * 1e3
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if busy:
+                    torch.cuda._sleep(2_000_000)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end)
+            if i >= 2:
+                times.append(dt)
+        return statistics.median(times)
+
+    def _p14_parallelism(self):
+        """(d) the exp3 hierarchy's indexed read and exp1's `to_arrow` at
+        `parallelism` 1 and at its default: equal tables, times."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.testing import generators as g
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        default = min(16, os.cpu_count() or 1)
+        runs = {}
+        for what, path, opts in (
+                ("exp3 hierarchy", self.rdw_files["exp3"],
+                 dict(copybook_contents=g.EXP3_COPYBOOK, **P13_EXP3)),
+                # phase 12 left a torn 700-byte tail on the exp1 file
+                ("exp1", self.exp1_path,
+                 dict(copybook_contents=g.EXP1_COPYBOOK,
+                      debug_ignore_file_size="true"))):
+            tables = []
+            for par in ("1", str(default)):
+                self.sync()
+                t0 = time.perf_counter()
+                data = read_cobol(path, parallelism=par, **opts, **kw)
+                self.sync()
+                read_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                table = data.to_arrow()
+                arrow_s = time.perf_counter() - t0
+                runs[f"{what} parallelism {par}"] = dict(
+                    read_s=read_s, to_arrow_s=arrow_s, parts=len(data.parts),
+                    MBps=os.path.getsize(path) / (read_s + arrow_s) / 1e6)
+                tables.append(table)
+                del data
+            check(tables[0].equals(tables[1]), f"{what}: the tables at "
+                  f"parallelism 1 and {default} differ")
+            del tables
+        self.asm14["parallelism"] = runs
+        log(f"[p14] {self.card}: (d) parallelism 1 against {default}: "
+            f"{json.dumps(runs)}; tables equal")
+
     def run(self):
         if self.only:
             # a subset: the environment, the RDW files, then the phases
@@ -2997,28 +3480,26 @@ class Smoke:
             try:
                 self.phase_env()
                 self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
+                if "14" in self.only:
+                    self.phase_main()
                 self.phase_rdw()
+                if "14" in self.only:
+                    self.phase_exp3()
                 for name in self.only:
                     getattr(self, PHASES[name])()
             finally:
                 shutil.rmtree(self.tmp, ignore_errors=True)
             return
         try:
-            self.phase_env()
-            self.phase_grid()
-            self.phase_framing_grid()
-            self.phase_main()
-            self.phase_rdw()
-            self.phase_exp3()
-            self.phase_timings()
-            self.phase_rdw_timings()
-            self.phase_profile()
-            self.phase_pipeline()
-            self.phase_query()
-            self.phase_arrow()
-            self.phase_recovery()
-            self.phase_generic()
-            self.phase_hierarchical()
+            for name in ("env", "grid", "framing_grid", "main", "rdw",
+                         "exp3", "timings", "rdw_timings", "profile",
+                         "pipeline", "query", "arrow", "recovery",
+                         "generic", "hierarchical", "assembly"):
+                t0 = time.perf_counter()
+                getattr(self, f"phase_{name}")()
+                self.phase_secs[name] = time.perf_counter() - t0
+                log(f"[phases] phase_{name}: "
+                    f"{self.phase_secs[name]:.1f} s")
         finally:
             shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -3065,6 +3546,19 @@ class Smoke:
             library_ms=None, shapes=self.query["aggregate"],
             max_rel_err_sums=self.agg_rel_err,
             modes_held=self.agg_modes_held))
+        # the assembly's kernels: headline at the exp1 chunk, every
+        # timed shape beside it
+        for name in ARROW_KERNELS:
+            shapes = [dict(shape=r["shape"], rows=r["rows"],
+                           **r["steps"][name])
+                      for r in self.asm14["times"] if name in r["steps"]]
+            head = shapes[0]
+            entries.append(dict(
+                name=name, route="cuda", source=ARROW_SOURCE,
+                replaces=ARROW_REPLACES[name], ms=head["ms"],
+                device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], library_ms=None, shapes=shapes,
+                plans_held=self.asm14["held"][name]))
         for e in entries:
             e.update(launches=sum(by_path[e["name"]].values()),
                      launches_by_path=by_path[e["name"]],

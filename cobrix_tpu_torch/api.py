@@ -46,8 +46,9 @@ in file and chunk order, equal to the sequential read's.
 ``pipeline_workers=0``, the default, is the sequential path.
 
 `CobolData` gives the decoded records as rows, dicts, JSON lines, a
-pyarrow Table (``reader.arrow_out``, built from the host planes) or a
-pandas DataFrame; `batch_callback` receives each chunk's table.
+pyarrow Table (``reader.arrow_out``: its buffers built on the device
+from the decoded planes, ``ops.arrow_assemble``) or a pandas DataFrame;
+`batch_callback` receives each chunk's table.
 
 Every input is sniffed for a compression codec first (the JAX
 package's ``compression`` detection): the port does not inflate yet
@@ -57,7 +58,11 @@ local files; any other scheme raises ValueError naming it.
 
 The options below are parsed with the JAX package's spellings and error
 messages (``parse_options``). Every other option of the JAX package's
-reader raises ValueError naming it: none is silently ignored.
+reader raises ValueError naming it; a key neither package knows is, as
+in the JAX package, ignored, unless ``pedantic`` is true: then the
+unused-key audit names it. ``parallelism`` (default min(16, cpu_count))
+is how many threads read a file's index shards and build
+`CobolData.to_arrow`'s parts' tables.
 `CobolData.metrics` is the read's `profiling.ReadMetrics`.
 """
 from __future__ import annotations
@@ -99,34 +104,15 @@ from .reader.var_len_reader import (VarLenReader, default_segment_id_prefix,
 # stays about one chunk plus its decoded columns
 FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
 
-# the options the port takes, on every read as in the JAX package:
-# framing, record length and offsets, segments, record ids, the sparse
-# index, the data encoding and copybook shaping, the pipeline and its
-# supervision, the input's compression mode and the column projection
-# (`filter` and `use_stats` are not taken yet)
-_OPTIONS = frozenset((
-    "is_record_sequence", "is_xcom", "is_rdw_big_endian",
-    "is_rdw_part_of_record_length", "rdw_adjustment", "record_length",
-    "file_start_offset", "file_end_offset", "record_start_offset",
-    "record_end_offset", "debug_ignore_file_size", "segment_field",
-    "segment_filter", "segment_id_root", "segment_id_prefix",
-    "generate_record_id", "with_input_file_name_col",
-    "input_split_records", "input_split_size_mb", "enable_indexes",
-    "encoding", "ascii_charset", "is_utf16_big_endian",
-    "ebcdic_code_page_class", "drop_group_fillers", "drop_value_fillers",
-    "non_terminals", "debug", "comments_lbound", "comments_ubound",
-    "truncate_comments",
-    "pipeline_workers", "chunk_size_mb", "max_inflight_chunks",
-    "shard_timeout_s", "scan_deadline_s", "shard_error_policy",
-    "shard_max_retries", "compression", "select",
-    "record_error_policy", "resync_window", "max_corrupt_ledger_entries",
-    "corrupt_record_column", "is_text", "record_length_field",
-    "record_header_parser", "rhp_additional_info", "record_extractor",
-    "re_additional_info", "variable_size_occurs", "occurs_mappings",
-    "occurs_mapping"))
-_OPTION_PREFIXES = ("segment_id_level", "redefine-segment-id-map",
-                    "redefine_segment_id_map", "segment-children",
-                    "segment_children")
+# options of the JAX package's reader the port does not take yet: each
+# raises, naming it (any other key is the pedantic audit's)
+_NOT_PORTED = frozenset((
+    "filter", "use_stats", "collect_stats", "stats_chunk_mb", "cache_dir",
+    "cache_max_mb", "compress_block_mb", "io_block_mb", "prefetch_blocks",
+    "io_retry_attempts", "io_retry_base_delay_ms", "io_retry_max_delay_ms",
+    "io_retry_deadline_ms", "hosts", "speculative_quantile",
+    "heartbeat_interval_s", "field_costs", "trace_file", "trace_id",
+    "request_id", "progress_interval_s", "stream_batch_rows"))
 # the framing options a custom record extractor is refused beside, and
 # (from the third on, with is_text) `record_length`, in the JAX package's
 # order
@@ -166,19 +152,25 @@ def _parse_enum(key: str, value: str):
 
 
 class Options:
-    """String-keyed option map (``cobrix_tpu.api.Options``, without its
-    usage tracking: the port refuses unknown keys instead of auditing
-    them). Values arrive as strings, as from the reference's ``.option()``
-    map."""
+    """String-keyed option map tracking key usage for the pedantic
+    audit (``cobrix_tpu.api.Options``, reference Parameters.scala:27-98).
+    Values arrive as strings, as from the reference's ``.option()`` map."""
 
     def __init__(self, options: Dict[str, object]):
         self._map = {str(k): str(v) for k, v in options.items()}
+        self._used = set()
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
-        return self._map.get(key, default)
+        if key in self._map:
+            self._used.add(key)
+            return self._map[key]
+        return default
 
     def __contains__(self, key: str) -> bool:
         return key in self._map
+
+    def mark_used(self, key: str) -> None:
+        self._used.add(key)
 
     def get_bool(self, key: str, default: bool = False) -> bool:
         v = self.get(key)
@@ -192,6 +184,9 @@ class Options:
 
     def keys(self):
         return self._map.keys()
+
+    def unused_keys(self) -> List[str]:
+        return [k for k in self._map if k not in self._used]
 
 
 def _parse_segment_levels(opts: Options) -> List[str]:
@@ -229,10 +224,6 @@ def _parse_prefixed_map(opts: Options,
     return out
 
 
-def _is_taken(name: str) -> bool:
-    return name in _OPTIONS or name.lower().startswith(_OPTION_PREFIXES)
-
-
 def parse_options(options: Dict[str, object],
                   ebcdic_code_page: str = "common",
                   schema_retention_policy: str = "keep_original",
@@ -240,10 +231,11 @@ def parse_options(options: Dict[str, object],
                   floating_point_format: str = "ibm") -> ReaderParameters:
     """Options -> typed ReaderParameters, as ``cobrix_tpu.api
     .parse_options`` builds them for the options the port takes, with
-    its checks and messages. Raises ValueError naming the first option
-    the port does not take."""
+    its checks and messages, the pedantic audit of unused keys last.
+    Raises ValueError naming the first option of the JAX package's
+    reader that the port does not take."""
     for name in sorted(options):
-        if not _is_taken(name):
+        if name in _NOT_PORTED:
             raise ValueError(
                 f"Option '{name}' is not supported by cobrix_tpu_torch."
                 f"read_cobol yet")
@@ -352,8 +344,25 @@ def parse_options(options: Dict[str, object],
         scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0),
         select=tuple(s.strip() for s in opts.get("select", "").split(",")
                      if s.strip()) or None)
+    # recognized keys consumed later by read_cobol — mark used before the
+    # pedantic unused-key audit runs
+    opts.get_bool("debug_ignore_file_size")
+    opts.get_int("parallelism", 0)
+    # HDFS-locality knobs (LocalityParameters.scala:21-30): accepted for
+    # workload compatibility and dropped, as the JAX package drops them:
+    # a local read has no block topology to place shards by
+    opts.get_bool("improve_locality", True)
+    opts.get_bool("optimize_allocation")
     _validate(params, opts)
     return params
+
+
+def parallelism_of(options: Dict[str, object]) -> int:
+    """The `parallelism` option: threads for a file's index shards and
+    for `CobolData.to_arrow`'s parts; the JAX package's default, min(16,
+    cpu_count), when it is absent or 0."""
+    return Options(options).get_int("parallelism", 0) or min(
+        16, os.cpu_count() or 1)
 
 
 def _validate(params: ReaderParameters, opts: Options) -> None:
@@ -425,6 +434,11 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
         raise ValueError(
             "Option 'segment-children:*' requires 'redefine-segment-id-map:*' "
             "to be set as well.")
+    pedantic = opts.get_bool("pedantic")  # marks the key used
+    unused = opts.unused_keys()
+    if unused and pedantic:
+        raise ValueError("Redundant or unrecognized option(s) to 'spark-cobol': "
+                         + ", ".join(sorted(unused)) + ".")
 
 
 def load_copybook_contents(copybook, copybook_contents):
@@ -494,8 +508,13 @@ class CobolData:
                  schema: CobolOutputSchema,
                  results: Optional[List[FileResult]] = None,
                  metrics: Optional[ReadMetrics] = None,
-                 shard_failures: Optional[List[ShardFailureInfo]] = None):
+                 shard_failures: Optional[List[ShardFailureInfo]] = None,
+                 parallelism: int = 1, device=None):
         self.batches = batches
+        # threads that build the parts' tables in `to_arrow`, on the
+        # read's device
+        self.parallelism = parallelism
+        self.device = resolve_device("cpu" if device is None else device)
         self.results = results or []
         self.output_schema = schema
         self.metrics = metrics
@@ -542,17 +561,35 @@ class CobolData:
 
     def to_arrow(self):
         """pyarrow Table with the schema's declared types, built from the
-        host planes without row materialization: one table per part
-        (cached by the pipelined read's assemble stage), concatenated.
+        decoded planes without row materialization: one table per part
+        (its Arrow buffers built on the part's device; cached by the
+        pipelined read's assemble stage), concatenated in part order.
+        With `parallelism` above 1 the parts' tables are built on that
+        many threads (the JAX package's parallel finalize), each on its
+        own CUDA stream, after `warm_pyarrow` (ROADMAP C4).
         A read with a ledger (a permissive policy, or shards lost under
         shard_error_policy='partial') carries its JSON in the schema
         metadata (``cobrix_tpu.read_diagnostics``), as the JAX package's
         does."""
         import pyarrow as pa
 
-        from .reader.arrow_out import arrow_schema
+        from .reader.arrow_out import arrow_schema, warm_pyarrow
 
-        tables = [part.to_arrow(self.output_schema) for part in self.parts]
+        parts = self.parts
+        width = min(self.parallelism, len(parts))
+        if width > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            from .engine.staging import worker_stream
+
+            def build(part):
+                with worker_stream(self.device):
+                    return part.to_arrow(self.output_schema)
+            warm_pyarrow()
+            with ThreadPoolExecutor(max_workers=width) as ex:
+                tables = list(ex.map(build, parts))
+        else:
+            tables = [part.to_arrow(self.output_schema) for part in parts]
         if not tables:
             table = arrow_schema(self.schema).empty_table()
         else:
@@ -644,9 +681,14 @@ def read_cobol(path=None,
     ``max_corrupt_ledger_entries``, ``corrupt_record_column``), `compression`,
     the pipeline's options (`pipeline_workers`, `chunk_size_mb`,
     `max_inflight_chunks`, `shard_error_policy`, `shard_timeout_s`,
-    `shard_max_retries`, `scan_deadline_s`) and `select`
+    `shard_max_retries`, `scan_deadline_s`), `select`
     (comma-separated field or group names: only those leaves, and the
-    DEPENDING ON counters, are decoded; every other leaf is None).
+    DEPENDING ON counters, are decoded; every other leaf is None),
+    `parallelism` (threads for a file's index shards and for
+    `to_arrow`'s parts; min(16, cpu_count) by default), `copybooks`
+    (comma-separated copybook paths, in place of `copybook`),
+    `pedantic` (the unused-key audit) and `improve_locality` /
+    `optimize_allocation` (taken and dropped).
 
     `batch_callback(chunk_index, table)` receives each chunk's pyarrow
     Table: on a pipelined read as soon as it is assembled (in completion
@@ -660,10 +702,25 @@ def read_cobol(path=None,
                          "(chunk_index, pyarrow.Table) pairs).")
     tap = _BatchTap(batch_callback) if batch_callback else None
     on_batch = tap.emit if tap is not None else None
+    # exclusive-source validation before any option is consumed: only
+    # 'copybooks' arrives as an option key (the JAX package's checks)
+    has_multi = "copybooks" in options
+    if copybook is not None and copybook_contents is not None:
+        raise ValueError("Both 'copybook' and 'copybook_contents' options "
+                         "cannot be specified at the same time")
+    if has_multi and copybook_contents is not None:
+        raise ValueError("Both 'copybooks' and 'copybook_contents' options "
+                         "cannot be specified at the same time")
+    if copybook is not None and has_multi:
+        raise ValueError("Both 'copybook' and 'copybooks' options "
+                         "cannot be specified at the same time")
+    if has_multi:
+        copybook = str(options.pop("copybooks")).split(",")
     params = parse_options(options, ebcdic_code_page,
                            schema_retention_policy, string_trimming_policy,
                            floating_point_format)
     ignore_file_size = Options(options).get_bool("debug_ignore_file_size")
+    parallelism = parallelism_of(options)
     contents = load_copybook_contents(copybook, copybook_contents)
     if path is None:
         raise ValueError("'path' must be specified for read_cobol.")
@@ -697,6 +754,7 @@ def read_cobol(path=None,
     results: List[FileResult] = []
     if is_var_len:
         reader = VarLenReader(contents, params, device=device)
+        reader.parallelism = parallelism
         schema = output_schema_for(reader.copybook, params, is_var_len=True)
         seg = params.multisegment
         prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
@@ -734,7 +792,7 @@ def read_cobol(path=None,
                 batches.append(part)
     data = CobolData(batches, schema,
                      [r for r in results if r is not None], metrics,
-                     failures)
+                     failures, parallelism=parallelism, device=device)
     data.diagnostics = _aggregate_diagnostics(params, data.parts, failures)
     metrics.records = len(data)
     if tap is not None and tap.count == 0:

@@ -1,21 +1,29 @@
-"""Vectorized Arrow output: decoded host planes -> pyarrow Table.
+"""Vectorized Arrow output: decoded planes -> pyarrow Table.
 
-Port copy of ``cobrix_tpu.reader.arrow_out`` on its numpy routes, so
-that the tables are the JAX package's. Numeric columns become typed
-arrays from the (values, valid) planes without touching Python objects;
-Decimal columns of up to 18 digits are built as decimal128 buffers from
-the int64 mantissas, shifted exactly in 128 bits as the native
-``decimal128_batch`` does; strings come from the code-point planes
-through one vectorized trim; OCCURS arrays become ListArrays over one
-record-major flat values array, with offsets from the DEPENDING ON
-counts. Schema types follow the output StructType
-(spark-cobol schema/CobolSchema.scala:77-173): Decimal->decimal128(p,s),
-Integral->int32/int64 by precision bucket, COMP-1/2->float32/float64,
-RAW->binary, OCCURS->list. Whatever the vectorized routes cannot express
-(host-fallback codecs, truncated variable-length tails, non-ASCII code
-points, custom charsets, UTF-16/HEX/RAW, wider decimals and decimal
-shifts outside 0..18) is built from the column's Python value list: the
-same values and nulls as the rows.
+Port copy of ``cobrix_tpu.reader.arrow_out``, so that the tables are the
+JAX package's. Where the JAX package builds its buffers with its native
+decode->Arrow assembly (``_asm_descriptor``, ``_asm_call``,
+``_build_native_scalars``, ``_native_flat_values``, the native string
+buffers, ``decimal128_batch`` and ``pack_validity``), the port builds
+them on the device from the batch's decoded planes
+(``ops.arrow_assemble``): `ArrowBatchBuilder` walks the output schema
+and requests every leaf it can build there (a `Request` a column: the
+int32 / int64 / float32 / float64 values, the 128-bit decimals with a
+static, per-row or digit-count shift, the UTF-8 strings of the
+code-point planes under the trim policy, one record-major flat array of
+every slot of an OCCURS leaf: slot s of record i at i*S+s), then one
+assembly builds them all and every array wraps its buffers in the one
+host copy of the assembly's output. Schema types follow the output
+StructType (spark-cobol schema/CobolSchema.scala:77-173):
+Decimal->decimal128(p,s), Integral->int32/int64 by precision bucket,
+COMP-1/2->float32/float64, RAW->binary, OCCURS->list (list offsets from
+the DEPENDING ON counts, on the host). Whatever the device route cannot
+express (host-fallback codecs, truncated variable-length tails, custom
+charsets, UTF-16/HEX/RAW, wide integers, per-value exponents of other
+codecs, a narrow decimal's shift outside 0..18, and a column the
+assembly marks bad: a decimal out of its exact window, a string with a
+surrogate code point or past 2^31 - 1 bytes) is built from the column's
+Python value list: the same values and nulls as the rows.
 
 One change from the JAX package: a decimal value that does not fit its
 declared precision and scale on that value-list route, which only a
@@ -27,22 +35,19 @@ record (ROADMAP C5).
 A decode-once batch (every record of a hierarchical read decoded at the
 full plan) carries per-redefine row masks (`redefine_masks`): a segment
 redefine's struct is null on the rows of other segments, whose decoded
-values are garbage by design and are never read (strings blanked,
-numbers invalid, OCCURS planes built for the visible rows only:
-`_compact_visibility`). `leaf_strings_at` and `leaf_numeric_at` build a
-leaf at given record positions from the batch's planes in numpy, where
-the JAX package's transcodes strings from the raw file image with its
-native library. `rows_to_table` builds the table of a row-backed result
-(the host row walk), with the value-list route's decimal rule above.
+values are garbage by design and are never read (the assembly makes
+them null and zero, or blank strings, without reading them; OCCURS
+planes are built for the visible rows only: `_compact_visibility`).
+`leaf_strings_at` and `leaf_numeric_at` request a leaf at given record
+positions (a row table), where the JAX package transcodes strings from
+the raw file image with its native library. `rows_to_table` builds the
+table of a row-backed result (the host row walk), with the value-list
+route's decimal rule above.
 
-Left out, because they need ``cobrix_tpu.native`` (the port builds the
-same arrays on the routes above) or serve only the JAX package's host
-backend and lazy decode: the fused decode->Arrow assembly
-(``_asm_descriptor``, ``_asm_call``, ``_build_native_scalars``,
-``_native_flat_values``), the grouped and limb decimal builds
-(``_decimal_group_array``, ``_decimal128_native``), the native string
-buffers, ``const_string_col`` and ``pack_validity``; and the per-field
-cost attribution (``obs.fieldcost``).
+Left out: the grouped and limb decimal builds of the JAX package's
+numpy backend (``_decimal_group_array``, ``_decimal128_native``),
+``const_string_col``, and the per-field cost attribution
+(``obs.fieldcost``).
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ import numpy as np
 
 from ..copybook.ast import Group, Primitive, Statement
 from ..copybook.datatypes import SchemaRetentionPolicy, TrimPolicy
+from ..ops import arrow_assemble as asm
+from ..plan.compiler import Codec
 from .columnar import (
     _FLOAT_CODECS,
     _STRING_CODECS,
@@ -131,111 +138,6 @@ def arrow_schema(struct: StructType):
     return schema
 
 
-def _validity_buffer(valid: np.ndarray):
-    pa = _pa()
-    # py_buffer holds a reference to the packed array: zero-copy
-    return pa.py_buffer(np.packbits(valid, bitorder="little"))
-
-
-_LOW32 = np.uint64(0xFFFFFFFF)
-_U32 = np.uint64(32)
-# 10**k as (high, low) uint64 limbs, k = 0..38
-_POW10_HI = np.array([(10 ** k) >> 64 for k in range(39)], dtype=np.uint64)
-_POW10_LO = np.array([(10 ** k) & (2 ** 64 - 1) for k in range(39)],
-                     dtype=np.uint64)
-
-
-def _mul64(a: np.ndarray, b: np.ndarray):
-    """(high, low) uint64 limbs of the 128-bit products a * b."""
-    a_lo, a_hi = a & _LOW32, a >> _U32
-    b_lo, b_hi = b & _LOW32, b >> _U32
-    ll, lh, hl = a_lo * b_lo, a_lo * b_hi, a_hi * b_lo
-    mid = (ll >> _U32) + (lh & _LOW32) + (hl & _LOW32)
-    lo = (ll & _LOW32) | (mid << _U32)
-    hi = a_hi * b_hi + (lh >> _U32) + (hl >> _U32) + (mid >> _U32)
-    return hi, lo
-
-
-def _decimal128_array(hi: np.ndarray, lo: np.ndarray, negative: np.ndarray,
-                      shift, valid: np.ndarray, pa_type,
-                      max_digits: int = 0):
-    """decimal128 array of +-(hi * 2**64 + lo) * 10**shift (`shift` a
-    scalar or one per value) as the unscaled values, exact in 128 bits
-    as the JAX package's native ``decimal128_batch`` and
-    ``decimal128_from_limbs`` make them. With `max_digits`, None when a
-    valid value needs a shift outside 0..38, or outruns 128 bits or that
-    many digits: the caller then takes the value-list route."""
-    pa = _pa()
-    n = len(lo)
-    shift = np.broadcast_to(np.asarray(shift, dtype=np.int64), (n,))
-    if max_digits and bool(((shift < 0) | (shift > 38))[valid].any()):
-        return None
-    k = np.clip(shift, 0, 38)
-    b_hi, b_lo = _POW10_HI[k], _POW10_LO[k]
-    # (hi, lo) * (b_hi, b_lo) mod 2**128, and whether it overflows
-    zero = np.uint64(0)
-    p1_hi, p1_lo = _mul64(lo, b_lo)
-    p2_hi, p2_lo = _mul64(lo, b_hi) if b_hi.any() else (zero, zero)
-    p3_hi, p3_lo = _mul64(hi, b_lo) if hi.any() else (zero, zero)
-    s1 = p1_hi + p2_lo
-    out_hi = s1 + p3_lo
-    out_lo = p1_lo
-    if max_digits:
-        over = (((hi != 0) & (b_hi != 0)) | (p2_hi != 0) | (p3_hi != 0)
-                | (s1 < p1_hi) | (out_hi < s1))
-        bound = 10 ** max_digits
-        m_hi, m_lo = np.uint64(bound >> 64), np.uint64(bound & (2**64 - 1))
-        over |= (out_hi > m_hi) | ((out_hi == m_hi) & (out_lo >= m_lo))
-        if bool(over[valid].any()):
-            return None
-    # two's complement of the 128-bit value where negative
-    lo_neg = ~out_lo + np.uint64(1)
-    hi_neg = ~out_hi + (lo_neg == 0).astype(np.uint64)
-    le = np.empty((n, 2), dtype="<u8")
-    le[:, 0] = np.where(negative, lo_neg, out_lo)
-    le[:, 1] = np.where(negative, hi_neg, out_hi)
-    vbuf = None if valid.all() else _validity_buffer(valid)
-    return pa.Array.from_buffers(pa_type, n, [vbuf, pa.py_buffer(le)])
-
-
-def _decimal128_from_mantissa(mantissa: np.ndarray, shift,
-                              valid: np.ndarray, pa_type):
-    """decimal128 array of `mantissa` (int64) * 10**`shift` (0..18):
-    exact in 128 bits, unbounded by the precision, as the JAX package's
-    native build of decimals of up to 18 digits."""
-    if np.ndim(shift) == 0 and len(mantissa):
-        scale = 10 ** int(shift)
-        limit = (2 ** 63 - 1) // scale
-        if -limit <= int(mantissa.min()) and int(mantissa.max()) <= limit:
-            # the product fits int64: its sign-extended 128-bit form
-            pa = _pa()
-            le = np.empty((len(mantissa), 2), dtype="<i8")
-            le[:, 0] = mantissa * scale
-            le[:, 1] = le[:, 0] >> 63
-            vbuf = None if valid.all() else _validity_buffer(valid)
-            return pa.Array.from_buffers(pa_type, len(mantissa),
-                                         [vbuf, pa.py_buffer(le)])
-    # |INT64_MIN| wraps under int64 abs; its uint64 view is 2**63
-    mag = np.abs(mantissa).view(np.uint64)
-    return _decimal128_array(np.zeros_like(mag), mag, mantissa < 0, shift,
-                             valid, pa_type)
-
-
-def _static_decimal_shift(spec, pa_type) -> Optional[int]:
-    """Mantissa power-of-ten shift for a fixed-exponent decimal column
-    (None when out of the exact-int64 0..18 window)."""
-    shift = pa_type.scale + fixed_point_exponent(spec)
-    return shift if 0 <= shift <= 18 else None
-
-
-def _numpy_dtype_for(pa_type):
-    """pa numeric type -> the numpy dtype the planes cast to."""
-    pa = _pa()
-    if pa.types.is_floating(pa_type):
-        return np.float32 if pa.types.is_float32(pa_type) else np.float64
-    return np.int32 if pa.types.is_int32(pa_type) else np.int64
-
-
 _FIT_CTX = decimal.Context(prec=100)
 
 
@@ -249,37 +151,69 @@ def _fits_decimal(value: "decimal.Decimal", pa_type) -> bool:
                            or q.adjusted() < pa_type.precision - pa_type.scale)
 
 
-# Java String.trim strips everything <= ' ' on both sides; left/right trim
-# strip " \t" (scalar_decoders._trim parity)
-_JAVA_TRIM = "".join(map(chr, range(0x21)))
-_LR_TRIM = " \t"
+# the assembly's trim modes: Java String.trim strips everything <= ' ' on
+# both sides, left/right trim strip " \t" (scalar_decoders._trim parity)
+_TRIM_MODES = {TrimPolicy.NONE: asm.TRIM_NONE, TrimPolicy.BOTH: asm.TRIM_BOTH,
+               TrimPolicy.LEFT: asm.TRIM_LEFT, TrimPolicy.RIGHT: asm.TRIM_RIGHT}
 
 
-def _string_from_codepoints(mat: np.ndarray, trimming: TrimPolicy):
-    """[n, w] code points (uint8 masked ASCII or uint16 LUT output) -> Arrow
-    string array. Requires every code point <= 0x7F so UTF-8 bytes == code
-    points (the caller falls back otherwise); the fixed-width matrix becomes
-    one string buffer with uniform offsets, and trimming runs in Arrow's
-    C++ kernels."""
-    import pyarrow.compute as pc
+def _once(build):
+    """A thunk that builds its array at the first call only."""
+    box = []
 
-    pa = _pa()
-    n, w = mat.shape
-    data = np.ascontiguousarray(mat.astype(np.uint8, copy=False))
-    big = n * w > 2**31 - 8
-    off_t, s_t = ("<i8", pa.large_string()) if big else ("<i4", pa.string())
-    offsets = np.arange(n + 1, dtype=off_t) * w
-    arr = pa.Array.from_buffers(
-        s_t, n, [None, pa.py_buffer(offsets), pa.py_buffer(data)])
-    if trimming is TrimPolicy.BOTH:
-        arr = pc.utf8_trim(arr, characters=_JAVA_TRIM)
-    elif trimming is TrimPolicy.LEFT:
-        arr = pc.utf8_ltrim(arr, characters=_LR_TRIM)
-    elif trimming is TrimPolicy.RIGHT:
-        arr = pc.utf8_rtrim(arr, characters=_LR_TRIM)
-    if big:
-        arr = arr.cast(pa.string())
-    return arr
+    def get():
+        if not box:
+            box.append(build())
+        return box[0]
+    return get
+
+
+class _Leaves:
+    """The leaf arrays of one batch that the device assembly builds
+    (``ops.arrow_assemble``): requested while the builder walks the
+    schema, built in one assembly, read back as Arrow arrays over the
+    one host copy of its output buffer (``pa.py_buffer``: no copy)."""
+
+    def __init__(self, batch: DecodedBatch):
+        self.batch = batch
+        self.requests: List[asm.Request] = []
+        self.types: list = []
+        self.result: Optional[asm.Result] = None
+
+    def add(self, request: "asm.Request", pa_type) -> int:
+        if self.result is not None:
+            raise RuntimeError("a leaf was requested after the assembly ran")
+        self.requests.append(request)
+        self.types.append(pa_type)
+        return len(self.requests) - 1
+
+    def run(self) -> None:
+        if self.result is None and self.requests:
+            plan = asm.build_plan(self.requests, self.batch.host_buffer,
+                                  self.batch.decoder.device)
+            self.result = asm.assemble(plan)
+
+    def array(self, i: int):
+        """Request i's array, or None when the assembly marked it bad."""
+        pa = _pa()
+        res, r, t = self.result, self.requests[i], self.types[i]
+        if res.bad(i):
+            return None
+        if r.is_string:
+            return pa.Array.from_buffers(
+                pa.string(), r.length,
+                [None, pa.py_buffer(res.values(i)),
+                 pa.py_buffer(res.data(i))])
+        nulls = res.null_count(i)
+        vbuf = None if nulls == 0 else pa.py_buffer(res.bitmap(i))
+        return pa.Array.from_buffers(t, r.length,
+                                     [vbuf, pa.py_buffer(res.values(i))],
+                                     null_count=nulls)
+
+
+def _no_fallback():
+    raise RuntimeError("the device assembly marked an integer, float or "
+                       "flat OCCURS array bad, which it never does")
 
 
 class ArrowBatchBuilder:
@@ -289,7 +223,12 @@ class ArrowBatchBuilder:
     whole-plan batch where `redefine_masks` gates each segment redefine
     per row via the struct validity bitmap (inactive rows' decoded bytes
     are garbage, but a null parent struct masks its children by Arrow
-    semantics)."""
+    semantics).
+
+    The walk returns thunks: every leaf the device assembly builds is
+    requested while the schema is walked, `assemble` builds them all at
+    once, and calling a thunk then makes its array (`build` does the
+    three for one statement)."""
 
     def __init__(self, batch: DecodedBatch, active: Optional[str],
                  redefine_masks: Optional[dict] = None):
@@ -298,17 +237,115 @@ class ArrowBatchBuilder:
         self.active = active
         self.redefine_masks = redefine_masks
         self.n = batch.n_records
+        self.leaves = _Leaves(batch)
+
+    def assemble(self) -> None:
+        """Build every requested leaf (one assembly on the batch's
+        device); the walk's thunks may be called after this."""
+        self.leaves.run()
+
+    def _requested(self, request: "asm.Request", pa_type, fallback):
+        """Thunk of `request`'s assembled array, or of `fallback()` (the
+        value-list route) where the assembly marks it bad."""
+        if request.length == 0:
+            pa = _pa()
+            return lambda: pa.array([], type=pa_type)
+        i = self.leaves.add(request, pa_type)
+
+        def build():
+            arr = self.leaves.array(i)
+            return arr if arr is not None else fallback()
+        return build
 
     # -- leaves ------------------------------------------------------------
 
+    def _number_kind(self, spec, out: dict, pa_type) -> Optional[tuple]:
+        """(source kind, output kind, decimal mode, shift, precision
+        bound) of a number column on the device route, or None for the
+        value-list route: wide integers, float codecs of another width,
+        per-value exponents of other codecs, and a narrow decimal whose
+        static shift leaves 0..18 (as ``_asm_descriptor`` decides in the
+        JAX package, with the port's narrow rule)."""
+        pa = _pa()
+        wide = "values_hi" in out
+        dtype = np.asarray(out["values"]).dtype
+        int_src = {np.dtype(np.int32): asm.SRC_I32,
+                   np.dtype(np.int64): asm.SRC_I64}.get(dtype)
+        if not wide and spec.codec in _FLOAT_CODECS:
+            src = asm.SRC_F32 if dtype == np.float32 else asm.SRC_F64
+            if pa.types.is_float32(pa_type):
+                return src, asm.OUT_F32, asm.DEC_NONE, 0, 0
+            if pa.types.is_float64(pa_type):
+                return src, asm.OUT_F64, asm.DEC_NONE, 0, 0
+            return None
+        if not wide and pa.types.is_integer(pa_type):
+            if int_src is None or not (pa.types.is_int32(pa_type)
+                                       or pa.types.is_int64(pa_type)):
+                return None
+            out_kind = (asm.OUT_I32 if pa.types.is_int32(pa_type)
+                        else asm.OUT_I64)
+            return int_src, out_kind, asm.DEC_NONE, 0, 0
+        if not pa.types.is_decimal(pa_type):
+            return None
+        src = asm.SRC_WIDE if wide else int_src
+        if src is None:
+            return None
+        p = spec.params
+        if p.explicit_decimal or _dyn_scale(spec):
+            if spec.codec is Codec.BINARY and p.scale_factor < 0:
+                # binary PIC P: |sf| + the value's digit count
+                # (columnar._binary_dyn_dots), counted on the card
+                mode, shift = asm.DEC_DIGITS, pa_type.scale + p.scale_factor
+            elif "dot_scale" in out and np.asarray(
+                    out["dot_scale"]).dtype == np.int32:
+                mode, shift = asm.DEC_DOTS, pa_type.scale
+            else:
+                return None
+        else:
+            mode = asm.DEC_STATIC
+            shift = pa_type.scale + fixed_point_exponent(spec)
+        if wide or pa_type.precision > 18:
+            # wide (uint128-limb) mantissas, and int64 ones of a wider
+            # type: bounded by the declared precision, as the native
+            # limb build is; a value out of it takes the value list
+            return src, asm.OUT_DEC, mode, shift, pa_type.precision
+        if mode == asm.DEC_STATIC and not 0 <= shift <= 18:
+            return None
+        return src, asm.OUT_DEC, mode, shift, 0
+
+    @staticmethod
+    def _number_planes(out: dict, kind: tuple) -> dict:
+        planes = {"values": out["values"], "valid": out["valid"]}
+        if kind[0] == asm.SRC_WIDE:
+            planes["hi"] = out["values_hi"]
+            planes["neg"] = out["negative"]
+        if kind[2] == asm.DEC_DOTS:
+            planes["dots"] = out["dot_scale"]
+        return planes
+
+    def _number_request(self, kind: tuple, outs: Sequence[dict],
+                        length: int, rows=None, mask=None):
+        src, out_kind, mode, shift, maxd = kind
+        return asm.Request(length, [self._number_planes(o, kind)
+                                    for o in outs], src, out_kind, mode,
+                           shift, maxd, rows=rows, mask=mask)
+
+    def _string_request(self, spec, mat: np.ndarray, rows=None, mask=None):
+        return asm.Request(
+            self.n if rows is None else len(rows), [{"values": mat}],
+            asm.SRC_CP16 if mat.dtype == np.uint16 else asm.SRC_CP8,
+            asm.OUT_UTF8, rows=rows, mask=mask, width=mat.shape[1],
+            trim=_TRIM_MODES[self.decoder.plan.trimming])
+
     def leaf_strings_at(self, sts, positions: np.ndarray) -> dict:
-        """String-leaf values built AT `positions` from the batch's
+        """String-leaf thunks built AT `positions` from the batch's
         code-point planes, for every eligible statement of one struct.
-        Returns {id(st): pa.StringArray} for the leaves it could build;
-        callers fall back to the full-length build + take for the rest
-        (UTF-16 / HEX / RAW / custom charsets, non-ASCII code points,
-        truncated rows). Rows hidden by a redefine mask are blanked: the
-        null parent struct hides them."""
+        Returns {id(st): thunk} for the leaves it could build; callers
+        fall back to the full-length build + take for the rest
+        (UTF-16 / HEX / RAW / custom charsets, truncated rows). Rows
+        hidden by a redefine mask are blank: the null parent struct
+        hides them."""
+        pa = _pa()
         out = {}
         for st in sts:
             col = self.decoder.slot_map.get((id(st), ()))
@@ -325,23 +362,21 @@ class ArrowBatchBuilder:
             mat = self.batch.column_arrays(col)["bytes"]
             if mat.ndim != 2 or mat.shape[1] == 0:
                 continue
-            mat = mat[positions]
             relevant = self._relevant_of(spec)
-            if relevant is not None:
-                hidden = ~relevant[positions]
-                if hidden.any():
-                    mat[hidden] = 0x20
-            if mat.dtype == np.uint16 and bool((mat > 0x7F).any()):
-                continue
-            out[id(st)] = _string_from_codepoints(
-                mat, self.decoder.plan.trimming)
+
+            def fallback(col=col, relevant=relevant):
+                return self._python_fallback(
+                    col, pa.string(), relevant).take(pa.array(positions))
+            out[id(st)] = self._requested(
+                self._string_request(spec, mat, rows=positions,
+                                     mask=relevant), pa.string(), fallback)
         return out
 
     def leaf_numeric_at(self, st: Primitive, positions: np.ndarray):
-        """Integer/float leaf values gathered AT `positions` — the numpy
-        gather happens before the Arrow build instead of a full-length
-        array + take. None -> caller uses the full path (decimals, wide
-        planes, truncation, host fallback)."""
+        """Thunk of an integer/float leaf built AT `positions` (the row
+        table of its request) instead of a full-length array + take.
+        None -> caller uses the full path (decimals, wide planes,
+        truncation, host fallback)."""
         pa = _pa()
         col = self.decoder.slot_map.get((id(st), ()))
         if col is None:
@@ -360,11 +395,12 @@ class ArrowBatchBuilder:
         out = self.batch.column_arrays(col)
         if "values" not in out or "values_hi" in out:
             return None
-        values = np.asarray(out["values"])[positions]
-        valid = np.asarray(out["valid"])[positions]
-        return pa.array(
-            values.astype(_numpy_dtype_for(pa_type), copy=False),
-            mask=None if valid.all() else ~valid)
+        kind = self._number_kind(spec, out, pa_type)
+        if kind is None:
+            return None
+        return self._requested(
+            self._number_request(kind, [out], len(positions),
+                                 rows=positions), pa_type, _no_fallback)
 
     def _relevant_of(self, spec):
         """Row-visibility mask for a column of a decode-once batch (None =
@@ -392,13 +428,17 @@ class ArrowBatchBuilder:
         pa_type = to_arrow_type(primitive_data_type(st))
         col = self.decoder.slot_map.get((id(st), slot_path))
         if col is None:
-            return pa.nulls(self.n, type=pa_type)
+            return lambda: pa.nulls(self.n, type=pa_type)
         spec = self.decoder.plan.columns[col]
         # rows where this column is visible: in a decode-once batch a
         # redefine-gated column only matters where its segment is active
         # (elsewhere the parent struct is null and the decoded bytes are
-        # garbage by design)
+        # garbage by design): the assembly makes hidden rows null (blank
+        # strings) without reading them
         relevant = self._relevant_of(spec)
+
+        def fallback():
+            return self._python_fallback(col, pa_type, relevant)
         lengths = self.batch.lengths
         if lengths is not None:
             trunc = lengths < spec.offset + spec.width
@@ -407,72 +447,26 @@ class ArrowBatchBuilder:
             if bool(trunc.any()):
                 # truncated variable-length tails: the scalar path owns
                 # the partial-field rules
-                return self._python_fallback(col, pa_type, relevant)
+                return fallback
         out = self.batch.column_arrays(col)
         if "host" in out:
-            return self._python_fallback(col, pa_type, relevant)
+            return fallback
         if spec.codec in _STRING_CODECS:
-            return self._string_array(spec, out, pa_type, relevant)
-        values = np.asarray(out["values"])
-        valid = np.asarray(out["valid"])
-        if relevant is not None:
-            # hidden rows: invalid, so that their garbage neither forces
-            # the value-list route nor reaches a buffer
-            valid = valid & relevant
-        if "values_hi" not in out and (spec.codec in _FLOAT_CODECS
-                                       or pa.types.is_integer(pa_type)):
-            return pa.array(
-                values.astype(_numpy_dtype_for(pa_type), copy=False),
-                mask=None if valid.all() else ~valid)
-        if not pa.types.is_decimal(pa_type):
-            return self._python_fallback(col, pa_type, relevant)
-        if spec.params.explicit_decimal or _dyn_scale(spec):
-            shift = pa_type.scale - np.asarray(out["dot_scale"],
-                                               dtype=np.int64)
-            if relevant is not None:
-                shift = np.where(relevant, shift, 0)
-        else:
-            shift = pa_type.scale + fixed_point_exponent(spec)
-        if "values_hi" in out or pa_type.precision > 18:
-            # wide (uint128-limb) mantissas, and int64 ones of a wider
-            # type: bounded by the declared precision, as the native
-            # limb build is; a value out of it takes the value list
-            if "values_hi" in out:
-                hi = np.asarray(out["values_hi"]).view(np.uint64)
-                lo = np.asarray(out["values"]).view(np.uint64)
-                neg = np.asarray(out["negative"])
-            else:
-                v = values.astype(np.int64, copy=False)
-                lo, neg = np.abs(v).view(np.uint64), v < 0
-                hi = np.zeros_like(lo)
-            arr = _decimal128_array(hi, lo, neg, shift, valid, pa_type,
-                                    max_digits=pa_type.precision)
-            return (arr if arr is not None
-                    else self._python_fallback(col, pa_type, relevant))
-        if np.any((shift < 0) | (shift > 18)):
-            return self._python_fallback(col, pa_type, relevant)
-        return _decimal128_from_mantissa(values.astype(np.int64, copy=False),
-                                         shift, valid, pa_type)
-
-    def _string_array(self, spec, out, pa_type, relevant=None):
-        pa = _pa()
-        if not self.batch._vectorizable_string(spec):
-            # UTF-16 / HEX / RAW / custom charsets: per-value host decode
-            return self._python_fallback(spec.index, pa_type, relevant)
-        mat = out["bytes"]
-        if mat.ndim != 2 or mat.shape[1] == 0:
-            return pa.array([""] * self.n, type=pa_type)
-        if relevant is not None and not relevant.all():
-            # hidden rows' garbage code points must not poison the
-            # column (their >0x7F values would truncate to invalid
-            # UTF-8 below) — blank them; the null parent struct hides
-            # whatever value they produce
-            mat = mat.copy()
-            mat[~relevant] = 0x20
-        if mat.dtype == np.uint16 and bool((mat > 0x7F).any()):
-            # non-ASCII code points need real UTF-8 encoding
-            return self._python_fallback(spec.index, pa_type, relevant)
-        return _string_from_codepoints(mat, self.decoder.plan.trimming)
+            if not self.batch._vectorizable_string(spec):
+                # UTF-16 / HEX / RAW / custom charsets: per-value host decode
+                return fallback
+            mat = out["bytes"]
+            if mat.ndim != 2 or mat.shape[1] == 0:
+                return lambda: pa.array([""] * self.n, type=pa_type)
+            return self._requested(
+                self._string_request(spec, mat, mask=relevant), pa_type,
+                fallback)
+        kind = self._number_kind(spec, out, pa_type)
+        if kind is None:
+            return fallback
+        return self._requested(
+            self._number_request(kind, [out], self.n, mask=relevant),
+            pa_type, fallback)
 
     # -- arrays / groups ---------------------------------------------------
 
@@ -494,13 +488,13 @@ class ArrowBatchBuilder:
 
     def _flat_slot_values(self, st: Primitive, slot_path, max_size: int,
                           compact_rows=None):
-        """One record-major flat array covering every OCCURS slot of a
-        numeric leaf (slot s of record i at i*S+s), stacked from the
-        slots' planes. `compact_rows` (decode-once): build values for
-        ONLY these rows — the caller verified hidden rows are nulled at
-        an enclosing struct, where child buffers are invisible. Rows a
-        redefine mask hides are otherwise invalid. None -> caller uses
-        the per-slot path."""
+        """Thunk of one record-major flat array covering every OCCURS slot
+        of a numeric leaf (slot s of record i at i*S+s): one request of S
+        slots. `compact_rows` (decode-once): build values for ONLY these
+        rows — the caller verified hidden rows are nulled at an enclosing
+        struct, where child buffers are invisible. Rows a redefine mask
+        hides are otherwise null. None -> caller uses the per-slot
+        path."""
         pa = _pa()
         pa_type = to_arrow_type(primitive_data_type(st))
         is_decimal = pa.types.is_decimal(pa_type)
@@ -528,30 +522,20 @@ class ArrowBatchBuilder:
         outs = [self.batch.column_arrays(c) for c in cols]
         if any("values" not in o or "values_hi" in o for o in outs):
             return None
-        if compact_rows is not None:
-            vals = np.stack([o["values"][compact_rows] for o in outs], axis=1)
-            valid = np.stack([o["valid"][compact_rows] for o in outs], axis=1)
-        else:
-            vals = np.stack([o["values"] for o in outs], axis=1)
-            valid = np.stack([o["valid"] for o in outs], axis=1)
-            if relevant is not None:
-                valid &= relevant[:, None]
-        flat = vals.reshape(-1)
-        fvalid = valid.reshape(-1)
-        if is_decimal:
-            shift = _static_decimal_shift(spec0, pa_type)
-            if shift is None:
-                return None
-            return _decimal128_from_mantissa(
-                flat.astype(np.int64, copy=False), shift, fvalid, pa_type)
-        return pa.array(
-            flat.astype(_numpy_dtype_for(pa_type), copy=False),
-            mask=None if fvalid.all() else ~fvalid)
+        kind = self._number_kind(spec0, outs[0], pa_type)
+        if kind is None:
+            return None
+        n = self.n if compact_rows is None else len(compact_rows)
+        return self._requested(
+            self._number_request(
+                kind, outs, n * max_size, rows=compact_rows,
+                mask=relevant if compact_rows is None else None),
+            pa_type, _no_fallback)
 
     def _flat_struct_values(self, group: Group, slot_path, max_size: int,
                             compact_rows=None):
-        """Record-major flat StructArray over all OCCURS slots of a group
-        element whose fields are all numeric leaves (exp3's
+        """Thunk of a record-major flat StructArray over all OCCURS slots
+        of a group element whose fields are all numeric leaves (exp3's
         STRATEGY-DETAIL). None -> per-slot path."""
         pa = _pa()
         names, children = [], []
@@ -568,7 +552,8 @@ class ArrowBatchBuilder:
             children.append(flat)
         if not children:
             return None
-        return pa.StructArray.from_arrays(children, names=names)
+        return lambda: pa.StructArray.from_arrays([c() for c in children],
+                                                  names=names)
 
     def _compact_visibility(self, st: Statement):
         """Row mask under which `st` (a decode-once OCCURS subtree) is
@@ -612,28 +597,28 @@ class ArrowBatchBuilder:
         return False
 
     def _flat_null_values(self, st: Statement, max_size: int):
-        """Record-major all-null values array for a pruned constant-size
-        OCCURS subtree (primitive elements, or a group of primitive
-        non-array children), shaped as the per-slot walk would build it
-        (valid structs, null leaves). None -> caller takes the per-slot
-        path."""
+        """Thunk of a record-major all-null values array for a pruned
+        constant-size OCCURS subtree (primitive elements, or a group of
+        primitive non-array children), shaped as the per-slot walk would
+        build it (valid structs, null leaves). None -> caller takes the
+        per-slot path."""
         pa = _pa()
         total = self.n * max_size
         if not isinstance(st, Group):
-            return pa.nulls(total,
-                            type=to_arrow_type(primitive_data_type(st)))
-        names, children = [], []
+            t = to_arrow_type(primitive_data_type(st))
+            return lambda: pa.nulls(total, type=t)
+        names, types = [], []
         for child in st.children:
             if child.is_filler:
                 continue
             if isinstance(child, Group) or child.is_array:
                 return None
             names.append(child.name)
-            children.append(pa.nulls(
-                total, type=to_arrow_type(primitive_data_type(child))))
-        if not children:
+            types.append(to_arrow_type(primitive_data_type(child)))
+        if not types:
             return None
-        return pa.StructArray.from_arrays(children, names=names)
+        return lambda: pa.StructArray.from_arrays(
+            [pa.nulls(total, type=t) for t in types], names=names)
 
     def _list_array(self, st: Statement, slot_path):
         pa = _pa()
@@ -661,8 +646,8 @@ class ArrowBatchBuilder:
                         offsets = np.zeros(n + 1, dtype=np.int32)
                         np.cumsum(np.where(cmask, max_size, 0),
                                   out=offsets[1:])
-                        return pa.ListArray.from_arrays(pa.array(offsets),
-                                                        cflat)
+                        return lambda: pa.ListArray.from_arrays(
+                            pa.array(offsets), cflat())
             if flat is None:
                 flat = (self._flat_struct_values(st, slot_path, max_size)
                         if isinstance(st, Group)
@@ -671,29 +656,31 @@ class ArrowBatchBuilder:
             if flat is not None:
                 if counts is None:
                     offsets = np.arange(n + 1, dtype=np.int32) * max_size
-                    return pa.ListArray.from_arrays(pa.array(offsets), flat)
+                    return lambda: pa.ListArray.from_arrays(
+                        pa.array(offsets), flat())
                 # DEPENDING ON: drop the unused tail slots with one
                 # ascending-index gather over the record-major array
                 mask = np.arange(max_size)[None, :] < counts[:, None]
-                if bool(mask.all()):
-                    values = flat
-                else:
-                    indices = (np.arange(n, dtype=np.int64)[:, None]
-                               * max_size
-                               + np.arange(max_size,
-                                           dtype=np.int64)[None, :])[mask]
-                    values = flat.take(pa.array(indices))
                 offsets = np.zeros(n + 1, dtype=np.int32)
                 np.cumsum(counts, out=offsets[1:])
-                return pa.ListArray.from_arrays(pa.array(offsets), values)
+                if bool(mask.all()):
+                    return lambda: pa.ListArray.from_arrays(
+                        pa.array(offsets), flat())
+                indices = (np.arange(n, dtype=np.int64)[:, None] * max_size
+                           + np.arange(max_size, dtype=np.int64)[None, :]
+                           )[mask]
+                return lambda: pa.ListArray.from_arrays(
+                    pa.array(offsets), flat().take(pa.array(indices)))
         elems = [self._statement_array(st, slot_path + (k,), as_element=True)
                  for k in range(max_size)]
         if n == 0 or max_size == 0:
-            value_type = (elems[0].type if elems
-                          else to_arrow_type(self._element_schema_type(st)))
-            return pa.ListArray.from_arrays(
-                pa.array(np.zeros(n + 1, dtype=np.int32)),
-                pa.nulls(0, type=value_type))
+            def empty():
+                value_type = (elems[0]().type if elems else to_arrow_type(
+                    self._element_schema_type(st)))
+                return pa.ListArray.from_arrays(
+                    pa.array(np.zeros(n + 1, dtype=np.int32)),
+                    pa.nulls(0, type=value_type))
+            return empty
         # element k of record i sits at position k*n + i of the concatenation
         idx = (np.arange(max_size)[None, :] * n
                + np.arange(n)[:, None])
@@ -704,10 +691,11 @@ class ArrowBatchBuilder:
             mask = np.arange(max_size)[None, :] < counts[:, None]
             lengths = counts
             indices = idx[mask]
-        values = pa.concat_arrays(elems).take(indices)
         offsets = np.zeros(n + 1, dtype=np.int32)
         np.cumsum(lengths, out=offsets[1:])
-        return pa.ListArray.from_arrays(pa.array(offsets), values)
+        return lambda: pa.ListArray.from_arrays(
+            pa.array(offsets),
+            pa.concat_arrays([e() for e in elems]).take(indices))
 
     def _element_schema_type(self, st: Statement):
         if isinstance(st, Group):
@@ -742,13 +730,14 @@ class ArrowBatchBuilder:
             names.append(child.name)
             children.append(self._statement_array(child, slot_path))
         if not children:
-            return pa.nulls(self.n, type=pa.struct([]))
-        return pa.StructArray.from_arrays(
-            children, names=names,
+            return lambda: pa.nulls(self.n, type=pa.struct([]))
+        return lambda: pa.StructArray.from_arrays(
+            [c() for c in children], names=names,
             mask=None if null_mask is None else pa.array(null_mask))
 
     def _statement_array(self, st: Statement, slot_path,
                          as_element: bool = False):
+        """Thunk of `st`'s array (see the class docstring)."""
         pa = _pa()
         if st.is_array and not as_element:
             return self._list_array(st, slot_path)
@@ -758,13 +747,13 @@ class ArrowBatchBuilder:
                     mask = self.redefine_masks.get(st.name.upper())
                     if mask is None or not mask.any():
                         t = to_arrow_type(StructType(self._group_fields(st)))
-                        return pa.nulls(self.n, type=t)
+                        return lambda: pa.nulls(self.n, type=t)
                     return self._struct_array(st, slot_path,
                                               null_mask=~mask)
                 if (self.active is None
                         or st.name.upper() != self.active.upper()):
                     t = to_arrow_type(StructType(self._group_fields(st)))
-                    return pa.nulls(self.n, type=t)
+                    return lambda: pa.nulls(self.n, type=t)
             return self._struct_array(st, slot_path)
         return self._leaf_array(st, slot_path)
 
@@ -772,7 +761,15 @@ class ArrowBatchBuilder:
 
     def body_columns(self, policy: SchemaRetentionPolicy):
         """(name, array) pairs for the record body, matching
-        CobolOutputSchema._create_schema ordering."""
+        CobolOutputSchema._create_schema ordering: the walk, one
+        assembly, then the arrays."""
+        out = self.request_body(policy)
+        self.assemble()
+        return [(name, build()) for name, build in out]
+
+    def request_body(self, policy: SchemaRetentionPolicy):
+        """The walk of `body_columns`: (name, thunk) pairs, every leaf the
+        assembly builds requested in `leaves`."""
         out = []
         for root in self.decoder.copybook.ast.children:
             if not isinstance(root, Group):

@@ -32,15 +32,16 @@ its own device tables.
 
 `DecodedBatch.concat` joins the batches of one file's records into one
 batch (the hierarchical read assembles a file's records as one).
-`DecodedBatch.to_arrow` builds a batch's table from its host planes
-(``arrow_out.segment_table``), or returns the one the pipelined read's
-assemble stage cached on it.
+`DecodedBatch.to_arrow` builds a batch's table (``arrow_out
+.segment_table``: its host buffer goes back to the device, where the
+Arrow buffers are built, ``ops.arrow_assemble``), or returns the one the
+pipelined read's assemble stage cached on it.
 
 Left out of the port: the numpy and native backends, the lazy planes,
 the in-place raw kernels and segment row masks of ``decode_raw``, the
 native Arrow string buffers and their caches (``string_arrow_buffers``,
 ``_build_arrow_strings``, ``_group_masks``: the port's strings are
-built from the code-point planes), the multi-device ``shard_map`` split
+built on the device from the code-point planes), the multi-device ``shard_map`` split
 (ROADMAP A7), and the field-cost and observability hooks.
 """
 from __future__ import annotations
@@ -263,8 +264,18 @@ class DecodedBatch:
                  outputs: Dict[int, dict],
                  lengths: Optional[np.ndarray] = None,
                  host_rows: Optional[Dict[int, np.ndarray]] = None,
-                 n_records: Optional[int] = None):
+                 n_records: Optional[int] = None,
+                 host_buffer: Optional[torch.Tensor] = None,
+                 groups: Optional[List[tuple]] = None):
         self.decoder = decoder
+        # each kernel group's host outputs, the arrays `collect_outputs`
+        # made the columns' planes of (`concat` joins them)
+        self.groups = groups
+        # the one host buffer the host planes are numpy views of: the one
+        # the decode's copy back filled (pinned for a CUDA batch), or a
+        # join's; the Arrow assembly copies it to the device whole (None:
+        # the assembly stages the planes it reads)
+        self.host_buffer = host_buffer
         # the host record matrix; None for a batch that crossed to the
         # device from a staging buffer or was packed there, whose
         # truncated rows (the only ones `value` reads bytes of) come to
@@ -290,20 +301,47 @@ class DecodedBatch:
     @classmethod
     def concat(cls, batches: Sequence["DecodedBatch"]) -> "DecodedBatch":
         """One batch over the records of `batches` (of one decoder), in
-        order: each column's host planes concatenated, and the lengths;
+        order: each kernel group's host outputs concatenated into one
+        host buffer (`host_buffer`), the columns' planes views of them,
+        and the lengths;
         the host bytes of records cut short keyed by their position in
         the whole. The hierarchical read decodes a file's records in
         batches and assembles them as one."""
         if len(batches) == 1:
             return batches[0]
         first = batches[0]
-        outputs: Dict[int, dict] = {}
+        # each kernel group's outputs are joined, a copy each, into one
+        # host buffer, in the memory order they came in (the fused
+        # planes' columns stay contiguous); the columns' planes are views
+        # of them, as after a decode. A join a column would be thousands
+        # of copies, and threads joining shards side by side would queue
+        # for the interpreter at each one
+        n = sum(b.n_records for b in batches)
+        layout, total = [], 0
+        for gi, outs in enumerate(first.groups):
+            for k, arr in enumerate(outs):
+                shape = (n,) + arr.shape[1:]
+                nbytes = int(np.prod(shape)) * arr.itemsize
+                layout.append((gi, k, arr, shape, total, nbytes))
+                total += -(-nbytes // _OUT_ALIGN) * _OUT_ALIGN
+        buf = torch.empty(max(total, _OUT_ALIGN), dtype=torch.uint8)
+        flat = buf.numpy()
+        groups: List[list] = [[] for _ in first.groups]
+        for gi, k, arr, shape, at, nbytes in layout:
+            region = flat[at:at + nbytes].view(arr.dtype)
+            if arr.ndim == 2 and not arr.flags.c_contiguous:
+                view = region.reshape(shape[::-1]).T
+            else:
+                view = region.reshape(shape)
+            np.concatenate([b.groups[gi][k][:b.n_records] for b in batches],
+                           out=view)
+            groups[gi].append(view)
+        groups = [tuple(g) for g in groups]
+        outputs = first.decoder.collect_outputs(groups, n)
         for col, planes in first._out.items():
-            outputs[col] = {
-                k: ([v for b in batches for v in b._out[col][k]]
-                    if k == "host"
-                    else np.concatenate([b._out[col][k] for b in batches]))
-                for k in planes}
+            if "host" in planes:
+                outputs[col] = {"host": [v for b in batches
+                                         for v in b._out[col]["host"]]}
         host_rows: Dict[int, np.ndarray] = {}
         lengths = []
         base = 0
@@ -316,7 +354,7 @@ class DecodedBatch:
             base += b.n_records
         return cls(first.decoder, None, outputs,
                    lengths=np.concatenate(lengths), host_rows=host_rows,
-                   n_records=base)
+                   n_records=base, host_buffer=buf, groups=groups)
 
     def column_arrays(self, col: int) -> dict:
         return self._out[col]
@@ -848,10 +886,11 @@ class ColumnarDecoder:
             # written through the tensor
             warnings.filterwarnings("ignore", message=".*not writable.*")
             host = torch.from_numpy(arr)
-        group_outs, _ = self._decode_device(host.to(self.device))
+        group_outs, _, buf = self._decode_device(host.to(self.device))
         outputs = self.collect_outputs(group_outs, arr.shape[0])
         self._decode_host_fallback(arr, outputs)
-        return DecodedBatch(self, arr, outputs, lengths=lengths)
+        return DecodedBatch(self, arr, outputs, lengths=lengths,
+                            host_buffer=buf, groups=group_outs)
 
     def decode_tensor(self, data: torch.Tensor) -> DecodedBatch:
         """Decode a [n, record_len] uint8 record matrix that is already
@@ -870,12 +909,13 @@ class ColumnarDecoder:
         n = data.shape[0]
         end = self._fallback_end()
         extras = [data[:, :end]] if end else []
-        group_outs, extra_host = self._decode_device(data.contiguous(),
-                                                     extras)
+        group_outs, extra_host, buf = self._decode_device(
+            data.contiguous(), extras)
         outputs = self.collect_outputs(group_outs, n)
         if end:
             self._decode_host_fallback(extra_host[0], outputs)
-        return DecodedBatch(self, None, outputs, n_records=n)
+        return DecodedBatch(self, None, outputs, n_records=n,
+                            host_buffer=buf, groups=group_outs)
 
     def decode_raw(self, image: torch.Tensor, rec_offsets, rec_lengths,
                    start_offset: int = 0) -> DecodedBatch:
@@ -917,14 +957,15 @@ class ColumnarDecoder:
         end = self._fallback_end()
         if end:
             extras.append(packed[:, :end])
-        group_outs, extra_host = self._decode_device(packed, extras)
+        group_outs, extra_host, buf = self._decode_device(packed, extras)
         outputs = self.collect_outputs(group_outs, n)
         host_rows = dict(zip(short.tolist(), extra_host[0])) \
             if len(short) else {}
         if end:
             self._decode_host_fallback(extra_host[-1], outputs)
         return DecodedBatch(self, None, outputs, lengths=lengths,
-                            host_rows=host_rows)
+                            host_rows=host_rows, host_buffer=buf,
+                            groups=group_outs)
 
     def _fallback_end(self) -> int:
         """Bytes of a row the host-fallback columns read (0: none)."""
@@ -986,10 +1027,12 @@ class ColumnarDecoder:
 
     def _decode_device(self, data: torch.Tensor,
                        extras: Sequence[torch.Tensor] = ()
-                       ) -> Tuple[List[tuple], List[np.ndarray]]:
-        """Per-kernel-group host outputs of one batch and the host copies
-        of `extras`: `decode_planes`, then ONE copy of its buffer to the
-        host (see the module docstring)."""
+                       ) -> Tuple[List[tuple], List[np.ndarray],
+                                  torch.Tensor]:
+        """Per-kernel-group host outputs of one batch, the host copies
+        of `extras` and the host buffer they are views of:
+        `decode_planes`, then ONE copy of its buffer to the host (see the
+        module docstring)."""
         dp = self.decode_planes(data, extras)
         buf, entries, spans = dp.buffer, dp.entries, dp.spans
         with annotate("cobrix.d2h", self.device):
@@ -1010,7 +1053,8 @@ class ColumnarDecoder:
                 outs[gi] = res
         for gi, k, _, _ in self._out_table:
             outs[gi] = outs[gi] + (planes[(gi, k)],)
-        return outs, [planes[("extra", k)] for k in range(len(extras))]
+        return (outs, [planes[("extra", k)] for k in range(len(extras))],
+                host)
 
     def collect_outputs(self, group_outs, n: int) -> Dict[int, dict]:
         """Per-group host outputs -> per-column host planes, with the JAX

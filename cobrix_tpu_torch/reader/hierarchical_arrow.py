@@ -11,11 +11,12 @@ nesting is a pure function of the per-record segment types, so
 child-to-parent assignment, list offsets, and every leaf column come
 from array ops over the one decode-once batch — no Python rows at any
 point. In the port that batch's values were decoded on the card (the
-pack kernel and one fused launch per batch); the leaves are gathered at
-the struct's positions from its host planes in numpy
-(``ArrowBatchBuilder.leaf_strings_at`` / ``leaf_numeric_at``), where the
-JAX package transcodes strings from the raw file image with its native
-library.
+pack kernel and one fused launch per batch), and its leaves are built
+there too, at the struct's positions (``ArrowBatchBuilder
+.leaf_strings_at`` / ``leaf_numeric_at``: a row table a request), in
+the builder's one assembly: the walk below returns thunks, the builder
+assembles, then the thunks make the arrays. The JAX package transcodes
+strings from the raw file image with its native library there.
 
 Child-attachment rule (matches extract_children's forward scan): a child
 record attaches to the nearest PRECEDING occurrence of any segment type
@@ -39,7 +40,7 @@ import numpy as np
 
 from ..copybook.ast import Group, Primitive
 from ..copybook.datatypes import SchemaRetentionPolicy
-from .arrow_out import _pa
+from .arrow_out import _once, _pa
 
 
 # columnar-vs-row-path assembly counters (observability: the bail rate is
@@ -213,13 +214,13 @@ def hierarchical_table(batch, segment_names,
     full_cache: Dict[int, object] = {}
 
     def full_array(st):
-        """Full-length array for a non-redefine statement, cached (a child
-        type under two parents shares one build)."""
-        arr = full_cache.get(id(st))
-        if arr is None:
-            arr = builder._statement_array(st, ())
-            full_cache[id(st)] = arr
-        return arr
+        """Thunk of the full-length array of a non-redefine statement,
+        cached (a child type under two parents shares one build)."""
+        build = full_cache.get(id(st))
+        if build is None:
+            build = full_cache[id(st)] = _once(
+                builder._statement_array(st, ()))
+        return build
 
     # child segments in the SCHEMA's order: global segment-redefine
     # declaration order filtered by parent (reader/schema.py _parse_group)
@@ -273,14 +274,15 @@ def hierarchical_table(batch, segment_names,
 
     def segment_struct(group: Group, positions: np.ndarray,
                        null_mask: Optional[np.ndarray] = None):
-        """StructArray of `group` at `positions` (child segments nested as
-        list<struct> fields, schema order). `null_mask`: True where the
-        struct itself is null (rows of positions owned by a sibling
-        redefine — their decoded bytes are garbage by design)."""
+        """Thunk of the StructArray of `group` at `positions` (child
+        segments nested as list<struct> fields, schema order).
+        `null_mask`: True where the struct itself is null (rows of
+        positions owned by a sibling redefine — their decoded bytes are
+        garbage by design)."""
         arrays, field_names = [], []
         owned = None if null_mask is None else ~null_mask
-        idx = pa.array(positions.astype(np.int64))
-        # all of this struct's string leaves in ONE subset kernel call
+        positions = positions.astype(np.int64, copy=False)
+        # this struct's string leaves, requested at its positions
         built_at = builder.leaf_strings_at(
             [c for c in group.children
              if isinstance(c, Primitive) and not c.is_filler
@@ -303,25 +305,31 @@ def hierarchical_table(batch, segment_names,
             arr = None
             if isinstance(child, Primitive) and not child.is_array:
                 # string/numeric leaves build straight at `positions`
-                # (raw-image subset transcode / numpy gather) — no
-                # full-length build, no take
+                # (a row table on the device) — no full-length build, no
+                # take
                 arr = built_at.get(id(child))
                 if arr is None:
                     arr = builder.leaf_numeric_at(child, positions)
-            arrays.append(arr if arr is not None
-                          else full_array(child).take(idx))
+            if arr is None:
+                full = full_array(child)
+
+                def arr(full=full, positions=positions):
+                    return full().take(pa.array(positions))
+            arrays.append(arr)
         for seg in child_segments_of(group):
             par_pos = positions if owned is None else positions[owned]
             ch_pos, offs_own = assign_children(seg, par_pos)
             offsets = (offs_own if owned is None
                        else expand_offsets(offs_own, owned))
             field_names.append(seg.name)
-            arrays.append(pa.ListArray.from_arrays(
-                pa.array(offsets), segment_struct(seg, ch_pos)))
+            child = segment_struct(seg, ch_pos)
+            arrays.append(lambda offsets=offsets, child=child:
+                          pa.ListArray.from_arrays(pa.array(offsets),
+                                                   child()))
         if not arrays:
-            return pa.nulls(len(positions), type=pa.struct([]))
-        return pa.StructArray.from_arrays(
-            arrays, names=field_names,
+            return lambda: pa.nulls(len(positions), type=pa.struct([]))
+        return lambda: pa.StructArray.from_arrays(
+            [a() for a in arrays], names=field_names,
             mask=None if null_mask is None else pa.array(null_mask))
 
     cols: List[object] = []
@@ -340,10 +348,11 @@ def hierarchical_table(batch, segment_names,
     elif output_schema.input_file_name_field:
         cols.append(pa.array([input_file_name] * n_roots, type=pa.string()))
 
-    for root in copybook.ast.children:
-        if not isinstance(root, Group):
-            continue
-        struct = segment_struct(root, roots)
+    structs = [segment_struct(root, roots) for root in copybook.ast.children
+               if isinstance(root, Group)]
+    builder.assemble()
+    for build in structs:
+        struct = build()
         if output_schema.policy is SchemaRetentionPolicy.COLLAPSE_ROOT:
             for f in struct.type:
                 cols.append(struct.field(f.name))

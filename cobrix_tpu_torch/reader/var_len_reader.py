@@ -94,6 +94,11 @@ Changes from the JAX package:
   record start offset, no segment field, a generic framing, or
   fixed-length records): a row-backed FileResult per file or index
   shard, read through a stream of it.
+* Where a file is read in its index shards (a hierarchy, a generic
+  framing, a permissive re-read), `parallelism` threads read them, each
+  on its own CUDA stream with a staging buffer of its own
+  (`_map_shards`, the JAX package's indexed scan), results in shard
+  order.
 * Not carried over: filter pushdown and the persisted index. The column
   projection (`select`) reaches every segment decoder of a flat read.
 """
@@ -101,6 +106,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -108,7 +114,7 @@ import torch
 
 from ..copybook.ast import Group, Primitive
 from ..device import resolve_device
-from ..engine.staging import StagedBytes
+from ..engine.staging import StagedBytes, StagingPool, worker_stream
 from ..ops.device_framing import (CARRY, DONE, TOO_BIG, ZERO, pack_records,
                                   scan_window)
 from ..plan.cache import copybook_for_params
@@ -559,6 +565,9 @@ class VarLenReader:
         # framing and decode seconds of the reads (`profiling.StageTimes`;
         # None: not timed)
         self.stage_times = None
+        # threads that read a file's index shards (the `parallelism`
+        # option; 1: one after another)
+        self.parallelism = 1
         # variable-size OCCURS that shift later fields make the static
         # columnar plan inapplicable — those records decode on the host.
         # Walked over the whole record (all 01-level roots in one pass): a
@@ -1140,8 +1149,8 @@ class VarLenReader:
                    if self._index_applies(size) else None)
         if not entries or len(entries) < 2:
             entries = [SparseIndexEntry(0, -1, file_id, 0)]
-        results = []
-        for e in entries:
+
+        def read(e: SparseIndexEntry) -> FileResult:
             n = 0 if e.offset_to < 0 else e.offset_to - e.offset_from
             with FSStream(path, start_offset=e.offset_from,
                           maximum_bytes=n) as stream:
@@ -1149,8 +1158,26 @@ class VarLenReader:
                     stream, stream.size() - e.offset_from, file_id,
                     segment_id_prefix, start_record_id + e.record_index,
                     0, 0, path=path, base_offset=e.offset_from)
-            results.append(result)
-        return results
+            return result
+        return self._map_shards(read, entries)
+
+    def _shard_width(self, entries: Sequence) -> int:
+        return max(1, min(self.parallelism, len(entries)))
+
+    def _map_shards(self, read, entries: Sequence) -> List[FileResult]:
+        """`read(entry)` of every index shard, in shard order: one after
+        another, or on `parallelism` threads (the JAX package's indexed
+        scan, ``cobrix_tpu/api.py:909-913``), each on its own CUDA
+        stream, as the pipeline's workers are."""
+        width = self._shard_width(entries)
+        if width == 1:
+            return [read(e) for e in entries]
+
+        def run(e):
+            with worker_stream(self.device):
+                return read(e)
+        with ThreadPoolExecutor(max_workers=width) as ex:
+            return list(ex.map(run, entries))
 
     def _decoder_for_segment(self, active_segment: str) -> ColumnarDecoder:
         return decoder_for_segment(self._decoders, self.copybook,
@@ -1207,10 +1234,9 @@ class VarLenReader:
             with timed_stage(self.stage_times, "index"):
                 entries = self.generate_index(path, file_id)
             if len(entries) > 1:
-                return [self._read_file_shard(path, size, e, file_id,
+                return self._read_file_shards(path, size, entries, file_id,
                                               start_record_id,
                                               segment_id_prefix)
-                        for e in entries]
         shifted = indexed and p.file_start_offset > 0
         try:
             with open(path, "rb") as f:
@@ -1238,10 +1264,8 @@ class VarLenReader:
         if ledger is not None and ledger.corrupt_records \
                 and len(entries) > 1:
             del result
-            return [self._read_file_shard(path, size, e, file_id,
-                                          start_record_id,
-                                          segment_id_prefix)
-                    for e in entries]
+            return self._read_file_shards(path, size, entries, file_id,
+                                          start_record_id, segment_id_prefix)
         if shifted and len(entries) > 1:
             shift_from = entries[1].record_index - 1
             for s in result.segments:
@@ -1251,24 +1275,34 @@ class VarLenReader:
                     rid += (rid >= start_record_id + shift_from)
         return [result]
 
-    def _read_file_shard(self, path: str, size: int,
-                         entry: SparseIndexEntry, file_id: int,
-                         start_record_id: int,
-                         segment_id_prefix: Optional[str]) -> FileResult:
-        """`read_shard` of one sparse-index entry of the file `path`,
-        read into a host buffer."""
-        end = size if entry.offset_to < 0 else min(entry.offset_to, size)
-        n = max(0, end - entry.offset_from)
-        buf = np.empty(n, dtype=np.uint8)
-        with open(path, "rb") as f, timed_stage(self.stage_times, "read"):
-            f.seek(entry.offset_from)
-            if f.readinto(memoryview(buf)) != n:
-                raise IOError(f"Short read from {path} at "
-                              f"{entry.offset_from}")
-        staged = StagedBytes(None, torch.from_numpy(buf), n)
-        return self.read_shard(staged, file_id, entry.offset_from,
-                               start_record_id + entry.record_index, size,
-                               segment_id_prefix, path=path)
+    def _read_file_shards(self, path: str, size: int,
+                          entries: Sequence[SparseIndexEntry], file_id: int,
+                          start_record_id: int,
+                          segment_id_prefix: Optional[str]
+                          ) -> List[FileResult]:
+        """`read_shard` of each sparse-index entry of the file `path`,
+        read into a buffer of the staging pool, one a thread
+        (`_map_shards`)."""
+        pool = StagingPool(self._shard_width(entries), self.device)
+
+        def read(entry: SparseIndexEntry) -> FileResult:
+            end = size if entry.offset_to < 0 else min(entry.offset_to, size)
+            n = max(0, end - entry.offset_from)
+            staged = pool.acquire(n)
+            try:
+                with open(path, "rb") as f, \
+                        timed_stage(self.stage_times, "read"):
+                    f.seek(entry.offset_from)
+                    if f.readinto(memoryview(staged.host().numpy())) != n:
+                        raise IOError(f"Short read from {path} at "
+                                      f"{entry.offset_from}")
+                return self.read_shard(
+                    staged, file_id, entry.offset_from,
+                    start_record_id + entry.record_index, size,
+                    segment_id_prefix, path=path)
+            finally:
+                staged.close()
+        return self._map_shards(read, entries)
 
     def read_shard(self, staged: StagedBytes, file_id: int,
                    offset_from: int, record_index: int, file_size: int,

@@ -69,8 +69,9 @@ def _same(path, options, pipelined=True):
     equal the JAX package's read, or raise its error; returns the port's
     sequential CobolData (None when the reads raise)."""
     def jax_read():
+        # the JAX package's reference read runs on one thread
         return cobrix_tpu.read_cobol(path, backend="numpy",
-                                     parallelism="1", **options)
+                                     **dict(options, parallelism="1"))
 
     def port_read(**pipe):
         return cobrix_tpu_torch.read_cobol(path, device="cpu", **options,
@@ -417,7 +418,7 @@ def test_comment_bounds(tmp_path, opts):
 # -- options outside this slice -----------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("pedantic", "true"), ("filter", "A == 'x'"),
+    ("collect_stats", "true"), ("filter", "A == 'x'"),
     ("use_stats", "true"), ("field_costs", "true"), ("trace_file", "t.json"),
     ("stream_batch_rows", "10"), ("hosts", "2"),
     ("cache_dir", "cache")])
@@ -426,3 +427,135 @@ def test_options_outside_the_slice_still_raise(tmp_path, option, value):
     with pytest.raises(ValueError, match=option):
         cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,
                                     **{option: value})
+
+
+# -- parallelism, copybooks, pedantic and the locality options -----------------
+
+HIER_SEG = {f"redefine_segment_id_map:{i}": f"{name} => {sid}"
+            for i, (sid, name) in enumerate(
+                pgen.HIERARCHICAL_SEGMENT_MAP.items())}
+HIER_CHILDREN = {f"segment-children:{i}": f"{parent} => {child}"
+                 for i, (child, parent) in enumerate(
+                     pgen.HIERARCHICAL_PARENT_MAP.items())}
+
+
+@pytest.mark.parametrize("parallelism", ["1", "2", "8"])
+def test_parallelism_fixed_length(tmp_path, monkeypatch, parallelism):
+    """exp1 in several chunks: `to_arrow` builds the parts' tables on
+    that many threads, in part order."""
+    import cobrix_tpu_torch.api as api
+
+    monkeypatch.setattr(api, "FIXED_READ_CHUNK_BYTES", 9 * 1493)
+    path = _write(tmp_path, "e1.dat", gen.generate_exp1(50, seed=31))
+    data = _same(path, dict(EXP1, parallelism=parallelism), pipelined=False)
+    assert len(data.parts) == 6 and data.parallelism == int(parallelism)
+
+
+@pytest.mark.parametrize("parallelism", ["1", "2", "8"])
+def test_parallelism_rdw_indexed(tmp_path, parallelism):
+    """exp2 in index shards: a clean file, and a permissive read of a
+    faulted one, which the port reads again shard by shard, on that many
+    threads."""
+    from cobrix_tpu_torch.testing import faults
+
+    rdw = dict(copybook_contents=gen.EXP2_COPYBOOK,
+               is_record_sequence="true", segment_field="SEGMENT-ID",
+               segment_id_prefix="PAR", generate_record_id="true",
+               input_split_records="70", parallelism=parallelism,
+               **{"redefine-segment-id-map:0": "STATIC-DETAILS => C",
+                  "redefine-segment-id-map:1": "CONTACTS => P"})
+    data = pgen.generate_exp2(400, seed=12)
+    _same(_write(tmp_path, "e2.dat", data), rdw, pipelined=False)
+    starts = faults.rdw_record_starts(data)
+    bad = _write(tmp_path, "z.dat", faults.zero_rdw(data, starts[150]))
+    _same(bad, dict(rdw, record_error_policy="permissive"),
+          pipelined=False)
+
+
+@pytest.mark.parametrize("parallelism", ["1", "2", "8"])
+def test_parallelism_hierarchical(tmp_path, parallelism):
+    """The 7-segment hierarchy in root-aligned index shards, read on
+    that many threads."""
+    path = _write(tmp_path, "h.dat", pgen.generate_hierarchical(40, seed=6))
+    _same(path, dict(copybook_contents=pgen.HIERARCHICAL_COPYBOOK,
+                     is_record_sequence="true", segment_field="SEGMENT-ID",
+                     generate_record_id="true", input_split_records="37",
+                     parallelism=parallelism, **HIER_SEG, **HIER_CHILDREN),
+          pipelined=False)
+
+
+def test_parallelism_must_be_a_number(tmp_path):
+    path = _write(tmp_path, "e1.dat", gen.generate_exp1(2, seed=17))
+    with pytest.raises(ValueError) as want:
+        cobrix_tpu.read_cobol(path, backend="numpy", parallelism="many",
+                              **EXP1)
+    with pytest.raises(ValueError) as got:
+        cobrix_tpu_torch.read_cobol(path, device="cpu", parallelism="many",
+                                    **EXP1)
+    assert str(got.value) == str(want.value)
+
+
+COPYBOOK_A = """
+       01 REC-A.
+          05 A-ID    PIC X(2).
+          05 A-NUM   PIC 9(3).
+"""
+COPYBOOK_B = """
+       01 REC-B.
+          05 B-TEXT  PIC X(5).
+"""
+
+
+def test_copybooks_with_two_files(tmp_path):
+    a = tmp_path / "a.cpy"
+    b = tmp_path / "b.cpy"
+    a.write_text(COPYBOOK_A)
+    b.write_text(COPYBOOK_B)
+    path = _write(tmp_path, "c.dat", b"AB123HELLOCD456WORLD")
+    _same(path, dict(copybooks=f"{a},{b}", encoding="ascii"))
+
+
+@pytest.mark.parametrize("sources", [
+    dict(copybook="a.cpy", copybook_contents=COPYBOOK_A),
+    dict(copybooks="a.cpy", copybook_contents=COPYBOOK_A),
+    dict(copybook="a.cpy", copybooks="a.cpy")],
+    ids=["copybook_and_contents", "copybooks_and_contents",
+         "copybook_and_copybooks"])
+def test_copybook_sources_exclude_each_other(tmp_path, sources):
+    (tmp_path / "a.cpy").write_text(COPYBOOK_A)
+    path = _write(tmp_path, "c.dat", b"AB123")
+    sources = {k: (str(tmp_path / v) if k != "copybook_contents" else v)
+               for k, v in sources.items()}
+    with pytest.raises(ValueError) as want:
+        cobrix_tpu.read_cobol(path, backend="numpy", **sources)
+    with pytest.raises(ValueError) as got:
+        cobrix_tpu_torch.read_cobol(path, device="cpu", **sources)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("extra", [
+    {"no_such_option": "1"},
+    {"no_such_option": "1", "another_stray": "x"},
+    {"segment_id_level0": "C"}],
+    ids=["stray", "two_strays", "level_without_segment_field"])
+def test_pedantic_names_unused_keys(tmp_path, extra):
+    path = _write(tmp_path, "e1.dat", gen.generate_exp1(3, seed=2))
+    _same(path, dict(EXP1, pedantic="true", **extra), pipelined=False)
+    # without pedantic an unknown key is ignored, as in the JAX package
+    _same(path, dict(EXP1, **extra), pipelined=False)
+
+
+def test_pedantic_with_every_key_used(tmp_path):
+    path = _write(tmp_path, "e1.dat", gen.generate_exp1(3, seed=2))
+    _same(path, dict(EXP1, pedantic="true", parallelism="2",
+                     improve_locality="false", optimize_allocation="true",
+                     debug_ignore_file_size="false"), pipelined=False)
+
+
+@pytest.mark.parametrize("locality", [
+    {"improve_locality": "true"}, {"improve_locality": "false"},
+    {"optimize_allocation": "true"},
+    {"improve_locality": "false", "optimize_allocation": "false"}])
+def test_locality_options_are_taken_and_dropped(tmp_path, locality):
+    path = _write(tmp_path, "e1.dat", gen.generate_exp1(5, seed=4))
+    _same(path, dict(EXP1, **locality))

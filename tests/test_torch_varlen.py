@@ -258,7 +258,7 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
 
 @pytest.mark.parametrize("option,value", [
     ("use_stats", "true"),
-    ("pedantic", "true"),
+    ("collect_stats", "true"),
     ("hosts", "2"),
     ("cache_dir", "cache"),
     ("io_retry_attempts", "2"),
