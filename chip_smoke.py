@@ -193,8 +193,11 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    kind and decimal mode; shifts 0, 18, 19, 38 and out of range;
    precisions that overflow; all-valid, all-null and mixed validity;
    hidden rows and row tables; 1, 31, 32, 33, 257, 4,097 and 44,949
-   rows; 2,000-slot arrays; strings of uint8 and uint16 code points,
-   non-ASCII, blank and empty, under each trim), the exp1 chunk's and
+   rows; 2,000-slot arrays, as per-slot planes and as evenly spaced
+   slots of column-major fused planes; strings of uint8 and uint16 code
+   points, non-ASCII, blank and empty, under each trim, in string tiles
+   staged in shared memory and in tiles too wide for it), the exp1
+   chunk's and
    the exp3 'C' batch's (4,143 rows of the 2,000-slot plane) own plans,
    and the assemblies of an exp2 prefix, the 7-segment hierarchy and
    an exp3 hierarchy prefix (masks, positions, a joined batch's staged
@@ -202,8 +205,9 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    kernels, equal the CPU reads' there; (c) at the exp1 chunk and the
    exp3 'C' batch: each kernel's ``ms`` and ``device_ms``, its plain
    version's time on the card, the bytes it must move over this run's
-   data and that bound's share, the copies up and back, one whole
-   assembly and the batch's table; and where the ``to_arrow`` of exp1,
+   data and that bound's share, the plan's host time, the copies up and
+   back, one whole assembly and the batch's table; and where the
+   ``to_arrow`` of exp1,
    exp3, exp2 and the exp3 hierarchy goes on one thread (the schema
    walk, the plans, the assemblies with their copies, the rest on the
    host); (d) the exp3 hierarchy's indexed
@@ -3245,15 +3249,19 @@ class Smoke:
             f"byte of the output buffer, tile sums and counter, from the "
             f"same state: {json.dumps(held)} plans each (grid: every kind, "
             f"decimal mode, shift window, validity, hidden rows, row "
-            f"tables, 2,000-slot arrays, strings of uint8 and uint16 code "
-            f"points under each trim; the exp1 chunk, the exp3 'C' batch, "
+            f"tables, 2,000-slot arrays per slot and evenly spaced, "
+            f"strings of uint8 and uint16 code points under each trim, "
+            f"staged and direct string tiles; the exp1 chunk, the exp3 'C' "
+            f"batch, "
             f"the exp2 prefix's and the hierarchies' own assemblies); "
             f"{time.perf_counter() - t0:.1f} s")
 
     def _p14_bytes(self, plan, res):
         """The bytes each step must move over this run's data: each input
         read once (a hidden row's planes are not), each output written
-        once."""
+        once. A request's planes are per-slot dicts or a `SlotPlanes`:
+        both give the slot count and slot 0's planes, whose element sizes
+        are every slot's."""
         np = self.np
         from cobrix_tpu_torch.ops import arrow_assemble as asm
 
@@ -3285,17 +3293,27 @@ class Smoke:
         """(c) each step's time at the exp1 chunk and the exp3 'C' batch
         shapes (`ms`: events around the wrapper on an idle stream;
         `device_ms`: device time alone), its plain version's on the
-        card, the bound of its bytes and its share; the copies up and
-        back and one whole assembly."""
+        card, the bound of its bytes and its share; the plan's host time
+        (the median of 5 `build_plan` calls over the builder's requests),
+        the copies up and back and one whole assembly."""
         torch = self.torch
         from cobrix_tpu_torch.copybook.datatypes import SchemaRetentionPolicy
         from cobrix_tpu_torch.ops import arrow_assemble as asm
-        from cobrix_tpu_torch.reader.arrow_out import segment_table
+        from cobrix_tpu_torch.reader.arrow_out import (ArrowBatchBuilder,
+                                                       segment_table)
 
         keep = SchemaRetentionPolicy.KEEP_ORIGINAL
         self.asm14["times"] = []
         for what, (batch, active) in self.asm14["batches"].items():
             plan = self._batch_plan(batch, active, keep)
+            builder = ArrowBatchBuilder(batch, active)
+            builder.request_body(keep)
+            plan_s = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                asm.build_plan(builder.leaves.requests, batch.host_buffer,
+                               batch.decoder.device)
+                plan_s.append(time.perf_counter() - t0)
             src, aux = asm.upload(plan)
             state = asm.new_state(plan, self.device)
             used = asm.run_steps(plan, src, aux, state)
@@ -3304,6 +3322,7 @@ class Smoke:
             steps = self._asm_steps(src, aux, plan)
             rec = dict(shape=what, rows=batch.n_records,
                        requests=len(plan.requests),
+                       plan_ms=statistics.median(plan_s) * 1e3,
                        string_requests=len(plan.str_ids),
                        source_bytes=int(plan.src.numel()),
                        output_bytes=used, steps={})

@@ -13,41 +13,50 @@
 // of the batch into one output buffer that goes back in one copy.
 //
 // One descriptor row a requested output array (ops/arrow_assemble.py
-// builds the table; its plain version computes the same bytes):
-// element j of an array of S slots is slot j % S of row j / S, or of row
+// builds the table; its plain version computes the same bytes). Element
+// j of an array of S slots is slot j % S of row j / S, or of row
 // rows[j / S] with a row table; a row a visibility mask hides is null and
-// zero (strings: blank) and its planes are not read. Outputs:
+// zero (strings: blank) and its values are not used. A plane kind p (the
+// values, valid flags, high limbs, signs, dot counts) is laid out evenly
+// over the slots: slot s's plane starts base[p] + s * step[p] bytes into
+// the source, and its rows are `rstride` elements apart. Outputs:
 //   arrow_scalars: int32 / int64 / float32 / float64 / decimal128 values,
-//     zero under a null, validity words of 32 bits (a warp's ballot), the
-//     null count, and a bad flag when a decimal leaves the exact window
-//     (the caller then builds that column from its Python values);
+//     zero under a null, validity words of 32 bits, the null count, and a
+//     bad flag when a decimal leaves the exact window (the caller then
+//     builds that column from its Python values);
 //   arrow_str_lengths: each string's trimmed extent and UTF-8 length
 //     (1-3 bytes a code point), a tile's sum, a bad flag on a surrogate;
 //   arrow_str_offsets: a block a string array scans its tiles' sums into
 //     tile bases and the array's total (bad past 2^31 - 1); the last
 //     block to finish scans the totals into each array's data start;
 //   arrow_str_copy: a tile's block scan of the lengths gives the int32
-//     offsets, and each thread writes its string's UTF-8 bytes.
+//     offsets, and the tile's UTF-8 bytes are written as one range.
 //
 // What bounds them on this card: bytes, read and written once at 3.35
-// TB/s (planes in, Arrow buffers out). The design is the simple one: a
-// thread an element, no staging, no TMA; a flat OCCURS array reads its
-// slots' planes S rows apart (a sector a value), and a string thread
-// walks its value's code points alone.
+// TB/s (planes in, Arrow buffers out), and, at the small shapes of one
+// batch, the latency of the chain of loads a block waits on before its
+// first value. arrow_scalars and arrow_str_copy are built for both (their
+// notes below): a block loads its work entry and its descriptor once,
+// stages its tile of planes in shared memory with 16-byte loads, and
+// writes whole words and sectors. arrow_str_lengths and arrow_str_offsets
+// are still the simple first design: a thread an element, a binary
+// search over the requests' tile starts a block, the descriptor read from
+// global memory at each use.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-// descriptor fields (ops/arrow_assemble.py)
-constexpr int D_LEN = 0, D_SLOTS = 1, D_SLOT_TAB = 2, D_ROWS = 3,
-              D_MASK = 4, D_SRC = 5, D_STRIDE = 6, D_OUT = 7, D_DEC = 8,
-              D_SHIFT = 9, D_MAXD = 10, D_VALUES = 11, D_BITMAP = 12,
-              D_WIDTH = 13, D_TRIM = 14, D_NF = 15;
-// slot table fields: byte offsets in the source of each plane
-constexpr int S_VALUES = 0, S_VALID = 1, S_HI = 2, S_NEG = 3, S_DOTS = 4,
-              S_NF = 5;
+// descriptor fields (ops/arrow_assemble.py): the plane table is
+// D_BASE + p and D_STEP + p for plane kind p
+constexpr int D_LEN = 0, D_SLOTS = 1, D_ROWS = 2, D_MASK = 3, D_SRC = 4,
+              D_RSTRIDE = 5, D_OUT = 6, D_DEC = 7, D_SHIFT = 8, D_MAXD = 9,
+              D_VALUES = 10, D_BITMAP = 11, D_WIDTH = 12, D_TRIM = 13,
+              D_RT = 14, D_SC = 15, D_RTILES = 16, D_BASE = 17, D_STEP = 22,
+              D_NF = 27;
+// plane kinds
+constexpr int P_VALUES = 0, P_VALID = 1, P_HI = 2, P_NEG = 3, P_DOTS = 4;
 // counters a request: null count, bad, data start, total
 constexpr int C_NULLS = 0, C_BAD = 1, C_START = 2, C_TOTAL = 3, C_NF = 4;
 
@@ -58,8 +67,13 @@ enum Out { OUT_I32 = 0, OUT_I64 = 1, OUT_F32 = 2, OUT_F64 = 3,
 enum Dec { DEC_NONE = 0, DEC_STATIC = 1, DEC_DOTS = 2, DEC_DIGITS = 3 };
 enum Trim { TRIM_NONE = 0, TRIM_BOTH = 1, TRIM_LEFT = 2, TRIM_RIGHT = 3 };
 
-constexpr int kTile = 256;        // elements a block (a thread each)
+constexpr int kTile = 256;        // threads a block; strings a string tile
 constexpr int kScanThreads = 1024;
+constexpr int kRows = 2048;       // rows a scalar tile at most (RT)
+constexpr int kElems = 4096;      // elements a scalar tile at most (RT x SC)
+constexpr int kCap = 4128;        // staged slots a scalar tile, SC x (RT + 1)
+constexpr int kStrCp = 16384;     // staged code-point bytes of a string tile
+constexpr int kStrOut = 24576;    // staged UTF-8 bytes of a string tile
 
 struct U128 {
   uint64_t hi, lo;
@@ -131,15 +145,519 @@ __device__ U128 mul_pow10(U128 m, int k, bool* over) {
   return U128{hi, p1_lo};
 }
 
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
 template <typename T>
 __device__ __forceinline__ T load(const uint8_t* base, int64_t off) {
   return *reinterpret_cast<const T*>(base + off);
 }
 
-struct Req {
-  const int64_t* d;
-  __device__ int64_t operator[](int f) const { return d[f]; }
+// byte offset in the source of plane kind p's element at (row, slot s);
+// `item`: the plane's element bytes
+__device__ __forceinline__ int64_t plane_at(const int64_t* d, int p,
+                                            int64_t row, int64_t s,
+                                            int item) {
+  return d[D_BASE + p] + s * d[D_STEP + p] + row * d[D_RSTRIDE] * item;
+}
+
+// the element at byte b of the 16-byte word w, stored at dst + x
+template <int kItem>
+__device__ __forceinline__ void put(uint8_t* dst, int64_t x,
+                                    const uint32_t (&w)[4], int b) {
+  if (kItem == 1) {
+    dst[x] = static_cast<uint8_t>(w[b >> 2] >> (8 * (b & 3)));
+  } else if (kItem == 2) {
+    *reinterpret_cast<uint16_t*>(dst + x) =
+        static_cast<uint16_t>(w[b >> 2] >> (8 * (b & 3)));
+  } else if (kItem == 4) {
+    *reinterpret_cast<uint32_t*>(dst + x) = w[b >> 2];
+  } else {
+    *reinterpret_cast<uint2*>(dst + x) = make_uint2(w[b >> 2],
+                                                    w[(b >> 2) + 1]);
+  }
+}
+
+// the aligned 16-byte word at byte g of `src` (16-byte aligned); a word
+// that runs past `src_bytes` is read a byte at a time
+__device__ __forceinline__ uint4 load_word(const uint8_t* __restrict__ src,
+                                           int64_t src_bytes, int64_t g) {
+  if (g + 16 <= src_bytes) {
+    return __ldg(reinterpret_cast<const uint4*>(src + g));
+  }
+  uint32_t w[4] = {0, 0, 0, 0};
+  for (int b = 0; b < 16; ++b) {
+    if (g + b < src_bytes) {
+      w[b >> 2] |= static_cast<uint32_t>(src[g + b]) << (8 * (b & 3));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the bytes of word v that fall in dst[0, nb), v's byte 0 at dst + x0
+template <int kItem>
+__device__ __forceinline__ void put_word(uint8_t* dst, int x0, int nb,
+                                         const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if (x0 >= 0 && x0 + 16 <= nb) {
+#pragma unroll
+    for (int b = 0; b < 16; b += kItem) put<kItem>(dst, x0 + b, w, b);
+  } else {
+#pragma unroll
+    for (int b = 0; b < 16; b += kItem) {
+      if (static_cast<unsigned>(x0 + b) < static_cast<unsigned>(nb)) {
+        put<kItem>(dst, x0 + b, w, b);
+      }
+    }
+  }
+}
+
+// runs r = 0 .. nruns - 1 of nb bytes, run r from byte start(r) of `src`
+// (negative: no run) into dst + r * dst_stride, as the aligned 16-byte
+// words each run touches. A thread takes kBatch words at a time and
+// issues their loads before any of their stores (the string copy, whose
+// block waits on little else, keeps four in flight; the scalar kernel
+// one, as more registers would cost it a block an SM). start(r) and nb
+// are multiples of kItem.
+template <int kItem, int kBatch, typename Start>
+__device__ __forceinline__ void stage_runs(uint8_t* dst, int dst_stride,
+                                           const uint8_t* __restrict__ src,
+                                           int64_t src_bytes, int nruns,
+                                           int nb, Start start) {
+  const int per = nb / 16 + 2;   // words a run touches, at most
+  const int total = nruns * per;
+  for (int q0 = threadIdx.x; q0 < total; q0 += kBatch * kTile) {
+    uint4 v[kBatch];
+    int run[kBatch], x0[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + u * kTile;
+      run[u] = -1;
+      if (q < total) {
+        const int r = q / per;
+        const int64_t a0 = start(r);
+        const int64_t g = (a0 & ~int64_t(15)) + 16 * (q - r * per);
+        if (a0 >= 0 && g < a0 + nb) {
+          run[u] = r;
+          x0[u] = static_cast<int>(g - a0);   // -15 .. nb - 1
+          v[u] = load_word(src, src_bytes, g);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (run[u] >= 0) put_word<kItem>(dst + run[u] * dst_stride, x0[u], nb,
+                                       v[u]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// scalars
+// ---------------------------------------------------------------------------
+//
+// What bounds it: bytes (each visible element's value and valid flag in,
+// its value and validity bit out, 3.35 TB/s), and at one batch's shapes
+// the chain of dependent loads before a block's first value: the simple
+// design's 256-element blocks each searched the request starts, read the
+// descriptor field by field from global memory, then the row table, the
+// mask and a slot table before the planes, and a flat OCCURS array's
+// neighbouring elements were slots n rows apart, a 32-byte sector for
+// each 4-byte value and each 1-byte flag.
+//
+// The design. A block takes one tile of one request: RT rows x SC slots
+// (ops/arrow_assemble.py `scalar_tile`: 2,048 rows of a one-slot array,
+// whole rows of up to 64 slots, 128 rows x 32 slots of a wider one), named
+// by its entry (request, tile) of the work table the plan builds; there
+// is no search. One warp copies the descriptor into shared memory and
+// every thread reads it there. The tile's values and valid flags are
+// staged in shared memory column by column (a column: one slot's RT
+// rows). Where a slot's rows are contiguous (no row table, row stride 1:
+// every exp1 column, and every slot of an OCCURS field, which the fused
+// decoder keeps column-major) a column is read as the aligned 16-byte
+// words it touches; a row table or a row stride reads element by element.
+// So a flat OCCURS array's planes are read in whole sectors and
+// transposed through shared memory: the output is record-major (j = row *
+// S + s), written from the staged tile as runs of SC elements. A thread
+// builds 16 bytes of output (4 int32 or float32, 2 int64 or float64 or 1
+// decimal128) and stores them with one 16-byte store where they are
+// contiguous and aligned. The value pass is one template instance a
+// (source, output) class, chosen once a block, so an element costs only
+// its own class's arithmetic. Its validity bits are packed in tile order
+// as it goes (the lanes of a word OR theirs together with shuffles), and
+// a thread then builds each bitmap word of the tile's output runs: a
+// word the tile fills whole (with the bits past the array's end) is
+// stored, a word it shares with another tile (at the ends of a run of SC
+// slots) is OR-ed in, so the bitmap must start zeroed
+// (ops/arrow_assemble.py `new_state` zeroes it). The null count is summed
+// in the block and added once; the bad flag is set once a block. A block
+// of 256 threads holds about 46 KB of shared memory and at most 64
+// registers a thread: four blocks an SM. A block's fixed chain (its work
+// entry, its descriptor, then its planes) is paid once a tile, so a wide
+// array's tile is the largest that fits: 4,096 elements.
+// High limbs, signs and dot counts (wide and per-row-scaled decimals, one
+// slot each on the builder's routes) are read from global memory by the
+// element, in row order.
+
+// a request's decimal rule, read from the staged descriptor once a block
+struct DecRule {
+  int mode;
+  int64_t shift, maxd;
 };
+
+// element (k, c) of the staged tile, of source kind SRC and output kind
+// OUT: lo / hi receive the bits to store, zero under a null, `ok` its
+// validity bit; returns the bad flag
+template <int SRC, int OUT>
+__device__ __forceinline__ bool scalar_element(
+    const DecRule& rule, const int64_t* d, const uint8_t* __restrict__ src,
+    const uint8_t* vals, const uint8_t* flags, const int32_t* rowv, int cst,
+    int k, int c, int64_t s, uint64_t& lo, uint64_t& hi, bool& ok) {
+  lo = hi = 0;
+  ok = false;
+  const int64_t row = rowv[k];
+  if (row < 0) return false;   // hidden: null and zero
+  const int slot = c * cst + k;
+  const bool valid = flags[slot] != 0;
+  ok = valid;
+  if (OUT == OUT_I32 || OUT == OUT_I64) {
+    if (valid) {
+      lo = SRC == SRC_I32
+          ? static_cast<uint64_t>(static_cast<int64_t>(
+                reinterpret_cast<const int32_t*>(vals)[slot]))
+          : reinterpret_cast<const uint64_t*>(vals)[slot];
+    }
+    return false;
+  }
+  if (OUT == OUT_F32 || OUT == OUT_F64) {
+    if (valid) {
+      if (SRC == SRC_F32) {
+        const uint32_t b = reinterpret_cast<const uint32_t*>(vals)[slot];
+        lo = OUT == OUT_F32 ? b
+            : static_cast<uint64_t>(__double_as_longlong(
+                  static_cast<double>(__uint_as_float(b))));
+      } else {
+        const uint64_t b = reinterpret_cast<const uint64_t*>(vals)[slot];
+        lo = OUT == OUT_F64 ? b
+            : __float_as_uint(static_cast<float>(__longlong_as_double(
+                  static_cast<long long>(b))));
+      }
+    }
+    return false;
+  }
+  // decimal128
+  U128 mag{0, 0};
+  bool neg;
+  if (SRC == SRC_WIDE) {
+    mag.lo = reinterpret_cast<const uint64_t*>(vals)[slot];
+    mag.hi = load<uint64_t>(src, plane_at(d, P_HI, row, s, 8));
+    neg = src[plane_at(d, P_NEG, row, s, 1)] != 0;
+  } else {
+    const int64_t iv = SRC == SRC_I32
+        ? reinterpret_cast<const int32_t*>(vals)[slot]
+        : reinterpret_cast<const int64_t*>(vals)[slot];
+    neg = iv < 0;
+    // |INT64_MIN| wraps to itself: its unsigned view is 2^63
+    mag.lo = neg ? 0ull - static_cast<uint64_t>(iv)
+                 : static_cast<uint64_t>(iv);
+  }
+  bool bad = false;
+  U128 dec{0, 0};
+  int64_t shift = rule.shift;
+  if (rule.mode == DEC_DOTS) {
+    shift -= load<int32_t>(src, plane_at(d, P_DOTS, row, s, 4));
+  } else if (rule.mode == DEC_DIGITS) {
+    // the int64 plane's digit count tops out at 19
+    shift -= digit_count(mag);
+  }
+  if (rule.maxd == 0) {
+    // mantissas of up to 18 digits: every visible row's shift in 0..18,
+    // the product unbounded (it fits 128 bits)
+    if (shift < 0 || shift > 18) {
+      bad = true;
+    } else if (valid) {
+      bool over;
+      dec = mul_pow10(mag, static_cast<int>(shift), &over);
+    }
+  } else if (valid) {
+    // bounded by the declared precision, valid rows only
+    if (shift < 0 || shift > 38) {
+      bad = true;
+    } else {
+      bool over;
+      dec = mul_pow10(mag, static_cast<int>(shift), &over);
+      if (over || ge128(dec, kPow10[rule.maxd])) bad = true;
+    }
+    if (bad) dec = U128{0, 0};
+  }
+  if (neg && valid) {
+    // two's complement of the 128-bit magnitude
+    const uint64_t l = ~dec.lo + 1;
+    dec.hi = ~dec.hi + (l == 0 ? 1 : 0);
+    dec.lo = l;
+  }
+  if (valid) {
+    lo = dec.lo;
+    hi = dec.hi;
+  }
+  return bad;
+}
+
+// element i (0..V-1) of a 16-byte group of V elements into its words
+template <int V>
+__device__ __forceinline__ void pack(uint32_t (&w)[4], int i, uint64_t lo,
+                                     uint64_t hi) {
+  if (V == 4) {
+    w[i] = static_cast<uint32_t>(lo);
+  } else if (V == 2) {
+    w[2 * i] = static_cast<uint32_t>(lo);
+    w[2 * i + 1] = static_cast<uint32_t>(lo >> 32);
+  } else {
+    w[0] = static_cast<uint32_t>(lo);
+    w[1] = static_cast<uint32_t>(lo >> 32);
+    w[2] = static_cast<uint32_t>(hi);
+    w[3] = static_cast<uint32_t>(hi >> 32);
+  }
+}
+
+template <int OITEM>
+__device__ __forceinline__ void store_scalar(uint8_t* values, int64_t e,
+                                             uint64_t lo, uint64_t hi) {
+  if (OITEM == 4) {
+    reinterpret_cast<uint32_t*>(values)[e] = static_cast<uint32_t>(lo);
+  } else if (OITEM == 8) {
+    reinterpret_cast<uint64_t*>(values)[e] = lo;
+  } else {
+    reinterpret_cast<uint4*>(values)[e] = make_uint4(
+        static_cast<uint32_t>(lo), static_cast<uint32_t>(lo >> 32),
+        static_cast<uint32_t>(hi), static_cast<uint32_t>(hi >> 32));
+  }
+}
+
+// the value pass of one tile, for one (source, output) class: 16 bytes
+// of output a thread and a step, in output order; a group of V elements
+// is one 16-byte store where it lies in one run of the output, aligned.
+// The validity bits, in tile order, go to okw: the 32 / V lanes that
+// hold a word's positions OR their bits together with shuffles (every
+// lane runs every step, so the shuffles see the whole warp). Returns the
+// bad flag.
+template <int SRC, int OUT>
+__device__ __forceinline__ bool tile_values(
+    const DecRule& rule, const int64_t* d, const uint8_t* __restrict__ src,
+    const uint8_t* vals, const uint8_t* flags, const int32_t* rowv,
+    uint32_t* okw, int cst, int rt, int sc, int64_t k0, int64_t s0,
+    int64_t S, uint8_t* __restrict__ values) {
+  constexpr int OITEM = OUT == OUT_DEC ? 16
+      : (OUT == OUT_I64 || OUT == OUT_F64) ? 8 : 4;
+  constexpr int V = 16 / OITEM;
+  const int cnt = rt * sc;
+  const bool whole = sc == S;   // the tile's output is one run
+  bool bad = false;
+  for (int step = 0; step < cnt; step += kTile * V) {
+    const int q0 = step + threadIdx.x * V;
+    int k = sc == 1 ? q0 : q0 / sc;
+    int c = q0 - k * sc;
+    const int64_t e0 = (k0 + k) * S + s0 + c;
+    const bool vec = q0 + V <= cnt && (e0 & (V - 1)) == 0
+        && (whole || c + V <= sc);
+    uint32_t w[4] = {0, 0, 0, 0};
+    uint32_t oks = 0;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (q0 + i < cnt) {
+        uint64_t lo, hi;
+        bool ok;
+        bad |= scalar_element<SRC, OUT>(rule, d, src, vals, flags, rowv,
+                                        cst, k, c, s0 + c, lo, hi, ok);
+        oks |= static_cast<uint32_t>(ok) << i;
+        if (vec) {
+          pack<V>(w, i, lo, hi);
+        } else {
+          store_scalar<OITEM>(values, (k0 + k) * S + s0 + c, lo, hi);
+        }
+        if (++c == sc) {
+          c = 0;
+          ++k;
+        }
+      }
+    }
+    if (vec) {
+      *reinterpret_cast<uint4*>(values + e0 * OITEM) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    oks <<= q0 & 31;
+#pragma unroll
+    for (int o = 1; o < 32 / V; o <<= 1) {
+      oks |= __shfl_xor_sync(0xffffffffu, oks, o);
+    }
+    if ((threadIdx.x & (32 / V - 1)) == 0 && q0 < cnt) okw[q0 >> 5] = oks;
+  }
+  return bad;
+}
+
+// the 32 validity bits of tile positions [from, from + 32); positions
+// outside [0, cnt) read 0
+__device__ __forceinline__ uint32_t tile_bits(const uint32_t* okw, int cnt,
+                                              int from) {
+  const int a = from >> 5, sh = from & 31;   // floor division
+  const int words = (cnt + 31) >> 5;
+  const uint32_t lo = (a >= 0 && a < words) ? okw[a] : 0u;
+  const uint32_t hi = (a + 1 >= 0 && a + 1 < words) ? okw[a + 1] : 0u;
+  return sh ? (lo >> sh) | (hi << (32 - sh)) : lo;
+}
+
+// the bits b of a word with lo <= base + b < hi
+__device__ __forceinline__ uint32_t bit_range(int base, int lo, int hi) {
+  const int a = max(lo - base, 0), b = min(hi - base, 32);
+  if (a >= b) return 0u;
+  const uint32_t upto = b == 32 ? 0xffffffffu : (1u << b) - 1u;
+  return upto & ~((1u << a) - 1u);
+}
+
+__global__ void __launch_bounds__(kTile, 4) arrow_scalars(
+    const uint8_t* __restrict__ src, int64_t src_bytes,
+    const uint8_t* __restrict__ aux, const int64_t* __restrict__ desc,
+    const int2* __restrict__ work, uint8_t* __restrict__ out) {
+  __shared__ int64_t d[D_NF];
+  __shared__ __align__(16) uint8_t vals[kCap * 8];
+  __shared__ uint8_t flags[kCap];
+  __shared__ int32_t rowv[kRows];    // a tile row's source row, -1 hidden
+  __shared__ uint32_t okw[kElems / 32];   // validity bits, tile order
+  __shared__ int warp_nulls[kTile / 32];
+  const int2 job = work[blockIdx.x];
+  if (threadIdx.x < D_NF) {
+    d[threadIdx.x] = desc[static_cast<int64_t>(job.x) * D_NF + threadIdx.x];
+  }
+  __syncthreads();
+  const int64_t S = d[D_SLOTS], L = d[D_LEN];
+  const int RT = static_cast<int>(d[D_RT]), SC = static_cast<int>(d[D_SC]);
+  const int rtiles = static_cast<int>(d[D_RTILES]);
+  const int64_t k0 = static_cast<int64_t>(job.y % rtiles) * RT;
+  const int64_t s0 = static_cast<int64_t>(job.y / rtiles) * SC;
+  const int rt = static_cast<int>(min64(RT, L / S - k0));
+  const int sc = static_cast<int>(min64(SC, S - s0));
+  const int cst = RT + 1;   // staged column stride, elements
+  const int src_kind = static_cast<int>(d[D_SRC]);
+  const int item = (src_kind == SRC_I32 || src_kind == SRC_F32) ? 4 : 8;
+  const int64_t rows_tab = d[D_ROWS], mask = d[D_MASK];
+  for (int k = threadIdx.x; k < rt; k += kTile) {
+    const int64_t row = rows_tab >= 0
+        ? load<int64_t>(aux, rows_tab + 8 * (k0 + k)) : k0 + k;
+    rowv[k] = (mask < 0 || aux[mask + row] != 0) ? static_cast<int32_t>(row)
+                                                 : -1;
+  }
+  if (rows_tab < 0 && (d[D_RSTRIDE] == 1 || rt == 1)) {
+    // each slot's rows are one run of each plane: its aligned 16-byte
+    // words (hidden rows are read too, and not used)
+    const int64_t v0 = plane_at(d, P_VALUES, k0, s0, item);
+    const int64_t f0 = plane_at(d, P_VALID, k0, s0, 1);
+    const int64_t vstep = d[D_STEP + P_VALUES], fstep = d[D_STEP + P_VALID];
+    const auto vrun = [=](int c) { return v0 + c * vstep; };
+    if (item == 4) {
+      stage_runs<4, 1>(vals, cst * 4, src, src_bytes, sc, rt * 4, vrun);
+    } else {
+      stage_runs<8, 1>(vals, cst * 8, src, src_bytes, sc, rt * 8, vrun);
+    }
+    stage_runs<1, 1>(flags, cst, src, src_bytes, sc, rt,
+                  [=](int c) { return f0 + c * fstep; });
+  } else {
+    __syncthreads();   // rowv
+    for (int q = threadIdx.x; q < sc * rt; q += kTile) {
+      const int c = q / rt, k = q - c * rt;
+      const int64_t row = rowv[k];
+      if (row < 0) continue;
+      const int slot = c * cst + k;
+      flags[slot] = src[plane_at(d, P_VALID, row, s0 + c, 1)];
+      const int64_t a = plane_at(d, P_VALUES, row, s0 + c, item);
+      if (item == 4) {
+        reinterpret_cast<uint32_t*>(vals)[slot] = load<uint32_t>(src, a);
+      } else {
+        reinterpret_cast<uint64_t*>(vals)[slot] = load<uint64_t>(src, a);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the value pass, specialized by (source, output) class
+  const DecRule rule{static_cast<int>(d[D_DEC]), d[D_SHIFT], d[D_MAXD]};
+  const int out_kind = static_cast<int>(d[D_OUT]);
+  const int cnt = rt * sc;
+  const bool whole = sc == S;   // the tile's output is one run
+  uint8_t* values = out + d[D_VALUES];
+  bool bad = false;
+#define TILE_VALUES(SRC_, OUT_)                                             \
+  case SRC_ * 8 + OUT_:                                                     \
+    bad = tile_values<SRC_, OUT_>(rule, d, src, vals, flags, rowv, okw,     \
+                                  cst, rt, sc, k0, s0, S, values);          \
+    break;
+  switch (src_kind * 8 + out_kind) {
+    TILE_VALUES(SRC_I32, OUT_I32)
+    TILE_VALUES(SRC_I32, OUT_I64)
+    TILE_VALUES(SRC_I32, OUT_DEC)
+    TILE_VALUES(SRC_I64, OUT_I32)
+    TILE_VALUES(SRC_I64, OUT_I64)
+    TILE_VALUES(SRC_I64, OUT_DEC)
+    TILE_VALUES(SRC_F32, OUT_F32)
+    TILE_VALUES(SRC_F32, OUT_F64)
+    TILE_VALUES(SRC_F64, OUT_F32)
+    TILE_VALUES(SRC_F64, OUT_F64)
+    TILE_VALUES(SRC_WIDE, OUT_DEC)
+    default: break;
+  }
+#undef TILE_VALUES
+  __syncthreads();   // okw
+
+  // validity words: a thread a word of the output, over each run of the
+  // tile (one run of rt * S elements for whole rows, else a run of sc a
+  // row, at most 32 elements and two words); a word the tile fills
+  // (with the bits past the array's end) is stored, one it shares with
+  // another tile is OR-ed in
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int run = whole ? cnt : sc;
+  const int nruns = whole ? 1 : rt;
+  const int wpr = (run + 31) / 32 + 1;
+  uint32_t* bitmap = reinterpret_cast<uint32_t*>(out + d[D_BITMAP]);
+  int nulls = 0;
+  for (int it = threadIdx.x; it < nruns * wpr; it += kTile) {
+    const int g = it / wpr;
+    const int64_t start = (k0 + g) * S + s0;
+    const int64_t W = (start >> 5) + (it - g * wpr);
+    if (W * 32 >= start + run) continue;
+    const int x = static_cast<int>(W * 32 - start);   // run position of bit 0
+    const uint32_t mine = bit_range(x, 0, run);
+    const uint32_t bits = tile_bits(okw, cnt, g * sc + x) & mine;
+    const int64_t left = L - W * 32;   // the word's bits inside the array
+    const uint32_t past = bit_range(
+        0, left <= 0 ? 0 : left >= 32 ? 32 : static_cast<int>(left), 32);
+    if ((mine | past) == 0xffffffffu) {
+      bitmap[W] = bits;
+    } else if (bits) {
+      atomicOr(bitmap + W, bits);
+    }
+    nulls += __popc(mine & ~bits);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    nulls += __shfl_down_sync(0xffffffffu, nulls, o);
+  }
+  if (lane == 0) warp_nulls[warp] = nulls;
+  const int any_bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kTile / 32; ++w) total += warp_nulls[w];
+    int64_t* counters = reinterpret_cast<int64_t*>(out)
+        + static_cast<int64_t>(job.x) * C_NF;
+    if (total) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(counters + C_NULLS),
+                static_cast<unsigned long long>(total));
+    }
+    if (any_bad) counters[C_BAD] = 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// strings
+// ---------------------------------------------------------------------------
 
 // the request of work tile `tile`: starts[m] <= tile < starts[m + 1]
 __device__ __forceinline__ int64_t find_request(const int64_t* starts,
@@ -152,168 +670,15 @@ __device__ __forceinline__ int64_t find_request(const int64_t* starts,
   return lo;
 }
 
-__device__ __forceinline__ int64_t row_of(const uint8_t* aux, Req r,
-                                          int64_t j) {
-  const int64_t slots = r[D_SLOTS];
-  const int64_t k = j / slots;
-  return r[D_ROWS] >= 0 ? load<int64_t>(aux, r[D_ROWS] + 8 * k) : k;
+__device__ __forceinline__ int64_t row_of(const uint8_t* aux,
+                                          const int64_t* d, int64_t j) {
+  return d[D_ROWS] >= 0 ? load<int64_t>(aux, d[D_ROWS] + 8 * j) : j;
 }
 
-__device__ __forceinline__ bool hidden(const uint8_t* aux, Req r,
+__device__ __forceinline__ bool hidden(const uint8_t* aux, const int64_t* d,
                                        int64_t row) {
-  return r[D_MASK] >= 0 && aux[r[D_MASK] + row] == 0;
+  return d[D_MASK] >= 0 && aux[d[D_MASK] + row] == 0;
 }
-
-// ---------------------------------------------------------------------------
-// scalars
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kTile) arrow_scalars(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ aux,
-    const int64_t* __restrict__ desc, const int64_t* __restrict__ ids,
-    const int64_t* __restrict__ starts, int64_t nreq,
-    uint8_t* __restrict__ out) {
-  const int64_t tile = blockIdx.x;
-  const int64_t m = find_request(starts, nreq, tile);
-  const int64_t id = ids[m];
-  const Req r{desc + id * D_NF};
-  const int64_t L = r[D_LEN];
-  const int64_t j = (tile - starts[m]) * kTile + threadIdx.x;
-  const bool in = j < L;
-  bool valid = false, bad = false;
-  int64_t v64 = 0;          // int and float outputs: the bits to store
-  U128 dec{0, 0};
-  const int out_kind = static_cast<int>(r[D_OUT]);
-  if (in) {
-    const int64_t row = row_of(aux, r, j);
-    if (!hidden(aux, r, row)) {
-      const int64_t s = j % r[D_SLOTS];
-      const int64_t* slot = reinterpret_cast<const int64_t*>(
-          aux + r[D_SLOT_TAB]) + s * S_NF;
-      const int64_t stride = r[D_STRIDE];
-      const int src_kind = static_cast<int>(r[D_SRC]);
-      valid = src[slot[S_VALID] + row * stride] != 0;
-      int64_t iv = 0;       // integer planes' value
-      uint64_t bits = 0;    // float planes' bits
-      U128 mag{0, 0};
-      bool neg = false;
-      switch (src_kind) {
-        case SRC_I32: iv = load<int32_t>(src, slot[S_VALUES] + row * stride * 4); break;
-        case SRC_I64: iv = load<int64_t>(src, slot[S_VALUES] + row * stride * 8); break;
-        case SRC_F32: bits = load<uint32_t>(src, slot[S_VALUES] + row * stride * 4); break;
-        case SRC_F64: bits = load<uint64_t>(src, slot[S_VALUES] + row * stride * 8); break;
-        case SRC_WIDE:
-          mag.lo = load<uint64_t>(src, slot[S_VALUES] + row * stride * 8);
-          mag.hi = load<uint64_t>(src, slot[S_HI] + row * stride * 8);
-          neg = src[slot[S_NEG] + row * stride] != 0;
-          break;
-        default: break;
-      }
-      if (src_kind == SRC_I32 || src_kind == SRC_I64) {
-        neg = iv < 0;
-        // |INT64_MIN| wraps to itself: its unsigned view is 2^63
-        mag.lo = neg ? 0ull - static_cast<uint64_t>(iv)
-                     : static_cast<uint64_t>(iv);
-      }
-      switch (out_kind) {
-        case OUT_I32: case OUT_I64: v64 = iv; break;
-        case OUT_F32:
-          v64 = src_kind == SRC_F32 ? bits
-              : __float_as_uint(static_cast<float>(__longlong_as_double(
-                    static_cast<long long>(bits))));
-          break;
-        case OUT_F64:
-          v64 = src_kind == SRC_F64 ? static_cast<int64_t>(bits)
-              : __double_as_longlong(static_cast<double>(
-                    __uint_as_float(static_cast<uint32_t>(bits))));
-          break;
-        case OUT_DEC: {
-          int64_t shift = r[D_SHIFT];
-          if (r[D_DEC] == DEC_DOTS) {
-            shift -= load<int32_t>(src, slot[S_DOTS] + row * stride * 4);
-          } else if (r[D_DEC] == DEC_DIGITS) {
-            // the int64 plane's digit count tops out at 19
-            shift -= digit_count(mag);
-          }
-          const int64_t maxd = r[D_MAXD];
-          if (maxd == 0) {
-            // mantissas of up to 18 digits: every visible row's shift
-            // in 0..18, the product unbounded (it fits 128 bits)
-            if (shift < 0 || shift > 18) {
-              bad = true;
-            } else if (valid) {
-              bool over;
-              dec = mul_pow10(mag, static_cast<int>(shift), &over);
-            }
-          } else if (valid) {
-            // bounded by the declared precision, valid rows only
-            if (shift < 0 || shift > 38) {
-              bad = true;
-            } else {
-              bool over;
-              dec = mul_pow10(mag, static_cast<int>(shift), &over);
-              if (over || ge128(dec, kPow10[maxd])) bad = true;
-            }
-            if (bad) dec = U128{0, 0};
-          }
-          if (neg && valid) {
-            // two's complement of the 128-bit magnitude
-            const uint64_t lo = ~dec.lo + 1;
-            dec.hi = ~dec.hi + (lo == 0 ? 1 : 0);
-            dec.lo = lo;
-          }
-          break;
-        }
-        default: break;
-      }
-      if (!valid) { v64 = 0; dec = U128{0, 0}; }
-    }
-  }
-  uint8_t* values = out + r[D_VALUES];
-  if (in) {
-    switch (out_kind) {
-      case OUT_I32: case OUT_F32:
-        reinterpret_cast<uint32_t*>(values)[j] = static_cast<uint32_t>(v64);
-        break;
-      case OUT_I64: case OUT_F64:
-        reinterpret_cast<int64_t*>(values)[j] = v64;
-        break;
-      case OUT_DEC:
-        reinterpret_cast<uint64_t*>(values)[2 * j] = dec.lo;
-        reinterpret_cast<uint64_t*>(values)[2 * j + 1] = dec.hi;
-        break;
-      default: break;
-    }
-  }
-  const unsigned word = __ballot_sync(0xffffffffu, in && valid);
-  const int lane = threadIdx.x & 31;
-  const int64_t first = j - lane;
-  if (lane == 0 && first < L) {
-    reinterpret_cast<uint32_t*>(out + r[D_BITMAP])[first >> 5] = word;
-  }
-  __shared__ int nulls[kTile / 32];
-  __shared__ int any_bad;
-  if (threadIdx.x == 0) any_bad = 0;
-  const unsigned missing = __ballot_sync(0xffffffffu, in && !valid);
-  if (lane == 0) nulls[threadIdx.x >> 5] = __popc(missing);
-  __syncthreads();
-  if (bad) any_bad = 1;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kTile / 32; ++w) total += nulls[w];
-    int64_t* counters = reinterpret_cast<int64_t*>(out) + id * C_NF;
-    if (total) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(counters + C_NULLS),
-                static_cast<unsigned long long>(total));
-    }
-    if (any_bad) counters[C_BAD] = 1;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// strings
-// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t code_point(const uint8_t* p, int wide,
                                                int64_t k) {
@@ -328,6 +693,20 @@ __device__ __forceinline__ int utf8_len(uint32_t c) {
   return c < 0x80 ? 1 : c < 0x800 ? 2 : 3;
 }
 
+__device__ __forceinline__ uint8_t* put_utf8(uint8_t* o, uint32_t u) {
+  if (u < 0x80) {
+    *o++ = static_cast<uint8_t>(u);
+  } else if (u < 0x800) {
+    *o++ = static_cast<uint8_t>(0xC0 | (u >> 6));
+    *o++ = static_cast<uint8_t>(0x80 | (u & 0x3F));
+  } else {
+    *o++ = static_cast<uint8_t>(0xE0 | (u >> 12));
+    *o++ = static_cast<uint8_t>(0x80 | ((u >> 6) & 0x3F));
+    *o++ = static_cast<uint8_t>(0x80 | (u & 0x3F));
+  }
+  return o;
+}
+
 // the value of element j: its code points (null: blank) and trimmed extent
 struct Value {
   const uint8_t* p;   // null for a hidden row: every code point is 0x20
@@ -335,19 +714,18 @@ struct Value {
   int64_t s, e;
 };
 
-__device__ Value value_of(const uint8_t* src, const uint8_t* aux, Req r,
-                          int64_t j) {
-  const int64_t row = row_of(aux, r, j);
-  const int64_t w = r[D_WIDTH];
-  const int wide = r[D_SRC] == SRC_CP16;
+__device__ Value value_of(const uint8_t* src, const uint8_t* aux,
+                          const int64_t* d, int64_t j) {
+  const int64_t row = row_of(aux, d, j);
+  const int64_t w = d[D_WIDTH];
+  const int wide = d[D_SRC] == SRC_CP16;
   Value v{nullptr, wide, 0, w};
-  const int mode = static_cast<int>(r[D_TRIM]);
-  if (hidden(aux, r, row)) {
+  const int mode = static_cast<int>(d[D_TRIM]);
+  if (hidden(aux, d, row)) {
     if (mode != TRIM_NONE) v.e = 0;   // blanks trim away
     return v;
   }
-  const int64_t* slot = reinterpret_cast<const int64_t*>(aux + r[D_SLOT_TAB]);
-  v.p = src + slot[S_VALUES] + row * r[D_STRIDE] * (wide ? 2 : 1);
+  v.p = src + plane_at(d, P_VALUES, row, 0, wide ? 2 : 1);
   if (mode == TRIM_BOTH || mode == TRIM_LEFT) {
     while (v.s < v.e && trims(code_point(v.p, wide, v.s), mode)) ++v.s;
   }
@@ -403,13 +781,13 @@ __global__ void __launch_bounds__(kTile) arrow_str_lengths(
   const int64_t tile = blockIdx.x;
   const int64_t m = find_request(starts, nreq, tile);
   const int64_t id = ids[m];
-  const Req r{desc + id * D_NF};
+  const int64_t* d = desc + id * D_NF;
   const int64_t j = (tile - starts[m]) * kTile + threadIdx.x;
-  int32_t* offsets = reinterpret_cast<int32_t*>(out + r[D_VALUES]);
+  int32_t* offsets = reinterpret_cast<int32_t*>(out + d[D_VALUES]);
   int64_t len = 0;
   bool bad = false;
-  if (j < r[D_LEN]) {
-    const Value v = value_of(src, aux, r, j);
+  if (j < d[D_LEN]) {
+    const Value v = value_of(src, aux, d, j);
     for (int64_t k = v.s; k < v.e; ++k) {
       const uint32_t c = v.p ? code_point(v.p, v.wide, k) : 0x20;
       len += utf8_len(c);
@@ -479,40 +857,174 @@ __global__ void __launch_bounds__(kScanThreads) arrow_str_offsets(
   if (threadIdx.x == 0) counters[grand_slot] = carry;
 }
 
+// What bounds it: bytes (each visible string's code points in, its UTF-8
+// bytes and offset out), and at one batch's shapes latency. The simple
+// design searched the request starts, read the descriptor, row table,
+// mask and slot table from global memory, and then each thread walked its
+// own string alone, re-reading the code points the lengths step had
+// walked a byte (or uint16) at a time, neighbouring threads a string
+// width apart, and wrote its UTF-8 a byte at a time to unaligned
+// addresses.
+//
+// The design. A block takes one tile of 256 strings (the tiles of
+// arrow_str_lengths and arrow_str_offsets), named by its work entry; one
+// warp copies the descriptor and the request's bad flag and data start
+// into shared memory. The block scan of the lengths gives the int32
+// offsets, as before, and the tile's UTF-8 bytes are the contiguous range
+// [data start + tile base, + tile sum) of the output. The tile's code
+// points are staged in shared memory with 16-byte loads, four a thread in
+// flight: one run when its rows are contiguous (no row table, row stride
+// = width), issued with the row and mask loads before the block scan, or
+// a run a row after it. Each string's trimmed extent is found in shared
+// memory, and its bytes are built in a shared buffer laid out with the
+// output range's alignment: an all-ASCII string (UTF-8 length = code
+// points) is cut in items of 16 code points, a string with any other code
+// point is one item, encoded as before, and the block's threads take the
+// items in turn. The range is then written with aligned 16-byte stores,
+// the bytes at its ragged ends one at a time. A tile whose code points
+// (256 x width x 1 or 2 bytes) or UTF-8 bytes do not fit the shared
+// buffers writes directly: each thread its own string from global memory,
+// the simple design's path. Hidden rows stay blank, and a column marked
+// bad is skipped. At one batch's shapes (a few hundred tiles, one wave)
+// the kernel stays held by its chain of loads: work entry, descriptor,
+// then lengths and code points.
 __global__ void __launch_bounds__(kTile) arrow_str_copy(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ aux,
-    const int64_t* __restrict__ desc, const int64_t* __restrict__ ids,
-    const int64_t* __restrict__ starts, int64_t nreq,
-    uint8_t* __restrict__ out, const int64_t* __restrict__ tile_sums,
-    int64_t data_off) {
-  const int64_t tile = blockIdx.x;
-  const int64_t m = find_request(starts, nreq, tile);
-  const int64_t id = ids[m];
-  const Req r{desc + id * D_NF};
-  const int64_t* c = reinterpret_cast<const int64_t*>(out) + id * C_NF;
-  if (c[C_BAD]) return;   // the caller rebuilds this column
-  const int64_t j = (tile - starts[m]) * kTile + threadIdx.x;
-  const bool in = j < r[D_LEN];
-  int32_t* offsets = reinterpret_cast<int32_t*>(out + r[D_VALUES]);
-  const int32_t len = in ? offsets[j + 1] : 0;
+    const uint8_t* __restrict__ src, int64_t src_bytes,
+    const uint8_t* __restrict__ aux, const int64_t* __restrict__ desc,
+    const int2* __restrict__ work, uint8_t* __restrict__ out,
+    const int64_t* __restrict__ tile_sums, int64_t data_off) {
+  __shared__ int64_t d[D_NF + 2];   // descriptor, bad flag, data start
+  __shared__ __align__(16) uint8_t cps[kStrCp];
+  __shared__ __align__(16) uint8_t utf[kStrOut + 16];
+  __shared__ int32_t rowv[kTile], ext_s[kTile], ext_e[kTile], at[kTile];
+  __shared__ int32_t item_end[kTile];
+  __shared__ uint8_t ascii[kTile];
   __shared__ int32_t part[kTile / 32];
-  const int32_t inc = block_scan<int32_t>(len, part);
-  const int64_t base = tile_sums[tile];
-  if (!in) return;
-  offsets[j + 1] = static_cast<int32_t>(base + inc);
-  uint8_t* dst = out + data_off + c[C_START] + base + (inc - len);
-  const Value v = value_of(src, aux, r, j);
-  for (int64_t k = v.s; k < v.e; ++k) {
-    const uint32_t u = v.p ? code_point(v.p, v.wide, k) : 0x20;
-    if (u < 0x80) {
-      *dst++ = static_cast<uint8_t>(u);
-    } else if (u < 0x800) {
-      *dst++ = static_cast<uint8_t>(0xC0 | (u >> 6));
-      *dst++ = static_cast<uint8_t>(0x80 | (u & 0x3F));
+  __shared__ int32_t tile_bytes, tile_items;
+  const int2 job = work[blockIdx.x];
+  const int64_t base = tile_sums[blockIdx.x];
+  const int64_t* counters = reinterpret_cast<const int64_t*>(out)
+      + static_cast<int64_t>(job.x) * C_NF;
+  if (threadIdx.x < D_NF) {
+    d[threadIdx.x] = desc[static_cast<int64_t>(job.x) * D_NF + threadIdx.x];
+  } else if (threadIdx.x == D_NF) {
+    d[D_NF] = counters[C_BAD];
+  } else if (threadIdx.x == D_NF + 1) {
+    d[D_NF + 1] = counters[C_START];
+  }
+  __syncthreads();
+  if (d[D_NF]) return;   // the caller rebuilds this column
+  const int tid = threadIdx.x;
+  const int64_t j0 = static_cast<int64_t>(job.y) * kTile, j = j0 + tid;
+  const int n_in = static_cast<int>(min64(kTile, d[D_LEN] - j0));
+  const bool in = tid < n_in;
+  int32_t* offsets = reinterpret_cast<int32_t*>(out + d[D_VALUES]);
+  const int32_t len = in ? offsets[j + 1] : 0;
+  const int w = static_cast<int>(d[D_WIDTH]);
+  const int wide = d[D_SRC] == SRC_CP16;
+  const int cs = wide ? 2 : 1;
+  const int rb = w * cs;   // a row's code-point bytes
+  const bool fits = static_cast<int64_t>(n_in) * rb <= kStrCp;
+  const bool run = d[D_ROWS] < 0 && (d[D_RSTRIDE] == w || n_in == 1);
+  // the loads that need only the descriptor go out before the scan:
+  // the rows and their visibility, and a run of the tile's code points
+  if (in) {
+    const int64_t row = row_of(aux, d, j);
+    rowv[tid] = hidden(aux, d, row) ? -1 : static_cast<int32_t>(row);
+  }
+  if (fits && run) {
+    const int64_t a0 = plane_at(d, P_VALUES, j0, 0, cs);
+    const auto one = [=](int) { return a0; };
+    if (wide) stage_runs<2, 4>(cps, 0, src, src_bytes, 1, n_in * rb, one);
+    else stage_runs<1, 4>(cps, 0, src, src_bytes, 1, n_in * rb, one);
+  }
+  const int32_t inc = block_scan<int32_t>(len, part);   // (syncs)
+  if (tid == kTile - 1) tile_bytes = inc;
+  if (in) offsets[j + 1] = static_cast<int32_t>(base + inc);
+  const int64_t dst = data_off + d[D_NF + 1] + base;   // bytes into out
+  __syncthreads();   // tile_bytes
+  const int T = tile_bytes;
+  const int mis = static_cast<int>(dst & 15);   // out is 16-byte aligned
+  if (!fits || mis + T > kStrOut) {
+    if (in) {
+      uint8_t* o = out + dst + (inc - len);
+      const Value v = value_of(src, aux, d, j);
+      for (int64_t k = v.s; k < v.e; ++k) {
+        o = put_utf8(o, v.p ? code_point(v.p, v.wide, k) : 0x20);
+      }
+    }
+    return;
+  }
+  if (!run) {
+    // a run a row (rowv is visible since the scan)
+    const auto row_run = [&](int i) -> int64_t {
+      return rowv[i] < 0 ? -1 : plane_at(d, P_VALUES, rowv[i], 0, cs);
+    };
+    if (wide) stage_runs<2, 4>(cps, rb, src, src_bytes, n_in, rb, row_run);
+    else stage_runs<1, 4>(cps, rb, src, src_bytes, n_in, rb, row_run);
+    __syncthreads();
+  }
+  // each string's trimmed extent, its place in the tile's bytes, items
+  const uint16_t* cps16 = reinterpret_cast<const uint16_t*>(cps);
+  int32_t items = 0;
+  if (in) {
+    const int mode = static_cast<int>(d[D_TRIM]);
+    const bool blank = rowv[tid] < 0;
+    int s = 0, e = w;
+    const int r0 = tid * w;
+    if (mode == TRIM_BOTH || mode == TRIM_LEFT) {
+      while (s < e && trims(blank ? 0x20u : wide ? cps16[r0 + s]
+                                          : cps[r0 + s], mode)) ++s;
+    }
+    if (mode == TRIM_BOTH || mode == TRIM_RIGHT) {
+      while (e > s && trims(blank ? 0x20u : wide ? cps16[r0 + e - 1]
+                                          : cps[r0 + e - 1], mode)) --e;
+    }
+    ext_s[tid] = s;
+    ext_e[tid] = e;
+    at[tid] = mis + inc - len;
+    ascii[tid] = len == e - s;
+    items = e > s ? (len == e - s ? (e - s + 15) / 16 : 1) : 0;
+  }
+  const int32_t iinc = block_scan<int32_t>(items, part);
+  item_end[tid] = iinc;
+  if (tid == kTile - 1) tile_items = iinc;
+  __syncthreads();
+  for (int it = tid; it < tile_items; it += kTile) {
+    int lo = 0, hi = n_in - 1;   // the first string whose items end past it
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (item_end[mid] > it) hi = mid; else lo = mid + 1;
+    }
+    const int i = lo, r0 = i * w;
+    const bool blank = rowv[i] < 0;
+    const int s = ext_s[i], e = ext_e[i];
+    uint8_t* o = utf + at[i];
+    if (ascii[i]) {
+      const int first = i ? item_end[i - 1] : 0;
+      const int k1 = s + 16 * (it - first), k2 = min(e, k1 + 16);
+      for (int k = k1; k < k2; ++k) {
+        o[k - s] = blank ? 0x20 : static_cast<uint8_t>(
+            wide ? cps16[r0 + k] : cps[r0 + k]);
+      }
     } else {
-      *dst++ = static_cast<uint8_t>(0xE0 | (u >> 12));
-      *dst++ = static_cast<uint8_t>(0x80 | ((u >> 6) & 0x3F));
-      *dst++ = static_cast<uint8_t>(0x80 | (u & 0x3F));
+      for (int k = s; k < e; ++k) {
+        o = put_utf8(o, blank ? 0x20u : wide ? cps16[r0 + k] : cps[r0 + k]);
+      }
+    }
+  }
+  __syncthreads();
+  // the tile's range [dst, dst + T): whole aligned words, ragged ends
+  const int64_t g0 = dst - mis;
+  for (int q = tid; q < (mis + T + 15) / 16; q += kTile) {
+    const int64_t g = g0 + 16 * q;
+    if (g >= dst && g + 16 <= dst + T) {
+      *reinterpret_cast<uint4*>(out + g) =
+          *reinterpret_cast<const uint4*>(utf + 16 * q);
+    } else {
+      for (int b = 0; b < 16; ++b) {
+        if (g + b >= dst && g + b < dst + T) out[g + b] = utf[16 * q + b];
+      }
     }
   }
 }
@@ -520,21 +1032,24 @@ __global__ void __launch_bounds__(kTile) arrow_str_copy(
 }  // namespace
 
 // Every entry launches on `stream` and returns the CUDA error (0 = none).
-// `tiles` is the number of work tiles of its class (starts[nreq]).
+// `src` and `out` are 16-byte aligned; `src_bytes` is the source's size.
 
-extern "C" int cobrix_arrow_scalars(const void* src, const void* aux,
-                                    const void* desc, const void* ids,
-                                    const void* starts, int64_t nreq,
-                                    int64_t tiles, void* out, void* stream) {
-  if (tiles == 0) return 0;
-  arrow_scalars<<<static_cast<unsigned>(tiles), kTile, 0,
+// `work`: an (int32 request, int32 tile) pair a block; `out`'s counters
+// and validity words start zeroed
+extern "C" int cobrix_arrow_scalars(const void* src, int64_t src_bytes,
+                                    const void* aux, const void* desc,
+                                    const void* work, int64_t blocks,
+                                    void* out, void* stream) {
+  if (blocks == 0) return 0;
+  arrow_scalars<<<static_cast<unsigned>(blocks), kTile, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(aux),
-      static_cast<const int64_t*>(desc), static_cast<const int64_t*>(ids),
-      static_cast<const int64_t*>(starts), nreq, static_cast<uint8_t*>(out));
+      static_cast<const uint8_t*>(src), src_bytes,
+      static_cast<const uint8_t*>(aux), static_cast<const int64_t*>(desc),
+      static_cast<const int2*>(work), static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// `tiles` is the number of string tiles (starts[nreq])
 extern "C" int cobrix_arrow_str_lengths(const void* src, const void* aux,
                                         const void* desc, const void* ids,
                                         const void* starts, int64_t nreq,
@@ -567,18 +1082,19 @@ extern "C" int cobrix_arrow_str_offsets(const void* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int cobrix_arrow_str_copy(const void* src, const void* aux,
-                                     const void* desc, const void* ids,
-                                     const void* starts, int64_t nreq,
-                                     int64_t tiles, void* out,
-                                     const void* tile_sums, int64_t data_off,
-                                     void* stream) {
+// `work`: an (int32 request, int32 tile of the request) pair a string
+// tile, in the order of the tile sums
+extern "C" int cobrix_arrow_str_copy(const void* src, int64_t src_bytes,
+                                     const void* aux, const void* desc,
+                                     const void* work, int64_t tiles,
+                                     void* out, const void* tile_sums,
+                                     int64_t data_off, void* stream) {
   if (tiles == 0) return 0;
   arrow_str_copy<<<static_cast<unsigned>(tiles), kTile, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(aux),
-      static_cast<const int64_t*>(desc), static_cast<const int64_t*>(ids),
-      static_cast<const int64_t*>(starts), nreq, static_cast<uint8_t*>(out),
+      static_cast<const uint8_t*>(src), src_bytes,
+      static_cast<const uint8_t*>(aux), static_cast<const int64_t*>(desc),
+      static_cast<const int2*>(work), static_cast<uint8_t*>(out),
       static_cast<const int64_t*>(tile_sums), data_off);
   return static_cast<int>(cudaGetLastError());
 }

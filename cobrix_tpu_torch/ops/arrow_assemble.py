@@ -10,19 +10,25 @@ Replaces host C++ of the JAX package (no TPU kernel): the Arrow legs of
 bounds them.
 
 * `Request` names one output array: its planes (numpy views of a
-  batch's host planes, one set a slot), the source and output kinds,
-  the decimal mode, shift and precision bound, an optional row table
-  (build the array at those rows) and visibility mask (a hidden row is
-  null and zero, a hidden string blank), or the string width and trim.
-* `build_plan(requests, host_buffer, device)` lays the requests out: the
-  planes' byte offsets in the batch's one host buffer (`host_buffer`,
-  the pinned buffer ``ColumnarDecoder._decode_device`` filled), or, when
-  a plane lies outside it (a joined batch, ``DecodedBatch.concat``), in
-  a staging buffer of only the planes the requests read; the descriptor,
-  slot, row, mask and work tables in one aux buffer; the output buffer's
-  layout: four int64 counters a request (null count, bad, data start,
-  total) and the grand total, each array's values and validity words or
-  int32 offsets, then the string data.
+  batch's host planes: a list of S per-slot dicts, or a `SlotPlanes`
+  whose every plane kind is one [rows, S] array, as the fused decoder's
+  column-major group planes hold an OCCURS field's slots), the source
+  and output kinds, the decimal mode, shift and precision bound, an
+  optional row table (build the array at those rows) and visibility mask
+  (a hidden row is null and zero, a hidden string blank), or the string
+  width and trim.
+* `build_plan(requests, host_buffer, device)` lays the requests out: each
+  plane kind's slots as a base and a step (the bytes from one slot's
+  plane to the next) in the batch's one host buffer (`host_buffer`, the
+  pinned buffer ``ColumnarDecoder._decode_device`` filled), or, when a
+  plane lies outside it or a request's slots are not evenly spaced there
+  (a joined batch, ``DecodedBatch.concat``), in a staging buffer of only
+  the planes the requests read, each kind's slots one after the other;
+  the descriptor, work, row and mask tables in one aux buffer; the output
+  buffer's layout: four int64 counters a request (null count, bad, data
+  start, total) and the grand total, each array's values and validity
+  words or int32 offsets, then the string data. A `SlotPlanes` request
+  costs a few numpy attributes a plane kind, whatever S is.
 * `assemble(plan)` runs the four steps on the plan's device and returns
   the used part of the output buffer on the host: a CUDA plan copies the
   source buffer to the card in one copy (and the aux tables in one
@@ -40,19 +46,20 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ._build import count_launch
 
-# csrc/arrow_assemble.cu descriptor fields, slot fields and counters
-D_NF = 15
-(D_LEN, D_SLOTS, D_SLOT_TAB, D_ROWS, D_MASK, D_SRC, D_STRIDE, D_OUT, D_DEC,
- D_SHIFT, D_MAXD, D_VALUES, D_BITMAP, D_WIDTH, D_TRIM) = range(D_NF)
-S_NF = 5
-S_VALUES, S_VALID, S_HI, S_NEG, S_DOTS = range(S_NF)
+# csrc/arrow_assemble.cu descriptor fields, plane kinds and counters
+D_NF = 27
+(D_LEN, D_SLOTS, D_ROWS, D_MASK, D_SRC, D_RSTRIDE, D_OUT, D_DEC, D_SHIFT,
+ D_MAXD, D_VALUES, D_BITMAP, D_WIDTH, D_TRIM, D_RT, D_SC, D_RTILES) = range(17)
+D_BASE, D_STEP = 17, 22   # + plane kind: slot 0's byte offset, slot step
+P_NF = 5
+P_VALUES, P_VALID, P_HI, P_NEG, P_DOTS = range(P_NF)
 C_NF = 4
 C_NULLS, C_BAD, C_START, C_TOTAL = range(C_NF)
 
@@ -62,7 +69,12 @@ DEC_NONE, DEC_STATIC, DEC_DOTS, DEC_DIGITS = range(4)
 TRIM_NONE, TRIM_BOTH, TRIM_LEFT, TRIM_RIGHT = range(4)
 
 OUT_ITEMSIZE = {OUT_I32: 4, OUT_I64: 8, OUT_F32: 4, OUT_F64: 8, OUT_DEC: 16}
-TILE = 256          # elements a block of the element kernels
+TILE = 256          # strings a string tile (threads a block)
+SCALAR_ROWS = 2048  # rows a scalar tile at most
+SCALAR_ELEMS = 4096  # elements a scalar tile at most
+SCALAR_CAP = 4128   # staged slots of a scalar tile, SC x (RT + 1)
+STR_CP_BYTES = 16384   # staged code-point bytes of a string tile
+STR_OUT_BYTES = 24576  # staged UTF-8 bytes of a string tile
 _ALIGN = 256        # byte alignment of every buffer in src, aux and out
 _INT32_MAX = 2 ** 31 - 1
 
@@ -77,15 +89,48 @@ def _up(x: int, a: int = _ALIGN) -> int:
     return -(-x // a) * a
 
 
+def scalar_tile(slots: int) -> Tuple[int, int]:
+    """(rows, slots) of one `arrow_scalars` tile of an array of `slots`
+    slots: 2,048 rows of a one-slot array, whole rows of up to 64 slots,
+    else 128 rows x 32 slots (a slot's 128 rows are 512 or 1,024 bytes of
+    values: whole sectors). Two runs of 32 slots of one tile are at least
+    33 elements apart, so they never share a validity word."""
+    if slots == 1:
+        return SCALAR_ROWS, 1
+    if slots <= 64:
+        return SCALAR_ROWS // slots, slots
+    return 128, 32
+
+
+class SlotPlanes:
+    """The planes of an array's S slots, each kind one [rows, S] numpy
+    array whose strides are the row stride and the step from one slot's
+    plane to the next (a slice of a fused group's column-major planes).
+    It reads as the list of per-slot dicts it stands for."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray]):
+        self.arrays = arrays
+        self.slots = next(iter(arrays.values())).shape[1]
+
+    def __len__(self) -> int:
+        return self.slots
+
+    def __getitem__(self, s: int) -> Dict[str, np.ndarray]:
+        if not -self.slots <= s < self.slots:
+            raise IndexError(s)
+        return {k: a[:, s] for k, a in self.arrays.items()}
+
+
 @dataclass
 class Request:
-    """One output array of `length` elements. `planes[s]` are slot s's
-    host planes by name ("values", "valid", "hi", "neg", "dots"; strings:
-    "values", the [n, width] code points), numpy arrays over the batch's
-    rows; element j is slot j % S of row j // S, or of `rows[j // S]`."""
+    """One output array of `length` elements. `planes`: slot s's host
+    planes by name ("values", "valid", "hi", "neg", "dots"; strings:
+    "values", the [n, width] code points), a list of per-slot dicts or a
+    `SlotPlanes`, numpy arrays over the batch's rows; element j is slot
+    j % S of row j // S, or of `rows[j // S]`."""
 
     length: int
-    planes: List[Dict[str, np.ndarray]]
+    planes: Union[List[Dict[str, np.ndarray]], SlotPlanes]
     src_kind: int
     out_kind: int
     dec_mode: int = DEC_NONE
@@ -101,8 +146,8 @@ class Request:
         return self.out_kind == OUT_UTF8
 
 
-_PLANE_SLOT = {"values": S_VALUES, "valid": S_VALID, "hi": S_HI,
-               "neg": S_NEG, "dots": S_DOTS}
+_PLANE = {"values": P_VALUES, "valid": P_VALID, "hi": P_HI, "neg": P_NEG,
+          "dots": P_DOTS}
 
 
 @dataclass
@@ -115,7 +160,7 @@ class Plan:
     aux: np.ndarray
     desc: np.ndarray
     num_ids: np.ndarray
-    num_starts: np.ndarray
+    num_work: np.ndarray   # (request, tile) int32 a scalar block
     str_ids: np.ndarray
     str_starts: np.ndarray
     aux_off: Dict[str, int]
@@ -127,7 +172,7 @@ class Plan:
 
     @property
     def num_tiles(self) -> int:
-        return int(self.num_starts[-1])
+        return len(self.num_work)
 
     @property
     def str_tiles(self) -> int:
@@ -138,29 +183,112 @@ def _addr(a: np.ndarray) -> int:
     return a.__array_interface__["data"][0]
 
 
-def _span(a: np.ndarray) -> int:
-    """Bytes from an array's first element to the end of its last."""
-    if not a.size:
-        return 0
-    return sum((d - 1) * st for d, st in zip(a.shape, a.strides)) \
-        + a.itemsize
+def _kinds(r: Request) -> Dict[str, Union[np.ndarray, List[np.ndarray]]]:
+    """Each plane kind of `r`: its [rows, S] array, or its S per-slot
+    arrays ([rows], or [rows, width] code points)."""
+    if isinstance(r.planes, SlotPlanes):
+        return r.planes.arrays
+    return {name: [slot[name] for slot in r.planes] for name in r.planes[0]}
 
 
-def _row_stride(a: np.ndarray) -> Optional[int]:
-    """Elements between consecutive rows of a plane, or None when the
-    plane's layout does not fit the kernels' (rows of code points must
-    be contiguous)."""
-    if a.strides[0] % a.itemsize:
+def _placed(arrs, lo: int, size: int):
+    """(base, step, row stride or None for one row) of a plane kind's
+    slots in the buffer [lo, lo + size), or None where the kernels cannot
+    read them there: outside it, misaligned, a slot step or row stride
+    that is not a whole number of elements, slots not evenly spaced, or a
+    string row whose code points are not contiguous."""
+    if isinstance(arrs, np.ndarray):
+        a, n, slots = arrs, arrs.shape[0], arrs.shape[1]
+        item, (rs, st) = a.itemsize, a.strides
+        st = st if slots > 1 else 0
+        at = [_addr(a) - lo]
+    else:
+        a, n, slots = arrs[0], arrs[0].shape[0], len(arrs)
+        item, rs = a.itemsize, a.strides[0]
+        if a.ndim == 2 and a.shape[1] > 1 and a.strides[1] != item:
+            return None
+        at = [_addr(x) - lo for x in arrs]
+        if any(x.strides[0] != rs for x in arrs):
+            return None
+        st = at[1] - at[0] if slots > 1 else 0
+        if slots > 2 and np.any(np.diff(np.asarray(at)) != st):
+            return None
+    rs = rs if n > 1 else 0
+    row_bytes = (a.shape[1] - 1) * item if a.ndim == 2 and not \
+        isinstance(arrs, np.ndarray) else 0
+    span = (max(n - 1, 0) * rs + (slots - 1) * st + row_bytes + item
+            if n else 0)
+    if (at[0] < 0 or at[0] + span > size or at[0] % item or rs % item
+            or st % item or rs < 0 or st < 0):
         return None
-    if a.ndim == 2 and a.shape[1] > 1 and a.strides[1] != a.itemsize:
-        return None
-    return a.strides[0] // a.itemsize if a.shape[0] > 1 else (
-        a.shape[1] if a.ndim == 2 else 1)
+    return at[0], st, (rs // item if n > 1 else None)
+
+
+def _layout_in(r: Request, lo: int, size: int):
+    """(rstride, {kind: (base, step)}) of `r` in the buffer, or None."""
+    kinds, rstride = {}, None
+    for name, arrs in _kinds(r).items():
+        got = _placed(arrs, lo, size)
+        if got is None:
+            return None
+        base, step, rs = got
+        if rs is not None and rstride not in (None, rs):
+            return None
+        rstride = rs if rs is not None else rstride
+        kinds[name] = (base, step)
+    if rstride is None:
+        rstride = r.width if r.is_string else 1
+    return rstride, kinds
+
+
+def _staged_layout(requests: Sequence[Request], device: torch.device):
+    """A staging buffer holding each request's planes, each kind's slots
+    one after the other (row stride 1, or the width for strings), and
+    each request's (rstride, {kind: (base, step)})."""
+    total, spots = 0, []
+    for r in requests:
+        kinds = {}
+        for name, arrs in _kinds(r).items():
+            if isinstance(arrs, np.ndarray):
+                one, slots = arrs[:, 0], arrs.shape[1]
+            else:
+                one, slots = arrs[0], len(arrs)
+            kinds[name] = (total, one.nbytes, arrs, one)
+            total += _up(one.nbytes * slots)
+        spots.append(kinds)
+    src = _pinned_empty(max(total, _ALIGN), device)
+    flat = src.numpy()
+    layouts = []
+    for r, kinds in zip(requests, spots):
+        placed = {}
+        for name, (at, step, arrs, one) in kinds.items():
+            slots = len(arrs) if isinstance(arrs, list) else arrs.shape[1]
+            view = flat[at:at + step * slots].view(one.dtype).reshape(
+                (slots,) + one.shape)
+            if isinstance(arrs, np.ndarray):
+                view[...] = arrs.T
+            else:
+                for s, a in enumerate(arrs):
+                    view[s] = a
+            placed[name] = (at, step)
+        layouts.append((r.width if r.is_string else 1, placed))
+    return src, layouts
 
 
 def _pinned_empty(nbytes: int, device: torch.device) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8,
                        pin_memory=device.type == "cuda")
+
+
+def _work(ids: Sequence[int], blocks: Sequence[int]) -> np.ndarray:
+    """(request, tile of the request) int32 pairs, request by request."""
+    blocks = np.asarray(blocks, dtype=np.int64)
+    starts = np.zeros(len(blocks) + 1, dtype=np.int64)
+    np.cumsum(blocks, out=starts[1:])
+    work = np.empty((int(starts[-1]), 2), dtype=np.int32)
+    work[:, 0] = np.repeat(np.asarray(ids, dtype=np.int64), blocks)
+    work[:, 1] = np.arange(int(starts[-1])) - np.repeat(starts[:-1], blocks)
+    return work
 
 
 def build_plan(requests: Sequence[Request],
@@ -170,46 +298,22 @@ def build_plan(requests: Sequence[Request],
     docstring). `host_buffer`: the batch's host buffer (a 1-D uint8 CPU
     tensor, pinned for a CUDA batch) its planes are views of, or None."""
     requests = list(requests)
-    planes: Dict[int, np.ndarray] = {}
-    for r in requests:
-        for slot in r.planes:
-            for a in slot.values():
-                planes[id(a)] = a
-    offsets: Dict[int, int] = {}
-    strides: Dict[int, Optional[int]] = {}
-    staged = host_buffer is None or host_buffer.numel() % 8 != 0
-    if not staged:
+    layouts = None
+    if host_buffer is not None and host_buffer.numel() % 8 == 0:
         lo, size = host_buffer.data_ptr(), host_buffer.numel()
-        for k, a in planes.items():
-            at, stride = _addr(a) - lo, _row_stride(a)
-            if (at < 0 or at + _span(a) > size or at % a.itemsize
-                    or stride is None):
-                staged = True
-                break
-            offsets[k], strides[k] = at, stride
-        staged = staged or not _strides_agree(requests, strides)
+        layouts = [_layout_in(r, lo, size) for r in requests]
+        if any(x is None for x in layouts):
+            layouts = None
+    staged = layouts is None
     if staged:
-        # only the planes the requests read, each contiguous
-        total = 0
-        for k, a in planes.items():
-            offsets[k] = total
-            strides[k] = a.shape[1] if a.ndim == 2 else 1
-            total += _up(a.nbytes)
-        src = _pinned_empty(max(total, _ALIGN), device)
-        flat = src.numpy()
-        for k, a in planes.items():
-            flat[offsets[k]:offsets[k] + a.nbytes].view(a.dtype).reshape(
-                a.shape)[...] = a
+        src, layouts = _staged_layout(requests, device)
     else:
         src = host_buffer
 
-    # aux: descriptors, work tables, slot tables, rows, masks
+    # aux: descriptors, work tables, rows, masks
     k = len(requests)
     num = [i for i, r in enumerate(requests) if not r.is_string]
     strs = [i for i, r in enumerate(requests) if r.is_string]
-    num_starts = np.zeros(len(num) + 1, dtype=np.int64)
-    np.cumsum([-(-requests[i].length // TILE) for i in num],
-              out=num_starts[1:])
     str_starts = np.zeros(len(strs) + 1, dtype=np.int64)
     np.cumsum([-(-requests[i].length // TILE) for i in strs],
               out=str_starts[1:])
@@ -227,27 +331,23 @@ def build_plan(requests: Sequence[Request],
         return at
 
     desc = np.zeros((k, D_NF), dtype=np.int64)
+    desc[:, D_BASE:D_BASE + P_NF] = -1
     put("desc", desc)
-    put("num_ids", np.asarray(num, dtype=np.int64))
-    put("num_starts", num_starts)
-    put("str_ids", np.asarray(strs, dtype=np.int64))
-    put("str_starts", str_starts)
     shared: Dict[int, int] = {}
+    blocks = []
     # out: counters, then each array's fixed buffers
     out_cursor = _up((C_NF * k + 1) * 8)
     worst = 0
     for i, r in enumerate(requests):
-        slots = np.full((len(r.planes), S_NF), -1, dtype=np.int64)
-        stride = 0
-        for s, slot in enumerate(r.planes):
-            for name, a in slot.items():
-                slots[s, _PLANE_SLOT[name]] = offsets[id(a)]
-                if name == "values":
-                    stride = strides[id(a)]
+        rstride, kinds = layouts[i]
         d = desc[i]
+        slots = len(r.planes)
         d[D_LEN] = r.length
-        d[D_SLOTS] = len(r.planes)
-        d[D_SLOT_TAB] = put(f"slots{i}", slots)
+        d[D_SLOTS] = slots
+        d[D_RSTRIDE] = rstride
+        for name, (base, step) in kinds.items():
+            d[D_BASE + _PLANE[name]] = base
+            d[D_STEP + _PLANE[name]] = step
         d[D_ROWS] = d[D_MASK] = -1
         for field_, arr, dt in ((D_ROWS, r.rows, np.int64),
                                 (D_MASK, r.mask, np.uint8)):
@@ -260,7 +360,6 @@ def build_plan(requests: Sequence[Request],
                                                dt, copy=False))
             d[field_] = at
         d[D_SRC] = r.src_kind
-        d[D_STRIDE] = stride
         d[D_OUT] = r.out_kind
         d[D_DEC] = r.dec_mode
         d[D_SHIFT] = r.shift
@@ -273,29 +372,34 @@ def build_plan(requests: Sequence[Request],
             out_cursor = _up(out_cursor + 4 * (r.length + 1))
             worst += r.length * r.width * (3 if r.src_kind == SRC_CP16
                                            else 1)
-        else:
-            out_cursor = _up(out_cursor + OUT_ITEMSIZE[r.out_kind]
-                             * r.length)
-            d[D_BITMAP] = out_cursor
-            out_cursor = _up(out_cursor + 4 * -(-r.length // 32))
+            continue
+        if r.length % slots:
+            raise ValueError(f"arrow_assemble: an array of {r.length} "
+                             f"elements over {slots} slots")
+        rows = r.length // slots
+        if rows >= 2 ** 31:
+            raise ValueError(f"arrow_assemble: {rows} rows (the kernels "
+                             f"take fewer than 2^31)")
+        d[D_RT], d[D_SC] = scalar_tile(slots)
+        d[D_RTILES] = -(-rows // d[D_RT])
+        blocks.append(int(d[D_RTILES]) * -(-slots // int(d[D_SC])))
+        out_cursor = _up(out_cursor + OUT_ITEMSIZE[r.out_kind] * r.length)
+        d[D_BITMAP] = out_cursor
+        out_cursor = _up(out_cursor + 4 * -(-r.length // 32))
+    num_work = _work(num, blocks)
+    put("num_work", num_work)
+    put("str_ids", np.asarray(strs, dtype=np.int64))
+    put("str_starts", str_starts)
+    put("str_work", _work(strs, np.diff(str_starts)))
     aux = np.zeros(max(cursor, 8), dtype=np.uint8)
     for name, arr in parts:
         at = aux_off[name]
         aux[at:at + arr.nbytes] = arr if name != "desc" else \
             desc.view(np.uint8).reshape(-1)
     return Plan(requests, src, aux, desc, np.asarray(num, dtype=np.int64),
-                num_starts, np.asarray(strs, dtype=np.int64), str_starts,
+                num_work, np.asarray(strs, dtype=np.int64), str_starts,
                 aux_off, out_cursor, out_cursor + worst, C_NF * k, device,
                 staged=bool(staged))
-
-
-def _strides_agree(requests: Sequence[Request],
-                   strides: Dict[int, Optional[int]]) -> bool:
-    for r in requests:
-        got = {strides[id(a)] for slot in r.planes for a in slot.values()}
-        if len(got) != 1:
-            return False
-    return True
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +448,10 @@ def run_steps(plan: Plan, src: torch.Tensor, aux: torch.Tensor,
         return plan.data_off
     steps[1](src, aux, plan, out, tile_sums)
     steps[2](aux, plan, out, tile_sums, done)
+    steps[3](src, aux, plan, out, tile_sums)
+    # the copy does not read the grand total: the host waits once, here
     grand = int(out[8 * plan.grand_slot:8 * plan.grand_slot + 8]
                 .view(torch.int64).item())
-    steps[3](src, aux, plan, out, tile_sums)
     return plan.data_off + grand
 
 
@@ -409,12 +514,12 @@ def _lib():
 
     lib = load("arrow_assemble")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.cobrix_arrow_scalars.argtypes = [p, p, p, p, p, i64, i64, p, p]
+    lib.cobrix_arrow_scalars.argtypes = [p, i64, p, p, p, i64, p, p]
     lib.cobrix_arrow_str_lengths.argtypes = [p, p, p, p, p, i64, i64, p, p,
                                              p]
     lib.cobrix_arrow_str_offsets.argtypes = [p, p, i64, p, p, p, i64, p]
-    lib.cobrix_arrow_str_copy.argtypes = [p, p, p, p, p, i64, i64, p, p,
-                                          i64, p]
+    lib.cobrix_arrow_str_copy.argtypes = [p, i64, p, p, p, i64, p, p, i64,
+                                          p]
     for fn in (lib.cobrix_arrow_scalars, lib.cobrix_arrow_str_lengths,
                lib.cobrix_arrow_str_offsets, lib.cobrix_arrow_str_copy):
         fn.restype = ctypes.c_int
@@ -440,21 +545,31 @@ def _launch(name: str, device: torch.device, *args) -> None:
                            f"CUDA error {rc}")
 
 
-def _tables(aux: torch.Tensor, plan: Plan, kind: str) -> tuple:
+def _tables(aux: torch.Tensor, plan: Plan, *names: str) -> tuple:
     base = aux.data_ptr()
-    return (base + plan.aux_off["desc"], base + plan.aux_off[f"{kind}_ids"],
-            base + plan.aux_off[f"{kind}_starts"])
+    return tuple(base + plan.aux_off[n] for n in ("desc",) + names)
+
+
+def _aligned(*tensors: torch.Tensor) -> None:
+    """The kernels read the source and write the output buffer in
+    aligned 16-byte words."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("arrow_assemble: a source or output buffer "
+                             "that is not 16-byte aligned")
 
 
 def scalars(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
             out: torch.Tensor) -> None:
     """Step 1: every number array's values, validity words, null count
-    and bad flag."""
+    and bad flag. `out`'s counters and validity words start zeroed
+    (`new_state`): a word two tiles share is OR-ed in."""
     if _device_of(src, aux, out).type == "cpu":
         return scalars_plain(src, aux, plan, out)
-    desc, ids, starts = _tables(aux, plan, "num")
-    _launch("scalars", out.device, src.data_ptr(), aux.data_ptr(), desc, ids,
-            starts, len(plan.num_ids), plan.num_tiles, out.data_ptr())
+    _aligned(src, out)
+    desc, work = _tables(aux, plan, "num_work")
+    _launch("scalars", out.device, src.data_ptr(), src.numel(),
+            aux.data_ptr(), desc, work, plan.num_tiles, out.data_ptr())
     count_launch(scalars)
 
 
@@ -464,7 +579,7 @@ def str_lengths(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
     0, each tile's sum, the bad flag of a surrogate."""
     if _device_of(src, aux, out, tile_sums).type == "cpu":
         return str_lengths_plain(src, aux, plan, out, tile_sums)
-    desc, ids, starts = _tables(aux, plan, "str")
+    desc, ids, starts = _tables(aux, plan, "str_ids", "str_starts")
     _launch("str_lengths", out.device, src.data_ptr(), aux.data_ptr(), desc,
             ids, starts, len(plan.str_ids), plan.str_tiles, out.data_ptr(),
             tile_sums.data_ptr())
@@ -478,7 +593,7 @@ def str_offsets(aux: torch.Tensor, plan: Plan, out: torch.Tensor,
     request order and the grand total."""
     if _device_of(aux, out, tile_sums, done).type == "cpu":
         return str_offsets_plain(aux, plan, out, tile_sums, done)
-    _, ids, starts = _tables(aux, plan, "str")
+    _, ids, starts = _tables(aux, plan, "str_ids", "str_starts")
     _launch("str_offsets", out.device, ids, starts, len(plan.str_ids),
             out.data_ptr(), tile_sums.data_ptr(), done.data_ptr(),
             plan.grand_slot)
@@ -491,9 +606,10 @@ def str_copy(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
     array not marked bad."""
     if _device_of(src, aux, out, tile_sums).type == "cpu":
         return str_copy_plain(src, aux, plan, out, tile_sums)
-    desc, ids, starts = _tables(aux, plan, "str")
-    _launch("str_copy", out.device, src.data_ptr(), aux.data_ptr(), desc, ids,
-            starts, len(plan.str_ids), plan.str_tiles, out.data_ptr(),
+    _aligned(src, out)
+    desc, work = _tables(aux, plan, "str_work")
+    _launch("str_copy", out.device, src.data_ptr(), src.numel(),
+            aux.data_ptr(), desc, work, plan.str_tiles, out.data_ptr(),
             tile_sums.data_ptr(), plan.data_off)
     count_launch(str_copy)
 
@@ -592,6 +708,13 @@ def _elements(aux: torch.Tensor, d) -> tuple:
     return rows, visible, s
 
 
+def _plane_at(d, p: int, rows, s, size: int, vis):
+    """Byte offsets of plane kind p's elements at (rows, slots s); a
+    hidden row reads offset 0 of the buffer (its value is unused)."""
+    return torch.where(vis, int(d[D_BASE + p]) + s * int(d[D_STEP + p])
+                       + rows * int(d[D_RSTRIDE]) * size, 0)
+
+
 def scalars_plain(src, aux, plan: Plan, out) -> None:
     sv, ov = _Views(src), _Views(out)
     counters = ov.i64
@@ -599,24 +722,19 @@ def scalars_plain(src, aux, plan: Plan, out) -> None:
         d = plan.desc[i]
         L = int(d[D_LEN])
         rows, vis, s = _elements(aux, d)
-        slots = _aux_i64(aux, int(d[D_SLOT_TAB]), int(d[D_SLOTS]) * S_NF
-                         ).view(-1, S_NF)[s]
-        stride = int(d[D_STRIDE])
-        # hidden rows read offset 0 of the buffer (their value is unused)
-        at = lambda f, size: torch.where(  # noqa: E731
-            vis, slots[:, f] + rows * stride * size, 0)
-        valid = vis & (sv.u8[at(S_VALID, 1)] != 0)
+        at = lambda p, size: _plane_at(d, p, rows, s, size, vis)  # noqa: E731
+        valid = vis & (sv.u8[at(P_VALID, 1)] != 0)
         kind = int(d[D_SRC])
         iv = torch.zeros(L, dtype=torch.int64, device=src.device)
         m_hi = torch.zeros_like(iv)
         neg = torch.zeros_like(valid)
         if kind in (SRC_I32, SRC_F32):
-            iv = sv.i32[at(S_VALUES, 4) // 4].to(torch.int64)
+            iv = sv.i32[at(P_VALUES, 4) // 4].to(torch.int64)
         elif kind in (SRC_I64, SRC_F64, SRC_WIDE):
-            iv = sv.i64[at(S_VALUES, 8) // 8]
+            iv = sv.i64[at(P_VALUES, 8) // 8]
         if kind == SRC_WIDE:
-            m_hi = sv.i64[at(S_HI, 8) // 8]
-            neg = sv.u8[at(S_NEG, 1)] != 0
+            m_hi = sv.i64[at(P_HI, 8) // 8]
+            neg = sv.u8[at(P_NEG, 1)] != 0
             m_lo = iv
         else:
             neg = iv < 0
@@ -642,7 +760,7 @@ def scalars_plain(src, aux, plan: Plan, out) -> None:
         else:
             shift = torch.full_like(iv, int(d[D_SHIFT]))
             if d[D_DEC] == DEC_DOTS:
-                shift = shift - sv.i32[at(S_DOTS, 4) // 4].to(torch.int64)
+                shift = shift - sv.i32[at(P_DOTS, 4) // 4].to(torch.int64)
             elif d[D_DEC] == DEC_DIGITS:
                 shift = shift - _digit_count(m_hi, m_lo)
             out_of = (shift < 0) | (shift > (18 if d[D_MAXD] == 0 else 38))
@@ -679,11 +797,10 @@ def scalars_plain(src, aux, plan: Plan, out) -> None:
 def _string_values(src, aux, d):
     """(code points [L, w] int64 with hidden rows blank, kept mask)."""
     L, w = int(d[D_LEN]), int(d[D_WIDTH])
-    rows, vis, _ = _elements(aux, d)
-    slot = _aux_i64(aux, int(d[D_SLOT_TAB]), S_NF)
+    rows, vis, s = _elements(aux, d)
     wide = d[D_SRC] == SRC_CP16
     cs = 2 if wide else 1
-    start = torch.where(vis, slot[S_VALUES] + rows * int(d[D_STRIDE]) * cs, 0)
+    start = _plane_at(d, P_VALUES, rows, s, cs, vis)
     idx = start[:, None] + cs * torch.arange(w, device=src.device)[None, :]
     if wide:
         cps = _Views(src).i16[idx // 2].to(torch.int64) & 0xFFFF

@@ -519,18 +519,56 @@ class ArrowBatchBuilder:
                 trunc = trunc & relevant
             if bool(trunc.any()):
                 return None  # truncated tails own the partial-field rules
-        outs = [self.batch.column_arrays(c) for c in cols]
-        if any("values" not in o or "values_hi" in o for o in outs):
+        first = self.batch.column_arrays(cols[0])
+        if "values" not in first or "values_hi" in first:
             return None
-        kind = self._number_kind(spec0, outs[0], pa_type)
+        kind = self._number_kind(spec0, first, pa_type)
         if kind is None:
             return None
+        planes = self._slot_planes(cols, kind)
+        if planes is None:
+            outs = [self.batch.column_arrays(c) for c in cols]
+            if any("values" not in o or "values_hi" in o for o in outs):
+                return None
+            planes = [self._number_planes(o, kind) for o in outs]
         n = self.n if compact_rows is None else len(compact_rows)
+        src, out_kind, mode, shift, maxd = kind
         return self._requested(
-            self._number_request(
-                kind, outs, n * max_size, rows=compact_rows,
-                mask=relevant if compact_rows is None else None),
+            asm.Request(n * max_size, planes, src, out_kind, mode, shift,
+                        maxd, rows=compact_rows,
+                        mask=relevant if compact_rows is None else None),
             pa_type, _no_fallback)
+
+    def _slot_planes(self, cols: Sequence[int], kind: tuple):
+        """The planes of an OCCURS field's slots `cols` as one
+        `asm.SlotPlanes` ([rows, S] views of its kernel group's planes)
+        when they are evenly spaced columns of one group, as the fused
+        decoder lays them out: the first, second and last slots' planes
+        give and check the spacing, so the plan reads a few attributes a
+        plane kind, not every slot's planes. None otherwise."""
+        place = self.decoder.group_position
+        if any(c not in place for c in cols):
+            return None
+        pos = np.fromiter((place[c][1] for c in cols), dtype=np.int64,
+                          count=len(cols))
+        if len({place[c][0] for c in cols}) != 1 or (len(pos) > 1 and (
+                pos[1] <= pos[0] or np.any(np.diff(pos) != pos[1] - pos[0]))):
+            return None
+        ends = [self._number_planes(self.batch.column_arrays(c), kind)
+                for c in (cols[0], cols[min(1, len(cols) - 1)], cols[-1])]
+        arrays = {}
+        for name, a in ends[0].items():
+            a, b, z = (np.asarray(e.get(name)) for e in ends)
+            addr = [x.__array_interface__["data"][0] for x in (a, b, z)]
+            step = addr[1] - addr[0]
+            if any(x.dtype != a.dtype or x.shape != a.shape
+                   or x.strides != a.strides for x in (b, z)) \
+                    or addr[2] != addr[0] + (len(cols) - 1) * step:
+                return None
+            arrays[name] = np.lib.stride_tricks.as_strided(
+                a, shape=(a.shape[0], len(cols)),
+                strides=(a.strides[0], step), writeable=False)
+        return asm.SlotPlanes(arrays)
 
     def _flat_struct_values(self, group: Group, slot_path, max_size: int,
                             compact_rows=None):

@@ -803,6 +803,12 @@ class ColumnarDecoder:
         self.kernel_groups = [
             _KernelGroup(key[0], key[1], key[2:], cols)
             for key, cols in groups.items()]
+        # each column's (kernel group, position in the group's planes):
+        # the Arrow builder takes an OCCURS field's evenly spaced slots
+        # from its group's planes as one [rows, S] view
+        self.group_position: Dict[int, Tuple[int, int]] = {
+            c.index: (gi, pos) for gi, g in enumerate(self.kernel_groups)
+            for pos, c in enumerate(g.columns)}
         # lookup maps for row assembly
         self.slot_map: Dict[Tuple[int, Tuple[int, ...]], int] = {}
         for c in self.plan.columns:

@@ -8,11 +8,16 @@ matrix) and returns the requests of one assembly over them: every
 source and output kind; decimals with static shifts 0, 18, 19, 38 and
 out of range, per-row shifts from a dot plane and from the digit count,
 precisions that overflow; all-valid, all-null and mixed validity; rows
-hidden by a visibility mask; row tables; flat arrays of `slots` slots;
+hidden by a visibility mask; row tables; flat arrays of `slots` slots,
+as a list of per-slot planes and as `SlotPlanes` over column-major
+fused planes (a [C, n] region whose every other column is a slot, as a
+kernel group holds an OCCURS field's slots beside another field's);
 and strings of uint8 and uint16 code points (non-ASCII of one, two and
 three UTF-8 bytes, a surrogate), all-blank and empty values, under each
-trim policy. The tests hold the plain version to a Python reference
-over it; ``chip_smoke.py`` holds the kernels to the plain version.
+trim policy, with rows a column of a wider matrix, contiguous rows, and
+rows too wide for a string tile's shared buffer. The tests hold the
+plain version to a Python reference over it; ``chip_smoke.py`` holds the
+kernels to the plain version.
 """
 from __future__ import annotations
 
@@ -36,19 +41,29 @@ class _Planes:
         self.arrays.append((arr, column_of))
         return len(self.arrays) - 1
 
+    def add_fused(self, arr: np.ndarray):
+        """Keep `arr` ([n, S]) as the odd columns 1, 3, ... of a
+        column-major [2S + 1, n] region: its view is [n, S], rows
+        contiguous, slots 2n elements apart."""
+        self.arrays.append((arr, -1))
+        return len(self.arrays) - 1
+
     def build(self, pin: bool = False) -> Tuple[torch.Tensor, list]:
         total, spans = 0, []
         for arr, k in self.arrays:
-            size = arr.nbytes * max(k, 1)
-            spans.append(total)
+            size = (arr.nbytes * max(k, 1) if k >= 0
+                    else arr.itemsize * arr.shape[0] * (2 * arr.shape[1] + 1))
+            spans.append((total, size))
             total += -(-size // 256) * 256
         buf = torch.zeros(max(total, 256), dtype=torch.uint8,
                           pin_memory=pin)
         flat = buf.numpy()
         views = []
-        for (arr, k), at in zip(self.arrays, spans):
-            region = flat[at:at + arr.nbytes * max(k, 1)].view(arr.dtype)
-            if k:
+        for (arr, k), (at, size) in zip(self.arrays, spans):
+            region = flat[at:at + size].view(arr.dtype)
+            if k < 0:
+                view = region.reshape(-1, arr.shape[0]).T[:, 1::2]
+            elif k:
                 mat = region.reshape((arr.shape[0], k) + arr.shape[1:])
                 view = mat[:, 1]
             else:
@@ -96,6 +111,23 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
 
     def valid_plane(kind, column_of):
         return planes.add(_validity(rng, n, kind), column_of=column_of)
+
+    def fused(src, out, dec=asm.DEC_NONE, shift=0, **extra):
+        """A flat array of `slots` slots as `SlotPlanes` over fused
+        column-major planes."""
+        dt = {asm.SRC_I32: np.int32, asm.SRC_I64: np.int64,
+              asm.SRC_F64: np.float64}[src]
+        if dt is np.float64:
+            v = rng.standard_normal((n, slots))
+        else:
+            v = rng.integers(-10 ** 8, 10 ** 8, (n, slots), dtype=dt,
+                             endpoint=True)
+        slot_planes = {"values": planes.add_fused(v.astype(dt)),
+                       "valid": planes.add_fused(rng.random((n, slots))
+                                                 < 0.7)}
+        specs.append((slot_planes, dict(src_kind=src, out_kind=out,
+                                        dec_mode=dec, shift=shift,
+                                        **extra)))
 
     def number(src, out, validity="mixed", dec=asm.DEC_NONE, shift=0,
                maxd=0, values=None, dots=None, s=1, **extra):
@@ -200,6 +232,10 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
     number(I32, asm.OUT_I64, s=slots, mask=mask)
     number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, s=slots,
            rows=rows)
+    fused(I32, asm.OUT_I32)
+    fused(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, mask=mask)
+    fused(I32, asm.OUT_I64, rows=rows)
+    fused(F64, asm.OUT_F64)
     # strings
     for wide in (False, True):
         for trim in (asm.TRIM_NONE, asm.TRIM_BOTH, asm.TRIM_LEFT,
@@ -210,6 +246,15 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
                 specs.append(([{"values": k}], dict(
                     src_kind=asm.SRC_CP16 if wide else asm.SRC_CP8,
                     out_kind=asm.OUT_UTF8, width=w, trim=trim, **extra)))
+    # contiguous rows (a run of a tile's code points), and rows of 80
+    # uint16 code points: a 256-string tile of them overflows the shared
+    # buffer and writes directly
+    for w, wide, trim in ((9, False, asm.TRIM_BOTH), (6, True, asm.TRIM_NONE),
+                          (80, True, asm.TRIM_RIGHT)):
+        k = planes.add(_strings(rng, n, w, wide))
+        specs.append(([{"values": k}], dict(
+            src_kind=asm.SRC_CP16 if wide else asm.SRC_CP8,
+            out_kind=asm.OUT_UTF8, width=w, trim=trim)))
     cps = _strings(rng, n, 5, True)
     cps[n // 2, 2] = 0xD800                        # a surrogate: bad
     specs.append(([{"values": planes.add(cps)}], dict(
@@ -220,6 +265,12 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
     requests = []
     for slot_list, fields in specs:
         length = n if fields.get("rows") is None else len(fields["rows"])
+        if isinstance(slot_list, dict):
+            requests.append(asm.Request(
+                length * slots, asm.SlotPlanes(
+                    {name: views[i] for name, i in slot_list.items()}),
+                **fields))
+            continue
         requests.append(asm.Request(
             length * len(slot_list),
             [{name: views[i] for name, i in slot.items()}

@@ -129,26 +129,30 @@ def run_checkout(root, directory, reps):
     print("TURN " + json.dumps(out), flush=True)
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(argv=None, script=__file__, make=make_inputs, run=run_checkout,
+         label="framing_turns", description=__doc__):
+    """Run `run` (a checkout's timings, printing one ``TURN`` JSON line)
+    for each checkout in its own process of `script`, on the inputs
+    `make` writes once; the other turns scripts call this with theirs."""
+    parser = argparse.ArgumentParser(description=description.splitlines()[0])
     parser.add_argument("checkouts", nargs="+")
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--child", help=argparse.SUPPRESS)
     parser.add_argument("--inputs", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child:
-        run_checkout(args.child, args.inputs, args.reps)
+        run(args.child, args.inputs, args.reps)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     runs = []
-    with tempfile.TemporaryDirectory(prefix="framing_turns_") as tmp:
-        make_inputs(tmp)
+    with tempfile.TemporaryDirectory(prefix=f"{label}_") as tmp:
+        make(tmp)
         for root in args.checkouts:
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), root, "--child",
+                [sys.executable, os.path.abspath(script), root, "--child",
                  root, "--inputs", tmp, "--reps", str(args.reps)],
                 capture_output=True, text=True, timeout=900)
             lines = [l for l in proc.stdout.splitlines()
@@ -162,9 +166,9 @@ def main(argv=None):
                           if isinstance(v, dict)}, sort_keys=True)
               for r in runs}
     if len(hashes) != 1:
-        print("framing_turns: the checkouts' outputs differ", file=sys.stderr)
+        print(f"{label}: the checkouts' outputs differ", file=sys.stderr)
         return 1
-    print("framing_turns: every checkout gave the same outputs", flush=True)
+    print(f"{label}: every checkout gave the same outputs", flush=True)
     return 0
 
 

@@ -176,6 +176,25 @@ def test_plain_version_against_python(n):
     assert not all(res.bad(i) for i in range(len(requests)))
 
 
+@pytest.mark.parametrize("n,slots", [(33, 1), (33, 2), (33, 3), (9, 2000)])
+def test_evenly_spaced_slots_against_python(n, slots):
+    """Flat arrays whose slots are evenly spaced columns of column-major
+    fused planes (`SlotPlanes`), beside the per-slot form, at 1, 2, 3 and
+    2,000 slots: one base and one step a plane kind, not staged."""
+    requests, buf = arrow_cases.grid(n, seed=n + slots, slots=slots)
+    fused = [r for r in requests if isinstance(r.planes, asm.SlotPlanes)]
+    assert len(fused) == 4 and all(len(r.planes) == slots for r in fused)
+    plan = asm.build_plan(requests, buf, torch.device("cpu"))
+    assert not plan.staged
+    for i, r in enumerate(requests):
+        if isinstance(r.planes, asm.SlotPlanes):
+            a = r.planes.arrays["values"]
+            assert plan.desc[i][asm.D_RSTRIDE] == 1
+            assert plan.desc[i][asm.D_STEP + asm.P_VALUES] == (
+                2 * n * a.itemsize if slots > 1 else 0)
+    _check_result(asm.assemble(plan))
+
+
 def test_planes_outside_the_buffer_are_staged():
     """A joined batch's planes lie in no one buffer: the plan copies
     only the planes its requests read into a staging buffer, and the
@@ -186,6 +205,24 @@ def test_planes_outside_the_buffer_are_staged():
                     for slot in r.planes]
     plan = asm.build_plan(requests, None, torch.device("cpu"))
     assert plan.staged
+    _check_result(asm.assemble(plan))
+
+
+def test_slot_planes_outside_the_buffer_are_staged():
+    """`SlotPlanes` whose [rows, S] arrays lie outside the batch's buffer
+    (row-major copies) are staged slot after slot, and give the same
+    arrays."""
+    requests, buf = arrow_cases.grid(33, seed=6, slots=3)
+    for r in requests:
+        if isinstance(r.planes, asm.SlotPlanes):
+            r.planes = asm.SlotPlanes({k: np.array(a) for k, a in
+                                       r.planes.arrays.items()})
+    plan = asm.build_plan(requests, buf, torch.device("cpu"))
+    assert plan.staged
+    for i, r in enumerate(requests):
+        if isinstance(r.planes, asm.SlotPlanes):
+            assert plan.desc[i][asm.D_STEP + asm.P_VALUES] == \
+                33 * r.planes.arrays["values"].itemsize
     _check_result(asm.assemble(plan))
 
 
@@ -482,3 +519,56 @@ def test_exp3_two_thousand_slot_plane(tmp_path):
     flats = [r for r in builder.leaves.requests if len(r.planes) == 2000]
     assert len(flats) == 2
     assert {r.length for r in flats} == {batch.n_records * 2000}
+
+
+def test_exp3_plan_reads_no_slot_plane(tmp_path):
+    """The plan of an exp3 'C' batch takes each 2,000-slot array's planes
+    as one base and one step a plane kind: building it indexes no slot's
+    plane, its aux tables are the same size at 2,000 slots as at 2, and
+    the per-slot form of the same planes assembles the same bytes."""
+    path = _write(tmp_path, "e3.dat", gen.generate_exp3(30, seed=5))
+    options = dict(copybook_contents=gen.EXP3_COPYBOOK,
+                   is_record_sequence="true", segment_field="SEGMENT-ID",
+                   segment_id_prefix="ASM",
+                   **{"redefine-segment-id-map:0": "STATIC-DETAILS => C",
+                      "redefine-segment-id-map:1": "CONTACTS => P"})
+    data = cobrix_tpu_torch.read_cobol(path, device="cpu", **options)
+    seg = next(s for s in data.parts[0].segments
+               if s.active and s.active.upper().startswith("STATIC"))
+    builder = arrow_out.ArrowBatchBuilder(seg.batch, seg.active)
+    builder.body_columns(data.output_schema.policy)
+    requests = builder.leaves.requests
+    flats = [r for r in requests if len(r.planes) == 2000]
+    assert len(flats) == 2
+    assert all(isinstance(r.planes, asm.SlotPlanes) for r in flats)
+    flat_ids = {id(r) for r in flats}
+    calls = []
+    real = asm.SlotPlanes.__getitem__
+
+    def counted(self, s):
+        calls.append(s)
+        return real(self, s)
+    asm.SlotPlanes.__getitem__ = counted
+    try:
+        plan = asm.build_plan(requests, seg.batch.host_buffer,
+                              torch.device("cpu"))
+    finally:
+        asm.SlotPlanes.__getitem__ = real
+    assert calls == [] and not plan.staged
+    # the same arrays at 2 slots: the same aux tables but the work table
+    two = [asm.Request(r.length // 1000, asm.SlotPlanes(
+        {k: a[:, :2] for k, a in r.planes.arrays.items()}), r.src_kind,
+        r.out_kind, r.dec_mode, r.shift, r.maxd, r.rows, r.mask)
+        if id(r) in flat_ids else r for r in requests]
+    small = asm.build_plan(two, seg.batch.host_buffer, torch.device("cpu"))
+    work_bytes = lambda p: p.num_work.nbytes  # noqa: E731
+    assert plan.aux.nbytes - work_bytes(plan) <= \
+        small.aux.nbytes - work_bytes(small) + 8
+    per_slot = [asm.Request(r.length, [r.planes[s] for s in range(2000)],
+                            r.src_kind, r.out_kind, r.dec_mode, r.shift,
+                            r.maxd, r.rows, r.mask)
+                if id(r) in flat_ids else r for r in requests]
+    want = asm.assemble(asm.build_plan(per_slot, seg.batch.host_buffer,
+                                       torch.device("cpu")))
+    got = asm.assemble(plan)
+    assert np.array_equal(got.host, want.host)
