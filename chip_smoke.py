@@ -187,25 +187,31 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    The assembly kernels must launch on (a) and (b).
 
 14. the Arrow assembly (``ops.arrow_assemble``, ``csrc/arrow_assemble
-   .cu``): (a) each of its four kernels against its plain version from
-   the same state, every byte of the output buffer, the tile sums and
-   the block counter, over the grid of ``testing/arrow_cases.py`` (every
+   .cu``): (a) each of its three kernels against its plain version from
+   the same state, every byte of the output buffer and the tile bases
+   (the lengths kernel's look-back scratch is its own and is not
+   compared; its plain version is the lengths, then the scan of the
+   tile sums), over the grid of ``testing/arrow_cases.py`` (every
    kind and decimal mode; shifts 0, 18, 19, 38 and out of range;
    precisions that overflow; all-valid, all-null and mixed validity;
    hidden rows and row tables; 1, 31, 32, 33, 257, 4,097 and 44,949
    rows; 2,000-slot arrays, as per-slot planes and as evenly spaced
    slots of column-major fused planes; strings of uint8 and uint16 code
    points, non-ASCII, blank and empty, under each trim, in string tiles
-   staged in shared memory and in tiles too wide for it), the exp1
-   chunk's and
+   staged in shared memory and in tiles too wide for it), one string
+   array of 4,000,000 rows x 16 code points (64 MB, 15,625 tiles: many
+   waves of the look-back), the exp1 chunk's and
    the exp3 'C' batch's (4,143 rows of the 2,000-slot plane) own plans,
    and the assemblies of an exp2 prefix, the 7-segment hierarchy and
    an exp3 hierarchy prefix (masks, positions, a joined batch's staged
    planes); (b) the tables of phases 11 and 13 (a), built by these
-   kernels, equal the CPU reads' there; (c) at the exp1 chunk and the
-   exp3 'C' batch: each kernel's ``ms`` and ``device_ms``, its plain
-   version's time on the card, the bytes it must move over this run's
-   data and that bound's share, the plan's host time, the copies up and
+   kernels, equal the CPU reads' there; (c) at the exp1 chunk, the
+   exp3 'C' batch and the 4,000,000-string array: each kernel's ``ms``
+   and ``device_ms``, its plain version's time on the card, the bytes it
+   must move over this run's data and that bound's share, and beside
+   the lengths kernel one ``torch.cumsum`` over the same tile sums (a
+   yardstick of the scan alone, not the function; the port never calls
+   it); at the two batches the plan's host time, the copies up and
    back, one whole assembly and the batch's table; and where the
    ``to_arrow`` of exp1,
    exp3, exp2 and the exp3 hierarchy goes on one thread (the schema
@@ -272,10 +278,9 @@ P13_EXP3 = {
     "redefine-segment-id-map:1": "CONTACTS => P",
     "segment-children:0": "STATIC-DETAILS => CONTACTS"}
 # the kernels of the reads, the query path's aggregate and the Arrow
-# assembly's four
+# assembly's three
 READ_KERNELS = ("fused_decode", "rdw_scan", "pack_records")
-ARROW_KERNELS = ("arrow_scalars", "arrow_str_lengths", "arrow_str_offsets",
-                 "arrow_str_copy")
+ARROW_KERNELS = ("arrow_scalars", "arrow_str_lengths", "arrow_str_copy")
 KERNELS = READ_KERNELS + ("aggregate",) + ARROW_KERNELS
 ARROW_SOURCE = "cobrix_tpu_torch/csrc/arrow_assemble.cu"
 # the host C++ of the JAX package's native decode->Arrow routes each
@@ -283,7 +288,6 @@ ARROW_SOURCE = "cobrix_tpu_torch/csrc/arrow_assemble.cu"
 ARROW_REPLACES = {
     "arrow_scalars": "cobrix_tpu/native/columnar.cpp:518",
     "arrow_str_lengths": "cobrix_tpu/native/framing.cpp:600",
-    "arrow_str_offsets": "cobrix_tpu/native/framing.cpp:600",
     "arrow_str_copy": "cobrix_tpu/native/framing.cpp:600"}
 AGG_SOURCE = "cobrix_tpu_torch/csrc/aggregate.cu"
 # the reduction body of DeviceAggregator._build the aggregate kernel replaces
@@ -3086,27 +3090,28 @@ class Smoke:
     # -- phase 14: the Arrow assembly on the card --------------------------
 
     def _asm_steps(self, src, aux, plan):
-        """The assembly's four steps: (kernel, its wrapper and plain
-        version, whether the plan runs it, a call over a state)."""
+        """The assembly's three steps: (kernel, its wrapper and plain
+        version, whether the plan runs it, a call over a state). The
+        lengths kernel's plain version is `str_lengths_plain`, then
+        `str_offsets_plain`."""
         from cobrix_tpu_torch.ops import arrow_assemble as asm
 
         return [
             ("arrow_scalars", asm.scalars, asm.scalars_plain,
              plan.num_tiles > 0, lambda f, st: f(src, aux, plan, st[0])),
-            ("arrow_str_lengths", asm.str_lengths, asm.str_lengths_plain,
-             plan.str_tiles > 0,
-             lambda f, st: f(src, aux, plan, st[0], st[1])),
-            ("arrow_str_offsets", asm.str_offsets, asm.str_offsets_plain,
-             plan.str_tiles > 0,
-             lambda f, st: f(aux, plan, st[0], st[1], st[2])),
+            ("arrow_str_lengths", asm.str_lengths,
+             asm.str_lengths_and_offsets_plain, plan.str_tiles > 0,
+             lambda f, st: f(src, aux, plan, st[0], st[1], st[2])),
             ("arrow_str_copy", asm.str_copy, asm.str_copy_plain,
              plan.str_tiles > 0,
              lambda f, st: f(src, aux, plan, st[0], st[1]))]
 
     def _hold_assembly(self, plan, what):
         """Each step's kernel against its plain version from the same
-        state, every byte of the output buffer, the tile sums and the
-        block counter; the next step starts from the kernel's state."""
+        state, every byte of the output buffer and the tile bases (the
+        lengths kernel's look-back scratch, its status words and two
+        counters, is its own and is not compared); the next step starts
+        from the kernel's state."""
         from cobrix_tpu_torch.ops import arrow_assemble as asm
 
         src, aux = asm.upload(plan)
@@ -3120,7 +3125,7 @@ class Smoke:
             call(kernel, state)
             call(plain, want)
             for a, b, part in zip(state, want,
-                                  ("output buffer", "tile sums", "counter")):
+                                  ("output buffer", "tile bases")):
                 self.same_on_card(a, b, f"{what}: {name} {part}", name)
             held.append(name)
         return held
@@ -3195,6 +3200,16 @@ class Smoke:
             check(not plan.staged, f"{what}: the plan staged its planes")
             for k in self._hold_assembly(plan, what):
                 held[k] += 1
+        # many waves of string tiles: one array of 4,000,000 x 16 code
+        # points (64 MB, 15,625 tiles), timed in (c) too
+        n = 20_000 if self.rehearsal else 4_000_000
+        what = f"one string array of {n:,} x 16 code points"
+        requests, buf = arrow_cases.strings(n, 16, seed=14, pin=pin)
+        plan = asm.build_plan(requests, buf, self.device)
+        check(not plan.staged, f"{what}: the plan staged its planes")
+        for k in self._hold_assembly(plan, what):
+            held[k] += 1
+        self.asm14["many"] = (what, plan)
         keep = SchemaRetentionPolicy.KEEP_ORIGINAL
         # the main path's shapes: an exp1 chunk, an exp3 window's 'C'
         # batch (4,143 records of the 2,000-slot plane)
@@ -3246,13 +3261,14 @@ class Smoke:
                 check(count > 0, f"{kname} was never held to its plain "
                       f"version")
         log(f"[p14] (a) each assembly kernel == its plain version, every "
-            f"byte of the output buffer, tile sums and counter, from the "
+            f"byte of the output buffer and the tile bases, from the "
             f"same state: {json.dumps(held)} plans each (grid: every kind, "
             f"decimal mode, shift window, validity, hidden rows, row "
             f"tables, 2,000-slot arrays per slot and evenly spaced, "
             f"strings of uint8 and uint16 code points under each trim, "
-            f"staged and direct string tiles; the exp1 chunk, the exp3 'C' "
-            f"batch, "
+            f"staged and direct string tiles; one string array of "
+            f"{self.asm14['many'][1].str_tiles:,} tiles; the exp1 chunk, "
+            f"the exp3 'C' batch, "
             f"the exp2 prefix's and the hierarchies' own assemblies); "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -3278,9 +3294,11 @@ class Smoke:
                 cps = seen * r.width * (2 if r.src_kind == asm.SRC_CP16
                                         else 1)
                 tiles = -(-L // asm.TILE)
+                # lengths: the code points and tables in, a work entry a
+                # tile in, the int32 lengths, a tile base a tile and the
+                # request's counters out
                 moved["arrow_str_lengths"] += cps + tables + 4 * (L + 1) \
-                    + 8 * tiles
-                moved["arrow_str_offsets"] += 16 * tiles + 32
+                    + 16 * tiles + 32
                 moved["arrow_str_copy"] += cps + tables + 8 * L + 8 * tiles \
                     + int(res.counters[i, asm.C_TOTAL])
                 continue
@@ -3289,13 +3307,53 @@ class Smoke:
                 asm.OUT_ITEMSIZE[r.out_kind] + 4 * -(-L // 32)
         return moved
 
+    def _p14_step_times(self, plan, src, aux, res):
+        """Each step's times over `plan`, from the state before it,
+        restored before a call: `ms` (events around the wrapper on an
+        idle stream), `device_ms` (device time alone), its plain
+        version's on the card, the bound of its bytes and its share;
+        beside the lengths kernel, `cumsum_device_ms`: one `torch.cumsum`
+        over the same tile-sum vector, a yardstick of the scan alone."""
+        torch = self.torch
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+
+        moved = self._p14_bytes(plan, res)
+        times = {}
+        before = asm.new_state(plan, self.device)
+        for name, kernel, plain, runs, call in self._asm_steps(src, aux,
+                                                               plan):
+            if not runs:
+                continue
+            snap = tuple(t.clone() for t in before)
+
+            def reset(snap=snap):
+                for a, b in zip(before, snap):
+                    a.copy_(b)
+            timing = {}
+            for key, fn, busy, reps in (
+                    ("ms", kernel, False, 20),
+                    ("device_ms", kernel, True, 20),
+                    ("plain_ms", plain, False, 3)):
+                timing[key] = self._time_reset(
+                    lambda fn=fn: call(fn, before), reset, reps, busy)
+            reset()
+            call(kernel, before)
+            bound = moved[name] / HBM_BYTES_PER_S * 1e3
+            timing.update(bytes=moved[name], bound_ms=bound,
+                          share_of_bound=bound / timing["device_ms"])
+            if name == "arrow_str_lengths":
+                sums = before[1][:plan.str_tiles]
+                timing["cumsum_device_ms"] = self._time(
+                    lambda: torch.cumsum(sums, 0), 20, busy=True)
+            times[name] = timing
+        return times
+
     def _p14_times(self):
-        """(c) each step's time at the exp1 chunk and the exp3 'C' batch
-        shapes (`ms`: events around the wrapper on an idle stream;
-        `device_ms`: device time alone), its plain version's on the
-        card, the bound of its bytes and its share; the plan's host time
-        (the median of 5 `build_plan` calls over the builder's requests),
-        the copies up and back and one whole assembly."""
+        """(c) each step's times (`_p14_step_times`) at the exp1 chunk,
+        the exp3 'C' batch and the many-wave string array; at the two
+        batches the plan's host time (the median of 5 `build_plan` calls
+        over the builder's requests), the copies up and back and one
+        whole assembly."""
         torch = self.torch
         from cobrix_tpu_torch.copybook.datatypes import SchemaRetentionPolicy
         from cobrix_tpu_torch.ops import arrow_assemble as asm
@@ -3318,37 +3376,13 @@ class Smoke:
             state = asm.new_state(plan, self.device)
             used = asm.run_steps(plan, src, aux, state)
             res = asm.assemble(plan)
-            moved = self._p14_bytes(plan, res)
-            steps = self._asm_steps(src, aux, plan)
             rec = dict(shape=what, rows=batch.n_records,
                        requests=len(plan.requests),
                        plan_ms=statistics.median(plan_s) * 1e3,
                        string_requests=len(plan.str_ids),
                        source_bytes=int(plan.src.numel()),
-                       output_bytes=used, steps={})
-            # each step from the state before it, restored before a call
-            before = asm.new_state(plan, self.device)
-            for name, kernel, plain, runs, call in steps:
-                if not runs:
-                    continue
-                snap = tuple(t.clone() for t in before)
-
-                def reset(snap=snap):
-                    for a, b in zip(before, snap):
-                        a.copy_(b)
-                timing = {}
-                for key, fn, busy, reps in (
-                        ("ms", kernel, False, 20),
-                        ("device_ms", kernel, True, 20),
-                        ("plain_ms", plain, False, 3)):
-                    timing[key] = self._time_reset(
-                        lambda fn=fn: call(fn, before), reset, reps, busy)
-                reset()
-                call(kernel, before)
-                bound = moved[name] / HBM_BYTES_PER_S * 1e3
-                timing.update(bytes=moved[name], bound_ms=bound,
-                              share_of_bound=bound / timing["device_ms"])
-                rec["steps"][name] = timing
+                       output_bytes=used,
+                       steps=self._p14_step_times(plan, src, aux, res))
             rec["device_ms"] = sum(t["device_ms"]
                                    for t in rec["steps"].values())
             rec["upload_ms"] = self._time(lambda: asm.upload(plan), 5)
@@ -3363,7 +3397,16 @@ class Smoke:
             rec["table_s"] = time.perf_counter() - t0
             self.asm14["times"].append(rec)
             log(f"[p14] {self.card}: (c) {what}: {json.dumps(rec)}")
-            del src, aux, state, before, res
+            del src, aux, state, res
+        what, plan = self.asm14.pop("many")
+        src, aux = asm.upload(plan)
+        rec = dict(shape=what, rows=plan.requests[0].length,
+                   tiles=plan.str_tiles, source_bytes=int(plan.src.numel()),
+                   steps=self._p14_step_times(plan, src, aux,
+                                              asm.assemble(plan)))
+        self.asm14["times"].append(rec)
+        log(f"[p14] {self.card}: (c) {what}: {json.dumps(rec)}")
+        del src, aux, plan
 
     def _p14_split(self):
         """(c) where `to_arrow` goes, on one thread: the walk of the

@@ -25,23 +25,21 @@
 //     bad flag when a decimal leaves the exact window (the caller then
 //     builds that column from its Python values);
 //   arrow_str_lengths: each string's trimmed extent and UTF-8 length
-//     (1-3 bytes a code point), a tile's sum, a bad flag on a surrogate;
-//   arrow_str_offsets: a block a string array scans its tiles' sums into
-//     tile bases and the array's total (bad past 2^31 - 1); the last
-//     block to finish scans the totals into each array's data start;
+//     (1-3 bytes a code point), a tile's sum, a bad flag on a surrogate,
+//     and, by a look-back over the tiles of each array, the tiles' bases,
+//     the array's total (bad past 2^31 - 1) and, in the last tile to
+//     finish, each array's data start;
 //   arrow_str_copy: a tile's block scan of the lengths gives the int32
 //     offsets, and the tile's UTF-8 bytes are written as one range.
 //
 // What bounds them on this card: bytes, read and written once at 3.35
 // TB/s (planes in, Arrow buffers out), and, at the small shapes of one
 // batch, the latency of the chain of loads a block waits on before its
-// first value. arrow_scalars and arrow_str_copy are built for both (their
+// first value, and of each launch. The kernels are built for both (their
 // notes below): a block loads its work entry and its descriptor once,
 // stages its tile of planes in shared memory with 16-byte loads, and
-// writes whole words and sectors. arrow_str_lengths and arrow_str_offsets
-// are still the simple first design: a thread an element, a binary
-// search over the requests' tile starts a block, the descriptor read from
-// global memory at each use.
+// writes whole words and sectors; a string batch takes two launches,
+// lengths with their scan, then the copy.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,7 +66,6 @@ enum Dec { DEC_NONE = 0, DEC_STATIC = 1, DEC_DOTS = 2, DEC_DIGITS = 3 };
 enum Trim { TRIM_NONE = 0, TRIM_BOTH = 1, TRIM_LEFT = 2, TRIM_RIGHT = 3 };
 
 constexpr int kTile = 256;        // threads a block; strings a string tile
-constexpr int kScanThreads = 1024;
 constexpr int kRows = 2048;       // rows a scalar tile at most (RT)
 constexpr int kElems = 4096;      // elements a scalar tile at most (RT x SC)
 constexpr int kCap = 4128;        // staged slots a scalar tile, SC x (RT + 1)
@@ -217,9 +214,9 @@ __device__ __forceinline__ void put_word(uint8_t* dst, int x0, int nb,
 // (negative: no run) into dst + r * dst_stride, as the aligned 16-byte
 // words each run touches. A thread takes kBatch words at a time and
 // issues their loads before any of their stores (the string copy, whose
-// block waits on little else, keeps four in flight; the scalar kernel
-// one, as more registers would cost it a block an SM). start(r) and nb
-// are multiples of kItem.
+// block waits on little else, keeps four in flight; the string lengths
+// two and the scalar kernel one, as more registers would cost them
+// blocks an SM). start(r) and nb are multiples of kItem.
 template <int kItem, int kBatch, typename Start>
 __device__ __forceinline__ void stage_runs(uint8_t* dst, int dst_stride,
                                            const uint8_t* __restrict__ src,
@@ -659,17 +656,6 @@ __global__ void __launch_bounds__(kTile, 4) arrow_scalars(
 // strings
 // ---------------------------------------------------------------------------
 
-// the request of work tile `tile`: starts[m] <= tile < starts[m + 1]
-__device__ __forceinline__ int64_t find_request(const int64_t* starts,
-                                                int64_t nreq, int64_t tile) {
-  int64_t lo = 0, hi = nreq - 1;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi + 1) >> 1;
-    if (starts[mid] <= tile) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
 __device__ __forceinline__ int64_t row_of(const uint8_t* aux,
                                           const int64_t* d, int64_t j) {
   return d[D_ROWS] >= 0 ? load<int64_t>(aux, d[D_ROWS] + 8 * j) : j;
@@ -773,88 +759,244 @@ __device__ T block_scan(T x, T* shared) {
   return x;
 }
 
-__global__ void __launch_bounds__(kTile) arrow_str_lengths(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ aux,
-    const int64_t* __restrict__ desc, const int64_t* __restrict__ ids,
-    const int64_t* __restrict__ starts, int64_t nreq,
-    uint8_t* __restrict__ out, int64_t* __restrict__ tile_sums) {
-  const int64_t tile = blockIdx.x;
-  const int64_t m = find_request(starts, nreq, tile);
-  const int64_t id = ids[m];
-  const int64_t* d = desc + id * D_NF;
-  const int64_t j = (tile - starts[m]) * kTile + threadIdx.x;
-  int32_t* offsets = reinterpret_cast<int32_t*>(out + d[D_VALUES]);
-  int64_t len = 0;
-  bool bad = false;
-  if (j < d[D_LEN]) {
-    const Value v = value_of(src, aux, d, j);
-    for (int64_t k = v.s; k < v.e; ++k) {
-      const uint32_t c = v.p ? code_point(v.p, v.wide, k) : 0x20;
-      len += utf8_len(c);
-      bad |= (c >= 0xD800 && c <= 0xDFFF);
-    }
-    offsets[j + 1] = static_cast<int32_t>(len);
-    if (j == 0) offsets[0] = 0;
-  }
-  __shared__ int64_t part[kTile / 32];
-  const int64_t sum = block_sum<int64_t>(len, part);
-  const int any_bad = __syncthreads_or(bad);
-  if (threadIdx.x == 0) {
-    tile_sums[tile] = sum;
-    if (any_bad) reinterpret_cast<int64_t*>(out)[id * C_NF + C_BAD] = 1;
-  }
+// The look-back's status word a tile, in a zeroed int64 scratch word:
+// the flag in bits 62-63 (0: nothing yet, 1: the tile's aggregate, 2:
+// the inclusive prefix of its array up to it), the array's OR-ed bad bit
+// in bit 61, the value in bits 0-60; one 64-bit store publishes a flag
+// with its value
+constexpr int kFlagShift = 62;
+constexpr uint64_t kAggregate = 1ull << kFlagShift;
+constexpr uint64_t kInclusive = 2ull << kFlagShift;
+constexpr uint64_t kBadBit = 1ull << 61;
+constexpr uint64_t kValueMask = kBadBit - 1;
+
+constexpr int kLook = 4;   // status words a lane reads a round
+
+// one aligned 64-bit store: no reader sees a flag without its value, and
+// nothing else a reader uses needs ordering before it
+__device__ __forceinline__ void publish(unsigned long long* status,
+                                        uint64_t flag, bool bad,
+                                        int64_t value) {
+  *reinterpret_cast<volatile unsigned long long*>(status) =
+      flag | (bad ? kBadBit : 0ull)
+      | (static_cast<uint64_t>(value) & kValueMask);
 }
 
-// a block a string request: its tiles' sums -> exclusive tile bases, the
-// request's total; the last block to finish scans the totals into each
-// request's data start and the grand total
-__global__ void __launch_bounds__(kScanThreads) arrow_str_offsets(
-    const int64_t* __restrict__ ids, const int64_t* __restrict__ starts,
-    int64_t nreq, uint8_t* __restrict__ out, int64_t* __restrict__ tile_sums,
-    unsigned int* __restrict__ done, int64_t grand_slot) {
-  __shared__ int64_t part[kScanThreads / 32];
-  __shared__ int64_t chunk;
+__device__ __forceinline__ uint64_t status_at(const unsigned long long* s,
+                                              int64_t q) {
+  return *reinterpret_cast<const volatile unsigned long long*>(s + q);
+}
+
+// What bounds it: bytes (each visible string's code points in, its int32
+// length and its tile's int64 base out), and at one batch's shapes (a few
+// hundred tiles, one wave) one launch's latency and the chain of loads
+// and waits its blocks run. The simple design searched the request starts
+// a block, read the descriptor from global memory at each use, walked
+// each string a code point at a time from global memory, neighbouring
+// threads a string width apart, and left the scan of the tile sums to a
+// second launch whose work was a few hundred int64 values: two dependent
+// block scans, a fence and an atomic, a launch's latency and nothing
+// else.
+//
+// The design. One launch. A block takes its tile from a zeroed ticket
+// (atomicAdd), not from blockIdx.x, so every tile it waits on started
+// before it and the look-back always moves; the tile's (request, tile)
+// entry is the plan's string work table, the one arrow_str_copy reads.
+// One warp copies the descriptor into shared memory. The tile's rows and
+// visibility are loaded, and its code points staged in shared memory
+// with 16-byte loads as the copy stages them (two a thread in flight, not
+// four: 32 registers a thread, eight blocks an SM): one run when its rows
+// are contiguous, else a run a row. Each thread
+// finds its string's trimmed extent, UTF-8 length and surrogate flag
+// there; a tile whose code points overflow the buffer reads them from
+// global memory, the simple design's path. A block reduction gives the
+// tile's sum and bad flag. Warp 0 then publishes the tile's aggregate
+// and looks back over its array's earlier tiles only (the scan restarts
+// at each array's first tile, which publishes its inclusive prefix at
+// once): a round issues the loads of 128 earlier status words at once
+// and takes them in order of distance, 32 at a time, down to the nearest
+// inclusive prefix, waiting only on words it counts. It publishes its own
+// prefix and writes its exclusive base to tile_sums, which ends as the
+// plain version leaves it. A status word is one 64-bit store (flag, bad
+// bit, value), so no reader sees a flag without its value and a publish
+// needs no fence. The bad bit rides in the status words, so an array's
+// last tile sees a surrogate in any of its tiles; it writes the array's
+// bad flag and total, then fences. The last tile to finish (a count of
+// finished tiles) scans the totals into each array's data start and the
+// grand total.
+__global__ void __launch_bounds__(kTile) arrow_str_lengths(
+    const uint8_t* __restrict__ src, int64_t src_bytes,
+    const uint8_t* __restrict__ aux, const int64_t* __restrict__ desc,
+    const int2* __restrict__ work, const int64_t* __restrict__ ids,
+    int64_t nreq, int64_t tiles, uint8_t* __restrict__ out,
+    int64_t* __restrict__ tile_sums, unsigned long long* status,
+    unsigned int* order, int64_t grand_slot) {
+  __shared__ int64_t d[D_NF];
+  __shared__ __align__(16) uint8_t cps[kStrCp];
+  __shared__ int32_t rowv[kTile];
+  __shared__ int64_t part[kTile / 32];
+  __shared__ int64_t tile_at, chunk;
   __shared__ int last;
-  int64_t* counters = reinterpret_cast<int64_t*>(out);
-  const int64_t m = blockIdx.x;
-  const int64_t t0 = starts[m], t1 = starts[m + 1];
-  int64_t carry = 0;
-  for (int64_t base = t0; base < t1; base += kScanThreads) {
-    const int64_t t = base + threadIdx.x;
-    const int64_t x = t < t1 ? tile_sums[t] : 0;
-    const int64_t inc = block_scan<int64_t>(x, part);
-    if (t < t1) tile_sums[t] = carry + inc - x;
-    if (threadIdx.x == kScanThreads - 1) chunk = inc;
-    __syncthreads();
-    carry += chunk;
+  const int tid = threadIdx.x;
+  if (tid == 0) tile_at = atomicAdd(order, 1u);
+  __syncthreads();
+  const int64_t tile = tile_at;
+  // a launch over scratch that was not zeroed (`new_state`) takes tickets
+  // past the last tile: it does nothing rather than wait on tiles no
+  // block holds
+  if (tile >= tiles) return;
+  const int2 job = work[tile];
+  if (tid < D_NF) d[tid] = desc[static_cast<int64_t>(job.x) * D_NF + tid];
+  __syncthreads();
+  const int64_t j0 = static_cast<int64_t>(job.y) * kTile, j = j0 + tid;
+  const int n_in = static_cast<int>(min64(kTile, d[D_LEN] - j0));
+  const bool in = tid < n_in;
+  const int w = static_cast<int>(d[D_WIDTH]);
+  const int wide = d[D_SRC] == SRC_CP16;
+  const int cs = wide ? 2 : 1;
+  const int rb = w * cs;   // a row's code-point bytes
+  const bool fits = static_cast<int64_t>(n_in) * rb <= kStrCp;
+  const bool run = d[D_ROWS] < 0 && (d[D_RSTRIDE] == w || n_in == 1);
+  if (in) {
+    const int64_t row = row_of(aux, d, j);
+    rowv[tid] = hidden(aux, d, row) ? -1 : static_cast<int32_t>(row);
+  }
+  if (fits && run) {
+    const int64_t a0 = plane_at(d, P_VALUES, j0, 0, cs);
+    const auto one = [=](int) { return a0; };
+    if (wide) stage_runs<2, 2>(cps, 0, src, src_bytes, 1, n_in * rb, one);
+    else stage_runs<1, 2>(cps, 0, src, src_bytes, 1, n_in * rb, one);
+  }
+  __syncthreads();   // rowv, the run
+  if (fits && !run) {
+    const auto row_run = [&](int i) -> int64_t {
+      return rowv[i] < 0 ? -1 : plane_at(d, P_VALUES, rowv[i], 0, cs);
+    };
+    if (wide) stage_runs<2, 2>(cps, rb, src, src_bytes, n_in, rb, row_run);
+    else stage_runs<1, 2>(cps, rb, src, src_bytes, n_in, rb, row_run);
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    int64_t* c = counters + ids[m] * C_NF;
-    if (carry > 2147483647LL) c[C_BAD] = 1;
-    // a request whose column the caller rebuilds reserves no data
-    c[C_TOTAL] = c[C_BAD] ? 0 : carry;
-    __threadfence();
-    last = atomicAdd(done, 1u) == static_cast<unsigned>(nreq - 1);
+  int32_t len = 0;
+  bool bad = false;
+  if (in) {
+    if (fits) {
+      const uint16_t* cps16 = reinterpret_cast<const uint16_t*>(cps);
+      const int mode = static_cast<int>(d[D_TRIM]);
+      const bool blank = rowv[tid] < 0;
+      const int r0 = tid * w;
+      const auto cp = [&](int k) -> uint32_t {
+        return blank ? 0x20u : wide ? cps16[r0 + k] : cps[r0 + k];
+      };
+      int s = 0, e = w;
+      if (mode == TRIM_BOTH || mode == TRIM_LEFT) {
+        while (s < e && trims(cp(s), mode)) ++s;
+      }
+      if (mode == TRIM_BOTH || mode == TRIM_RIGHT) {
+        while (e > s && trims(cp(e - 1), mode)) --e;
+      }
+      for (int k = s; k < e; ++k) {
+        const uint32_t c = cp(k);
+        len += utf8_len(c);
+        bad |= (c >= 0xD800 && c <= 0xDFFF);
+      }
+    } else {
+      const Value v = value_of(src, aux, d, j);
+      for (int64_t k = v.s; k < v.e; ++k) {
+        const uint32_t c = v.p ? code_point(v.p, v.wide, k) : 0x20;
+        len += utf8_len(c);
+        bad |= (c >= 0xD800 && c <= 0xDFFF);
+      }
+    }
+    int32_t* offsets = reinterpret_cast<int32_t*>(out + d[D_VALUES]);
+    offsets[j + 1] = len;
+    if (j == 0) offsets[0] = 0;
+  }
+  const int64_t sum = block_sum<int64_t>(len, part);   // thread 0's
+  const int any_bad = __syncthreads_or(bad);
+  if (tid < 32) {
+    const int64_t agg = __shfl_sync(0xffffffffu, sum, 0);
+    int64_t base = 0;   // lane 0's
+    bool base_bad = false;
+    if (job.y > 0) {
+      if (tid == 0) publish(status + tile, kAggregate, any_bad, agg);
+      const int64_t first = tile - job.y;   // the array's first tile
+      // a round issues the loads of 32 x kLook earlier words at once,
+      // lane l word r at distance 32 r + l + 1, then takes the words in
+      // order of distance, 32 at a time, waiting only on those it counts
+      // (a tile that took its ticket earlier publishes its aggregate
+      // without waiting), down to the nearest inclusive prefix; a word
+      // before the array reads as an empty inclusive prefix, and the
+      // first tile's own prefix always stops the scan before it
+      for (int64_t top = tile - 1;; top -= 32 * kLook) {
+        uint64_t st[kLook];
+#pragma unroll
+        for (int r = 0; r < kLook; ++r) {
+          const int64_t q = top - 32 * r - tid;
+          st[r] = q >= first ? status_at(status, q) : kInclusive;
+        }
+        int64_t v = 0;
+        bool b = false, found = false;
+#pragma unroll
+        for (int r = 0; r < kLook; ++r) {
+          if (found) break;
+          while ((st[r] >> kFlagShift) == 0) {
+            st[r] = status_at(status, top - 32 * r - tid);
+          }
+          const unsigned inclusive =
+              __ballot_sync(0xffffffffu, (st[r] >> kFlagShift) == 2);
+          const int stop = inclusive
+              ? __ffs(static_cast<int>(inclusive)) - 1 : 31;
+          if (tid <= stop) {
+            v += static_cast<int64_t>(st[r] & kValueMask);
+            b |= (st[r] & kBadBit) != 0;
+          }
+          found = inclusive != 0;
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          v += __shfl_down_sync(0xffffffffu, v, o);
+        }
+        base += v;
+        base_bad |= __any_sync(0xffffffffu, b) != 0;
+        if (found) break;
+      }
+    }
+    if (tid == 0) {
+      const int64_t total = base + agg;
+      const bool req_bad = base_bad || any_bad;
+      publish(status + tile, kInclusive, req_bad, total);
+      tile_sums[tile] = base;
+      if (job.y == (d[D_LEN] - 1) / kTile) {
+        // the array's last tile: its inclusive prefix is the total
+        int64_t* c = reinterpret_cast<int64_t*>(out)
+            + static_cast<int64_t>(job.x) * C_NF;
+        const bool rebuild = req_bad || total > 2147483647LL;
+        if (rebuild) c[C_BAD] = 1;
+        // a request whose column the caller rebuilds reserves no data
+        c[C_TOTAL] = rebuild ? 0 : total;
+        __threadfence();   // the totals, before the count that reads them
+      }
+      last = atomicAdd(order + 1, 1u) == static_cast<unsigned>(tiles - 1);
+    }
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  carry = 0;
-  for (int64_t base = 0; base < nreq; base += kScanThreads) {
-    const int64_t k = base + threadIdx.x;
+  int64_t* counters = reinterpret_cast<int64_t*>(out);
+  int64_t carry = 0;
+  for (int64_t b0 = 0; b0 < nreq; b0 += kTile) {
+    const int64_t k = b0 + tid;
     const int64_t x = k < nreq
         ? *reinterpret_cast<volatile int64_t*>(counters + ids[k] * C_NF
                                                + C_TOTAL)
         : 0;
     const int64_t inc = block_scan<int64_t>(x, part);
     if (k < nreq) counters[ids[k] * C_NF + C_START] = carry + inc - x;
-    if (threadIdx.x == kScanThreads - 1) chunk = inc;
+    if (tid == kTile - 1) chunk = inc;
     __syncthreads();
     carry += chunk;
     __syncthreads();
   }
-  if (threadIdx.x == 0) counters[grand_slot] = carry;
+  if (tid == 0) counters[grand_slot] = carry;
 }
 
 // What bounds it: bytes (each visible string's code points in, its UTF-8
@@ -867,7 +1009,7 @@ __global__ void __launch_bounds__(kScanThreads) arrow_str_offsets(
 // addresses.
 //
 // The design. A block takes one tile of 256 strings (the tiles of
-// arrow_str_lengths and arrow_str_offsets), named by its work entry; one
+// arrow_str_lengths), named by its work entry; one
 // warp copies the descriptor and the request's bad flag and data start
 // into shared memory. The block scan of the lengths gives the int32
 // offsets, as before, and the tile's UTF-8 bytes are the contiguous range
@@ -1049,36 +1191,28 @@ extern "C" int cobrix_arrow_scalars(const void* src, int64_t src_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// `tiles` is the number of string tiles (starts[nreq])
-extern "C" int cobrix_arrow_str_lengths(const void* src, const void* aux,
-                                        const void* desc, const void* ids,
-                                        const void* starts, int64_t nreq,
-                                        int64_t tiles, void* out,
-                                        void* tile_sums, void* stream) {
+// `work`: an (int32 request, int32 tile of the request) pair a string
+// tile, request by request; `ids`: the string requests in that order;
+// `scratch`: tiles + 1 zeroed int64 words, a look-back status word a
+// tile, then the tile ticket and the count of finished tiles (two
+// uint32); counters[grand_slot] (int64 words of `out`) receives the sum
+// of the requests' totals
+extern "C" int cobrix_arrow_str_lengths(const void* src, int64_t src_bytes,
+                                        const void* aux, const void* desc,
+                                        const void* work, const void* ids,
+                                        int64_t nreq, int64_t tiles,
+                                        void* out, void* tile_sums,
+                                        void* scratch, int64_t grand_slot,
+                                        void* stream) {
   if (tiles == 0) return 0;
+  auto* status = static_cast<unsigned long long*>(scratch);
   arrow_str_lengths<<<static_cast<unsigned>(tiles), kTile, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(aux),
-      static_cast<const int64_t*>(desc), static_cast<const int64_t*>(ids),
-      static_cast<const int64_t*>(starts), nreq, static_cast<uint8_t*>(out),
-      static_cast<int64_t*>(tile_sums));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// `done` is a zeroed uint32 on the device; counters[grand_slot] (int64
-// words of `out`) receives the sum of the data starts' totals
-extern "C" int cobrix_arrow_str_offsets(const void* ids,
-                                        const void* starts, int64_t nreq,
-                                        void* out, void* tile_sums,
-                                        void* done, int64_t grand_slot,
-                                        void* stream) {
-  if (nreq == 0) return 0;
-  arrow_str_offsets<<<static_cast<unsigned>(nreq), kScanThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(ids), static_cast<const int64_t*>(starts),
-      nreq, static_cast<uint8_t*>(out), static_cast<int64_t*>(tile_sums),
-      static_cast<unsigned int*>(done),
-      grand_slot);
+      static_cast<const uint8_t*>(src), src_bytes,
+      static_cast<const uint8_t*>(aux), static_cast<const int64_t*>(desc),
+      static_cast<const int2*>(work), static_cast<const int64_t*>(ids), nreq,
+      tiles, static_cast<uint8_t*>(out), static_cast<int64_t*>(tile_sums),
+      status, reinterpret_cast<unsigned int*>(status + tiles), grand_slot);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,17 +29,17 @@ bounds them.
   start, total) and the grand total, each array's values and validity
   words or int32 offsets, then the string data. A `SlotPlanes` request
   costs a few numpy attributes a plane kind, whatever S is.
-* `assemble(plan)` runs the four steps on the plan's device and returns
+* `assemble(plan)` runs the three steps on the plan's device and returns
   the used part of the output buffer on the host: a CUDA plan copies the
   source buffer to the card in one copy (and the aux tables in one
   more), launches the kernels on the current stream, reads the grand
   total, and copies every Arrow buffer back in one copy into a pinned
   buffer; a CPU plan runs the plain version in place.
-* The steps `scalars`, `str_lengths`, `str_offsets` and `str_copy` take
-  CUDA tensors to their kernel, counted in the wrapper's ``launches``,
-  and CPU tensors to the plain version, the same arithmetic in torch
-  ops; nothing else is taken. `Result` reads the counters and the
-  buffers back.
+* The steps `scalars`, `str_lengths` (the strings' lengths and the scan
+  of their tiles' sums, one launch) and `str_copy` take CUDA tensors to
+  their kernel, counted in the wrapper's ``launches``, and CPU tensors
+  to the plain version, the same arithmetic in torch ops; nothing else
+  is taken. `Result` reads the counters and the buffers back.
 """
 from __future__ import annotations
 
@@ -62,6 +62,13 @@ P_NF = 5
 P_VALUES, P_VALID, P_HI, P_NEG, P_DOTS = range(P_NF)
 C_NF = 4
 C_NULLS, C_BAD, C_START, C_TOTAL = range(C_NF)
+# the string lengths kernel's look-back status word: the flag in bits
+# 62-63, the array's OR-ed bad bit in bit 61, the value in bits 0-60
+STATUS_FLAG_SHIFT = 62
+STATUS_AGGREGATE, STATUS_INCLUSIVE = 1, 2
+STATUS_BAD = 1 << 61
+STATUS_VALUE_MASK = STATUS_BAD - 1
+STR_LOOK_ROUND = 128   # status words a round of its look-back loads
 
 SRC_I32, SRC_I64, SRC_F32, SRC_F64, SRC_WIDE, SRC_CP8, SRC_CP16 = range(7)
 OUT_I32, OUT_I64, OUT_F32, OUT_F64, OUT_DEC, OUT_UTF8 = range(6)
@@ -389,7 +396,6 @@ def build_plan(requests: Sequence[Request],
     num_work = _work(num, blocks)
     put("num_work", num_work)
     put("str_ids", np.asarray(strs, dtype=np.int64))
-    put("str_starts", str_starts)
     put("str_work", _work(strs, np.diff(str_starts)))
     aux = np.zeros(max(cursor, 8), dtype=np.uint8)
     for name, arr in parts:
@@ -407,16 +413,20 @@ def build_plan(requests: Sequence[Request],
 # ---------------------------------------------------------------------------
 
 def new_state(plan: Plan, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """(out, tile_sums, done) for one assembly on `device`: the output
+    """(out, tile_sums, scratch) for one assembly on `device`: the output
     buffer with its counters and fixed buffers zeroed, the string tiles'
-    sums and the offsets step's block counter."""
+    bases, and the string lengths kernel's own zeroed scratch (a
+    look-back status word a tile, then the tile ticket and the count of
+    finished tiles, two int32 in one word; the plain version leaves it
+    alone)."""
     out = torch.empty(max(plan.out_bytes, 8), dtype=torch.uint8,
                       device=device)
     out[:plan.data_off].zero_()
     tile_sums = torch.zeros(max(plan.str_tiles, 1), dtype=torch.int64,
                             device=device)
-    done = torch.zeros(1, dtype=torch.int32, device=device)
-    return out, tile_sums, done
+    scratch = torch.zeros(plan.str_tiles + 1, dtype=torch.int64,
+                          device=device)
+    return out, tile_sums, scratch
 
 
 def upload(plan: Plan) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -434,21 +444,19 @@ def upload(plan: Plan) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def run_steps(plan: Plan, src: torch.Tensor, aux: torch.Tensor,
               state: Tuple[torch.Tensor, ...], plain: bool = False) -> int:
-    """The four steps over `state` (`new_state`); returns the bytes of
+    """The three steps over `state` (`new_state`); returns the bytes of
     `out` in use (the fixed part and the string data). `plain` runs the
     plain version on any device (the card check holds the kernels to
     it there)."""
-    out, tile_sums, done = state
-    steps = ((scalars_plain, str_lengths_plain, str_offsets_plain,
-              str_copy_plain) if plain
-             else (scalars, str_lengths, str_offsets, str_copy))
+    out, tile_sums, scratch = state
+    steps = ((scalars_plain, str_lengths_and_offsets_plain, str_copy_plain)
+             if plain else (scalars, str_lengths, str_copy))
     if plan.num_tiles:
         steps[0](src, aux, plan, out)
     if not plan.str_tiles:
         return plan.data_off
-    steps[1](src, aux, plan, out, tile_sums)
-    steps[2](aux, plan, out, tile_sums, done)
-    steps[3](src, aux, plan, out, tile_sums)
+    steps[1](src, aux, plan, out, tile_sums, scratch)
+    steps[2](src, aux, plan, out, tile_sums)
     # the copy does not read the grand total: the host waits once, here
     grand = int(out[8 * plan.grand_slot:8 * plan.grand_slot + 8]
                 .view(torch.int64).item())
@@ -515,13 +523,12 @@ def _lib():
     lib = load("arrow_assemble")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.cobrix_arrow_scalars.argtypes = [p, i64, p, p, p, i64, p, p]
-    lib.cobrix_arrow_str_lengths.argtypes = [p, p, p, p, p, i64, i64, p, p,
-                                             p]
-    lib.cobrix_arrow_str_offsets.argtypes = [p, p, i64, p, p, p, i64, p]
+    lib.cobrix_arrow_str_lengths.argtypes = [p, i64, p, p, p, p, i64, i64,
+                                             p, p, p, i64, p]
     lib.cobrix_arrow_str_copy.argtypes = [p, i64, p, p, p, i64, p, p, i64,
                                           p]
     for fn in (lib.cobrix_arrow_scalars, lib.cobrix_arrow_str_lengths,
-               lib.cobrix_arrow_str_offsets, lib.cobrix_arrow_str_copy):
+               lib.cobrix_arrow_str_copy):
         fn.restype = ctypes.c_int
     return lib
 
@@ -574,35 +581,28 @@ def scalars(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
 
 
 def str_lengths(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
-                out: torch.Tensor, tile_sums: torch.Tensor) -> None:
-    """Step 2: each string's UTF-8 length at offsets[j + 1], offsets[0] =
-    0, each tile's sum, the bad flag of a surrogate."""
-    if _device_of(src, aux, out, tile_sums).type == "cpu":
-        return str_lengths_plain(src, aux, plan, out, tile_sums)
-    desc, ids, starts = _tables(aux, plan, "str_ids", "str_starts")
-    _launch("str_lengths", out.device, src.data_ptr(), aux.data_ptr(), desc,
-            ids, starts, len(plan.str_ids), plan.str_tiles, out.data_ptr(),
-            tile_sums.data_ptr())
+                out: torch.Tensor, tile_sums: torch.Tensor,
+                scratch: torch.Tensor) -> None:
+    """Step 2, one launch: each string's UTF-8 length at offsets[j + 1],
+    offsets[0] = 0, the bad flag of a surrogate; each tile's exclusive
+    base within its array in `tile_sums`, each array's total (0 and bad
+    past 2^31 - 1), data starts in request order and the grand total.
+    `scratch` (`new_state`) starts zeroed and is the kernel's own."""
+    if _device_of(src, aux, out, tile_sums, scratch).type == "cpu":
+        return str_lengths_and_offsets_plain(src, aux, plan, out, tile_sums,
+                                             scratch)
+    _aligned(src)
+    desc, work, ids = _tables(aux, plan, "str_work", "str_ids")
+    _launch("str_lengths", out.device, src.data_ptr(), src.numel(),
+            aux.data_ptr(), desc, work, ids, len(plan.str_ids),
+            plan.str_tiles, out.data_ptr(), tile_sums.data_ptr(),
+            scratch.data_ptr(), plan.grand_slot)
     count_launch(str_lengths)
-
-
-def str_offsets(aux: torch.Tensor, plan: Plan, out: torch.Tensor,
-                tile_sums: torch.Tensor, done: torch.Tensor) -> None:
-    """Step 3: tile sums -> exclusive tile bases within each string
-    array, each array's total (0 and bad past 2^31 - 1), data starts in
-    request order and the grand total."""
-    if _device_of(aux, out, tile_sums, done).type == "cpu":
-        return str_offsets_plain(aux, plan, out, tile_sums, done)
-    _, ids, starts = _tables(aux, plan, "str_ids", "str_starts")
-    _launch("str_offsets", out.device, ids, starts, len(plan.str_ids),
-            out.data_ptr(), tile_sums.data_ptr(), done.data_ptr(),
-            plan.grand_slot)
-    count_launch(str_offsets)
 
 
 def str_copy(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
              out: torch.Tensor, tile_sums: torch.Tensor) -> None:
-    """Step 4: the int32 offsets and the UTF-8 bytes of every string
+    """Step 3: the int32 offsets and the UTF-8 bytes of every string
     array not marked bad."""
     if _device_of(src, aux, out, tile_sums).type == "cpu":
         return str_copy_plain(src, aux, plan, out, tile_sums)
@@ -614,10 +614,10 @@ def str_copy(src: torch.Tensor, aux: torch.Tensor, plan: Plan,
     count_launch(str_copy)
 
 
-for _fn in (scalars, str_lengths, str_offsets, str_copy):
+for _fn in (scalars, str_lengths, str_copy):
     _fn.launches = 0
 KERNELS = {"arrow_scalars": scalars, "arrow_str_lengths": str_lengths,
-           "arrow_str_offsets": str_offsets, "arrow_str_copy": str_copy}
+           "arrow_str_copy": str_copy}
 
 
 # ---------------------------------------------------------------------------
@@ -849,7 +849,7 @@ def str_lengths_plain(src, aux, plan: Plan, out, tile_sums) -> None:
             counters[C_NF * i + C_BAD] = 1
 
 
-def str_offsets_plain(aux, plan: Plan, out, tile_sums, done) -> None:
+def str_offsets_plain(plan: Plan, out, tile_sums) -> None:
     counters = _Views(out).i64
     start = 0
     for m, i in enumerate(plan.str_ids.tolist()):
@@ -865,7 +865,14 @@ def str_offsets_plain(aux, plan: Plan, out, tile_sums, done) -> None:
         counters[C_NF * i + C_START] = start
         start += total
     counters[plan.grand_slot] = start
-    done[0] = len(plan.str_ids)
+
+
+def str_lengths_and_offsets_plain(src, aux, plan: Plan, out, tile_sums,
+                                  scratch=None) -> None:
+    """The plain version of `str_lengths`' one launch: the lengths, then
+    the scan of the tile sums; the kernel's scratch is not used."""
+    str_lengths_plain(src, aux, plan, out, tile_sums)
+    str_offsets_plain(plan, out, tile_sums)
 
 
 def str_copy_plain(src, aux, plan: Plan, out, tile_sums) -> None:

@@ -18,6 +18,10 @@ trim policy, with rows a column of a wider matrix, contiguous rows, and
 rows too wide for a string tile's shared buffer. The tests hold the
 plain version to a Python reference over it; ``chip_smoke.py`` holds the
 kernels to the plain version.
+
+`strings(n, width, seed)` is one array of `n` contiguous strings of
+`width` uint8 code points: ``chip_smoke.py``'s case of many waves of
+string tiles (4,000,000 x 16, 15,625 tiles).
 """
 from __future__ import annotations
 
@@ -276,3 +280,15 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
             [{name: views[i] for name, i in slot.items()}
              for slot in slot_list], **fields))
     return requests, buf
+
+
+def strings(n: int, width: int = 16, seed: int = 0, pin: bool = False
+            ) -> Tuple[List["asm.Request"], torch.Tensor]:
+    """(requests, host buffer) of one assembly of one string array: `n`
+    contiguous rows of `width` uint8 code points, trimmed at both ends."""
+    planes = _Planes()
+    k = planes.add(_strings(np.random.default_rng(seed), n, width, False))
+    buf, views = planes.build(pin)
+    return [asm.Request(n, [{"values": views[k]}], src_kind=asm.SRC_CP8,
+                        out_kind=asm.OUT_UTF8, width=width,
+                        trim=asm.TRIM_BOTH)], buf

@@ -228,8 +228,9 @@ def test_slot_planes_outside_the_buffer_are_staged():
 
 @pytest.mark.cuda
 def test_kernels_equal_the_plain_version_on_the_card():
-    """Each step's kernel against the plain version, from the same state,
-    to the byte (``chip_smoke.py`` phase 14 runs this grid)."""
+    """The kernels against the plain version, from the same state, to
+    the byte: the output buffer and the tile bases (the lengths kernel's
+    scratch is its own; ``chip_smoke.py`` phase 14 runs this grid)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py phase 14 holds "
                     "the kernels to the plain version on the card")
@@ -243,6 +244,7 @@ def test_kernels_equal_the_plain_version_on_the_card():
         used = asm.run_steps(plan, src, aux, kernel_state)
         assert asm.run_steps(plan, src, aux, plain_state, plain=True) == used
         assert torch.equal(kernel_state[0][:used], plain_state[0][:used])
+        assert torch.equal(kernel_state[1], plain_state[1])
 
 
 # -- tables against the JAX package -------------------------------------------

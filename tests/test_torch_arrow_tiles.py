@@ -22,7 +22,21 @@ overflow the shared buffers writes directly. The model replays the
 staged path's items (16 code points of an all-ASCII string, or a whole
 other string) and its aligned 16-byte stores, and shows every output
 byte written exactly once, whichever path each tile takes.
+
+`arrow_str_lengths`: one launch computes the lengths and scans the
+tiles' sums. A block takes its tile from a ticket, in order, stages the
+tile's code points (or reads them directly when they overflow the
+buffer), and looks back over its array's earlier tiles through one
+64-bit status word a tile (flag, bad bit, value): a round loads 128
+words at once and takes them 32 at a time, down to the nearest
+inclusive prefix; the array's last tile writes its
+total and bad flag, and the last tile to finish scans the totals into
+data starts. The model replays that scan with the tiles finishing in
+seeded random orders and holds every tile base, total, bad flag, data
+start and the grand total to ``str_offsets_plain``'s.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -194,12 +208,10 @@ def _utf8_lengths(cps, keep):
     return (ul * keep).sum(1)
 
 
-def _string_tiles(req, d, data_start, data_off):
-    """Replay each 256-string tile: its range, the path it takes and the
-    bytes its stores write. Returns the count of writes of every byte of
-    the output buffer's data, and the paths taken."""
+def _code_points(req):
+    """(code points [L, w] with hidden rows blank, kept mask) of a string
+    request."""
     w = req.width
-    cs = 2 if req.src_kind == asm.SRC_CP16 else 1
     rows = np.arange(req.length) if req.rows is None else np.asarray(req.rows)
     mat = req.planes[0]["values"][rows].astype(np.int64)
     if req.mask is not None:
@@ -216,6 +228,16 @@ def _string_tiles(req, d, data_start, data_off):
             keep &= pos >= first[:, None]
         if req.trim in (asm.TRIM_BOTH, asm.TRIM_RIGHT):
             keep &= pos <= last[:, None]
+    return mat, keep
+
+
+def _string_tiles(req, d, data_start, data_off):
+    """Replay each 256-string tile: its range, the path it takes and the
+    bytes its stores write. Returns the count of writes of every byte of
+    the output buffer's data, and the paths taken."""
+    w = req.width
+    cs = 2 if req.src_kind == asm.SRC_CP16 else 1
+    mat, keep = _code_points(req)
     lens = _utf8_lengths(mat, keep)
     total = int(lens.sum())
     writes = np.zeros(total, dtype=np.int64)
@@ -284,3 +306,321 @@ def test_string_tiles_write_every_byte_once(n):
     if n >= asm.TILE:
         # 256 rows of 80 uint16 code points overflow the shared buffer
         assert "direct" in paths
+
+
+# -- arrow_str_lengths: staged tiles and the segmented look-back --------------
+
+AGGREGATE, INCLUSIVE = asm.STATUS_AGGREGATE, asm.STATUS_INCLUSIVE
+
+
+def _pack(flag, bad, value):
+    """A tile's status word, as the kernel's `publish` stores it."""
+    return ((flag << asm.STATUS_FLAG_SHIFT) | (asm.STATUS_BAD if bad else 0)
+            | (value & asm.STATUS_VALUE_MASK))
+
+
+def _unpack(word):
+    return (word >> asm.STATUS_FLAG_SHIFT, bool(word & asm.STATUS_BAD),
+            word & asm.STATUS_VALUE_MASK)
+
+
+def _length_tiles(req, d):
+    """Replay the lengths kernel's tiles: the path each takes (its code
+    points staged in shared memory, as one run or a run a row, or read
+    from global memory when 256 x width x 1 or 2 bytes overflow the
+    buffer), and how many times each string's length is computed."""
+    w = req.width
+    cs = 2 if req.src_kind == asm.SRC_CP16 else 1
+    computed = np.zeros(req.length, dtype=np.int64)
+    paths = []
+    for j0 in range(0, req.length, asm.TILE):
+        n_in = min(asm.TILE, req.length - j0)
+        if n_in * w * cs > asm.STR_CP_BYTES:
+            paths.append("direct")
+        else:
+            run = d[asm.D_ROWS] < 0 and (d[asm.D_RSTRIDE] == w or n_in == 1)
+            paths.append("run" if run else "rows")
+        computed[j0:j0 + n_in] += 1
+    return computed, paths
+
+
+def _tile_flags(req):
+    """Each 256-string tile's sum and surrogate flag."""
+    mat, keep = _code_points(req)
+    lens = _utf8_lengths(mat, keep)
+    sur = (keep & (mat >= 0xD800) & (mat <= 0xDFFF)).any(1)
+    n = -(-req.length // asm.TILE)
+    pad = n * asm.TILE - req.length
+    return (np.pad(lens, (0, pad)).reshape(n, -1).sum(1).tolist(),
+            np.pad(sur, (0, pad)).reshape(n, -1).any(1).tolist())
+
+
+def _look_back(work, sums, bads, ids, tiles_of, rng, start_all=False,
+               prefer=None):
+    """Replay one launch of the lengths kernel's scan: tile t (its ticket)
+    is entry t of `work` ((request, tile of the request) pairs), with sum
+    sums[t] and surrogate flag bads[t]. Tiles take their tickets in order;
+    at each step a random started tile takes one step (a word loaded as 0
+    is read again until it is not: that tile waits), and a new tile may
+    take its ticket (`start_all`: every tile first). `prefer`: a tile
+    that moves whenever it can. Returns (bases, {request: [bad, total,
+    start]}, grand total, publish events in order)."""
+    T = len(work)
+    status = [0] * T
+    bases = [None] * T
+    counters = {i: [0, 0, 0] for i in ids}
+    events = []
+    state = {"done": 0, "grand": None}
+
+    def tile(t):
+        req, k = work[t]
+        agg, bad = sums[t], bads[t]
+        first = t - k
+        base, base_bad = 0, False
+        if k > 0:
+            status[t] = _pack(AGGREGATE, bad, agg)
+            events.append((t, AGGREGATE))
+            yield True
+            top = t - 1
+            while True:
+                # a round loads its words at once (a snapshot), then takes
+                # them 32 at a time, spinning only on those still 0
+                dist = range(asm.STR_LOOK_ROUND)
+                loaded = [status[top - x] if top - x >= first
+                          else _pack(INCLUSIVE, False, 0) for x in dist]
+                yield True
+                found = False
+                for c0 in range(0, asm.STR_LOOK_ROUND, 32):
+                    words = []
+                    for x in range(c0, c0 + 32):
+                        while loaded[x] == 0:
+                            loaded[x] = status[top - x]
+                            if loaded[x] == 0:
+                                yield False
+                        words.append(loaded[x])
+                    seen = [_unpack(w) for w in words]
+                    inclusive = [n for n, (f, _, _) in enumerate(seen)
+                                 if f == INCLUSIVE]
+                    stop = inclusive[0] if inclusive else 31
+                    base += sum(v for _, _, v in seen[:stop + 1])
+                    base_bad |= any(b for _, b, _ in seen[:stop + 1])
+                    if inclusive:
+                        found = True
+                        break
+                yield True
+                if found:
+                    break
+                top -= asm.STR_LOOK_ROUND
+        total = base + agg
+        req_bad = base_bad or bad
+        status[t] = _pack(INCLUSIVE, req_bad, total)
+        events.append((t, INCLUSIVE))
+        bases[t] = base
+        if k == tiles_of[req] - 1:
+            rebuild = req_bad or total > 2 ** 31 - 1
+            if rebuild:
+                counters[req][0] = 1
+            counters[req][1] = 0 if rebuild else total
+        yield True
+        state["done"] += 1
+        if state["done"] == T:
+            start = 0
+            for i in ids:
+                counters[i][2] = start
+                start += counters[i][1]
+            state["grand"] = start
+
+    running = {}
+    ticket = 0
+    while ticket < T or running:
+        if ticket < T and (start_all or not running or rng.random() < 0.3):
+            running[ticket] = tile(ticket)
+            ticket += 1
+            continue
+        order = list(running)
+        rng.shuffle(order)
+        if prefer in running:
+            order.remove(prefer)
+            order.insert(0, prefer)
+        for t in order:
+            try:
+                moved = next(running[t])
+            except StopIteration:
+                del running[t]
+                break
+            if moved:
+                break
+        else:
+            # every started tile spins: only a new ticket can move
+            assert ticket < T, "the look-back deadlocked"
+            running[ticket] = tile(ticket)
+            ticket += 1
+    assert all(b is not None for b in bases)
+    return bases, counters, state["grand"], events
+
+
+def _plain_scan(ids, starts, sums, bad_requests):
+    """`str_offsets_plain` over the tile sums, each request's bad flag set
+    as the lengths step leaves it: (bases, {request: [bad, total, start]},
+    grand total)."""
+    k = max(ids) + 1
+    plan = SimpleNamespace(str_ids=np.asarray(ids), str_starts=starts,
+                           grand_slot=asm.C_NF * k)
+    out = torch.zeros(8 * (asm.C_NF * k + 1), dtype=torch.uint8)
+    counters = out.view(torch.int64)
+    for i in bad_requests:
+        counters[asm.C_NF * i + asm.C_BAD] = 1
+    tile_sums = torch.tensor(sums, dtype=torch.int64)
+    asm.str_offsets_plain(plan, out, tile_sums)
+    got = {i: [int(counters[asm.C_NF * i + c])
+               for c in (asm.C_BAD, asm.C_TOTAL, asm.C_START)] for i in ids}
+    return tile_sums.tolist(), got, int(counters[plan.grand_slot])
+
+
+def _synthetic(tiles, seed, big=()):
+    """(ids, starts, work, sums, bads) of requests of `tiles` tiles each,
+    random sums (those in `big` past 2^31 - 1 in all)."""
+    rng = np.random.default_rng(seed)
+    ids = [2 * m + 1 for m in range(len(tiles))]
+    starts = np.concatenate([[0], np.cumsum(tiles)]).astype(np.int64)
+    work, sums = [], []
+    for m, n in enumerate(tiles):
+        work += [(ids[m], t) for t in range(n)]
+        top = 12_000_000 if m in big else 256 * 40 * 3
+        sums += rng.integers(0, top, n).tolist()
+    return ids, starts, work, sums, [False] * len(work)
+
+
+def _check_look_back(ids, starts, work, sums, bads, seeds, **kw):
+    tiles_of = dict(zip(ids, np.diff(starts).tolist()))
+    bad_requests = [work[t][0] for t in range(len(work)) if bads[t]]
+    want = _plain_scan(ids, starts, sums, bad_requests)
+    for seed in seeds:
+        bases, counters, grand, events = _look_back(
+            work, sums, bads, ids, tiles_of, np.random.default_rng(seed), **kw)
+        assert (bases, counters, grand) == want, seed
+    return want, events
+
+
+@pytest.mark.parametrize("value", [0, 2 ** 31 - 1, 2 ** 31,
+                                   asm.STATUS_VALUE_MASK])
+@pytest.mark.parametrize("bad", [False, True])
+def test_status_word_packs_and_unpacks(value, bad):
+    for flag in (AGGREGATE, INCLUSIVE):
+        word = _pack(flag, bad, value)
+        assert 0 < word < 2 ** 64
+        assert _unpack(word) == (flag, bad, value)
+        # the int64 scratch word the kernel stores holds the same bits
+        as_int64 = np.array([word], dtype=np.uint64).view(np.int64)
+        assert int(as_int64.view(np.uint64)[0]) == word
+    # the value field holds any request's int64 total a batch can have
+    assert asm.STATUS_VALUE_MASK == 2 ** 61 - 1
+    assert asm.STATUS_BAD >> asm.STATUS_FLAG_SHIFT == 0
+
+
+@pytest.mark.parametrize("n", ROWS)
+def test_lengths_tiles_compute_each_length_once(n):
+    requests, buf = arrow_cases.grid(n, seed=n)
+    plan = asm.build_plan(requests, buf, torch.device("cpu"))
+    res = asm.assemble(plan)
+    paths = set()
+    for i in plan.str_ids.tolist():
+        req = requests[i]
+        computed, got = _length_tiles(req, plan.desc[i])
+        assert (computed == 1).all()
+        paths.update(got)
+        offs = res.values(i).view(np.int32)
+        if not res.bad(i):
+            mat, keep = _code_points(req)
+            assert (np.diff(offs) == _utf8_lengths(mat, keep)).all()
+    assert {"run", "rows"} <= paths
+    if n >= asm.TILE:
+        # 256 rows of 80 uint16 code points overflow the staged buffer
+        assert "direct" in paths
+
+
+@pytest.mark.parametrize("n", ROWS)
+def test_look_back_equals_the_plain_scan(n):
+    """The grid's string requests: tiles started in order and finishing
+    in seeded random orders give the plain scan's bases, totals, bad
+    flags, data starts and grand total."""
+    requests, buf = arrow_cases.grid(n, seed=n)
+    plan = asm.build_plan(requests, buf, torch.device("cpu"))
+    T = plan.str_tiles
+    work = plan.aux[plan.aux_off["str_work"]:].view(np.int32)[:2 * T]
+    work = [tuple(x) for x in work.reshape(-1, 2).tolist()]
+    sums, bads = [], []
+    for i in plan.str_ids.tolist():
+        s, b = _tile_flags(requests[i])
+        sums += s
+        bads += b
+    # the model's tile sums are the plain lengths step's
+    state = asm.new_state(plan, torch.device("cpu"))
+    asm.str_lengths_plain(plan.src, torch.from_numpy(plan.aux), plan,
+                          state[0], state[1])
+    assert state[1][:T].tolist() == sums
+    assert any(bads)
+    (bases, counters, grand), _ = _check_look_back(
+        plan.str_ids.tolist(), plan.str_starts, work, sums, bads,
+        seeds=range(4))
+    # and the plain step on the plan's own state agrees
+    asm.str_offsets_plain(plan, state[0], state[1])
+    assert state[1][:T].tolist() == bases
+    res = asm.Result(plan, state[0].numpy())
+    assert int(res.host[8 * plan.grand_slot:][:8].view(np.int64)[0]) == grand
+    for i, (bad, total, start) in counters.items():
+        assert res.counters[i, asm.C_BAD] == bad
+        assert res.counters[i, asm.C_TOTAL] == total
+        assert res.counters[i, asm.C_START] == start
+
+
+def test_look_back_over_hundreds_of_tiles():
+    """Several requests of hundreds of tiles (one empty, one of one tile,
+    one whose total passes 2^31 - 1), many finish orders."""
+    ids, starts, work, sums, bads = _synthetic([300, 0, 1, 450, 520], 7,
+                                               big={4})
+    (_, counters, _), _ = _check_look_back(ids, starts, work, sums, bads,
+                                           seeds=range(6))
+    assert counters[ids[4]][:2] == [1, 0]
+    assert counters[ids[1]] == [0, 0, counters[ids[0]][1]]
+
+
+def test_surrogate_in_the_first_tile_reaches_the_last():
+    """A surrogate in a request's first tile, its last tile running ahead
+    of every other: the bad bit rides the status words to the last
+    tile."""
+    ids, starts, work, sums, bads = _synthetic([3, 70, 2], 11)
+    first, last = int(starts[1]), int(starts[2]) - 1
+    bads[first] = True
+    (_, counters, _), events = _check_look_back(
+        ids, starts, work, sums, bads, seeds=range(3), start_all=True,
+        prefer=last)
+    assert events.index((last, AGGREGATE)) < events.index((first, INCLUSIVE))
+    assert counters[ids[1]][:2] == [1, 0]
+
+
+def test_bad_request_between_good_ones_reserves_no_data():
+    ids, starts, work, sums, bads = _synthetic([40, 35, 50], 13)
+    bads[int(starts[1]) + 20] = True
+    (_, counters, grand), _ = _check_look_back(ids, starts, work, sums,
+                                               bads, seeds=range(5))
+    good0, bad, good2 = (counters[i] for i in ids)
+    assert bad[:2] == [1, 0]
+    assert bad[2] == good2[2] == good0[1]
+    assert grand == good0[1] + good2[1]
+
+
+def test_many_wave_strings_case():
+    """`arrow_cases.strings`, the card's many-wave case at a small size:
+    one request, its tiles staged as one run, the plain step's lengths."""
+    requests, buf = arrow_cases.strings(3000, 16, seed=3)
+    plan = asm.build_plan(requests, buf, torch.device("cpu"))
+    assert not plan.staged and plan.str_tiles == -(-3000 // asm.TILE)
+    computed, paths = _length_tiles(requests[0], plan.desc[0])
+    assert (computed == 1).all() and set(paths) == {"run"}
+    res = asm.assemble(plan)
+    mat, keep = _code_points(requests[0])
+    assert (np.diff(res.values(0).view(np.int32))
+            == _utf8_lengths(mat, keep)).all()
+    assert int(res.counters[0, asm.C_TOTAL]) == int(
+        _utf8_lengths(mat, keep).sum())
