@@ -220,6 +220,34 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    read and exp1's read + ``to_arrow`` at ``parallelism`` 1 and at its
    default, min(16, cpu_count): equal tables, seconds.
 
+15. the I/O plane (``cobrix_tpu_torch.io``): (a) compressed feeds: the
+   phase 3 exp1 file (its phase 3 bytes) and the phase 4 exp3 file as
+   multi-member gzip and the exp2 file as xz, one member per 4 MiB
+   compressed on a thread pool at the fastest level, each read on the
+   default device sequentially with no ``cache_dir`` (one decompressing
+   stream in 64 MiB chunks or windows), and exp1 and exp3 pipelined (2
+   workers, ``chunk_size_mb=64``, a ``cache_dir``, 4 MiB decompressed
+   blocks), cold, warm, then warm sequentially. Every read hashes equal
+   to the raw file's phase 9 read (planes, record ids, Seg_Id columns,
+   sampled rows) and launches the fused, scan and pack kernels as that
+   read did (a warm pipelined read less the index pass it skips); the
+   warm reads inflate nothing (``compressed_bytes_in`` 0) and serve
+   every block from the cache (the warm sequential read: exactly the
+   blocks); one ``to_arrow`` of the gzip exp3 read equals phase 11's
+   table. (b) the exp2 file served through a registered
+   ``ByteRangeSource``, plain, and through ``ChaosSource`` failing every
+   7th backend read with ``io_retry_*``, ``prefetch_blocks=4``,
+   ``io_block_mb=8`` and a ``cache_dir``, cold then warm: equal hashes,
+   the injected failures retried and ledgered, the warm read fetching 0
+   backend bytes and loading the sparse index (no index pass). (c) the
+   gzip exp2 feed with its last member torn, read permissive on the card
+   and on the CPU (the segment id alone decoded there): equal row counts
+   and ledgers. Each read prints its
+   decompressed MB/s beside the raw read's, ``inflate_s``, the wire and
+   decompressed bytes, the compression ratio, and the card's name and
+   power limit. fsspec and ``zstandard`` are not used (the card's
+   machine has neither).
+
 Every phase prints its seconds (``[phases]``). Every failure exits
 non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -228,13 +256,14 @@ package beside this file, it exits 2 and prints no result.
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
 lines: it checks the script's paths, not the card. ``--phases 13`` (or
-``12``, ``14``, or several) runs the environment, phase 4 (phase 14
-also phases 3 and 5) and the phases named, and also exits 3 without the
-result lines.
+``12``, ``14``, ``15``, or several) runs the environment, phase 4 (phase
+14 also phases 3 and 5, phase 15 also phase 3) and the phases named,
+and also exits 3 without the result lines.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
@@ -299,7 +328,7 @@ AGG_KINDS = {0: "K_I32", 1: "K_I64", 2: "K_WIDE"}
 AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 # phases `--phases` can run alone (after the environment and phase 4)
 PHASES = {"12": "phase_generic", "13": "phase_hierarchical",
-          "14": "phase_assembly"}
+          "14": "phase_assembly", "15": "phase_io"}
 
 
 class SmokeFailure(Exception):
@@ -430,6 +459,9 @@ class Smoke:
         self.max_err = dict.fromkeys(KERNELS, 0.0)
         self.agg_rel_err = 0.0  # the aggregate's sums: largest relative error
         self.launches = {}   # path -> kernel -> launches on that path
+        # phase 9's raw reads by file: digest, launches, MB/s (phase 15's
+        # references)
+        self.raw_reads = {}
         self.phase_secs = {}  # phase -> seconds
         self.tmp = tempfile.mkdtemp(prefix="cobrix_smoke_")
 
@@ -1286,10 +1318,10 @@ class Smoke:
             top.update(repr(key).encode() + hashers[key].digest())
         return top.hexdigest(), len(data)
 
-    def _pipelined_read(self, tag, path, cb, workers, **opts):
+    def _pipelined_read(self, tag, path, cb, workers, keep=False, **opts):
         """One read through read_cobol with `workers`, its kernels'
         launches counted from 0; (seconds, digest, records, metrics,
-        launches)."""
+        launches). `keep`: the CobolData stays in `self.kept`."""
         from cobrix_tpu_torch import read_cobol
         from cobrix_tpu_torch.ops import device_framing as df
         from cobrix_tpu_torch.ops.fused_decode import fused_decode
@@ -1309,6 +1341,9 @@ class Smoke:
         launches = {k: fn.launches for k, fn in counters.items()
                     if fn.launches or k == "fused_decode"}
         digest, records = self._digest(data)
+        self.last_diagnostics = data.diagnostics
+        if keep:
+            self.kept = data
         return secs, digest, records, data.metrics.as_dict(), launches
 
     def phase_pipeline(self):
@@ -1349,6 +1384,10 @@ class Smoke:
                       f"from the sequential read")
             seq, pipe2 = runs[0], runs[1]
             self.launches[f"pipeline_{kind}"] = pipe2["launches"]
+            self.raw_reads[kind] = dict(
+                digest=seq["digest"], launches=seq["launches"],
+                pipe_launches=pipe2["launches"],
+                mb_per_s=[seq["mb_per_s"], pipe2["mb_per_s"]])
             if not self.rehearsal:
                 if kind == "exp1":
                     check(pipe2["launches"] == seq["launches"],
@@ -2151,6 +2190,8 @@ class Smoke:
                                  f"{kind} prefix")
                 what = f"the first {k} records"
             log(f"[arrow] {kind}: the table of {what} == device='cpu' read")
+            if kind == "exp3":
+                self.p11_exp3_table = table  # phase 15's reference
             del data, table, raw
 
         # (b) the pipelined read's assemble stage, with batch_callback
@@ -3535,6 +3576,340 @@ class Smoke:
         log(f"[p14] {self.card}: (d) parallelism 1 against {default}: "
             f"{json.dumps(runs)}; tables equal")
 
+    # -- phase 15: the I/O plane -------------------------------------------
+
+    def _compress(self, src, dst, codec, limit=None):
+        """`src` (its first `limit` bytes) as a multi-member `codec` feed,
+        one member per 4 MiB compressed on a thread pool at the fastest
+        level (``testing.corpus.member_compressor``); (seconds, wire
+        bytes)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from cobrix_tpu_torch.testing.corpus import member_compressor
+
+        _, compress = member_compressor(codec)
+        size = os.path.getsize(src) if limit is None else limit
+        member = 4 << 20
+        t0 = time.perf_counter()
+        fd = os.open(src, os.O_RDONLY)
+        try:
+            def one(off):
+                return compress(os.pread(fd, min(member, size - off), off))
+            with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex, \
+                    open(dst, "wb") as out:
+                for piece in ex.map(one, range(0, size, member)):
+                    out.write(piece)
+        finally:
+            os.close(fd)
+        return time.perf_counter() - t0, os.path.getsize(dst)
+
+    def _raw_reference(self, kind, path, cb, opts):
+        """Phase 9's sequential and pipelined reads of the raw file (its
+        digest and launches), or, when phase 9 did not run, the same two
+        reads now."""
+        ref = self.raw_reads.get(kind)
+        if ref is None:
+            runs = [self._pipelined_read(kind, path, cb, w, **opts)
+                    for w in (0, 2)]
+            check(runs[0][1] == runs[1][1], f"{kind}: the raw pipelined "
+                  f"read differs from the sequential one")
+            size = os.path.getsize(path)
+            ref = self.raw_reads[kind] = dict(
+                digest=runs[0][1], launches=runs[0][4],
+                pipe_launches=runs[1][4],
+                mb_per_s=[size / runs[0][0] / 1e6,
+                          size / runs[1][0] / 1e6])
+        return ref
+
+    def _io_read(self, tag, feed, size, cb, workers, ref, expect,
+                 keep=False, **opts):
+        """One read of a compressed or backend-served input through
+        read_cobol, held to the raw file's reference: the same digest
+        (planes, record ids, Seg_Id columns, sampled rows) and the
+        launches of every read kernel `expect` gives (the raw read's).
+        Returns a summary with its io counters."""
+        secs, digest, records, metrics, launches = self._pipelined_read(
+            tag, feed, cb, workers, keep=keep, **opts)
+        check(digest == ref["digest"], f"{tag}: planes, record ids or rows "
+              f"differ from the raw file's read")
+        if not self.rehearsal:
+            check(launches == expect, f"{tag}: launches {launches} differ "
+                  f"from the raw read's {expect}")
+        self.launches[f"io_{tag}"] = launches
+        io = metrics.get("io") or {}
+        out = dict(secs=secs, mb_per_s=size / secs / 1e6, records=records,
+                   shards=metrics["shards"], launches=launches,
+                   bytes_read=metrics["bytes_read"],
+                   inflate_s=io.get("inflate_s", 0.0),
+                   compressed_bytes_in=io.get("compressed_bytes_in", 0),
+                   decompressed_bytes_out=io.get("decompressed_bytes_out",
+                                                 0),
+                   inflate_skipped=io.get("inflate_skipped", 0),
+                   bytes_fetched=io.get("bytes_fetched", 0),
+                   index=[io.get(k, 0) for k in ("index_hits",
+                                                 "index_misses",
+                                                 "index_saves")])
+        log(f"[io] {self.card}: {tag}: {records} records, {size} bytes "
+            f"decompressed in {secs:.3f} s = {out['mb_per_s']:.1f} MB/s; "
+            f"inflate_s {out['inflate_s']:.3f}, compressed in "
+            f"{out['compressed_bytes_in']}, out "
+            f"{out['decompressed_bytes_out']}, blocks skipped "
+            f"{out['inflate_skipped']}, index hits/misses/saves "
+            f"{out['index']}; launches {json.dumps(launches)}; == raw read "
+            f"by hash")
+        return out
+
+    @contextlib.contextmanager
+    def _index_pass_spy(self):
+        """Within the block, the read kernels' launches made by the scan
+        kernel's index passes (``VarLenReader._generate_index_fast``):
+        the dict yielded fills with them (empty: no index pass ran)."""
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import fused_decode
+        from cobrix_tpu_torch.reader import var_len_reader as vlr
+
+        counters = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                    "pack_records": df.pack_records}
+        spent = {}
+        real = vlr.VarLenReader._generate_index_fast
+
+        def counted(reader, *a, **k):
+            before = {n: fn.launches for n, fn in counters.items()}
+            try:
+                return real(reader, *a, **k)
+            finally:
+                for n, fn in counters.items():
+                    spent[n] = spent.get(n, 0) + fn.launches - before[n]
+        vlr.VarLenReader._generate_index_fast = counted
+        try:
+            yield spent
+        finally:
+            vlr.VarLenReader._generate_index_fast = real
+
+    def phase_io(self):
+        """Phase 15: (a) compressed feeds, (b) a registered backend with
+        retries, read-ahead, the block cache and the persisted index,
+        (c) a damaged feed under the permissive policy."""
+        t_phase = time.perf_counter()
+        self.p15 = {}
+        self._p15_feeds()
+        self._p15_backend()
+        self._p15_damage()
+        self.p15["secs"] = time.perf_counter() - t_phase
+        log(f"[io] phase 15: {self.p15['secs']:.1f} s; "
+            f"{json.dumps(self.p15, default=str)}")
+
+    def _p15_feeds(self):
+        from cobrix_tpu_torch.testing.generators import (EXP1_COPYBOOK,
+                                                         EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        block = (256 << 10) if self.rehearsal else (4 << 20)
+        block_mb = str(block / (1 << 20))
+        files = [("exp1", self.exp1_path, EXP1_COPYBOOK, {}, "gzip",
+                  self.e2e[0]),
+                 ("exp3", self.rdw_files["exp3"], EXP3_COPYBOOK,
+                  RDW_OPTIONS, "gzip", None),
+                 ("exp2", self.rdw_files["exp2"], EXP2_COPYBOOK,
+                  RDW_OPTIONS, "xz", None)]
+        self.p15_gz = {}
+        for kind, path, cb, opts, codec, limit in files:
+            # phase 12 left a torn tail on the exp1 file: its feed is the
+            # phase 3 bytes
+            size = limit or os.path.getsize(path)
+            ext = {"gzip": "gz", "xz": "xz"}[codec]
+            feed = os.path.join(self.tmp, f"{kind}.dat.{ext}")
+            secs, wire = self._compress(path, feed, codec, limit)
+            log(f"[io] wrote {kind} as {codec} ({wire} wire bytes for "
+                f"{size}: ratio {size / wire:.2f}) in {secs:.1f} s")
+            ref = self._raw_reference(kind, path, cb, opts)
+            runs = {"wire_bytes": wire, "ratio": size / wire,
+                    "raw_mb_per_s": ref["mb_per_s"]}
+            seq = self._io_read(f"{kind}_{codec}_sequential", feed, size, cb,
+                                0, ref, ref["launches"],
+                                keep=kind == "exp3", **opts)
+            check(seq["bytes_read"] == size,
+                  f"{kind}: bytes_read {seq['bytes_read']} is not the "
+                  f"decompressed size {size}")
+            runs["sequential"] = seq
+            if kind == "exp3":
+                self._p15_arrow(cb, opts)
+            if kind != "exp2":
+                # a budget that holds the whole decompressed plane (the
+                # default 1,024 MB would evict exp1's blocks)
+                cache = os.path.join(self.tmp, f"cache_{kind}")
+                copts = dict(opts, cache_dir=cache, cache_max_mb="4096",
+                             compress_block_mb=block_mb)
+                blocks = -(-size // block)
+                # the warm read loads the sparse index from the cache: it
+                # launches what the cold one did less the index pass
+                expect = ref["pipe_launches"]
+                for state in ("cold", "warm"):
+                    with self._index_pass_spy() as spy:
+                        run = self._io_read(
+                            f"{kind}_{codec}_pipelined_{state}", feed, size,
+                            cb, 2, ref, expect, **copts)
+                    runs[f"pipelined_{state}"] = run
+                    if state == "cold":
+                        expect = {k: v - spy.get(k, 0)
+                                  for k, v in expect.items()
+                                  if v > spy.get(k, 0)
+                                  or k == "fused_decode"}
+                    else:
+                        check(not spy, f"{kind}: the warm pipelined read "
+                              f"made an index pass: {spy}")
+                warm = runs["pipelined_warm"]
+                check(warm["compressed_bytes_in"] == 0
+                      and warm["decompressed_bytes_out"] == 0,
+                      f"{kind}: the warm pipelined read inflated")
+                check(warm["inflate_skipped"] >= blocks,
+                      f"{kind}: the warm pipelined read served "
+                      f"{warm['inflate_skipped']} cached blocks for "
+                      f"{blocks}")
+                one = self._io_read(f"{kind}_{codec}_sequential_warm", feed,
+                                    size, cb, 0, ref, ref["launches"],
+                                    **copts)
+                check(one["compressed_bytes_in"] == 0
+                      and one["inflate_skipped"] == blocks,
+                      f"{kind}: the warm sequential read skipped "
+                      f"{one['inflate_skipped']} of {blocks} blocks, "
+                      f"compressed bytes in {one['compressed_bytes_in']}")
+                runs["sequential_warm"] = one
+            self.p15[kind] = runs
+            log(f"[io] {self.card}: {kind} {codec}: decompressed MB/s "
+                + ", ".join(f"{k} {v['mb_per_s']:.1f}" for k, v in
+                            runs.items() if isinstance(v, dict))
+                + f"; the raw file's (phase 9, workers 0 / 2): "
+                + " / ".join(f"{m:.1f}" for m in ref["mb_per_s"]))
+            if kind == "exp2":
+                gz = os.path.join(self.tmp, "exp2.dat.gz")
+                self._compress(path, gz, "gzip")
+                self.p15_gz["exp2"] = gz
+
+    def _p15_arrow(self, cb, opts):
+        """`to_arrow` of the sequential gzip exp3 read (kept by
+        `_io_read`) against phase 11's table of the raw file (or the
+        same read of it now)."""
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+
+        data, self.kept = self.kept, None
+        for fn in asm.KERNELS.values():
+            fn.launches = 0
+        table = data.to_arrow()
+        self.launches["io_exp3_gzip_arrow"] = {}
+        self._count_arrow("io_exp3_gzip_arrow")
+        want = getattr(self, "p11_exp3_table", None)
+        if want is None:
+            raw, _ = self._counted_read("io_exp3_raw_arrow",
+                                        self.rdw_files["exp3"],
+                                        copybook_contents=cb, **opts)
+            want = raw.to_arrow()
+            self._count_arrow("io_exp3_raw_arrow")
+            del raw
+        check(table.equals(want, check_metadata=True),
+              "the gzip exp3 read's table differs from phase 11's")
+        log("[io] the gzip exp3 read's to_arrow() == phase 11's table")
+        self.p11_exp3_table = None
+        del data, table, want
+
+    def _p15_backend(self):
+        """(b) the exp2 file served by a registered ByteRangeSource, plain
+        and through ChaosSource (every 7th read fails) with retries,
+        read-ahead, the block cache and the persisted index, then warm."""
+        from cobrix_tpu_torch import register_stream_backend
+        from cobrix_tpu_torch.reader.stream import _LocalFileSource
+        from cobrix_tpu_torch.testing.faults import ChaosSource
+        from cobrix_tpu_torch.testing.generators import EXP2_COPYBOOK
+
+        path = self.rdw_files["exp2"]
+        size = os.path.getsize(path)
+        ref = self._raw_reference("exp2", path, EXP2_COPYBOOK, RDW_OPTIONS)
+        chaos = []
+
+        def chaotic(url):
+            source = ChaosSource(_LocalFileSource(path), fail_every=7)
+            chaos.append(source)
+            return source
+        register_stream_backend("smokeplain",
+                                lambda url: _LocalFileSource(path))
+        register_stream_backend("smokechaos", chaotic)
+        runs = {"plain": self._io_read("exp2_backend", "smokeplain://exp2",
+                                       size, EXP2_COPYBOOK, 0, ref,
+                                       ref["launches"], **RDW_OPTIONS)}
+        # the rehearsal's small file: small blocks (several fetches a
+        # source) and an explicit split (the full file is over the
+        # default 100 MB one, so its read is indexed)
+        opts = dict(RDW_OPTIONS, io_retry_attempts="6",
+                    io_retry_base_delay_ms="1", prefetch_blocks="4",
+                    cache_max_mb="4096",
+                    io_block_mb="0.01" if self.rehearsal else "8",
+                    cache_dir=os.path.join(self.tmp, "cache_backend"))
+        if self.rehearsal:
+            opts["input_split_records"] = "500"
+
+        for state in ("cold", "warm"):
+            before = len(chaos)
+            runs[state] = self._io_read(
+                f"exp2_chaos_{state}", "smokechaos://exp2", size,
+                EXP2_COPYBOOK, 0, ref, ref["launches"], **opts)
+            if state == "cold":
+                served = sum(s.failures_served for s in chaos[before:])
+                diag = self.last_diagnostics
+                retries = diag.io_retries if diag is not None else 0
+        cold, warm = runs["cold"], runs["warm"]
+        check(cold["bytes_fetched"] >= size, "the cold backend read "
+              f"fetched {cold['bytes_fetched']} of {size} bytes")
+        check(served >= 1 and retries >= served,
+              f"{served} injected failures, {retries} retries ledgered")
+        check(warm["bytes_fetched"] == 0, f"the warm read fetched "
+              f"{warm['bytes_fetched']} backend bytes")
+        check(warm["index"][0] >= 1 and warm["index"][1] == 0,
+              f"the warm read made an index pass: {warm['index']}")
+        runs["failures_served"] = served
+        runs["ledgered_retries"] = retries
+        self.p15["backend"] = runs
+        log(f"[io] {self.card}: exp2 through a registered backend: plain "
+            f"{runs['plain']['mb_per_s']:.1f} MB/s, chaos cold "
+            f"{cold['mb_per_s']:.1f}, warm {warm['mb_per_s']:.1f} MB/s; "
+            f"{served} injected failures, {retries} retries ledgered; warm "
+            f"fetched 0 backend bytes, index hits {warm['index'][0]}")
+
+    def _p15_damage(self):
+        """(c) the gzip exp2 feed with its last member torn, read under
+        the permissive policy on the card and on the CPU: equal row
+        counts and ledgers."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.testing.faults import truncate_compressed_member
+        from cobrix_tpu_torch.testing.generators import EXP2_COPYBOOK
+
+        with open(self.p15_gz["exp2"], "rb") as f:
+            torn, cut = truncate_compressed_member(f.read())
+        path = os.path.join(self.tmp, "exp2_torn.dat.gz")
+        with open(path, "wb") as f:
+            f.write(torn)
+        del torn
+        opts = dict(RDW_OPTIONS, copybook_contents=EXP2_COPYBOOK,
+                    record_error_policy="permissive")
+        card, secs = self._counted_read("io_exp2_torn", path, **opts)
+        # the CPU read decodes one field: the ledger is the framing's
+        t0 = time.perf_counter()
+        cpu = read_cobol(path, device="cpu", select="SEGMENT-ID", **opts)
+        cpu_s = time.perf_counter() - t0
+        got, want = card.diagnostics.as_dict(), cpu.diagnostics.as_dict()
+        check(got == want, f"the torn feed's ledger differs from the CPU "
+              f"read's: {got} vs {want}")
+        check(len(card) == len(cpu) and got["corrupt_records"] >= 1,
+              f"torn feed: {len(card)} rows vs {len(cpu)} on the CPU, "
+              f"ledger {got}")
+        check((card.metrics.as_dict().get("io") or {}).get(
+            "compress_corrupt", 0) >= 1, "the damage was not counted")
+        self.p15["damage"] = dict(cut=cut, rows=len(card), secs=secs,
+                                  cpu_secs=cpu_s, ledger=got)
+        log(f"[io] {self.card}: exp2 gzip torn at wire byte {cut}: "
+            f"{len(card)} rows in {secs:.3f} s (CPU {cpu_s:.1f} s), ledger "
+            f"== the CPU read's: {json.dumps(got)}")
+        del card, cpu
+
     def run(self):
         if self.only:
             # a subset: the environment, the RDW files, then the phases
@@ -3542,7 +3917,7 @@ class Smoke:
             try:
                 self.phase_env()
                 self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
-                if "14" in self.only:
+                if "14" in self.only or "15" in self.only:
                     self.phase_main()
                 self.phase_rdw()
                 if "14" in self.only:
@@ -3556,7 +3931,7 @@ class Smoke:
             for name in ("env", "grid", "framing_grid", "main", "rdw",
                          "exp3", "timings", "rdw_timings", "profile",
                          "pipeline", "query", "arrow", "recovery",
-                         "generic", "hierarchical", "assembly"):
+                         "generic", "hierarchical", "assembly", "io"):
                 t0 = time.perf_counter()
                 getattr(self, f"phase_{name}")()
                 self.phase_secs[name] = time.perf_counter() - t0

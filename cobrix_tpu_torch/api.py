@@ -50,11 +50,23 @@ pyarrow Table (``reader.arrow_out``: its buffers built on the device
 from the decoded planes, ``ops.arrow_assemble``) or a pandas DataFrame;
 `batch_callback` receives each chunk's table.
 
-Every input is sniffed for a compression codec first (the JAX
-package's ``compression`` detection): the port does not inflate yet
-(ROADMAP A4f), so a compressed input raises ValueError naming it, unless
-``compression="none"`` asks for its raw bytes. ``file://`` paths are
-local files; any other scheme raises ValueError naming it.
+Every input is sniffed for a compression codec (the JAX package's
+``compression`` detection; ``compression="none"`` reads the raw bytes, a
+codec name pins one): a gzip, bz2, xz, zlib or zstd input is inflated on
+the host as it is read (``io.compress.DecompressingSource``), and
+everything downstream — chunks, windows, shards, offsets, record ids,
+the ledger — addresses its decompressed bytes, on the same device path
+as a raw file. ``file://`` paths are local files; any other scheme
+resolves through the storage backend registry (``register_stream_backend``,
+or fsspec for a scheme it knows), read under the ``io_retry_*`` policy,
+with the persistent block cache (``cache_dir``, ``cache_max_mb``,
+``io_block_mb``) and read-ahead (``prefetch_blocks``) stacked on
+(``io.config.wrap_source``). With a ``cache_dir`` a compressed input's
+inflate index and decompressed blocks persist, so a warm re-read
+inflates nothing, and an RDW file's sparse index persists
+(``io.index_store``), so a warm re-read makes no index pass on the
+card. Without one a compressed input is read as one shard, streamed in
+the usual chunks or windows through one decompressing stream.
 
 The options below are parsed with the JAX package's spellings and error
 messages (``parse_options``). Every other option of the JAX package's
@@ -80,6 +92,8 @@ from .device import resolve_device
 from .engine.chunks import auto_split_mb, plan_var_len_chunks
 from .engine.pipeline import pipelined_fixed_scan, pipelined_var_len_scan
 from .io.compress import active_codec, codec_by_name
+from .io.config import IoConfig
+from .io.stats import activate as activate_io_stats
 from .copybook.datatypes import (
     CommentPolicy,
     DebugFieldsPolicy,
@@ -96,7 +110,8 @@ from .reader.json_out import rows_to_json
 from .reader.parameters import MultisegmentParameters, ReaderParameters
 from .reader.result import FileResult
 from .reader.schema import CobolOutputSchema, output_schema_for
-from .reader.stream import normalize_local, path_scheme
+from .reader.stream import (RetryPolicy, normalize_local, open_input,
+                            path_scheme, source_size, stream_lister)
 from .reader.var_len_reader import (VarLenReader, default_segment_id_prefix,
                                     file_record_id_base)
 
@@ -107,12 +122,10 @@ FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
 # options of the JAX package's reader the port does not take yet: each
 # raises, naming it (any other key is the pedantic audit's)
 _NOT_PORTED = frozenset((
-    "filter", "use_stats", "collect_stats", "stats_chunk_mb", "cache_dir",
-    "cache_max_mb", "compress_block_mb", "io_block_mb", "prefetch_blocks",
-    "io_retry_attempts", "io_retry_base_delay_ms", "io_retry_max_delay_ms",
-    "io_retry_deadline_ms", "hosts", "speculative_quantile",
-    "heartbeat_interval_s", "field_costs", "trace_file", "trace_id",
-    "request_id", "progress_interval_s", "stream_batch_rows"))
+    "filter", "use_stats", "collect_stats", "stats_chunk_mb", "hosts",
+    "speculative_quantile", "heartbeat_interval_s", "field_costs",
+    "trace_file", "trace_id", "request_id", "progress_interval_s",
+    "stream_batch_rows"))
 # the framing options a custom record extractor is refused beside, and
 # (from the third on, with is_text) `record_length`, in the JAX package's
 # order
@@ -333,7 +346,20 @@ def parse_options(options: Dict[str, object],
         max_corrupt_ledger_entries=opts.get_int(
             "max_corrupt_ledger_entries", DEFAULT_LEDGER_CAP),
         corrupt_record_column=opts.get("corrupt_record_column", ""),
+        io_retry_attempts=opts.get_int("io_retry_attempts", 3),
+        io_retry_base_delay=float(
+            opts.get_int("io_retry_base_delay_ms", 50)) / 1000.0,
+        io_retry_max_delay=float(
+            opts.get_int("io_retry_max_delay_ms", 2000)) / 1000.0,
+        io_retry_deadline=float(
+            opts.get_int("io_retry_deadline_ms", 30000)) / 1000.0,
+        cache_dir=opts.get("cache_dir", "") or "",
+        cache_max_mb=float(opts.get("cache_max_mb", "") or 1024.0),
+        prefetch_blocks=opts.get_int("prefetch_blocks", 2),
+        io_block_mb=float(opts.get("io_block_mb", "") or 8.0),
         compression=(opts.get("compression", "auto") or "auto").lower(),
+        compress_block_mb=float(
+            opts.get("compress_block_mb", "") or 4.0),
         pipeline_workers=opts.get_int("pipeline_workers", 0),
         pipeline_chunk_mb=float(opts.get("chunk_size_mb", "") or 16.0),
         pipeline_max_inflight=opts.get_int("max_inflight_chunks", 0),
@@ -398,11 +424,38 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
         raise ValueError(
             f"Invalid 'resync_window' of {params.resync_window_bytes} "
             "bytes; it must be a positive byte count.")
+    if params.io_retry_attempts < 1:
+        raise ValueError(
+            f"Invalid 'io_retry_attempts' of {params.io_retry_attempts}; "
+            "at least one attempt is required.")
+    if params.cache_max_mb < 0:
+        raise ValueError(
+            f"Invalid 'cache_max_mb' of {params.cache_max_mb}; it must "
+            "be >= 0 (0 = unbounded).")
+    if params.prefetch_blocks < 0:
+        raise ValueError(
+            f"Invalid 'prefetch_blocks' of {params.prefetch_blocks}; it "
+            "must be >= 0 (0 disables read-ahead).")
+    if params.io_block_mb <= 0:
+        raise ValueError(
+            f"Invalid 'io_block_mb' of {params.io_block_mb}; it must be "
+            "a positive block size in megabytes.")
     if params.compression not in ("auto", "none", "off", "raw"):
         try:
             codec_by_name(params.compression)
         except ValueError as exc:
             raise ValueError(f"Invalid 'compression' option: {exc}")
+    if params.compress_block_mb <= 0:
+        raise ValueError(
+            f"Invalid 'compress_block_mb' of {params.compress_block_mb}; "
+            "it must be a positive block size in megabytes.")
+    if params.cache_dir:
+        cache_parent = os.path.dirname(
+            os.path.abspath(params.cache_dir)) or "."
+        if not os.path.isdir(cache_parent):
+            raise ValueError(
+                f"Invalid 'cache_dir' '{params.cache_dir}': parent "
+                f"directory '{cache_parent}' does not exist.")
     if params.pipeline_chunk_mb <= 0:
         raise ValueError(
             f"Invalid 'chunk_size_mb' of {params.pipeline_chunk_mb}; "
@@ -464,20 +517,24 @@ def load_copybook_contents(copybook, copybook_contents):
 
 
 def list_input_files(path) -> List[str]:
-    """Local files under `path` (a file, directory or glob, or a list of
-    them; ``file://`` or plain), recursively, skipping hidden names, in a
-    stable order (reference FileUtils.scala:54-228,
-    getListFilesWithOrder). Any other scheme raises ValueError naming it:
-    the port reads no storage backend yet (ROADMAP A4f)."""
+    """Files under `path` (a file, directory or glob, or a list of them),
+    recursively, skipping hidden names, in a stable order (reference
+    FileUtils.scala:54-228, getListFilesWithOrder). ``file://`` and plain
+    paths are local; another scheme's directories and globs are listed
+    by its backend's lister (`stream_lister`: the fsspec adapter, or one
+    registered with ``lister=``), and a scheme without one passes
+    through verbatim as one input."""
     paths = [path] if isinstance(path, str) else list(path)
     out: List[str] = []
     for p in paths:
         scheme = path_scheme(p)
         if scheme not in (None, "file"):
-            raise ValueError(
-                f"Input path '{p}' uses the '{scheme}://' scheme; "
-                f"cobrix_tpu_torch.read_cobol reads local files only "
-                f"(plain or file:// paths)")
+            lister = stream_lister(scheme)
+            if lister is not None:
+                out.extend(lister(p))
+            else:
+                out.append(p)
+            continue
         # file:// never propagates past listing: downstream os.path
         # consumers see plain local paths
         p = normalize_local(p)
@@ -603,19 +660,21 @@ class CobolData:
         return table.replace_schema_metadata(metadata)
 
 
-def _aggregate_diagnostics(params: ReaderParameters, parts,
+def _aggregate_diagnostics(params: ReaderParameters, parts, io_retries: int,
                            shard_failures: List[ShardFailureInfo]
                            ) -> Optional[ReadDiagnostics]:
     """The read's ledger (``cobrix_tpu.api._aggregate_diagnostics``): the
     parts' ledgers merged by ``ReadDiagnostics.merged`` (entries sorted by
     file and offset, then capped), so the sequential and the pipelined
-    reads of the same bytes give the same ledger, and the lost shards
-    recorded. None under fail_fast with no lost shard."""
-    if not params.is_permissive and not shard_failures:
+    reads of the same bytes give the same ledger, the storage reads the
+    IO layer retried counted, and the lost shards recorded. None under
+    fail_fast with no retried read and no lost shard."""
+    if not params.is_permissive and io_retries == 0 and not shard_failures:
         return None
     merged = ReadDiagnostics.merged(
         (getattr(p, "diagnostics", None) for p in parts),
         max_entries=params.max_corrupt_ledger_entries)
+    merged.io_retries += io_retries
     for failure in shard_failures:
         merged.record_shard_failure(failure)
     return merged
@@ -678,8 +737,11 @@ def read_cobol(path=None,
     ``rhp_additional_info``, ``record_extractor`` with
     ``re_additional_info``, ``variable_size_occurs``), the record error
     policy (``record_error_policy``, ``resync_window``,
-    ``max_corrupt_ledger_entries``, ``corrupt_record_column``), `compression`,
-    the pipeline's options (`pipeline_workers`, `chunk_size_mb`,
+    ``max_corrupt_ledger_entries``, ``corrupt_record_column``), the I/O
+    plane's options (`compression`, `compress_block_mb`, `cache_dir`,
+    `cache_max_mb`, `io_block_mb`, `prefetch_blocks`,
+    `io_retry_attempts`, `io_retry_base_delay_ms`, `io_retry_max_delay_ms`,
+    `io_retry_deadline_ms`), the pipeline's options (`pipeline_workers`, `chunk_size_mb`,
     `max_inflight_chunks`, `shard_error_policy`, `shard_timeout_s`,
     `shard_max_retries`, `scan_deadline_s`), `select`
     (comma-separated field or group names: only those leaves, and the
@@ -701,7 +763,6 @@ def read_cobol(path=None,
         raise ValueError("'batch_callback' must be callable (it receives "
                          "(chunk_index, pyarrow.Table) pairs).")
     tap = _BatchTap(batch_callback) if batch_callback else None
-    on_batch = tap.emit if tap is not None else None
     # exclusive-source validation before any option is consumed: only
     # 'copybooks' arrives as an option key (the JAX package's checks)
     has_multi = "copybooks" in options
@@ -727,16 +788,78 @@ def read_cobol(path=None,
     files = list_input_files(path)
     if not files:
         raise FileNotFoundError(f"No input files found for path {path}")
-    for file_path in files:
-        codec = active_codec(file_path, params.compression)
-        if codec is not None:
-            raise ValueError(
-                f"Input file '{file_path}' is {codec.name}-compressed "
-                f"(compression='{params.compression}'); "
-                f"cobrix_tpu_torch.read_cobol does not inflate compressed "
-                f"inputs yet. Decompress it first, or pass "
-                f"compression='none' to read its raw bytes.")
     device = resolve_device(device)
+    metrics = ReadMetrics(files=len(files))
+    # the read's IoStats is active on this thread for the whole read (and
+    # carried onto its pipeline and shard threads): the per-read
+    # metadata memo and the io counters
+    with activate_io_stats(metrics.io_stats):
+        data = _read(files, contents, params, device, metrics, tap,
+                     ignore_file_size, parallelism)
+    metrics.finalize(data)
+    if tap is not None and tap.count == 0:
+        # a sequential read, or a pipelined one that delivered nothing:
+        # the parts' tables go out now, in record order
+        tap.emit_data(data)
+    return data
+
+
+def _retry_policy(params: ReaderParameters) -> RetryPolicy:
+    """The read's IO retry policy for registry-backed storage."""
+    return RetryPolicy(max_attempts=params.io_retry_attempts,
+                       base_delay=params.io_retry_base_delay,
+                       max_delay=params.io_retry_max_delay,
+                       deadline=params.io_retry_deadline)
+
+
+def _io_config(params: ReaderParameters) -> Optional[IoConfig]:
+    """The read's remote-IO configuration (None = all features off)."""
+    return IoConfig.from_params(params)
+
+
+def _total_input_bytes(files: List[str], io=None,
+                       retry: Optional[RetryPolicy] = None,
+                       on_retry=None) -> int:
+    """LOGICAL input bytes across local AND backend-resolved files
+    (decompressed bytes for compressed feeds, since every downstream
+    offset lives in that space); sizing failures never fail the read —
+    an unknown size just reports as 0. Runs inside the read's IoStats
+    scope, so remote sizes, codec sniffs and inflate-discovery results
+    seed the read's metadata memo for the planners downstream, under
+    the read's retry policy."""
+    total = 0
+    for f in files:
+        try:
+            if path_scheme(f) in (None, "file"):
+                if active_codec(f, io) is not None:
+                    total += source_size(f, io=io, retry=retry,
+                                         on_retry=on_retry)
+                elif os.path.exists(f):
+                    total += os.path.getsize(f)
+            else:
+                total += source_size(f, io=io, retry=retry,
+                                     on_retry=on_retry)
+        except Exception:
+            continue
+    return total
+
+
+def _read(files: List[str], contents, params: ReaderParameters, device,
+          metrics: ReadMetrics, tap: Optional[_BatchTap],
+          ignore_file_size: bool, parallelism: int) -> CobolData:
+    """`read_cobol`'s read of the listed `files`, inside its IoStats
+    scope: sizing, the route's reader, the sequential or pipelined scan,
+    the ledger."""
+    on_batch = tap.emit if tap is not None else None
+    io = _io_config(params)
+    retry = _retry_policy(params)
+    retries_seen: List[int] = []  # list.append is GIL-atomic across threads
+
+    def on_retry():
+        retries_seen.append(1)
+
+    metrics.bytes_read = _total_input_bytes(files, io=io, retry=retry,
+                                            on_retry=on_retry)
     workers = params.resolved_pipeline_workers()
     use_pipeline = workers > 0
     is_var_len = params.needs_var_len_reader
@@ -747,20 +870,20 @@ def read_cobol(path=None,
             # so mid-size files produce several shards (explicit
             # input_split options always win)
             params = _dc_replace(params, input_split_size_mb=split_mb)
-    metrics = ReadMetrics(files=len(files), bytes_read=sum(
-        os.path.getsize(f) for f in files))
     failures: List[ShardFailureInfo] = []
     batches: List[DecodedBatch] = []
     results: List[FileResult] = []
     if is_var_len:
         reader = VarLenReader(contents, params, device=device)
         reader.parallelism = parallelism
+        reader.io, reader.retry, reader.on_retry = io, retry, on_retry
         schema = output_schema_for(reader.copybook, params, is_var_len=True)
         seg = params.multisegment
         prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
                   else default_segment_id_prefix())
         if use_pipeline:
-            shards = plan_var_len_chunks(reader, files, params)
+            shards = plan_var_len_chunks(reader, files, params, retry,
+                                         on_retry, io=io)
             metrics.shards = len(shards)
             results, failures = pipelined_var_len_scan(
                 reader, shards, prefix, workers, schema, metrics,
@@ -779,9 +902,11 @@ def read_cobol(path=None,
         if use_pipeline:
             parts, failures = pipelined_fixed_scan(
                 reader, files, params, workers, schema, metrics,
-                ignore_file_size=ignore_file_size, on_batch=on_batch)
+                ignore_file_size=ignore_file_size, on_batch=on_batch,
+                retry=retry, on_retry=on_retry, io=io)
         else:
-            parts = _read_fixed_sequential(reader, files, ignore_file_size)
+            parts = _read_fixed_sequential(reader, files, ignore_file_size,
+                                           retry, on_retry, io)
             metrics.shards = len(parts)
         # one kind of part per read: batches, or (multisegment records)
         # results
@@ -793,42 +918,58 @@ def read_cobol(path=None,
     data = CobolData(batches, schema,
                      [r for r in results if r is not None], metrics,
                      failures, parallelism=parallelism, device=device)
-    data.diagnostics = _aggregate_diagnostics(params, data.parts, failures)
-    metrics.records = len(data)
-    if tap is not None and tap.count == 0:
-        # a sequential read, or a pipelined one that delivered nothing:
-        # the parts' tables go out now, in record order
-        tap.emit_data(data)
+    data.diagnostics = _aggregate_diagnostics(params, data.parts,
+                                              len(retries_seen), failures)
     return data
 
 
 def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
-                           ignore_file_size: bool) -> list:
+                           ignore_file_size: bool,
+                           retry: Optional[RetryPolicy] = None,
+                           on_retry=None, io=None) -> list:
     """The sequential fixed-length read: each file in record-aligned
     chunks of FIXED_READ_CHUNK_BYTES, read into a fresh host buffer and
-    decoded in turn (`FixedLenReader.read_chunk`). Under
-    debug_ignore_file_size a torn tail is left unread; under a permissive
-    policy the last chunk carries it (`FixedLenReader.read_torn_chunk`)
-    and every part is a FileResult with its ledger."""
+    decoded in turn (`FixedLenReader.read_chunk`); a compressed or
+    backend-served file is read the same way through its `open_input`
+    reader (one decompressing stream a file), so the fused kernel
+    launches once a chunk, as on a raw file. Under debug_ignore_file_size
+    a torn tail is left unread; under a permissive policy the last chunk
+    carries it (`FixedLenReader.read_torn_chunk`) and every part is a
+    FileResult with its ledger. A source that serves fewer bytes than
+    its size promised (a truncated backend object) ends the file there,
+    as the JAX package's whole-file read of the served bytes does."""
     rs = reader.record_size
     permissive = reader.params.is_permissive
+    keep_tail = permissive and not ignore_file_size
     chunk_bytes = max(rs, FIXED_READ_CHUNK_BYTES // rs * rs)
     parts: list = []
     for file_path in files:
-        size = os.path.getsize(file_path)
+        size = source_size(file_path, retry=retry, on_retry=on_retry, io=io)
         reader.check_binary_data_validity(
             size, ignore_file_size or permissive, file_path)
-        rem = size % rs if permissive and not ignore_file_size else 0
+        rem = size % rs if keep_tail else 0
         whole = size - size % rs
-        with open(file_path, "rb") as f:
-            # a file of a torn record alone is one chunk of it
-            for done in range(0, whole or (1 if rem else 0), chunk_bytes):
+        done = 0
+        first = True  # a file of a torn record alone is one chunk of it
+        with open_input(file_path, retry=retry, on_retry=on_retry,
+                        io=io) as f:
+            while done < whole or (first and rem):
+                first = False
                 n = min(chunk_bytes, whole - done)
                 torn = bool(rem) and done + n == whole
-                buf = bytearray(n + (rem if torn else 0))
-                if f.readinto(buf) != len(buf):
-                    raise IOError(f"Short read from {file_path} at {done}")
-                buf = np.frombuffer(buf, dtype=np.uint8)
+                buf = np.empty(n + (rem if torn else 0), dtype=np.uint8)
+                got = f.readinto(memoryview(buf))
+                short = got != len(buf)
+                if short:
+                    size = done + got
+                    reader.check_binary_data_validity(
+                        size, ignore_file_size or permissive, file_path)
+                    rem = size % rs if keep_tail else 0
+                    n = size - size % rs - done
+                    torn = bool(rem)
+                    buf = buf[:n + rem]
+                    if n == 0 and not torn:
+                        break
                 if torn:
                     parts.append(reader.read_torn_chunk(
                         buf, rem, file_path, done // rs, size))
@@ -837,4 +978,7 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
                         reader.read_chunk(buf)))
                 else:
                     parts.append(reader.read_chunk(buf))
+                done += n
+                if short:
+                    break
     return parts

@@ -15,21 +15,27 @@ Chunk plans are EXECUTION plans only: a pipelined read with the same
 split options decodes the same records with the same Record_Ids as the
 sequential path, so turning the pipeline on can never change results.
 
+Sizes come from ``reader.stream.source_size`` (a compressed input's
+decompressed size, a backend object's size under the read's retry
+policy), and a compressed input splits only with a ``cache_dir``
+(``io.compress.compressed_chunkable``): without its decompressed block
+plane every chunk would re-inflate the prefix, so it is one whole-file
+chunk or shard.
+
 Changes from the JAX package: the stats chunk skipper (``use_stats``,
-ROADMAP A6/A8) is not carried over; the port reads local, uncompressed
-files only, so sizes come from ``os.path.getsize`` and there is no
-retry policy or compressed-chunk check; `plan_fixed_chunks` takes the
+ROADMAP A6/A8) is not carried over; `plan_fixed_chunks` takes the
 record size in place of the fixed-length reader; `WorkShard`
 (``parallel.planner.WorkShard`` in the JAX package) lives here.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import List, Optional
 
+from ..io.compress import compressed_chunkable
 from ..reader.index import file_index_entries
 from ..reader.parameters import DEFAULT_FILE_RECORD_ID_INCREMENT
+from ..reader.stream import RetryPolicy, source_size
 
 
 def shard_progress_bytes(shard) -> int:
@@ -39,8 +45,8 @@ def shard_progress_bytes(shard) -> int:
     if shard.offset_to >= 0:
         return max(0, shard.offset_to - shard.offset_from)
     try:
-        return max(0, os.path.getsize(shard.file_path) - shard.offset_from)
-    except OSError:
+        return max(0, source_size(shard.file_path) - shard.offset_from)
+    except Exception:
         return 0
 
 
@@ -81,21 +87,26 @@ def fixed_file_chunkable(size: int, record_size: int, params,
 
 
 def plan_fixed_chunks(record_size: int, files, params, chunk_bytes: int,
-                      ignore_file_size: bool = False) -> List[FixedChunk]:
+                      ignore_file_size: bool = False,
+                      retry: Optional[RetryPolicy] = None, on_retry=None,
+                      io=None) -> List[FixedChunk]:
     """Byte-stride chunk plan over fixed-length input files.
 
     A file splits only when the conditions of `fixed_file_chunkable`
-    hold; anything else — including a truncated tail — stays a single
-    whole-file chunk, so tail handling matches the sequential read.
+    hold and it is `compressed_chunkable`; anything else — including a
+    truncated tail — stays a single whole-file chunk, so tail handling
+    matches the sequential read.
     """
     rs = record_size
     chunk_bytes = max(rs, (chunk_bytes // rs) * rs)  # record-aligned
     chunks: List[FixedChunk] = []
     for file_order, file_path in enumerate(files):
         base = file_order * DEFAULT_FILE_RECORD_ID_INCREMENT
-        size = os.path.getsize(file_path)
+        size = source_size(file_path, retry=retry, on_retry=on_retry,
+                           io=io)
         if not fixed_file_chunkable(size, rs, params, chunk_bytes,
-                                    ignore_file_size):
+                                    ignore_file_size) \
+                or not compressed_chunkable(file_path, io):
             chunks.append(FixedChunk(file_path, file_order, 0, 0, base,
                                      whole_file=True))
             continue
@@ -108,17 +119,20 @@ def plan_fixed_chunks(record_size: int, files, params, chunk_bytes: int,
     return chunks
 
 
-def plan_var_len_chunks(reader, files, params) -> List[WorkShard]:
+def plan_var_len_chunks(reader, files, params,
+                        retry: Optional[RetryPolicy] = None, on_retry=None,
+                        io=None) -> List[WorkShard]:
     """Byte-range shard plan for a variable-length read: the sparse index
     per file turns the sequential record stream into shards; files
-    without a useful index become one whole-file shard."""
+    without a useful index (or a compressed file without a cache_dir)
+    become one whole-file shard."""
     shards: List[WorkShard] = []
     for file_order, file_path in enumerate(files):
         base = file_order * DEFAULT_FILE_RECORD_ID_INCREMENT
         entries = None
         if params.is_index_generation_needed:
             entries = file_index_entries(reader, file_path, file_order,
-                                         params)
+                                         params, retry, on_retry, io=io)
         if entries is not None and len(entries) > 1:
             for e in entries:
                 shards.append(WorkShard(file_path, file_order,

@@ -49,14 +49,15 @@ the chunk fails under the read's policy: nothing falls back to the CPU.
 """
 from __future__ import annotations
 
-import os
 import queue
 import threading
 import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from ..io.stats import carry
 from ..profiling import ReadMetrics, StageTimes
+from ..reader.stream import source_size
 from ..reader.diagnostics import ShardErrorPolicy, ShardFailureInfo
 from .chunks import FixedChunk, WorkShard, plan_fixed_chunks
 from .staging import StagingPool, worker_stream
@@ -367,6 +368,10 @@ class PipelineExecutor:
                     continue
                 run_finalize(i, finalize_fn, result)
 
+        # the stage threads count into the read's IoStats (the reader
+        # thread opens and inflates the sources)
+        reader_loop, worker_loop, finalizer_loop = (
+            carry(reader_loop), carry(worker_loop), carry(finalizer_loop))
         reader = threading.Thread(target=reader_loop,
                                   name="cobrix-pipe-read", daemon=True)
         workers = [threading.Thread(target=worker_loop,
@@ -615,12 +620,16 @@ def _executor_for(params, workers: int,
         failure_info=failure_info)
 
 
-def _staged_read(pool: StagingPool, stage_times: StageTimes, path: str,
-                 offset: int, nbytes: int):
+def _staged_read(pool: StagingPool, stage_times: StageTimes, open_input,
+                 path: str, offset: int, nbytes: int):
     """A read stage: `nbytes` bytes of `path` from `offset` into a
-    staging buffer. The first call takes a pool buffer (on the reader
-    thread); a re-read after a failed attempt (on a worker) takes one
-    outside the pool, so it never waits for buffers queued chunks hold.
+    staging buffer, through the reader `open_input(path, offset,
+    nbytes)` gives (a raw local file, or the seekable view of a
+    compressed or backend source: its bytes — the inflater's output —
+    are copied into the pinned buffer once). The first call takes a pool
+    buffer (on the reader thread); a re-read after a failed attempt (on a
+    worker) takes one outside the pool, so it never waits for buffers
+    queued chunks hold.
     Time spent waiting for a free buffer is backpressure, like a wait on
     the full queue: it is taken out of the "read" stage's busy time and
     summed in ``pool.wait_s``."""
@@ -637,7 +646,7 @@ def _staged_read(pool: StagingPool, stage_times: StageTimes, path: str,
         else:
             staged = pool.fresh(nbytes)
         try:
-            with open(path, "rb") as f:
+            with open_input(path, offset, nbytes) as f:
                 f.seek(offset)
                 got = f.readinto(memoryview(staged.host().numpy()))
             if got != nbytes:
@@ -692,7 +701,8 @@ def _finalizers(count: int, output_schema, ex: PipelineExecutor, on_batch):
 def pipelined_fixed_scan(reader, files, params, workers: int,
                          output_schema,
                          metrics: Optional[ReadMetrics] = None,
-                         ignore_file_size: bool = False, on_batch=None
+                         ignore_file_size: bool = False, on_batch=None,
+                         retry=None, on_retry=None, io=None
                          ) -> Tuple[list, List[ShardFailureInfo]]:
     """Fixed-length files through the chunk pipeline: record-aligned byte
     strides read into staging buffers, decoded on the card (a chunk of
@@ -703,14 +713,21 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
     read. Returns (one DecodedBatch or FileResult per chunk, None for an
     empty file or a chunk that failed under the partial policy;
     failures). `on_batch(chunk_index, table)` taps each assembled chunk
-    out (`_finalizers`)."""
+    out (`_finalizers`). `retry`, `on_retry` and `io` are the read's
+    (``reader.stream.open_input``)."""
+    from ..reader.stream import open_input
+
+    def open_fn(path, offset, nbytes):
+        return open_input(path, offset, nbytes, retry=retry,
+                          on_retry=on_retry, io=io)
+
     rs = reader.record_size
     device = reader.device
     decoder = reader.decoder()
     permissive = params.is_permissive
     chunk_bytes = max(1, int(params.pipeline_chunk_mb * 1024 * 1024))
     chunks = plan_fixed_chunks(rs, files, params, chunk_bytes,
-                               ignore_file_size)
+                               ignore_file_size, retry, on_retry, io)
 
     def failure_info(index, attempts, reason, error):
         c = chunks[index]
@@ -725,15 +742,16 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
 
     def read_fn(c: FixedChunk):
         if not c.whole_file:
-            return _staged_read(pool, ex.stage_times, c.file_path,
+            return _staged_read(pool, ex.stage_times, open_fn, c.file_path,
                                 c.offset, c.nbytes)
 
         def read():
-            size = os.path.getsize(c.file_path)
+            size = source_size(c.file_path, retry=retry, on_retry=on_retry,
+                               io=io)
             reader.check_binary_data_validity(
                 size, ignore_file_size or permissive, c.file_path)
-            return _staged_read(pool, ex.stage_times, c.file_path, 0,
-                                size)()
+            return _staged_read(pool, ex.stage_times, open_fn, c.file_path,
+                                0, size)()
         return read
 
     def process_fn(c: FixedChunk):
@@ -791,7 +809,7 @@ def pipelined_var_len_scan(reader, shards: Sequence[WorkShard],
     assembled shards out as `pipelined_fixed_scan` does."""
     params = reader.params
     device = reader.device
-    sizes = {path: os.path.getsize(path)
+    sizes = {path: reader.input_size(path)
              for path in {s.file_path for s in shards}}
 
     def failure_info(index, attempts, reason, error):
@@ -807,8 +825,8 @@ def pipelined_var_len_scan(reader, shards: Sequence[WorkShard],
     def read_fn(shard: WorkShard):
         size = sizes[shard.file_path]
         end = size if shard.offset_to < 0 else min(shard.offset_to, size)
-        return _staged_read(pool, ex.stage_times, shard.file_path,
-                            shard.offset_from,
+        return _staged_read(pool, ex.stage_times, reader.open_input,
+                            shard.file_path, shard.offset_from,
                             max(0, end - shard.offset_from))
 
     def process_fn(shard: WorkShard):

@@ -12,8 +12,12 @@ Both caches are process-global, lock-protected and bounded.
 `copybook_for_params` parses the copybook of one reader configuration,
 with the redefine map's segment redefines marked at parse time.
 
+`parse_fingerprint` digests a copybook configuration for the persisted
+sparse-index key (io/index_store.py).
+
 Port copy of ``cobrix_tpu.plan.cache``, reduced to `cached_compile_plan`,
-`cached_code_page_lut`, `invalidate_code_page` and `copybook_for_params`:
+`cached_code_page_lut`, `invalidate_code_page`, `copybook_for_params` and
+`parse_fingerprint` (with its `_parse_key`):
 the port has no parse cache (a read parses its copybook once and keeps
 its decoders per reader), no per-read stats scopes and no hit/miss
 counters, so the plan cache alone holds copybook references here.
@@ -23,7 +27,7 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from dataclasses import replace
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,6 +48,47 @@ def invalidate_code_page(name: str) -> None:
         for pk in [pk for pk, (cb, _) in _PLAN_LRU.items()
                    if getattr(cb, "ebcdic_code_page", None) == name]:
             _PLAN_LRU.pop(pk, None)
+
+
+def _parse_key(contents: Tuple[str, ...], params) -> str:
+    """Deterministic fingerprint of the copybook text plus every option
+    that feeds parse_copybook. repr() of enums/dataclasses is stable
+    across processes for these values (strings, numbers, enums)."""
+    seg = params.multisegment
+    return repr((
+        contents,
+        params.data_encoding,
+        params.drop_group_fillers,
+        params.drop_value_fillers,
+        tuple(sorted(set((seg.segment_id_redefine_map or {}).values())))
+        if seg else (),
+        tuple(sorted((seg.field_parent_map or {}).items())) if seg else (),
+        params.string_trimming_policy,
+        params.comment_policy,
+        params.ebcdic_code_page,
+        params.ebcdic_code_page_class,
+        params.ascii_charset,
+        params.is_utf16_big_endian,
+        params.floating_point_format,
+        tuple(params.non_terminals),
+        tuple(sorted((k, tuple(sorted(v.items())))
+                     for k, v in (params.occurs_mappings or {}).items())),
+        params.debug_fields_policy,
+    ))
+
+
+def parse_fingerprint(copybook_contents, params) -> str:
+    """Stable hex digest of (copybook text, parse-relevant options) —
+    the copybook component of the persisted sparse-index key
+    (cobrix_tpu_torch.io.index_store): two runs, or two processes,
+    configured identically fingerprint identically."""
+    import hashlib
+
+    contents_list = ([copybook_contents]
+                     if isinstance(copybook_contents, str)
+                     else list(copybook_contents))
+    key = _parse_key(tuple(contents_list), params)
+    return hashlib.sha256(key.encode("utf-8", "replace")).hexdigest()
 
 
 def copybook_for_params(copybook_contents, params):

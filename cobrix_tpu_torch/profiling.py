@@ -14,10 +14,12 @@ Port of ``cobrix_tpu.profiling``:
 - `StageTimes`, `timed_stage` and `PassCounters`: copied as they are.
 
 Changes from the JAX package: `ReadMetrics` is reduced to files,
-shards, records, bytes, the stage busy times, the executor's report
-and the supervision counters. Its compile-cache scope, I/O counters,
-trace spans, pushdown counters, field costs, roofline and metrics
-registry wait for the observability slice (ROADMAP A8), as does the
+shards, records, bytes, the stage busy times, the executor's report,
+the supervision counters and the read's I/O counters (`io_stats`, an
+``io.stats.IoStats``, published on ``as_dict()["io"]`` with the JAX
+package's keys by `finalize`). Its compile-cache scope, trace spans,
+pushdown counters, field costs, roofline and metrics registry wait for
+the observability slice (ROADMAP A8), as does the
 tracer hook of `StageTimes`, which is kept as a plain attribute.
 PyTorch is a hard dependency here, so nothing turns into a no-op on an
 import error.
@@ -156,9 +158,31 @@ class ReadMetrics:
     # an RDW file) and decoding ({"frame": s, "decode": s}); None on
     # other reads
     framing: Optional[StageTimes] = None
+    # the read's io counters (`io_stats.as_dict()` plus
+    # prefetch_utilization), set by `finalize` when any counted; None
+    # when the read touched no io layer
+    io: Optional[dict] = None
+
+    def __post_init__(self):
+        from .io.stats import IoStats
+
+        # per-read remote-IO counter bag, active on every thread working
+        # for this read (io.stats.activate / carry)
+        self.io_stats = IoStats()
+
+    def finalize(self, data) -> None:
+        """Record the finished read's row count and publish its io
+        counters."""
+        self.records = len(data)
+        if not self.io_stats.is_zero:
+            self.io = self.io_stats.as_dict()
+            self.io["prefetch_utilization"] = round(
+                self.io_stats.prefetch_utilization, 3)
 
     def as_dict(self) -> dict:
-        return {
+        """The metrics as a dict; "io" only when the read counted any io
+        (as in the JAX package, a plain local read has none)."""
+        out = {
             "files": self.files, "shards": self.shards,
             "records": self.records, "bytes_read": self.bytes_read,
             "stage_busy": (self.stage_busy.as_dict()
@@ -166,3 +190,6 @@ class ReadMetrics:
             "pipeline": self.pipeline, "supervision": self.supervision,
             "framing": (self.framing.as_dict()
                         if self.framing is not None else None)}
+        if self.io is not None:
+            out["io"] = self.io
+        return out

@@ -1,9 +1,10 @@
 """Sparse index: the byte ranges a variable-length file is read in.
 
 Port copy of ``cobrix_tpu.reader.index``: `SparseIndexEntry` as it is,
-and `file_index_entries` for local files, which returns None when one
-shard suffices and otherwise the reader's index
-(``VarLenReader.generate_index``). `sparse_index_entries` is the entry
+and `file_index_entries`, which returns None when one shard suffices
+(a compressed file without a cache_dir among them) and otherwise the
+reader's index (``VarLenReader.generate_index``, which loads and saves
+it in the sparse-index store when the read has a cache_dir). `sparse_index_entries` is the entry
 rule of the JAX package's vectorized index
 (``VarLenReader.generate_index_fast``), applied to the record header
 offsets that the port's scan kernel frames: split every
@@ -23,13 +24,14 @@ fields, custom header parsers and extractors, variable-size OCCURS: where
 ``ReaderParameters.supports_fast_framing`` is false); `IncrementalIndexer`
 is its record-at-a-time twin, copied unchanged.
 
-Left out: the on-disk index store (``io.cache_dir``) and compressed
-inputs, which ``api.read_cobol`` refuses before planning (ROADMAP A4f).
+Changes from the JAX package: the store lookup lives in the reader's
+`generate_index`, since the port's sequential reads index a file
+through it too; a file's size is ``stream.source_size`` (its
+decompressed size when compressed).
 """
 from __future__ import annotations
 
 import logging
-import os
 from dataclasses import dataclass, replace
 from typing import List, Optional
 
@@ -62,15 +64,23 @@ class SparseIndexEntry:
     record_index: int
 
 
-def file_index_entries(reader, file_path: str, file_order: int,
-                       params) -> Optional[List[SparseIndexEntry]]:
-    """Sparse index for one local file, or None when a single shard
-    suffices (empty, or not over the split size without an explicit
-    split option)."""
+def file_index_entries(reader, file_path: str, file_order: int, params,
+                       retry=None, on_retry=None, io=None
+                       ) -> Optional[List[SparseIndexEntry]]:
+    """Sparse index for one file, or None when a single shard suffices
+    (empty, not over the split size without an explicit split option,
+    or compressed without a cache_dir: byte-range shards would each
+    re-inflate the prefix, so one whole-file shard — the streaming
+    discovery fallback — is strictly cheaper)."""
+    from ..io.compress import compressed_chunkable
+    from .stream import source_size
+
     explicit = (params.input_split_records is not None
                 or params.input_split_size_mb is not None)
     split_mb = params.input_split_size_mb or DEFAULT_INDEX_ENTRY_SIZE_MB
-    size = os.path.getsize(file_path)
+    if not compressed_chunkable(file_path, io):
+        return None
+    size = source_size(file_path, retry=retry, on_retry=on_retry, io=io)
     if size == 0 or (not explicit and size <= split_mb * MEGABYTE):
         return None
     return reader.generate_index(file_path, file_order)

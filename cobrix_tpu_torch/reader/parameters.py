@@ -97,9 +97,30 @@ class ReaderParameters:
     # name of the optional per-row debug column holding the corruption
     # reason for malformed-but-kept rows ('' = no column)
     corrupt_record_column: str = ""
+    # -- IO retry (stream.RetryPolicy inputs) ----------------------------
+    io_retry_attempts: int = 3          # total attempts per storage read
+    io_retry_base_delay: float = 0.05   # seconds; doubles per attempt
+    io_retry_max_delay: float = 2.0     # per-sleep cap, seconds
+    io_retry_deadline: float = 30.0     # overall budget per read, seconds
+    # -- remote storage and compressed feeds (cobrix_tpu_torch.io) -------
+    # on-disk cache root for the persistent block cache, the inflate
+    # index and the sparse-index store ('' = all three planes off). Safe
+    # to share across processes; entries are keyed by file fingerprint
+    # (etag/size/mtime) and invalidate structurally when the file changes
+    cache_dir: str = ""
+    # LRU budget for the block cache, in MB (0 = unbounded)
+    cache_max_mb: float = 1024.0
+    # read-ahead depth: how many blocks a bounded pool fetches ahead of
+    # the consumer of a backend source (0 = no prefetch)
+    prefetch_blocks: int = 2
+    # block granularity (MB) shared by the cache and the prefetcher
+    io_block_mb: float = 8.0
     # input compression: 'auto' sniffs every input, 'none'/'off'/'raw'
     # read the raw bytes, a codec name pins it (io/compress.py)
     compression: str = "auto"
+    # decompressed-plane granularity (MB): the inflate-index checkpoint
+    # stride and the post-decompression block-cache entry size
+    compress_block_mb: float = 4.0
     # -- chunked pipeline executor (cobrix_tpu_torch.engine) -------------
     # worker threads overlapping read -> frame -> decode across chunks.
     # 0 = the sequential path; < 0 = auto-size to the machine

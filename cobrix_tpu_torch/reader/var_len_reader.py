@@ -99,8 +99,20 @@ Changes from the JAX package:
   on its own CUDA stream with a staging buffer of its own
   (`_map_shards`, the JAX package's indexed scan), results in shard
   order.
-* Not carried over: filter pushdown and the persisted index. The column
-  projection (`select`) reaches every segment decoder of a flat read.
+* A compressed or backend-served file is read through one seekable
+  view of its source (``stream.open_input``: a `SourceFile` over the
+  decompressing or backend source stack, the reader's `io`, `retry` and
+  `on_retry`, set by ``api.read_cobol``), by the windows' uploads, the
+  resync searches, the index pass, the index shards and a text shard's
+  preceding bytes alike; sizes are its decompressed size
+  (``stream.source_size``). A compressed file without a ``cache_dir``
+  is not split (``io.compress.compressed_chunkable``). With a
+  ``cache_dir`` a file's index entries are loaded from and saved in the
+  sparse-index store (``io.index_store``) by `generate_index` and by the
+  sequential read of a file it indexes, so a warm re-read makes no
+  index pass on the card.
+* Not carried over: filter pushdown. The column projection (`select`)
+  reaches every segment decoder of a flat read.
 """
 from __future__ import annotations
 
@@ -115,9 +127,11 @@ import torch
 from ..copybook.ast import Group, Primitive
 from ..device import resolve_device
 from ..engine.staging import StagedBytes, StagingPool, worker_stream
+from ..io.compress import compressed_chunkable
+from ..io.stats import carry, current_io_stats
 from ..ops.device_framing import (CARRY, DONE, TOO_BIG, ZERO, pack_records,
                                   scan_window)
-from ..plan.cache import copybook_for_params
+from ..plan.cache import copybook_for_params, parse_fingerprint
 from ..profiling import annotate, timed_stage
 from .columnar import (ColumnarDecoder, DecodedBatch, _resolve_occurs,
                        decoder_for_segment)
@@ -139,7 +153,8 @@ from .raw_extractors import (RawRecordContext, RawRecordExtractor,
                              VarOccursRecordExtractor,
                              create_raw_record_extractor)
 from .result import FileResult, SegmentBatch
-from .stream import FSStream, ShardStream, SimpleStream
+from .stream import (ShardStream, SimpleStream, normalize_local, open_input,
+                     open_stream, read_at, source_size)
 from .vrl_reader import (SegmentIds, VRLRecordReader,
                          decode_segment_id_bytes, resolve_segment_id_field)
 
@@ -317,12 +332,16 @@ def _host_bytes(f, staged: bool, lo: int, hi: int) -> np.ndarray:
     return out
 
 
-def _bytes_before(path: str, offset: int, n: int = 2) -> bytes:
-    """The (up to) `n` bytes of the file `path` before `offset`."""
-    if offset <= 0 or not path:
-        return b""
-    with open(path, "rb") as f:
-        return os.pread(f.fileno(), min(n, offset), max(0, offset - n))
+def _input_fingerprint(path: str, f) -> str:
+    """The content-version key of an `open_input` reader's file: its
+    source's (a compressed input's derives from the compressed bytes, a
+    backend's from its etag/size) or, for a raw local file, the
+    ``local:<size>:<mtime_ns>`` of the JAX package's local index key."""
+    source = getattr(f, "source", None)
+    if source is not None:
+        return source.fingerprint()
+    st = os.stat(normalize_local(path))
+    return f"local:{st.st_size}:{st.st_mtime_ns}"
 
 
 def resync_span(resync_window: int, adjustment: int) -> int:
@@ -558,7 +577,16 @@ class VarLenReader:
         seg = params.multisegment
         self.device = resolve_device(device)
         self.copybook = copybook_for_params(copybook_contents, params)
+        # stable copybook identity for the persisted sparse-index key
+        # (io.index_store): survives process restarts, unlike id()
+        self.copybook_fingerprint = parse_fingerprint(copybook_contents,
+                                                      params)
         self.params = params
+        # the read's io configuration, retry policy and retry hook
+        # (``api.read_cobol`` sets them; None: a raw local read)
+        self.io = None
+        self.retry = None
+        self.on_retry = None
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
         self._decoders: Dict[str, ColumnarDecoder] = {}
@@ -1146,20 +1174,48 @@ class VarLenReader:
         splits it (`_index_applies`), in the shards of its sparse index
         (`sparse_index_generator`), each a bounded stream of the file."""
         entries = (self.generate_index(path, file_id)
-                   if self._index_applies(size) else None)
+                   if self._index_applies(size, path) else None)
         if not entries or len(entries) < 2:
             entries = [SparseIndexEntry(0, -1, file_id, 0)]
 
         def read(e: SparseIndexEntry) -> FileResult:
             n = 0 if e.offset_to < 0 else e.offset_to - e.offset_from
-            with FSStream(path, start_offset=e.offset_from,
-                          maximum_bytes=n) as stream:
+            with self.open_stream(path, e.offset_from, n) as stream:
                 result, _, _ = self._read(
                     stream, stream.size() - e.offset_from, file_id,
                     segment_id_prefix, start_record_id + e.record_index,
                     0, 0, path=path, base_offset=e.offset_from)
             return result
         return self._map_shards(read, entries)
+
+    def open_input(self, path: str, start_offset: int = 0,
+                   maximum_bytes: int = 0):
+        """`path` as a seekable reader under the read's io stack
+        (``stream.open_input``)."""
+        return open_input(path, start_offset, maximum_bytes,
+                          retry=self.retry, on_retry=self.on_retry,
+                          io=self.io)
+
+    def open_stream(self, path: str, start_offset: int = 0,
+                    maximum_bytes: int = 0) -> SimpleStream:
+        """`path` as a SimpleStream under the read's io stack
+        (``stream.open_stream``)."""
+        return open_stream(path, start_offset, maximum_bytes,
+                           retry=self.retry, on_retry=self.on_retry,
+                           io=self.io)
+
+    def input_size(self, path: str) -> int:
+        """The logical (decompressed) size of `path`."""
+        return source_size(path, retry=self.retry, on_retry=self.on_retry,
+                           io=self.io)
+
+    def _bytes_before(self, path: str, offset: int, n: int = 2) -> bytes:
+        """The (up to) `n` bytes of the file `path` before `offset`, read
+        through its own view (decompressed bytes for a compressed file)."""
+        if offset <= 0 or not path:
+            return b""
+        with self.open_input(path) as f:
+            return read_at(f, max(0, offset - n), min(n, offset))
 
     def _shard_width(self, entries: Sequence) -> int:
         return max(1, min(self.parallelism, len(entries)))
@@ -1177,7 +1233,7 @@ class VarLenReader:
             with worker_stream(self.device):
                 return read(e)
         with ThreadPoolExecutor(max_workers=width) as ex:
-            return list(ex.map(run, entries))
+            return list(ex.map(carry(run), entries))
 
     def _decoder_for_segment(self, active_segment: str) -> ColumnarDecoder:
         return decoder_for_segment(self._decoders, self.copybook,
@@ -1222,11 +1278,11 @@ class VarLenReader:
         the shard's. A clean file frames the same records either way and
         is read once."""
         p = self.params
-        size = os.path.getsize(path)
+        size = self.input_size(path)
         if self.generic_framing or self.row_walk:
             return self._read_generic(path, size, file_id,
                                       segment_id_prefix, start_record_id)
-        indexed = self._index_applies(size)
+        indexed = self._index_applies(size, path)
         if indexed and self.decode_once:
             # a hierarchical file is read in the index's root-aligned
             # shards, where the JAX package reads it so: each shard's
@@ -1238,12 +1294,18 @@ class VarLenReader:
                                               start_record_id,
                                               segment_id_prefix)
         shifted = indexed and p.file_start_offset > 0
+        key = cached = None
         try:
-            with open(path, "rb") as f:
+            with self.open_input(path) as f:
+                if indexed:
+                    # the file's stored index, as the JAX package's
+                    # indexed scan looks it up (the read frames the file
+                    # whole either way; a miss keeps its starts)
+                    key, cached = self._stored_index(path, f, file_id)
                 result, file_ids, starts = self._read(
                     f, size, file_id, segment_id_prefix, start_record_id,
                     p.file_start_offset, p.file_end_offset,
-                    keep_starts=indexed, path=path)
+                    keep_starts=indexed and cached is None, path=path)
         except FramingError as exc:
             if not indexed or exc.file_name != path:
                 raise
@@ -1255,11 +1317,15 @@ class VarLenReader:
                 header=exc.header) from None
         if not indexed:
             return [result]
-        entries = sparse_index_entries(
-            starts, file_id, p, self._root_indices(file_ids.segment_ids()),
-            base=1 if p.file_start_offset > 0 else 0,
-            bytes_per_entry=self._bytes_per_entry(),
-            trailing=self._trailing(size))
+        entries = cached
+        if entries is None:
+            entries = sparse_index_entries(
+                starts, file_id, p,
+                self._root_indices(file_ids.segment_ids()),
+                base=1 if p.file_start_offset > 0 else 0,
+                bytes_per_entry=self._bytes_per_entry(),
+                trailing=self._trailing(size))
+            self._save_index(key, path, entries)
         ledger = result.diagnostics
         if ledger is not None and ledger.corrupt_records \
                 and len(entries) > 1:
@@ -1290,7 +1356,7 @@ class VarLenReader:
             n = max(0, end - entry.offset_from)
             staged = pool.acquire(n)
             try:
-                with open(path, "rb") as f, \
+                with self.open_input(path, entry.offset_from, n) as f, \
                         timed_stage(self.stage_times, "read"):
                     f.seek(entry.offset_from)
                     if f.readinto(memoryview(staged.host().numpy())) != n:
@@ -1320,7 +1386,8 @@ class VarLenReader:
         if self.generic_framing or self.row_walk:
             stream = ShardStream(staged.host().numpy(), offset_from,
                                  file_size, path,
-                                 before=_bytes_before(path, offset_from))
+                                 before=self._bytes_before(path,
+                                                           offset_from))
             result, _, _ = self._read(stream, n, file_id, segment_id_prefix,
                                       record_index, 0, 0, path=path,
                                       base_offset=offset_from)
@@ -1520,15 +1587,17 @@ class VarLenReader:
         return ((self.params.input_split_size_mb
                  or DEFAULT_INDEX_ENTRY_SIZE_MB) * MEGABYTE)
 
-    def _index_applies(self, size: int) -> bool:
-        """Whether the JAX package reads a file of `size` bytes in
-        sparse-index shards (``index.file_index_entries`` returns
-        entries)."""
+    def _index_applies(self, size: int, path: str) -> bool:
+        """Whether the JAX package reads the file `path` of `size`
+        (decompressed) bytes in sparse-index shards
+        (``index.file_index_entries`` returns entries): never a
+        compressed file without a cache_dir."""
         p = self.params
         explicit = (p.input_split_records is not None
                     or p.input_split_size_mb is not None)
         if not p.is_index_generation_needed or size == 0 \
-                or not (explicit or size > self._bytes_per_entry()):
+                or not (explicit or size > self._bytes_per_entry()) \
+                or not compressed_chunkable(path, self.io):
             return False
         self._index_split_config()  # validates the split options
         return True
@@ -1543,6 +1612,20 @@ class VarLenReader:
         return np.nonzero(segment_ids.mask_of(
             set(root_segment_id.split(","))))[0]
 
+    def _index_store(self):
+        """(SparseIndexStore, config fingerprint) of the read's
+        cache_dir, or None (no cache_dir, or an unusable cache volume:
+        the cache must never fail the read)."""
+        if self.io is None or not self.io.cache_enabled:
+            return None
+        from ..io.index_store import (SparseIndexStore,
+                                      index_config_fingerprint)
+        try:
+            return (SparseIndexStore(self.io.cache_dir),
+                    index_config_fingerprint(self, self.params))
+        except OSError:
+            return None
+
     def generate_index(self, path: str,
                        file_id: int) -> List[SparseIndexEntry]:
         """The sparse index of one file (the JAX package's
@@ -1550,57 +1633,98 @@ class VarLenReader:
         by window, the record header offsets (and, for root-aligned
         splits, the segment ids) come to the host, and
         `index.sparse_index_entries` applies the reference's entry
-        rule."""
+        rule. With a cache_dir the entries of this file version and
+        configuration are loaded from the sparse-index store when it
+        has them (no pass at all: ``index_hits``) and saved when
+        computed (``index_misses``, ``index_saves``), as the JAX
+        package's ``file_index_entries`` does."""
+        with (self.open_stream(path) if self.generic_framing
+              else self.open_input(path)) as f:
+            store, cached = self._stored_index(path, f, file_id)
+            if cached is not None:
+                return cached
+            entries = (self._generate_index_generic(f, file_id)
+                       if self.generic_framing
+                       else self._generate_index_fast(f, path, file_id))
+        self._save_index(store, path, entries)
+        return entries
+
+    def _stored_index(self, path: str, f, file_id: int):
+        """((store, config fingerprint, file fingerprint) or None, the
+        stored entries of this file version or None), counting the
+        lookup as a hit or a miss; `f` is the file's open reader."""
+        store = self._index_store()
+        if store is None:
+            return None, None
+        key = store + (_input_fingerprint(path, f),)
+        cached = store[0].load(path, key[2], store[1], file_id)
+        stats = current_io_stats()
+        if stats is not None:
+            stats.bump("index_hits" if cached is not None
+                       else "index_misses")
+        return key, cached
+
+    @staticmethod
+    def _save_index(key, path: str, entries) -> None:
+        """Persist freshly computed entries under `key` (from
+        `_stored_index`; None: no store)."""
+        if key is None:
+            return
+        key[0].save(path, key[2], key[1], entries)
+        stats = current_io_stats()
+        if stats is not None:
+            stats.bump("index_saves")
+
+    def _generate_index_fast(self, f, path: str,
+                             file_id: int) -> List[SparseIndexEntry]:
+        """The scan kernel's index pass over the open reader `f`."""
         p = self.params
-        if self.generic_framing:
-            return self._generate_index_generic(path, file_id)
         self._index_split_config()
+        size = self.input_size(path)
         starts: List[np.ndarray] = []
         file_ids = _FileSegmentIds()
-        with open(path, "rb") as f:
-            # the read's skip decisions (a throwaway ledger: the shards
-            # record the incidents), so that splits land on the records
-            # the shards frame
-            for base, _, offs_d, _, _ in self._frame(
-                    f, os.path.getsize(path), p.file_start_offset,
-                    p.file_end_offset, None, file_ids):
-                starts.append(base + offs_d.cpu().numpy() - self._header_len)
+        # the read's skip decisions (a throwaway ledger: the shards
+        # record the incidents), so that splits land on the records the
+        # shards frame
+        for base, _, offs_d, _, _ in self._frame(
+                f, size, p.file_start_offset, p.file_end_offset, None,
+                file_ids):
+            starts.append(base + offs_d.cpu().numpy() - self._header_len)
         starts = (np.concatenate(starts) if starts
                   else np.zeros(0, dtype=np.int64))
         return sparse_index_entries(
             starts, file_id, p, self._root_indices(file_ids.segment_ids()),
             base=1 if p.file_start_offset > 0 else 0,
             bytes_per_entry=self._bytes_per_entry(),
-            trailing=self._trailing(os.path.getsize(path)))
+            trailing=self._trailing(size))
 
-    def _generate_index_generic(self, path: str, file_id: int
+    def _generate_index_generic(self, stream: SimpleStream, file_id: int
                                 ) -> List[SparseIndexEntry]:
         """reference VarLenNestedReader.generateIndex (:125-180): the
-        generic per-record generator over the file, with the read's
-        resync decisions. For records framed by a record-length field
-        the generator takes the records the length field frames
+        generic per-record generator over the file's `stream`, with the
+        read's resync decisions. For records framed by a record-length
+        field the generator takes the records the length field frames
         (`_LengthFieldRecords`); the JAX package gives it the
         fixed-length header parser there, so its splits land every
         copybook-size bytes, inside records (ROADMAP C7)."""
         p = self.params
         is_hierarchical, root_segment_id = self._index_split_config()
-        with FSStream(path) as stream:
-            extractor = (_LengthFieldRecords(self.make_record_reader(stream))
-                         if p.length_field_name and not p.record_extractor
-                         else self.record_extractor(0, stream))
-            return sparse_index_generator(
-                file_id,
-                stream,
-                record_header_parser=self.record_header_parser(),
-                record_extractor=extractor,
-                records_per_index_entry=p.input_split_records,
-                size_per_index_entry_mb=p.input_split_size_mb,
-                copybook=self.copybook,
-                segment_field=resolve_segment_id_field(p, self.copybook),
-                is_hierarchical=is_hierarchical,
-                root_segment_id=root_segment_id,
-                record_error_policy=p.record_error_policy,
-                resync_window_bytes=p.resync_window_bytes)
+        extractor = (_LengthFieldRecords(self.make_record_reader(stream))
+                     if p.length_field_name and not p.record_extractor
+                     else self.record_extractor(0, stream))
+        return sparse_index_generator(
+            file_id,
+            stream,
+            record_header_parser=self.record_header_parser(),
+            record_extractor=extractor,
+            records_per_index_entry=p.input_split_records,
+            size_per_index_entry_mb=p.input_split_size_mb,
+            copybook=self.copybook,
+            segment_field=resolve_segment_id_field(p, self.copybook),
+            is_hierarchical=is_hierarchical,
+            root_segment_id=root_segment_id,
+            record_error_policy=p.record_error_policy,
+            resync_window_bytes=p.resync_window_bytes)
 
     def _decode_window(self, result: FileResult, image: torch.Tensor,
                        offs_d: torch.Tensor, lengths: np.ndarray,

@@ -421,7 +421,7 @@ def test_comment_bounds(tmp_path, opts):
     ("collect_stats", "true"), ("filter", "A == 'x'"),
     ("use_stats", "true"), ("field_costs", "true"), ("trace_file", "t.json"),
     ("stream_batch_rows", "10"), ("hosts", "2"),
-    ("cache_dir", "cache")])
+    ("speculative_quantile", "0.5")])
 def test_options_outside_the_slice_still_raise(tmp_path, option, value):
     path = _write(tmp_path, "e1.dat", gen.generate_exp1(2, seed=17))
     with pytest.raises(ValueError, match=option):

@@ -613,16 +613,26 @@ def _c1_bytes(framing, n=40):
 
 @pytest.mark.parametrize("framing", ["rdw", "fixed"])
 def test_compressed_input_raises_and_names_it(tmp_path, framing):
-    path = _write(tmp_path, "feed.dat", gzip.compress(_c1_bytes(framing)))
+    """A gzip feed, which the port once refused by name, now reads as its
+    decompressed bytes: the rows of the JAX package's read of the feed
+    and of the port's read of the raw file, sequential and pipelined."""
+    raw = _c1_bytes(framing)
+    path = _write(tmp_path, "feed.dat", gzip.compress(raw))
+    plain = _write(tmp_path, "plain.dat", raw)
     opts = ({"is_record_sequence": "true"} if framing == "rdw" else {})
     want = cobrix_tpu.read_cobol(path, copybook_contents=C1_COPYBOOK,
                                  backend="numpy", **opts).to_rows()
     assert len(want) == 40 and want[0] == [("AB00", -50)]
-    with pytest.raises(ValueError) as err:
-        cobrix_tpu_torch.read_cobol(path, copybook_contents=C1_COPYBOOK,
-                                    device="cpu", **opts)
-    msg = str(err.value)
-    assert path in msg and "gzip" in msg and "does not inflate" in msg
+    for extra in ({}, {"pipeline_workers": "2"}):
+        got = cobrix_tpu_torch.read_cobol(path, copybook_contents=C1_COPYBOOK,
+                                          device="cpu", **opts, **extra)
+        assert _typed(got.to_rows()) == _typed(want)
+        # without a cache_dir the sizing pass and the read each inflate
+        assert got.metrics.as_dict()["io"]["decompressed_bytes_out"] == \
+            2 * len(raw)
+    same = cobrix_tpu_torch.read_cobol(plain, copybook_contents=C1_COPYBOOK,
+                                       device="cpu", **opts).to_rows()
+    assert _typed(same) == _typed(want)
 
 
 def test_compression_none_reads_the_raw_bytes(tmp_path):
@@ -639,21 +649,40 @@ def test_compression_none_reads_the_raw_bytes(tmp_path):
     ("bz2", bz2.compress, "feed.dat"), ("xz", lzma.compress, "feed.dat"),
     ("gzip", gzip.compress, "feed.bin.gz")])
 def test_every_sniffed_codec_raises(tmp_path, codec, compress, name):
-    path = _write(tmp_path, name, compress(_c1_bytes("fixed")))
-    with pytest.raises(ValueError, match=f"{codec}-compressed"):
-        cobrix_tpu_torch.read_cobol(path, copybook_contents=C1_COPYBOOK,
-                                    device="cpu")
+    """Every sniffed codec, once refused, inflates to the JAX package's
+    rows; the read counts the compressed bytes it fed the inflater."""
+    wire = compress(_c1_bytes("fixed"))
+    path = _write(tmp_path, name, wire)
+    want = cobrix_tpu.read_cobol(path, copybook_contents=C1_COPYBOOK,
+                                 backend="numpy").to_rows()
+    got = cobrix_tpu_torch.read_cobol(path, copybook_contents=C1_COPYBOOK,
+                                      device="cpu")
+    assert len(want) == 40 and _typed(got.to_rows()) == _typed(want)
+    # the sizing pass and the read each inflate the feed once
+    assert got.metrics.as_dict()["io"]["compressed_bytes_in"] == \
+        2 * len(wire)
 
 
 def test_a_raw_file_named_gz_reads_raw_and_a_pin_raises(tmp_path):
+    """A raw file named .gz reads raw (the magic vetoes the name); pinned
+    as gzip, its bytes are damage, and the read raises the JAX package's
+    CompressedStreamError at the same offsets."""
+    from cobrix_tpu.io.compress import CompressedStreamError as JaxDamage
+    from cobrix_tpu_torch.io.compress import CompressedStreamError
+
     path = _write(tmp_path, "raw.gz", _c1_bytes("fixed", 5))
     kw = dict(copybook_contents=C1_COPYBOOK)
     want = cobrix_tpu.read_cobol(path, backend="numpy", **kw).to_rows()
     got = cobrix_tpu_torch.read_cobol(path, device="cpu", **kw).to_rows()
     assert _typed(got) == _typed(want) and len(got) == 5
-    with pytest.raises(ValueError, match="gzip-compressed"):
+    with pytest.raises(JaxDamage) as jerr:
+        cobrix_tpu.read_cobol(path, backend="numpy", compression="gz", **kw)
+    with pytest.raises(CompressedStreamError) as perr:
         cobrix_tpu_torch.read_cobol(path, device="cpu", compression="gz",
                                     **kw)
+    w, g = jerr.value, perr.value
+    assert (str(g), g.codec, g.compressed_offset, g.decompressed_offset) \
+        == (str(w), w.codec, w.compressed_offset, w.decompressed_offset)
 
 
 def test_file_url_reads_the_local_file(tmp_path):
@@ -664,10 +693,19 @@ def test_file_url_reads_the_local_file(tmp_path):
     got = cobrix_tpu_torch.read_cobol(url, copybook_contents=C1_COPYBOOK,
                                       device="cpu").to_rows()
     assert len(want) == 5 and _typed(got) == _typed(want)
-    with pytest.raises(ValueError, match="s3"):
+    # an s3:// path resolves as the JAX package resolves it (fsspec's s3
+    # protocol, or no backend at all) and fails with the JAX package's
+    # own error type and message
+    with pytest.raises(Exception) as jerr:
+        cobrix_tpu.read_cobol("s3://bucket/five.dat",
+                              copybook_contents=C1_COPYBOOK, backend="numpy")
+    with pytest.raises(Exception) as perr:
         cobrix_tpu_torch.read_cobol("s3://bucket/five.dat",
                                     copybook_contents=C1_COPYBOOK,
                                     device="cpu")
+    assert type(perr.value) is type(jerr.value)
+    assert str(perr.value) == str(jerr.value).replace(
+        "cobrix_tpu.", "cobrix_tpu_torch.")
 
 
 # -- random copybooks (testing/genspec.py) --------------------------------

@@ -63,7 +63,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert seen > 15
     # every subpackage is scanned, the device-resident query path too
     assert {os.path.join("cobrix_tpu_torch", p) for p in
-            ("ops", "reader", "engine", "parallel")} <= packages
+            ("ops", "reader", "engine", "parallel", "io", "utils",
+             "testing")} <= packages
     assert not _forbidden("cobrix_tpu_torch")
     assert not _forbidden("cobrix_tpu_torch.ops")
 
@@ -78,6 +79,19 @@ def test_decode_in_a_fresh_process_loads_neither():
         "dec = ColumnarDecoder(parse_copybook(EXP1_COPYBOOK), device='cpu')\n"
         "b = dec.decode(generate_exp1(5, seed=2))\n"
         "assert len(b.to_rows()) == 5\n"
+        "import gzip, os, tempfile\n"
+        "import cobrix_tpu_torch as t\n"
+        "from cobrix_tpu_torch.io import (blockcache, compress,\n"
+        "    compress_index, config, fsspec_source, index_store,\n"
+        "    integrity, prefetch, stats)\n"
+        "from cobrix_tpu_torch.testing import corpus, faults\n"
+        "from cobrix_tpu_torch.utils import atomic\n"
+        "d = tempfile.mkdtemp()\n"
+        "p = os.path.join(d, 'e.dat.gz')\n"
+        "open(p, 'wb').write(gzip.compress(generate_exp1(7).tobytes()))\n"
+        "r = t.read_cobol(p, copybook_contents=EXP1_COPYBOOK, device='cpu',\n"
+        "                 cache_dir=os.path.join(d, 'c'))\n"
+        "assert len(r) == 7 and r.metrics.as_dict()['io']\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
         "m.startswith(('jax.', 'jaxlib.', 'cobrix_tpu.')) or "
         "m == 'cobrix_tpu']\n"
@@ -113,8 +127,8 @@ def test_read_cobol_names_every_option_it_does_not_take(tmp_path):
     path.write_bytes(pgen.generate_exp1(2, seed=1).tobytes())
     # options of the JAX package's reader the port does not take (a key
     # neither package knows is ignored, or named by `pedantic`)
-    for option in ("collect_stats", "trace_file", "use_stats", "cache_dir",
-                   "hosts"):
+    for option in ("collect_stats", "trace_file", "use_stats",
+                   "stream_batch_rows", "hosts"):
         with pytest.raises(ValueError, match=option):
             cobrix_tpu_torch.read_cobol(
                 str(path), copybook_contents=pgen.EXP1_COPYBOOK,

@@ -260,8 +260,8 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
     ("use_stats", "true"),
     ("collect_stats", "true"),
     ("hosts", "2"),
-    ("cache_dir", "cache"),
-    ("io_retry_attempts", "2"),
+    ("heartbeat_interval_s", "1"),
+    ("progress_interval_s", "1"),
     ("filter", "COMPANY_ID == 'x'"),
 ])
 def test_options_this_slice_does_not_take_are_refused(option, value,
