@@ -248,6 +248,30 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    power limit. fsspec and ``zstandard`` are not used (the card's
    machine has neither).
 
+16. filter pushdown (``cobrix_tpu_torch.query``): (a) the phase 3 exp1
+   file read sequentially and pipelined (2 workers, ``chunk_size_mb=64``)
+   under three filters: a COMP-3 field and a string ``isin`` that keep
+   5-20% of the records, one that keeps every record (nulls included)
+   and one that keeps none. Each table equals the unfiltered card read's
+   table filtered with pyarrow, and its first rows a CPU read's of the
+   first 5,000 records' bytes; the pruning counters agree with it, and
+   the fused decode and the pack launch once a chunk for stage 1 and
+   once more a chunk that keeps records (stage 2). (b) the phase 4 exp3
+   file, sequential and pipelined, with a segment conjunct and a value
+   predicate (against the unfiltered read filtered with pyarrow and a
+   CPU read of the records in its first 16 MB), and the exp2 file with a
+   segment conjunct alone, whose launches and table are the
+   ``segment_filter`` option's read's (no stage 1). (c) the exp3 file as
+   a hierarchy with a value filter: the residual route, against the
+   unfiltered hierarchical read filtered with pyarrow. (d)
+   ``query.dataset`` over exp1: ``count_rows`` and ``aggregate`` with the
+   (a) filter as a pyarrow expression, against pyarrow over the
+   unfiltered table. (e) where one exp1 chunk's filtered read goes: H2D,
+   stage 1's decode, its Arrow arrays, the predicate, stage 2's decode,
+   beside the unfiltered decode of the chunk. Each read prints its MB/s
+   beside the unfiltered read's, its counters and launches; every
+   kernel's ``launches_by_path`` gets a ``pushdown`` path.
+
 Every phase prints its seconds (``[phases]``). Every failure exits
 non-zero. The last two lines are the kernels JSON and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -256,9 +280,9 @@ package beside this file, it exits 2 and prints no result.
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
 lines: it checks the script's paths, not the card. ``--phases 13`` (or
-``12``, ``14``, ``15``, or several) runs the environment, phase 4 (phase
-14 also phases 3 and 5, phase 15 also phase 3) and the phases named,
-and also exits 3 without the result lines.
+``12``, ``14``, ``15``, ``16``, or several) runs the environment, phase
+4 (phase 14 also phases 3 and 5, phases 15 and 16 also phase 3) and the
+phases named, and also exits 3 without the result lines.
 """
 from __future__ import annotations
 
@@ -328,7 +352,7 @@ AGG_KINDS = {0: "K_I32", 1: "K_I64", 2: "K_WIDE"}
 AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 # phases `--phases` can run alone (after the environment and phase 4)
 PHASES = {"12": "phase_generic", "13": "phase_hierarchical",
-          "14": "phase_assembly", "15": "phase_io"}
+          "14": "phase_assembly", "15": "phase_io", "16": "phase_pushdown"}
 
 
 class SmokeFailure(Exception):
@@ -3910,6 +3934,487 @@ class Smoke:
             f"== the CPU read's: {json.dumps(got)}")
         del card, cpu
 
+    # -- phase 16: filter pushdown ---------------------------------------
+
+    def _p16_counters(self):
+        """{kernel name: wrapper} for every kernel of the kernels line,
+        and {name: plain version} of the two the stages launch (their
+        counters count the wrapper's plain route, in the rehearsal)."""
+        from cobrix_tpu_torch.ops import aggregate as agg_mod
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.ops import device_framing as df
+        from cobrix_tpu_torch.ops.fused_decode import (fused_decode,
+                                                       fused_decode_plain)
+
+        kernels = {"fused_decode": fused_decode, "rdw_scan": df.scan_window,
+                   "pack_records": df.pack_records,
+                   "aggregate": agg_mod.aggregate, **asm.KERNELS}
+        plain = {"fused_decode": fused_decode_plain,
+                 "pack_records": df.pack_records_plain}
+        return kernels, plain
+
+    def _p16_count(self, fn):
+        """Run `fn()` with every kernel's launches counted from 0: its
+        result and {kernel: launches} (the plain versions' counts in the
+        rehearsal, where no kernel launches); the launches join the
+        pushdown path unless `fn` is a reference read."""
+        kernels, plain = self._p16_counters()
+        for f in list(kernels.values()) + list(plain.values()):
+            f.launches = 0
+        self.sync()
+        out = fn()
+        self.sync()
+        got = {k: f.launches for k, f in kernels.items()}
+        if self.rehearsal:
+            got.update({k: f.launches for k, f in plain.items()})
+        return out, got
+
+    def _p16_read(self, tag, path, arrow=True, **opts):
+        """A filtered read_cobol on the default device and its table:
+        (data, table, read seconds, launches); the launches (read and
+        `to_arrow`) join the pushdown path."""
+        from cobrix_tpu_torch import read_cobol
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        timing = {}
+
+        def run():
+            t0 = time.perf_counter()
+            data = read_cobol(path, **opts, **kw)
+            self.sync()
+            timing["read"] = time.perf_counter() - t0
+            return data, (data.to_arrow() if arrow else None)
+        (data, table), launches = self._p16_count(run)
+        for k, v in launches.items():
+            self.p16_launches[k] += v
+        self.p16["launches"][tag] = {k: v for k, v in launches.items() if v}
+        return data, table, timing["read"], launches
+
+    def _p16_reference(self, path, arrow=True, **opts):
+        """A read on the default device that the filtered reads are held
+        to (not on the pushdown path), its table, and its read seconds."""
+        from cobrix_tpu_torch import read_cobol
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        self.sync()
+        t0 = time.perf_counter()
+        data = read_cobol(path, **opts, **kw)
+        self.sync()
+        secs = time.perf_counter() - t0
+        return data, (data.to_arrow() if arrow else None), secs
+
+    @staticmethod
+    def _p16_leaf(table, name):
+        """The flattened column of leaf `name` (null where a parent struct
+        is null), pyarrow's own walk of the table."""
+        import pyarrow as pa
+
+        while any(pa.types.is_struct(f.type) for f in table.schema):
+            table = table.flatten()
+        hits = [c for c in table.column_names
+                if c == name or c.endswith("." + name)]
+        check(len(hits) == 1, f"leaf {name}: columns {hits}")
+        return table.column(hits[0])
+
+    def _p16_expected(self, full, mask):
+        return full.filter(self.pc.fill_null(mask, False))
+
+    def _p16_check(self, what, data, table, expect, launches, stage1,
+                   scanned, n_units, residual=False):
+        """A filtered read's table equals the reference filtered with
+        pyarrow, its counters agree with it, and its kernels launched as
+        the stages say: on a fixed-length read of `n_units` chunks each
+        chunk launches the fused decode and the pack once for stage 1
+        (`stage1`) and once more for stage 2 when it keeps any record."""
+        self._same_table(table.replace_schema_metadata(None),
+                         expect.replace_schema_metadata(None), what)
+        pd = data.metrics.pushdown
+        kept = expect.num_rows
+        check(pd is not None and pd["records_scanned"] == scanned
+              and pd["records_pruned"] == scanned - kept,
+              f"{what}: counters {pd}, {kept} of {scanned} kept")
+        check(bool(pd["records_pruned_residual"]) == (residual
+                                                      and kept < scanned),
+              f"{what}: residual pruning {pd}")
+        if n_units is not None:
+            keeping = sum(1 for p in data.parts if p.n_rows)
+            want = stage1 * n_units + keeping
+            for k in ("fused_decode", "pack_records"):
+                check(launches[k] == want,
+                      f"{what}: {k} launched {launches[k]} times for "
+                      f"{n_units} chunks, {keeping} of them keeping "
+                      f"records")
+        return pd
+
+    def phase_pushdown(self):
+        """Phase 16: filter pushdown on the card (see the module
+        docstring): (a) exp1, (b) exp3 and exp2 RDW, (c) the exp3
+        hierarchy's residual filter, (d) the dataset scan surface."""
+        import pyarrow.compute as pc
+
+        self.pc = pc
+        t_phase = time.perf_counter()
+        self.p16 = {"launches": {}}
+        self.p16_launches = dict.fromkeys(KERNELS, 0)
+        self._p16_exp1()
+        self._p16_rdw()
+        self._p16_hierarchy()
+        self._p16_dataset()
+        self._p16_split()
+        self.launches["pushdown"] = dict(self.p16_launches)
+        if not self.rehearsal:
+            for k in ("fused_decode", "rdw_scan", "pack_records",
+                      "arrow_scalars", "arrow_str_lengths",
+                      "arrow_str_copy"):
+                check(self.p16_launches[k] > 0,
+                      f"{k} never launched on the pushdown path")
+        self.p16["secs"] = time.perf_counter() - t_phase
+        log(f"[pushdown] {self.card}: phase 16 {self.p16['secs']:.1f} s; "
+            f"launches on the pushdown path "
+            f"{json.dumps(self.p16_launches)}")
+
+    # the exp1 filters of phase 16: one COMP-3 field and one string isin
+    # (kept share 5-20%), one that keeps every record (nulls included),
+    # one that keeps none
+    P16_NAMES = ("Carrie", "Janiece", "Estelle", "Sunday", "Inge",
+                 "Gabriele")
+
+    def _p16_exp1_filters(self, full):
+        import pyarrow as pa
+
+        pc = self.pc
+        num = self._p16_leaf(full, "NUM_BCD_INT05")
+        name = self._p16_leaf(full, "STRING_VAL")
+        rid = self._p16_leaf(full, "ID")
+        names = ", ".join(f"'{n}'" for n in self.P16_NAMES)
+        return {
+            "mixed": (f"NUM_BCD_INT05 < 50000 and STRING_VAL in ({names})",
+                      pc.and_kleene(pc.less(num, 50000), pc.is_in(
+                          name, value_set=pa.array(self.P16_NAMES)))),
+            "all": ("ID >= 0 or ID == null",
+                    pc.or_kleene(pc.greater_equal(rid, 0),
+                                 pc.is_null(rid))),
+            "none": ("ID < 0", pc.less(rid, 0)),
+        }
+
+    def _p16_exp1(self):
+        """(a) the phase 3 exp1 file, sequential and pipelined, under the
+        three filters: each table equals the unfiltered card read's
+        filtered with pyarrow, its first rows a CPU read's of the first
+        records' bytes; counters, launches, MB/s beside the unfiltered
+        read's."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        rs = 1493
+        path, size = self.exp1_path, self.e2e[0]
+        if os.path.getsize(path) != size:
+            # phase 12 (c) left a torn tail on it: the phase 3 bytes
+            os.truncate(path, size)
+        n = size // rs
+        cb = dict(copybook_contents=EXP1_COPYBOOK)
+        modes = {"sequential": {},
+                 "pipelined": {"pipeline_workers": "2",
+                               "chunk_size_mb": self.pipe_chunk_mb}}
+        full_data, full, full_s = self._p16_reference(path, **cb)
+        del full_data
+        base = {"sequential": full_s}
+        base["pipelined"] = self._p16_reference(
+            path, arrow=False, **cb, **modes["pipelined"])[2]
+        filters = self._p16_exp1_filters(full)
+        n_prefix = 400 if self.rehearsal else 5_000
+        prefix = os.path.join(self.tmp, "exp1_prefix.dat")
+        with open(path, "rb") as f, open(prefix, "wb") as g:
+            g.write(f.read(n_prefix * rs))
+        out = {}
+        for fname, (flt, mask) in filters.items():
+            expect = self._p16_expected(full, mask)
+            share = expect.num_rows / n
+            if fname == "mixed":
+                check(0.05 <= share <= 0.20,
+                      f"exp1 mixed filter keeps {share:.3f} of the records")
+            cpu = read_cobol(prefix, device="cpu", filter=flt,
+                             **cb).to_arrow()
+            for mode, extra in modes.items():
+                tag = f"exp1_{fname}_{mode}"
+                data, table, secs, launches = self._p16_read(
+                    tag, path, filter=flt, **cb, **extra)
+                chunks = data.metrics.shards
+                pd = self._p16_check(
+                    f"exp1 {fname} {mode}", data, table, expect, launches,
+                    1, n, chunks)
+                self._same_table(table.slice(0, cpu.num_rows), cpu,
+                                 f"exp1 {fname} {mode}: the first "
+                                 f"{n_prefix} records' rows vs the CPU")
+                out[tag] = dict(
+                    kept=expect.num_rows, share=round(share, 6),
+                    chunks=chunks, secs=secs, mb_per_s=size / secs / 1e6,
+                    unfiltered_mb_per_s=size / base[mode] / 1e6,
+                    fused=launches["fused_decode"],
+                    pack=launches["pack_records"], counters=pd)
+                log(f"[pushdown] {self.card}: exp1 {fname} {mode}: "
+                    f"{expect.num_rows} of {n} kept ({share:.4f}); "
+                    f"{size / secs / 1e6:.1f} MB/s filtered vs "
+                    f"{size / base[mode] / 1e6:.1f} unfiltered; fused "
+                    f"{launches['fused_decode']} / pack "
+                    f"{launches['pack_records']} launches for {chunks} "
+                    f"chunks; counters {json.dumps(pd)}")
+                del data, table
+            del expect
+        self.p16["exp1"] = out
+        self.p16_exp1_full = full
+        self.p16_exp1_filters = filters
+        os.remove(prefix)
+
+    def _p16_rdw(self):
+        """(b) exp3 with a segment conjunct and a value predicate,
+        sequential and pipelined, against the unfiltered card read
+        filtered with pyarrow and a CPU read of its first records; exp2
+        with a segment conjunct alone: no stage-1 launch (the launches and
+        table of the segment_filter option's read)."""
+        pc = self.pc
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.testing.generators import (EXP2_COPYBOOK,
+                                                         EXP3_COPYBOOK)
+
+        path = self.rdw_files["exp3"]
+        size = os.path.getsize(path)
+        opts = dict(RDW_OPTIONS, copybook_contents=EXP3_COPYBOOK)
+        flt = ("segment('C') and TAXPAYER_TYPE == 'N' and "
+               "TAXPAYER_NUM < 50000000 and COMPANY_NAME >= 'E'")
+        _, full, full_s = self._p16_reference(path, **opts)
+        leaf = lambda name: self._p16_leaf(full, name)  # noqa: E731
+        mask = pc.and_kleene(
+            pc.and_kleene(pc.equal(leaf("SEGMENT_ID"), "C"),
+                          pc.equal(leaf("TAXPAYER_TYPE"), "N")),
+            pc.and_kleene(pc.less(leaf("TAXPAYER_NUM"), 50000000),
+                          pc.greater_equal(leaf("COMPANY_NAME"), "E")))
+        expect = self._p16_expected(full, mask)
+        n = full.num_rows
+        del full
+        # the first records' bytes, cut before the header of the last
+        # record the head holds (which may be cut), read on the CPU
+        with open(path, "rb") as f:
+            head = f.read((1 << 20) if self.rehearsal else (16 << 20))
+        offs, _ = host_walk(head)
+        n_prefix = len(offs) - 1
+        prefix = os.path.join(self.tmp, "exp3_prefix.dat")
+        with open(prefix, "wb") as g:
+            g.write(head[:offs[-1] - 4])
+        cpu = read_cobol(prefix, device="cpu", filter=flt,
+                         **opts).to_arrow()
+        os.remove(prefix)
+        out = {}
+        for mode, extra in (("sequential", {}),
+                            ("pipelined", {"pipeline_workers": "2",
+                                           "chunk_size_mb":
+                                           self.pipe_chunk_mb})):
+            tag = f"exp3_{mode}"
+            data, table, secs, launches = self._p16_read(
+                tag, path, filter=flt, **opts, **extra)
+            pd = self._p16_check(f"exp3 {mode}", data, table, expect,
+                                 launches, 1, n, None)
+            check(pd["records_pruned_segment"] > 0
+                  and pd["records_pruned_filter"] > 0,
+                  f"exp3 {mode}: counters {pd}")
+            got = table.filter(pc.less(table.column("Record_Id"),
+                                       n_prefix))
+            self._same_table(got, cpu, f"exp3 {mode}: the first "
+                             f"{n_prefix} records' rows vs the CPU")
+            out[tag] = dict(kept=expect.num_rows, secs=secs,
+                            mb_per_s=size / secs / 1e6,
+                            unfiltered_mb_per_s=(size / full_s / 1e6
+                                                 if mode == "sequential"
+                                                 else None),
+                            launches=launches, counters=pd)
+            log(f"[pushdown] {self.card}: exp3 {mode}: {expect.num_rows} "
+                f"of {n} kept; {size / secs / 1e6:.1f} MB/s (unfiltered "
+                f"sequential {size / full_s / 1e6:.1f}); launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+                f"counters {json.dumps(pd)}")
+            del data, table
+        # exp2: a segment conjunct alone decodes no filter column
+        path = self.rdw_files["exp2"]
+        size = os.path.getsize(path)
+        opts = dict(RDW_OPTIONS, copybook_contents=EXP2_COPYBOOK)
+        data, table, secs, launches = self._p16_read(
+            "exp2_segment_only", path, filter="segment('C')", **opts)
+        (ref, ref_table), ref_launches = self._p16_count(
+            lambda: self._p16_reference(path, segment_filter="C",
+                                        **opts)[:2])
+        self._same_table(table, ref_table, "exp2 segment('C') vs the "
+                         "segment_filter option's read")
+        for k in ("fused_decode", "pack_records", "rdw_scan"):
+            check(launches[k] == ref_launches[k],
+                  f"exp2 segment('C'): {k} {launches[k]} vs "
+                  f"{ref_launches[k]} without a stage 1")
+        pd = data.metrics.pushdown
+        check(pd["records_pruned_segment"] > 0
+              and pd["records_pruned_filter"] == 0,
+              f"exp2 segment('C'): counters {pd}")
+        out["exp2_segment_only"] = dict(kept=len(data), secs=secs,
+                                        mb_per_s=size / secs / 1e6,
+                                        launches=launches, counters=pd)
+        log(f"[pushdown] {self.card}: exp2 segment('C'): {len(data)} kept "
+            f"in {secs:.3f} s = {size / secs / 1e6:.1f} MB/s; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})} == "
+            f"the segment_filter read's; counters {json.dumps(pd)}")
+        del data, table, ref, ref_table
+        self.p16["rdw"] = out
+
+    def _p16_hierarchy(self):
+        """(c) the exp3 hierarchy with a value filter: the residual route
+        (the assembled table filtered), equal to the unfiltered
+        hierarchical read filtered with pyarrow."""
+        pc = self.pc
+        from cobrix_tpu_torch.testing.generators import EXP3_COPYBOOK
+
+        path = self.rdw_files["exp3"]
+        size = os.path.getsize(path)
+        opts = dict(P13_EXP3, copybook_contents=EXP3_COPYBOOK)
+        _, full, full_s = self._p16_reference(path, **opts)
+        expect = self._p16_expected(full, pc.greater_equal(
+            self._p16_leaf(full, "COMPANY_NAME"), "M"))
+        n = full.num_rows
+        del full
+        data, table, secs, launches = self._p16_read(
+            "exp3_hierarchy", path, filter="COMPANY_NAME >= 'M'", **opts)
+        pd = self._p16_check("exp3 hierarchy", data, table, expect,
+                             launches, 0, n, None, residual=True)
+        self.p16["hierarchy"] = dict(
+            roots=n, kept=expect.num_rows, secs=secs,
+            mb_per_s=size / secs / 1e6,
+            unfiltered_mb_per_s=size / full_s / 1e6, launches=launches,
+            counters=pd)
+        log(f"[pushdown] {self.card}: exp3 hierarchy COMPANY_NAME >= 'M': "
+            f"{expect.num_rows} of {n} roots kept on the residual route; "
+            f"{size / secs / 1e6:.1f} MB/s (unfiltered "
+            f"{size / full_s / 1e6:.1f}); counters {json.dumps(pd)}")
+        del data, table, expect
+
+    def _p16_dataset(self):
+        """(d) query.dataset on exp1: count_rows and aggregate with the
+        mixed filter (a pyarrow expression) against pyarrow over the
+        unfiltered table of (a)."""
+        import pyarrow.compute as pc
+        from cobrix_tpu_torch.query import dataset
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        full = self.p16_exp1_full
+        _, mask = self.p16_exp1_filters["mixed"]
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        ds = dataset(self.exp1_path, copybook_contents=EXP1_COPYBOOK,
+                     schema_retention_policy="collapse_root", **kw)
+        expr = (pc.field("NUM_BCD_INT05") < 50000) & pc.field(
+            "STRING_VAL").isin(list(self.P16_NAMES))
+        aggs = ["count", "sum:NUM_BCD_INT05", "min:NUM_BCD_INT05",
+                "max:NUM_BCD_INT05", "max:STRING_VAL"]
+
+        def run():
+            t0 = time.perf_counter()
+            count = ds.count_rows(filter=expr)
+            t1 = time.perf_counter()
+            got = ds.aggregate(aggs, filter=expr)
+            return count, got, t1 - t0, time.perf_counter() - t1
+        (count, got, count_s, agg_s), launches = self._p16_count(run)
+        for k, v in launches.items():
+            self.p16_launches[k] += v
+        self.p16["launches"]["dataset"] = {k: v for k, v in launches.items()
+                                           if v}
+        kept = full.filter(pc.fill_null(mask, False))
+        num = self._p16_leaf(kept, "NUM_BCD_INT05")
+        mm = pc.min_max(num).as_py()
+        want = {"count": kept.num_rows,
+                "sum:NUM_BCD_INT05": pc.sum(num).as_py(),
+                "min:NUM_BCD_INT05": mm["min"],
+                "max:NUM_BCD_INT05": mm["max"],
+                "max:STRING_VAL": pc.max(self._p16_leaf(
+                    kept, "STRING_VAL")).as_py()}
+        check(count == kept.num_rows, f"dataset count_rows {count} vs "
+              f"{kept.num_rows}")
+        check(got == want, f"dataset aggregate {got} vs pyarrow {want}")
+        check(ds.count_rows() == full.num_rows, "dataset count_rows()")
+        self.p16["dataset"] = dict(count=count, aggregate=got,
+                                   count_s=count_s, aggregate_s=agg_s,
+                                   launches=launches)
+        log(f"[pushdown] {self.card}: dataset count_rows {count} in "
+            f"{count_s:.3f} s, aggregate {json.dumps(got)} in {agg_s:.3f} s "
+            f"== pyarrow over the unfiltered table; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        del self.p16_exp1_full, full, kept
+
+    def _p16_split(self):
+        """(e) where one exp1 chunk's filtered read goes, on a reader of
+        its own (its launches are not the pushdown path's): the chunk's
+        H2D, stage 1's decode (pack and fused decode at the filter plan's
+        extent, one copy back), the filter columns' Arrow arrays (the
+        assembly kernels), the predicate (pyarrow, host), stage 2's
+        decode of the kept records, and `read_image` whole; beside them
+        the unfiltered decode of the same chunk (its H2D included).
+        Medians of 5, host clock around synchronized work, ms."""
+        np, torch = self.np, self.torch
+        import cobrix_tpu_torch.api as api
+        from cobrix_tpu_torch.reader.fixed_len_reader import FixedLenReader
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        flt, _ = self.p16_exp1_filters["mixed"]
+        reader = FixedLenReader(EXP1_COPYBOOK,
+                                api.parse_options({"filter": flt}),
+                                device=self.device)
+        pd = reader.pushdown
+        rs = reader.record_size
+        n = api.FIXED_READ_CHUNK_BYTES // rs
+        buf = np.fromfile(self.exp1_path, dtype=np.uint8, count=n * rs)
+        offsets = np.arange(n, dtype=np.int64) * rs
+        lengths = np.full(n, rs, dtype=np.int64)
+        stage1 = pd._stage1_decoder(reader._decoders, self.device, "")
+        state = {}
+
+        def h2d():
+            state["image"] = torch.from_numpy(buf).to(self.device)
+
+        def decode1():
+            state["batch"] = stage1.decode_raw(state["image"], offsets,
+                                               lengths)
+
+        def arrays():
+            state["arrays"] = pd._arrays_from_batch(state["batch"], None,
+                                                    None)
+
+        def predicate():
+            state["kept"] = np.nonzero(pd._mask(pd.value_expr,
+                                                state["arrays"], n))[0]
+
+        def decode2():
+            kept = state["kept"]
+            reader.decoder().decode_raw(state["image"], offsets[kept],
+                                        lengths[kept])
+
+        def whole():
+            reader.read_image(state["image"], lengths)
+
+        def unfiltered():
+            reader.decoder().decode(buf.reshape(n, rs))
+        steps = [("h2d", h2d), ("stage1_decode", decode1),
+                 ("stage1_arrow", arrays), ("predicate", predicate),
+                 ("stage2_decode", decode2), ("read_image", whole),
+                 ("unfiltered_decode", unfiltered)]
+        times = {}
+        for name, fn in steps:
+            laps = []
+            for _ in range(5):
+                self.sync()
+                t0 = time.perf_counter()
+                fn()
+                self.sync()
+                laps.append((time.perf_counter() - t0) * 1e3)
+            times[name] = statistics.median(laps)
+        self.p16["chunk_split_ms"] = dict(rows=n, kept=len(state["kept"]),
+                                          **times)
+        log(f"[pushdown] {self.card}: one exp1 chunk ({n} records, "
+            f"{len(state['kept'])} kept), ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
     def run(self):
         if self.only:
             # a subset: the environment, the RDW files, then the phases
@@ -3917,7 +4422,7 @@ class Smoke:
             try:
                 self.phase_env()
                 self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
-                if "14" in self.only or "15" in self.only:
+                if {"14", "15", "16"} & set(self.only):
                     self.phase_main()
                 self.phase_rdw()
                 if "14" in self.only:
@@ -3931,7 +4436,8 @@ class Smoke:
             for name in ("env", "grid", "framing_grid", "main", "rdw",
                          "exp3", "timings", "rdw_timings", "profile",
                          "pipeline", "query", "arrow", "recovery",
-                         "generic", "hierarchical", "assembly", "io"):
+                         "generic", "hierarchical", "assembly", "io",
+                         "pushdown"):
                 t0 = time.perf_counter()
                 getattr(self, f"phase_{name}")()
                 self.phase_secs[name] = time.perf_counter() - t0

@@ -76,10 +76,16 @@ unused-key audit names it. ``parallelism`` (default min(16, cpu_count))
 is how many threads read a file's index shards and build
 `CobolData.to_arrow`'s parts' tables.
 `CobolData.metrics` is the read's `profiling.ReadMetrics`.
+
+With a `filter` (``query``), a fixed-length chunk or an RDW window is
+read in two stages on the device: the filter columns alone are decoded
+(stage 1) and the predicate evaluated over their Arrow arrays; the kept
+records are packed from the same device image and decoded with the
+selected plan (stage 2). Hierarchical and row-walk reads filter the
+assembled table (``BoundFilter.filter_result_generic``).
 """
 from __future__ import annotations
 
-import glob as _glob
 import json
 import os
 from dataclasses import replace as _dc_replace
@@ -110,10 +116,10 @@ from .reader.json_out import rows_to_json
 from .reader.parameters import MultisegmentParameters, ReaderParameters
 from .reader.result import FileResult
 from .reader.schema import CobolOutputSchema, output_schema_for
-from .reader.stream import (RetryPolicy, normalize_local, open_input,
-                            path_scheme, source_size, stream_lister)
+from .reader.stream import RetryPolicy, open_input, path_scheme, source_size
 from .reader.var_len_reader import (VarLenReader, default_segment_id_prefix,
                                     file_record_id_base)
+from .utils.file_utils import list_input_files
 
 # fixed-length files stream through bounded chunk reads: peak host memory
 # stays about one chunk plus its decoded columns
@@ -122,7 +128,7 @@ FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
 # options of the JAX package's reader the port does not take yet: each
 # raises, naming it (any other key is the pedantic audit's)
 _NOT_PORTED = frozenset((
-    "filter", "use_stats", "collect_stats", "stats_chunk_mb", "hosts",
+    "use_stats", "collect_stats", "stats_chunk_mb", "hosts",
     "speculative_quantile", "heartbeat_interval_s", "field_costs",
     "trace_file", "trace_id", "request_id", "progress_interval_s",
     "stream_batch_rows"))
@@ -157,6 +163,21 @@ _ENUMS = {
 }
 
 
+def _normalize_filter_option(value: Optional[str]) -> Optional[str]:
+    """The `filter` option (grammar text, wire JSON, or the str() of a
+    query.Expr — all strings by the time the option layer sees them)
+    -> canonical wire JSON. Raises ValueError with the parse position
+    on malformed input, BEFORE any data is read."""
+    if not value:
+        return None
+    from .query.expr import normalize_filter
+
+    try:
+        return normalize_filter(value)
+    except (ValueError, TypeError) as exc:
+        raise ValueError(f"Invalid 'filter' option: {exc}") from exc
+
+
 def _parse_enum(key: str, value: str):
     parsed = _ENUMS[key].get(str(value).strip().lower())
     if parsed is None:
@@ -167,10 +188,16 @@ def _parse_enum(key: str, value: str):
 class Options:
     """String-keyed option map tracking key usage for the pedantic
     audit (``cobrix_tpu.api.Options``, reference Parameters.scala:27-98).
-    Values arrive as strings, as from the reference's ``.option()`` map."""
+    Values arrive as strings, as from the reference's ``.option()`` map;
+    structured values carry as JSON, and ``query.Expr`` filters by their
+    canonical wire form (the grammar spelling cannot express fields
+    named like its own keywords)."""
 
     def __init__(self, options: Dict[str, object]):
-        self._map = {str(k): str(v) for k, v in options.items()}
+        self._map = {str(k): (json.dumps(v) if isinstance(v, (dict, list))
+                              else v.canonical() if hasattr(v, "canonical")
+                              else str(v))
+                     for k, v in options.items()}
         self._used = set()
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
@@ -369,7 +396,8 @@ def parse_options(options: Dict[str, object],
         shard_max_retries=opts.get_int("shard_max_retries", 2),
         scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0),
         select=tuple(s.strip() for s in opts.get("select", "").split(",")
-                     if s.strip()) or None)
+                     if s.strip()) or None,
+        filter=_normalize_filter_option(opts.get("filter")))
     # recognized keys consumed later by read_cobol — mark used before the
     # pedantic unused-key audit runs
     opts.get_bool("debug_ignore_file_size")
@@ -514,44 +542,6 @@ def load_copybook_contents(copybook, copybook_contents):
         with open(b, encoding="utf-8") as f:
             contents.append(f.read())
     return contents if len(contents) > 1 else contents[0]
-
-
-def list_input_files(path) -> List[str]:
-    """Files under `path` (a file, directory or glob, or a list of them),
-    recursively, skipping hidden names, in a stable order (reference
-    FileUtils.scala:54-228, getListFilesWithOrder). ``file://`` and plain
-    paths are local; another scheme's directories and globs are listed
-    by its backend's lister (`stream_lister`: the fsspec adapter, or one
-    registered with ``lister=``), and a scheme without one passes
-    through verbatim as one input."""
-    paths = [path] if isinstance(path, str) else list(path)
-    out: List[str] = []
-    for p in paths:
-        scheme = path_scheme(p)
-        if scheme not in (None, "file"):
-            lister = stream_lister(scheme)
-            if lister is not None:
-                out.extend(lister(p))
-            else:
-                out.append(p)
-            continue
-        # file:// never propagates past listing: downstream os.path
-        # consumers see plain local paths
-        p = normalize_local(p)
-        if os.path.isdir(p):
-            for root, dirs, files in os.walk(p):
-                dirs[:] = sorted(d for d in dirs if not d.startswith((".", "_")))
-                out.extend(os.path.join(root, f) for f in sorted(files)
-                           if not f.startswith((".", "_")))
-        elif os.path.isfile(p):
-            out.append(p)
-        else:
-            matched = sorted(_glob.glob(p))
-            if not matched:
-                raise FileNotFoundError(f"Input path does not exist: {p}")
-            for m in matched:
-                out.extend(list_input_files(m))
-    return out
 
 
 class CobolData:
@@ -746,6 +736,11 @@ def read_cobol(path=None,
     `shard_max_retries`, `scan_deadline_s`), `select`
     (comma-separated field or group names: only those leaves, and the
     DEPENDING ON counters, are decoded; every other leaf is None),
+    `filter` (a ``query`` expression, its grammar text or its wire JSON:
+    a record it drops is dropped before the full decode where the read
+    has a static columnar plan, ``query.pushdown``, and after it on the
+    hierarchical and row-walk reads; `metrics.pushdown` counts what was
+    pruned),
     `parallelism` (threads for a file's index shards and for
     `to_arrow`'s parts; min(16, cpu_count) by default), `copybooks`
     (comma-separated copybook paths, in place of `copybook`),
@@ -920,6 +915,8 @@ def _read(files: List[str], contents, params: ReaderParameters, device,
                      failures, parallelism=parallelism, device=device)
     data.diagnostics = _aggregate_diagnostics(params, data.parts,
                                               len(retries_seen), failures)
+    if reader.pushdown is not None:
+        metrics.pushdown = reader.pushdown.stats.as_dict()
     return data
 
 

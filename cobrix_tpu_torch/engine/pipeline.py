@@ -55,6 +55,8 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..io.stats import carry
 from ..profiling import ReadMetrics, StageTimes
 from ..reader.stream import source_size
@@ -707,8 +709,10 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
     """Fixed-length files through the chunk pipeline: record-aligned byte
     strides read into staging buffers, decoded on the card (a chunk of
     the plain layout straight from the staging buffer,
-    `ColumnarDecoder.decode_tensor`; trimmed or multisegment records
-    through `FixedLenReader.read_chunk` on a host copy), and assembled
+    `ColumnarDecoder.decode_tensor`, or under a filter the two stages
+    of `FixedLenReader.read_image` on that same device image; trimmed
+    or multisegment records through `FixedLenReader.read_chunk` on a
+    host copy), and assembled
     into a table per chunk; row-identical to the sequential chunked
     read. Returns (one DecodedBatch or FileResult per chunk, None for an
     empty file or a chunk that failed under the partial policy;
@@ -757,7 +761,7 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
     def process_fn(c: FixedChunk):
         def process(staged):
             with worker_stream(device), ex.stage_times.timed("decode"):
-                x = buf = None
+                x = buf = ids = None
                 # whole records only: a torn tail is cut under
                 # debug_ignore_file_size (and raised before under
                 # fail_fast); a permissive read of a whole-file chunk
@@ -771,7 +775,11 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
                     if rem:
                         buf = staged.host().numpy().copy()
                     elif reader.plain_layout:
-                        x = staged.to_device(device, 0, n).view(-1, rs)
+                        x = staged.to_device(device, 0, n)
+                        if reader.pushdown is not None \
+                                and reader.needs_segment_ids:
+                            ids = reader._segment_values(
+                                staged.host()[:n].numpy().reshape(-1, rs))
                     else:
                         buf = staged.host()[:n].numpy().copy()
                 finally:
@@ -779,8 +787,15 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
                 if rem:
                     return reader.read_torn_chunk(
                         buf, rem, c.file_path, 0, len(buf))
-                part = (decoder.decode_tensor(x) if x is not None
-                        else reader.read_chunk(buf))
+                if x is None:
+                    part = reader.read_chunk(buf)
+                elif reader.pushdown is not None:
+                    # the filter's two stages read the staged image
+                    # where it lies on the card
+                    part = reader.read_image(
+                        x, np.full(n // rs, rs, dtype=np.int64), ids)
+                else:
+                    part = decoder.decode_tensor(x.view(-1, rs))
                 return reader.permissive_part(part) if permissive else part
         return process
 

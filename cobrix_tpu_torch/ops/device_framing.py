@@ -386,6 +386,7 @@ def pack_records(image: torch.Tensor, offsets: torch.Tensor,
     if extent < 0:
         raise ValueError(f"pack_records takes extent >= 0, not {extent}")
     if image.device.type == "cpu":
+        count_launch(pack_records_plain)
         return pack_records_plain(image, offsets, lengths, extent,
                                   start_offset)
     n = offsets.numel()
@@ -410,6 +411,9 @@ def pack_records(image: torch.Tensor, offsets: torch.Tensor,
 
 
 pack_records.launches = 0
+# the wrapper's plain route (a CPU image), counted as the kernel's
+# launches are, so that CPU tests can assert a path's launches
+pack_records_plain.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ bounds it and how its tiles, windows and ring answer that.
   window and the window table, uploaded once per device.
 * `fused_decode(data, layout)` launches the kernel for a CUDA tensor and
   counts the launch in ``fused_decode.launches``; for a CPU tensor it runs
-  `fused_decode_plain`. Any other input raises: there is no fallback.
+  `fused_decode_plain`, counted in ``fused_decode_plain.launches``. Any
+  other input raises: there is no fallback.
 * `fused_decode_plain(data, groups)` gathers each group's byte slab and
   calls ``ops.batch_torch``, the route of the JAX ``"jax"`` backend. The
   tests hold it against the Pallas kernel; ``chip_smoke.py`` holds the
@@ -375,6 +376,7 @@ def fused_decode(data: torch.Tensor, layout: FusedLayout,
                                     fused_decode_plain(data, layout.groups)):
             for (plane, start), arr in zip(slots, outs):
                 planes[plane][start:start + g.count] = arr.t()
+        count_launch(fused_decode_plain)
         return planes
     if data.device.type != "cuda":
         raise ValueError(f"fused_decode runs on cuda or cpu, not "
@@ -395,3 +397,6 @@ def fused_decode(data: torch.Tensor, layout: FusedLayout,
 
 
 fused_decode.launches = 0
+# the wrapper's plain route (a CPU tensor), counted as the kernel's
+# launches are, so that CPU tests can assert a path's launches
+fused_decode_plain.launches = 0

@@ -17,9 +17,10 @@ Changes from the JAX package: `ReadMetrics` is reduced to files,
 shards, records, bytes, the stage busy times, the executor's report,
 the supervision counters and the read's I/O counters (`io_stats`, an
 ``io.stats.IoStats``, published on ``as_dict()["io"]`` with the JAX
-package's keys by `finalize`). Its compile-cache scope, trace spans,
-pushdown counters, field costs, roofline and metrics registry wait for
-the observability slice (ROADMAP A8), as does the
+package's keys by `finalize`) and the filter's pruning counters
+(`pushdown`). Its compile-cache scope, trace spans, field costs,
+roofline and metrics registry wait for the observability slice
+(ROADMAP A8), as does the
 tracer hook of `StageTimes`, which is kept as a plain attribute.
 PyTorch is a hard dependency here, so nothing turns into a no-op on an
 import error.
@@ -162,6 +163,10 @@ class ReadMetrics:
     # prefetch_utilization), set by `finalize` when any counted; None
     # when the read touched no io layer
     io: Optional[dict] = None
+    # query-pushdown pruning counters (records_scanned/records_pruned
+    # by depth, bytes_skipped, selectivity — query/pushdown.
+    # PushdownStats.as_dict); None when the read carried no filter
+    pushdown: Optional[dict] = None
 
     def __post_init__(self):
         from .io.stats import IoStats
@@ -181,7 +186,8 @@ class ReadMetrics:
 
     def as_dict(self) -> dict:
         """The metrics as a dict; "io" only when the read counted any io
-        (as in the JAX package, a plain local read has none)."""
+        (as in the JAX package, a plain local read has none), "pushdown"
+        only when the read carried a filter."""
         out = {
             "files": self.files, "shards": self.shards,
             "records": self.records, "bytes_read": self.bytes_read,
@@ -192,4 +198,6 @@ class ReadMetrics:
                         if self.framing is not None else None)}
         if self.io is not None:
             out["io"] = self.io
+        if self.pushdown is not None:
+            out["pushdown"] = self.pushdown
         return out

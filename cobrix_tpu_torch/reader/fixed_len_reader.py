@@ -28,20 +28,35 @@ ledger it (`read_torn_chunk`). Every part of a permissive read is a
 `FileResult` with its ledger (`permissive_part`). Under fail_fast a torn
 tail raises the JAX package's error, word for word.
 
-Changes from the JAX package: the host (oracle) walk and filter
-pushdown are not carried over (their options are refused). The JAX
-package reads a file with a torn tail as one whole-file chunk; the
-sequential read here keeps its 64 MiB chunks, the last one carrying the
-tail, and the ledger and rows are the same.
+With a filter (``query.pushdown``, bound once per reader in
+`pushdown` and shared with its counters by every chunk of the read) a
+chunk is uploaded once and read in two stages on that one device image
+(`read_image`): stage 1 packs each record up to its last filter field
+and decodes the filter columns (the JAX package's ``mask_matrix``),
+stage 2 packs the kept records at the selected plan's extent and
+decodes them (``ColumnarDecoder.decode_raw``: the pack kernel, then the
+fused kernel), per active segment for multisegment records. There is no
+host gather and no second upload. The part is a `FileResult` whose
+positions are the kept records' positions in the chunk, so a kept torn
+tail keeps its reason on its row.
+
+Changes from the JAX package: the host (oracle) walk is not carried
+over (the port has no host backend). The JAX package reads a file with
+a torn tail as one whole-file chunk; the sequential read here keeps its
+64 MiB chunks, the last one carrying the tail, and the ledger and rows
+are the same.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..plan.cache import copybook_for_params
+from ..profiling import annotate
+from ..query.pushdown import BoundFilter
 from .columnar import ColumnarDecoder, DecodedBatch, decoder_for_segment
 from .diagnostics import CorruptRecordInfo, RecordErrorPolicy, hex_snapshot
 from .extractors import DecodeOptions
@@ -64,6 +79,10 @@ class FixedLenReader:
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
         self._decoders: Dict[str, ColumnarDecoder] = {}
+        # predicate pushdown (query/pushdown.py): bound once per reader,
+        # shared (with its counters) by every chunk of the read
+        self.pushdown = BoundFilter.build(params.filter, self.copybook,
+                                          params)
 
     @property
     def record_size(self) -> int:
@@ -109,6 +128,14 @@ class FixedLenReader:
         return (not self.is_multisegment and not self.params.start_offset
                 and self.record_size == self.copybook.record_size)
 
+    @property
+    def needs_segment_ids(self) -> bool:
+        """A chunk's records need their segment ids: multisegment
+        records, or a filter with a segment-id conjunct."""
+        return self.is_multisegment or (
+            self.pushdown is not None
+            and self.pushdown.segment_values is not None)
+
     def _trimmed_matrix(self, matrix: np.ndarray) -> Tuple[np.ndarray, int]:
         """Strip record start/end offsets to the copybook layout width.
         Returns (trimmed, width) — width < the copybook's record size
@@ -137,7 +164,8 @@ class FixedLenReader:
         host), and `tail`, the bytes of a torn last record kept as a
         zero-padded row of their length: one DecodedBatch, or a FileResult
         with a SegmentBatch per active segment for multisegment
-        records."""
+        records. With a filter the chunk is uploaded once and read in
+        two stages there (`read_image`): a FileResult."""
         rs = self.record_size
         matrix = buf.reshape(-1, rs)
         rec_lengths = None
@@ -149,6 +177,14 @@ class FixedLenReader:
             matrix = padded
             rec_lengths = np.full(n + 1, rs, dtype=np.int64)
             rec_lengths[n] = len(tail)
+        if self.pushdown is not None:
+            if rec_lengths is None:
+                rec_lengths = np.full(matrix.shape[0], rs, dtype=np.int64)
+            with annotate("cobrix.h2d", self.device):
+                image = torch.from_numpy(matrix.reshape(-1)).to(self.device)
+            return self.read_image(image, rec_lengths,
+                                   self._segment_values(matrix)
+                                   if self.needs_segment_ids else None)
         trimmed, width = self._trimmed_matrix(matrix)
         n = matrix.shape[0]
         if rec_lengths is not None:
@@ -228,3 +264,74 @@ class FixedLenReader:
             result.segments.append(SegmentBatch(
                 decoded, active or None, positions, positions))
         return result
+
+    # -- filter pushdown: two stages on one device image ---------------------
+
+    def read_image(self, image: torch.Tensor, rec_lengths: np.ndarray,
+                   segment_ids: Optional[SegmentIds] = None) -> FileResult:
+        """Read the records of a chunk image already on the device under
+        the reader's filter (the JAX package's ``read_result`` and
+        ``_read_multiseg_result`` pushdown branches): record i lies at
+        byte i * record_size, `rec_lengths[i]` bytes long (a torn tail
+        shorter); `segment_ids` are the records' segment ids (needed by
+        multisegment records and a segment-id conjunct). Per active
+        segment, stage 1 decodes the filter columns of the records the
+        segment conjunct keeps and evaluates the predicate; stage 2
+        decodes the kept records with the selected plan. Both stages
+        pack their records from `image`; a segment that keeps nothing
+        launches no stage 2."""
+        p = self.params
+        rs = self.record_size
+        n = len(rec_lengths)
+        width = min(self.copybook.record_size, rs - p.start_offset)
+        offsets = np.arange(n, dtype=np.int64) * rs + p.start_offset
+        lengths = np.minimum(np.maximum(rec_lengths - p.start_offset, 0),
+                             width)
+        result = FileResult(n_rows=0, policy=p.schema_policy,
+                            records_framed=n)
+        if self.is_multisegment:
+            by_segment = {
+                active: np.nonzero(segment_ids.mask_of_mapped(
+                    self.segment_redefine_map, active))[0].astype(np.int64)
+                for active in sorted(set(segment_ids.map_uniq(
+                    self.segment_redefine_map)))}
+        else:
+            by_segment = {"": np.arange(n, dtype=np.int64)}
+        for active, positions in by_segment.items():
+            kept = self._pushdown_positions(image, offsets, lengths,
+                                            positions, active, segment_ids)
+            result.n_rows += len(kept)
+            if not len(kept):
+                continue
+            decoded = self.decoder(active).decode_raw(
+                image, offsets[kept], lengths[kept])
+            result.segments.append(SegmentBatch(
+                decoded, active or None, kept, kept))
+        return result
+
+    def _pushdown_positions(self, image: torch.Tensor, offsets: np.ndarray,
+                            lengths: np.ndarray, positions: np.ndarray,
+                            active: str,
+                            segment_ids: Optional[SegmentIds]) -> np.ndarray:
+        """The kept ones of the records at `positions` (the JAX
+        package's ``_pushdown_positions``): segment-id conjuncts drop on
+        the records' segment ids, then the stage-1 decode of ONLY the
+        filter columns evaluates the value predicate."""
+        pd = self.pushdown
+        n = len(positions)
+        kept = positions
+        pruned_segment = 0
+        if pd.segment_values is not None and segment_ids is not None:
+            kept = kept[segment_ids.mask_of(set(pd.segment_values))[kept]]
+            pruned_segment = n - len(kept)
+        pruned_filter = 0
+        if pd.value_expr is not None and len(kept):
+            keep = pd.mask_raw(self._decoders, self.device, active, image,
+                               offsets[kept], lengths[kept])
+            pruned_filter = len(kept) - int(keep.sum())
+            kept = kept[keep]
+        pd.stats.note(scanned=n, pruned_segment=pruned_segment,
+                      pruned_filter=pruned_filter,
+                      bytes_skipped=(pruned_segment + pruned_filter)
+                      * self.record_size)
+        return kept

@@ -10,7 +10,8 @@ options and record ids, the input-file-name column, the generic
 per-record framings (text, a record-length field, custom header parsers
 and record extractors, variable-size OCCURS), the record error policies
 with their resync window, ledger cap and corrupt-record column, the
-pipeline's options and the column projection (`select`). Every other
+pipeline's options, the column projection (`select`) and the filter
+(`filter`, the canonical wire JSON of a ``query`` expression). Every other
 field of the JAX package belongs to an option the port refuses by name
 (``api.read_cobol``); a field comes back with the slice that takes its
 option.
@@ -148,6 +149,13 @@ class ReaderParameters:
     # column projection: only these fields (or the fields under these
     # groups) are decoded, and every other leaf is None
     select: Optional[Sequence[str]] = None
+    # predicate pushdown: the canonical wire-JSON form of a
+    # cobrix_tpu_torch.query filter expression (query/expr.py), as the
+    # option parser normalizes it. None = no filter. Bound to the
+    # copybook per reader (query/pushdown.BoundFilter); rows failing it
+    # are dropped before the full decode wherever a static columnar plan
+    # exists
+    filter: Optional[str] = None
 
     def resolved_pipeline_workers(self) -> int:
         """Effective worker count: 0 = sequential, negative = auto."""

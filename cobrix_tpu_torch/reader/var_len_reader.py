@@ -111,7 +111,21 @@ Changes from the JAX package:
   sparse-index store (``io.index_store``) by `generate_index` and by the
   sequential read of a file it indexes, so a warm re-read makes no
   index pass on the card.
-* Not carried over: filter pushdown. The column projection (`select`)
+* Filter pushdown (``query.pushdown``, bound once per reader in
+  `pushdown`): in `_read` the records a window keeps after the levels
+  and the segment filter go through `_pushdown_kept` before
+  `_decode_window`: a segment-id conjunct drops on the window's segment
+  ids with no decode, then stage 1 decodes only the filter columns from
+  the window image (the pack kernel and the fused kernel at the filter
+  plan's extent, per active segment, so a field one redefine owns is
+  null on the other segments' records and drops them) and the
+  predicate is evaluated over their Arrow arrays; only the kept
+  records' offsets go to `_decode_window`. RDW files, fixed-length
+  records framed here, the generic framings, index shards and
+  pipelined shards all take this route. The hierarchical decode-once
+  read and the row walk filter the assembled result instead
+  (``BoundFilter.filter_result_generic``), as the JAX package does; a
+  segment conjunct raises there. The column projection (`select`)
   reaches every segment decoder of a flat read.
 """
 from __future__ import annotations
@@ -144,6 +158,7 @@ from .header_parsers import (FixedLengthHeaderParser, RdwHeaderParser,
                              RecordHeaderParser, create_record_header_parser)
 from .index import (SparseIndexEntry, sparse_index_entries,
                     sparse_index_generator)
+from ..query.pushdown import BoundFilter
 from .parameters import (DEFAULT_FILE_RECORD_ID_INCREMENT,
                          DEFAULT_INDEX_ENTRY_SIZE_MB, MEGABYTE,
                          ReaderParameters)
@@ -153,6 +168,7 @@ from .raw_extractors import (RawRecordContext, RawRecordExtractor,
                              VarOccursRecordExtractor,
                              create_raw_record_extractor)
 from .result import FileResult, SegmentBatch
+from .schema import output_schema_for
 from .stream import (ShardStream, SimpleStream, normalize_local, open_input,
                      open_stream, read_at, source_size)
 from .vrl_reader import (SegmentIds, VRLRecordReader,
@@ -590,6 +606,10 @@ class VarLenReader:
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
         self._decoders: Dict[str, ColumnarDecoder] = {}
+        # predicate pushdown (query/pushdown.py): bound once per reader,
+        # shared (with its counters) by every shard and window of the read
+        self.pushdown = BoundFilter.build(params.filter, self.copybook,
+                                          params)
         # framing and decode seconds of the reads (`profiling.StageTimes`;
         # None: not timed)
         self.stage_times = None
@@ -855,7 +875,18 @@ class VarLenReader:
                 starting_file_offset=stream.offset,
                 segment_id_prefix=segment_id_prefix, ledger=ledger))
         result.n_rows = len(result.rows)
+        if self.pushdown is not None:
+            self.pushdown.filter_result_generic(result,
+                                                self._output_schema())
         return result
+
+    def _output_schema(self):
+        """The read's CobolOutputSchema for the post-decode filter, from
+        the constructor the API layer uses, so the filtered table types
+        identically (``FileResult.to_arrow`` then serves it for the
+        API's equal schema)."""
+        return output_schema_for(self.copybook, self.params,
+                                 is_var_len=True)
 
     # -- the decode-once hierarchical read (`decode_once`) ------------------
 
@@ -931,6 +962,11 @@ class VarLenReader:
                 start_record_id=start_record_id,
                 input_file_name=ctx["input_file_name"])
             if ctx["n"] else None)
+        if self.pushdown is not None:
+            # no static columnar plan for the nesting: the whole filter
+            # runs on the assembled table
+            self.pushdown.filter_result_generic(result,
+                                                self._output_schema())
         starts = (np.concatenate(starts) if starts
                   else np.zeros(0, dtype=np.int64))
         return result, file_ids, starts
@@ -1464,6 +1500,9 @@ class VarLenReader:
                 if segment_filter is not None:
                     keep &= window_ids.mask_of(segment_filter)
             with timed_stage(self.stage_times, "decode"):
+                if self.pushdown is not None:
+                    keep = self._pushdown_kept(image, offs_d, lengths,
+                                               keep, window_ids)
                 self._decode_window(result, image, offs_d, lengths, keep,
                                     window_ids, n_total, start_record_id)
             n_total += n
@@ -1757,3 +1796,55 @@ class VarLenReader:
                 result.segments.append(SegmentBatch(
                     decoded, active or None, file_pos,
                     start_record_id + file_pos))
+
+    def _pushdown_kept(self, image: torch.Tensor, offs_d: torch.Tensor,
+                       lengths: np.ndarray, keep: np.ndarray,
+                       window_ids: Optional[SegmentIds]) -> np.ndarray:
+        """The filter over the records a window keeps (the JAX package's
+        ``_pushdown_kept``): segment-id conjuncts drop on the raw ids
+        (no decode at all), then stage 1 decodes ONLY the filter columns
+        from the window image and evaluates the value predicate — per
+        active segment, so a field owned by one redefine evaluates null
+        (and drops) on the other segments' records, as a post-hoc filter
+        on the assembled table does. `scanned` counts the records the
+        pushdown examined: the levels and the segment filter dropped
+        theirs before. Returns the new keep mask."""
+        pd = self.pushdown
+        kept = np.nonzero(keep)[0]
+        n_scanned = len(kept)
+        pruned_segment = 0
+        bytes_skipped = 0
+        if pd.segment_values is not None and window_ids is not None \
+                and len(kept):
+            mask = window_ids.mask_of(set(pd.segment_values))[kept]
+            pruned_segment = len(kept) - int(mask.sum())
+            bytes_skipped += int(lengths[kept][~mask].sum())
+            kept = kept[mask]
+        pruned_filter = 0
+        if pd.value_expr is not None and len(kept):
+            if window_ids is None or not self.segment_redefine_map:
+                groups = {"": np.arange(len(kept))}
+            else:
+                groups = {}
+                for active in sorted(set(window_ids.map_uniq(
+                        self.segment_redefine_map))):
+                    idx = np.nonzero(window_ids.mask_of_mapped(
+                        self.segment_redefine_map, active)[kept])[0]
+                    if len(idx):
+                        groups[active] = idx
+            mask = np.zeros(len(kept), dtype=bool)
+            for active, idx in groups.items():
+                sub = kept[idx]
+                mask[idx] = pd.mask_raw(
+                    self._decoders, self.device, active, image,
+                    offs_d[torch.from_numpy(sub).to(image.device)],
+                    lengths[sub], start_offset=self.params.start_offset)
+            pruned_filter = len(kept) - int(mask.sum())
+            bytes_skipped += int(lengths[kept][~mask].sum())
+            kept = kept[mask]
+        pd.stats.note(scanned=n_scanned, pruned_segment=pruned_segment,
+                      pruned_filter=pruned_filter,
+                      bytes_skipped=bytes_skipped)
+        out = np.zeros(len(keep), dtype=bool)
+        out[kept] = True
+        return out

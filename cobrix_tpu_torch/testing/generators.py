@@ -17,7 +17,11 @@ table followed by a trailer, read by the host row walk). The
 hierarchical stream (`HIERARCHICAL_COPYBOOK`, `HIERARCHICAL_SEGMENT_MAP`,
 `HIERARCHICAL_PARENT_MAP`, `generate_hierarchical`, the reference's
 TestDataGen17Hierarchical) is copied unchanged, with
-`encode_display_unsigned` and its value lists.
+`encode_display_unsigned` and its value lists. `TRANSDATA_COPYBOOK` is
+copied unchanged; `generate_transactions` makes its 45-byte records
+(TestDataGen1Transactions: currencies, company names and ids, the
+skewed AMOUNT) with one numpy draw a column, so its bytes are not the
+JAX package's for the same seed.
 
 Reimplements the behavior of the reference's example data generators
 (TestDataGen4CompaniesWide for the exp3 multisegment-wide profile,
@@ -1069,3 +1073,48 @@ def generate_dynamic_occurs(num_records: int, seed: int = 100,
     tail = _letters(rng, n, 6, _ENCODE_LUT)
     return b"".join(h.tobytes() + d.tobytes() + t.tobytes()
                     for h, d, t in zip(head, body, tail))
+
+
+TRANSDATA_COPYBOOK = """
+        01  TRANSDATA.
+            05  CURRENCY          PIC X(3).
+            05  SIGNATURE         PIC X(8).
+            05  COMPANY-NAME      PIC X(15).
+            05  COMPANY-ID        PIC X(10).
+            05  WEALTH-QFY        PIC 9(1).
+            05  AMOUNT            PIC S9(09)V99  BINARY.
+"""
+TRANSDATA_RECORD_SIZE = 45
+_CURRENCIES = ["ZAR", "USD", "EUR", "GBP", "CAD", "CHF", "CZK", "ZWL"]
+
+
+def _encoded(values, width: int) -> np.ndarray:
+    """[len(values), width] EBCDIC bytes of ASCII strings, NUL-padded."""
+    return np.stack([np.frombuffer(ebcdic_encode(v, width), dtype=np.uint8)
+                     for v in values])
+
+
+def generate_transactions(num_records: int, seed: int = 100) -> np.ndarray:
+    """TRANSDATA fixed-length records (45 bytes each), flat uint8: a
+    currency, a fixed signature, a company name and a 10-digit id, the
+    wealth flag (37% '1') and AMOUNT in hundredths, 80% under 1,000,
+    15% under 100,000, 5% under 10,000,000, cents only under 10,000
+    (TestDataGen1Transactions.scala:68-79)."""
+    rng = np.random.default_rng(seed)
+    n = num_records
+    out = np.zeros((n, TRANSDATA_RECORD_SIZE), dtype=np.uint8)
+    out[:, 0:3] = _encoded(_CURRENCIES, 3)[
+        rng.integers(0, len(_CURRENCIES), n)]
+    out[:, 3:11] = _encoded(["S9276511"], 8)
+    out[:, 11:26] = _encoded(_COMPANIES, 15)[
+        rng.integers(0, len(_COMPANIES), n)]
+    out[:, 26:36] = _digit_bytes(rng.integers(0, 10 ** 9, n), 10, 0xF0)
+    out[:, 36] = np.where(rng.integers(0, 100, n) < 37, 0xF1, 0xF0)
+    tp = rng.integers(0, 100, n)
+    int_part = np.where(tp < 80, rng.integers(0, 1000, n),
+                        np.where(tp < 95, rng.integers(0, 100000, n),
+                                 rng.integers(0, 10000000, n)))
+    frac = np.where(int_part < 10000, rng.integers(0, 100, n), 0)
+    amount = (int_part * 100 + frac).astype(">i8")
+    out[:, 37:45] = amount.view(np.uint8).reshape(n, 8)
+    return out.reshape(-1)

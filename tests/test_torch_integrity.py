@@ -168,9 +168,13 @@ def test_index_corruption_self_heals(tmp_path, vrl_file, mode,
     assert clean.metrics.as_dict()["io"]["index_saves"] >= 1
     clean_table = clean.to_arrow()
     if exec_name == "pipelined":
+        # the JAX package's read keeps its own cache_dir: its index
+        # payload must not sit beside the port's, where the corruption
+        # below could pick it in place of the port's
+        jax_opts = dict(opts, cache_dir=str(tmp_path / "jax_cache"))
         assert clean_table.equals(cobrix_tpu.read_cobol(
             vrl_file, backend="numpy", parallelism="1",
-            **opts).to_arrow())
+            **jax_opts).to_arrow())
     corrupted = corrupt_cache_entry(cache_dir, "index", mode, offset=-30)
     healed = _port(vrl_file, **opts)
     assert healed.to_arrow().equals(clean_table)

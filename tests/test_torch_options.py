@@ -424,6 +424,13 @@ def test_comment_bounds(tmp_path, opts):
     ("speculative_quantile", "0.5")])
 def test_options_outside_the_slice_still_raise(tmp_path, option, value):
     path = _write(tmp_path, "e1.dat", gen.generate_exp1(2, seed=17))
+    if option == "filter":
+        # taken since the filter slice: a filter on a field the copybook
+        # lacks raises the JAX package's bind error, before any read
+        with pytest.raises(ValueError, match="'A' is not found"):
+            cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,
+                                        **{option: value})
+        return
     with pytest.raises(ValueError, match=option):
         cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,
                                     **{option: value})
