@@ -271,6 +271,28 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    beside the unfiltered decode of the chunk. Each read prints its MB/s
    beside the unfiltered read's, its counters and launches; every
    kernel's ``launches_by_path`` gets a ``pushdown`` path.
+17. the observability plane (``cobrix_tpu_torch.obs``, ``explain``):
+   (c) ``explain`` over the phase 3 exp1 file before any read: it
+   renders, its dict survives JSON, it launches nothing. (d) the exp1
+   read with attribution off: no field-cost timer call and one CUDA
+   synchronize a chunk (counted by wrapping ``torch.cuda.Stream``'s,
+   ``Event``'s and the device's ``synchronize`` in this script only);
+   its planes and table are the references. (a) exp1 read with
+   ``explain=True``, ``trace_file`` and a ``progress_callback``, then
+   ``to_arrow``, sequential and pipelined (2 workers,
+   ``chunk_size_mb=64``): planes, table and fused launches equal the
+   untraced read's; the sequential read makes no more synchronizes than
+   (d); the decode plane is within 15% of the decode stage's busy time;
+   the assemble plane is positive; the trace loads in
+   ``tools/traceview.py`` (``load_events``, ``summarize``), with the
+   chunk spans under the scan root and the stage spans under them;
+   progress is monotonic and ends at the file's bytes with
+   ``done=True``; ``prometheus_text()`` has the scan counters. (b) the
+   phase 4 exp3 file, sequential, with ``trace_file`` and
+   ``field_costs``: the shard span with its frame and decode spans, the
+   untraced read's scan, pack and fused launches and planes, the decode
+   plane's 15% anchor. Each read prints its MB/s beside the untraced
+   read's; every kernel's ``launches_by_path`` gets an ``obs`` path.
 
 Every phase prints its seconds (``[phases]``). Every failure exits
 non-zero. The last two lines are the kernels JSON and
@@ -280,9 +302,10 @@ package beside this file, it exits 2 and prints no result.
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
 lines: it checks the script's paths, not the card. ``--phases 13`` (or
-``12``, ``14``, ``15``, ``16``, or several) runs the environment, phase
-4 (phase 14 also phases 3 and 5, phases 15 and 16 also phase 3) and the
-phases named, and also exits 3 without the result lines.
+``12``, ``14``, ``15``, ``16``, ``17``, or several) runs the
+environment, phase 4 (phase 14 also phases 3 and 5, phases 15, 16 and
+17 also phase 3) and the phases named, and also exits 3 without the
+result lines.
 """
 from __future__ import annotations
 
@@ -352,7 +375,8 @@ AGG_KINDS = {0: "K_I32", 1: "K_I64", 2: "K_WIDE"}
 AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 # phases `--phases` can run alone (after the environment and phase 4)
 PHASES = {"12": "phase_generic", "13": "phase_hierarchical",
-          "14": "phase_assembly", "15": "phase_io", "16": "phase_pushdown"}
+          "14": "phase_assembly", "15": "phase_io", "16": "phase_pushdown",
+          "17": "phase_obs"}
 
 
 class SmokeFailure(Exception):
@@ -4415,6 +4439,358 @@ class Smoke:
             f"{len(state['kept'])} kept), ms: "
             + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
 
+    # -- phase 17: the observability plane ---------------------------------
+
+    def phase_obs(self):
+        """Phase 17: the observability plane on the card (see the module
+        docstring): (c) explain before any read, (d) a read with
+        attribution off (the references), (a) exp1 traced, attributed
+        and explained, sequential and pipelined, (b) exp3 RDW traced and
+        attributed."""
+        t_phase = time.perf_counter()
+        self.p17 = {"launches": {}}
+        self.p17_launches = dict.fromkeys(KERNELS, 0)
+        path, size = self.exp1_path, self.e2e[0]
+        if os.path.getsize(path) != size:
+            # phase 12 (c) left a torn tail on it: the phase 3 bytes
+            os.truncate(path, size)
+        self._p17_explain(path)
+        ref = self._p17_plain(path, size)
+        for mode in ("sequential", "pipelined"):
+            self._p17_exp1(path, size, mode, ref)
+        del ref
+        self._p17_rdw()
+        self.launches["obs"] = dict(self.p17_launches)
+        if not self.rehearsal:
+            for k in READ_KERNELS + ARROW_KERNELS:
+                check(self.p17_launches[k] > 0,
+                      f"{k} never launched on the observability path")
+        self.p17["secs"] = time.perf_counter() - t_phase
+        log(f"[obs] {self.card}: phase 17 {self.p17['secs']:.1f} s; "
+            f"launches on the observability path "
+            f"{json.dumps(self.p17_launches)}")
+
+    def _p17_count(self, tag, fn):
+        """`fn()` with every kernel's launches counted from 0 (the plain
+        versions' in the rehearsal): (result, launches). The launches
+        join the observability path under `tag`."""
+        out, launches = self._p16_count(fn)
+        for k, v in launches.items():
+            if k in self.p17_launches:
+                self.p17_launches[k] += v
+        self.p17["launches"][tag] = {k: v for k, v in launches.items() if v}
+        return out, launches
+
+    @contextlib.contextmanager
+    def _p17_syncs(self):
+        """Counts the CUDA synchronizes made inside the block (stream,
+        event and device ones), by wrapping them in this script only:
+        yields a one-element list. Nothing is counted in the
+        rehearsal."""
+        torch = self.torch
+        syncs = [0]
+        patched = []
+        if not self.rehearsal:
+            for owner, name in ((torch.cuda.Stream, "synchronize"),
+                                (torch.cuda.Event, "synchronize"),
+                                (torch.cuda, "synchronize")):
+                real = getattr(owner, name)
+
+                def counted(*a, _real=real, **k):
+                    syncs[0] += 1
+                    return _real(*a, **k)
+                patched.append((owner, name, real))
+                setattr(owner, name, counted)
+        try:
+            yield syncs
+        finally:
+            for owner, name, real in patched:
+                setattr(owner, name, real)
+
+    def _p17_explain(self, path):
+        """(c) explain over the exp1 file before any read of this phase:
+        it renders, its dict survives JSON, it launches nothing."""
+        from cobrix_tpu_torch import explain
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        t0 = time.perf_counter()
+        with self._p17_syncs() as syncs:
+            rep, launches = self._p17_count(
+                "explain", lambda: explain(copybook_contents=EXP1_COPYBOOK,
+                                           path=path, **kw))
+        secs = time.perf_counter() - t0
+        text = rep.render()
+        doc = rep.as_dict()
+        check(json.loads(json.dumps(doc)) == doc,
+              "explain: as_dict does not survive JSON")
+        check(doc["plan"]["total_bytes"] == os.path.getsize(path)
+              and doc["copybook"]["record_size"] == 1493,
+              f"explain: plan {doc['plan']}")
+        check(not any(launches.values()),
+              f"explain launched kernels: {launches}")
+        check("copybook:" in text and "cache planes:" in text,
+              "explain: render")
+        self.p17["explain"] = dict(secs=secs, plan=doc["plan"],
+                                   cache_planes=doc["cache_planes"])
+        log(f"[obs] explain in {secs:.3f} s, no launch; plan "
+            f"{json.dumps(doc['plan'])}")
+
+    def _p17_plain(self, path, size):
+        """(d) the exp1 read with attribution off, sequential: no
+        field-cost timer call; its synchronizes, launches, planes digest
+        and table are the references of (a)."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.obs import fieldcost
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        timers = fieldcost.timer_calls()
+        timing = {}
+
+        def run():
+            t0 = time.perf_counter()
+            with self._p17_syncs() as syncs:
+                data = read_cobol(path, copybook_contents=EXP1_COPYBOOK,
+                                  **kw)
+            self.sync()
+            timing["read"] = time.perf_counter() - t0
+            timing["syncs"] = syncs[0]
+            return data
+        data, launches = self._p17_count("exp1_plain", run)
+        syncs = timing["syncs"]
+        check(fieldcost.timer_calls() == timers,
+              "a read with attribution off took field-cost timestamps")
+        chunks = len(data.batches)
+        if not self.rehearsal:
+            # the decode's one synchronize a chunk (ColumnarDecoder.
+            # _decode_device), as before this plane existed
+            check(syncs == chunks, f"plain exp1 read: {syncs} "
+                  f"synchronizes for {chunks} chunks")
+            check(launches["fused_decode"] == chunks,
+                  f"plain exp1 read: fused launches {launches}")
+        digest, _ = self._digest(data)
+        raw = self.raw_reads.get("exp1")
+        if raw is not None:
+            check(digest == raw["digest"],
+                  "plain exp1 read: planes differ from phase 9's read")
+        table = data.to_arrow()
+        ref = dict(digest=digest, launches=launches, syncs=syncs,
+                   chunks=chunks, table=table,
+                   mb_per_s=size / timing["read"] / 1e6)
+        check(fieldcost.timer_calls() == timers,
+              "to_arrow with attribution off took field-cost timestamps")
+        self.p17["plain"] = {k: v for k, v in ref.items() if k != "table"}
+        log(f"[obs] {self.card}: exp1 attribution off: {size / timing['read'] / 1e6:.1f} "
+            f"MB/s; {syncs} synchronizes for {chunks} chunks; no timer "
+            f"call; launches {json.dumps(launches)}")
+        return ref
+
+    def _p17_exp1(self, path, size, mode, ref):
+        """(a) exp1 with explain=True, trace_file and a progress callback,
+        then to_arrow: planes, table and launches equal the untraced
+        read's; the decode plane within 15% of the decode stage's busy
+        time; the assemble plane > 0; the trace's parentage and
+        tools/traceview.py's summary; progress monotonic to the file's
+        bytes; the registry's scan counters."""
+        from cobrix_tpu_torch import prometheus_text, read_cobol
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        extra = ({} if mode == "sequential" else
+                 {"pipeline_workers": "2",
+                  "chunk_size_mb": self.pipe_chunk_mb})
+        trace = os.path.join(self.tmp, f"obs_exp1_{mode}.json")
+        snaps, timing = [], {}
+
+        def run():
+            t0 = time.perf_counter()
+            with self._p17_syncs() as syncs:
+                rep = read_cobol(path, copybook_contents=EXP1_COPYBOOK,
+                                 explain=True, trace_file=trace,
+                                 progress_callback=snaps.append,
+                                 progress_interval_s="0", **extra, **kw)
+            self.sync()
+            timing["read"] = time.perf_counter() - t0
+            timing["syncs"] = syncs[0]
+            t0 = time.perf_counter()
+            table = rep.data.to_arrow()
+            self.sync()
+            timing["arrow"] = time.perf_counter() - t0
+            return rep, table
+        (rep, table), launches = self._p17_count(f"exp1_{mode}", run)
+        syncs = timing["syncs"]
+        data = rep.data
+        what = f"exp1 {mode} traced"
+        if mode == "sequential" and not self.rehearsal:
+            # attribution and tracing add no synchronize
+            check(syncs == ref["syncs"], f"{what}: {syncs} synchronizes, "
+                  f"{ref['syncs']} with attribution off")
+        check(self._digest(data)[0] == ref["digest"],
+              f"{what}: planes differ from the untraced read")
+        check(table.schema.equals(ref["table"].schema, check_metadata=True)
+              and table.equals(ref["table"]),
+              f"{what}: table differs from the untraced read's")
+        if not self.rehearsal:
+            check(launches["fused_decode"] == ref["launches"]["fused_decode"]
+                  == ref["chunks"], f"{what}: fused launches "
+                  f"{launches['fused_decode']}, untraced "
+                  f"{ref['launches']['fused_decode']}")
+        stage = rep.decode_busy_s()
+        attributed = rep.attributed_decode_s()
+        check(stage and stage > 0, f"{what}: no decode stage time")
+        share = attributed / stage
+        check(abs(share - 1.0) <= 0.15, f"{what}: decode plane "
+              f"{attributed:.4f} s of the decode stage's {stage:.4f} s")
+        costs = rep.field_costs
+        assemble = sum(v["assemble_s"] for v in costs.values())
+        check(assemble > 0, f"{what}: no assemble plane after to_arrow")
+        spans = self._p17_trace(trace, what,
+                                "chunk" if extra else None)
+        self._p17_progress(snaps, size, len(data), what)
+        text = prometheus_text()
+        for name in ("cobrix_scans_total", "cobrix_scan_bytes_total",
+                     "cobrix_scan_records_total",
+                     "cobrix_plan_cache_events_total",
+                     "cobrix_record_length_bytes_count"):
+            check(f"\n{name}" in text, f"{what}: {name} missing from "
+                  f"prometheus_text()")
+        # the untraced read of the same mode: (d), or phase 9's pipelined
+        # read (None where phase 9 did not run)
+        raw = self.raw_reads.get("exp1")
+        plain = (ref["mb_per_s"] if mode == "sequential"
+                 else raw["mb_per_s"][1] if raw is not None else None)
+        mbps = size / timing["read"] / 1e6
+        self.p17[f"exp1_{mode}"] = dict(
+            read_s=timing["read"], to_arrow_s=timing["arrow"],
+            mb_per_s=mbps, untraced_mb_per_s=plain,
+            decode_stage_s=stage, decode_plane_s=attributed,
+            decode_share=share, assemble_plane_s=assemble,
+            spans=spans, snapshots=len(snaps), synchronizes=syncs,
+            launches={k: v for k, v in launches.items() if v},
+            top_fields=[(r["field"], r["kernel"], r["busy_s"])
+                        for r in rep.top_fields(3)])
+        log(f"[obs] {self.card}: exp1 {mode} traced + attributed: "
+            f"{mbps:.1f} MB/s (untraced {mode}: "
+            f"{'not run' if plain is None else f'{plain:.1f}'}); "
+            f"to_arrow {timing['arrow']:.3f} s; decode plane "
+            f"{attributed:.4f} s = {share:.3f} of the decode stage "
+            f"{stage:.4f} s; assemble plane {assemble:.4f} s; "
+            f"{len(snaps)} progress snapshots; spans {json.dumps(spans)}; "
+            f"{syncs} synchronizes; launches "
+            f"{json.dumps(self.p17['launches'][f'exp1_{mode}'])}")
+        del data, table, rep
+
+    def _p17_trace(self, trace, what, unit):
+        """The trace file: Chrome JSON whose chunk (`unit`) or shard
+        spans parent to the scan root and whose stage spans parent to
+        them; tools/traceview.py summarizes it, unchanged. Returns the
+        span counts by category."""
+        sys.path.insert(0, os.path.join(HERE, "tools"))
+        import traceview
+
+        events = traceview.load_events(trace)
+        summary = traceview.summarize(events)
+        check(summary, f"{what}: traceview summary empty")
+        spans = [e for e in events if e.get("ph") == "X"]
+        by_cat = {}
+        for e in spans:
+            by_cat[e["cat"]] = by_cat.get(e["cat"], 0) + 1
+        roots = [e for e in spans if e["cat"] == "scan"]
+        check(len(roots) == 1, f"{what}: {len(roots)} scan roots")
+        root = roots[0]["args"]["span_id"]
+        check(roots[0]["args"].get("field_costs"),
+              f"{what}: the trace's root carries no field costs")
+        phases = {e["name"] for e in spans if e["cat"] == "phase"}
+        check({"parse_copybook", "scan"} <= phases,
+              f"{what}: phases {sorted(phases)}")
+        if unit is not None:
+            units = [e for e in spans if e["cat"] == unit]
+            check(units and all(u["args"]["parent_id"] == root
+                                for u in units),
+                  f"{what}: {unit} spans do not parent to the scan root")
+            ids = {u["args"]["span_id"] for u in units}
+            stages = [e for e in spans if e["cat"] == "stage"]
+            check(stages and all(s["args"]["parent_id"] in ids
+                                 for s in stages),
+                  f"{what}: stage spans do not parent to a {unit} span")
+        return by_cat
+
+    def _p17_progress(self, snaps, size, records, what):
+        check(snaps and snaps[-1].done, f"{what}: no final progress")
+        for a, b in zip(snaps, snaps[1:]):
+            check(b.bytes_done >= a.bytes_done
+                  and b.records_done >= a.records_done
+                  and b.chunks_done >= a.chunks_done,
+                  f"{what}: progress went backwards")
+        last = snaps[-1]
+        check(last.bytes_done == last.bytes_total == size
+              and last.records_done == records,
+              f"{what}: final progress {last}")
+
+    def _p17_rdw(self):
+        """(b) the exp3 RDW file, sequential, with trace_file and
+        field_costs: the shard span and its window (frame) and decode
+        spans, the untraced read's planes and launches, the decode
+        plane's 15% anchor."""
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.testing.generators import EXP3_COPYBOOK
+
+        path = self.rdw_files["exp3"]
+        size = os.path.getsize(path)
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        trace = os.path.join(self.tmp, "obs_exp3.json")
+        timing = {}
+
+        def run():
+            t0 = time.perf_counter()
+            with self._p17_syncs() as syncs:
+                data = read_cobol(path, copybook_contents=EXP3_COPYBOOK,
+                                  trace_file=trace, field_costs="true",
+                                  **RDW_OPTIONS, **kw)
+            self.sync()
+            timing["read"] = time.perf_counter() - t0
+            timing["syncs"] = syncs[0]
+            return data
+        data, launches = self._p17_count("exp3", run)
+        syncs = timing["syncs"]
+        what = "exp3 traced"
+        want = self.launches["rdw_exp3"]
+        if not self.rehearsal:
+            for k in READ_KERNELS:
+                check(launches[k] == want[k], f"{what}: {k} launched "
+                      f"{launches[k]} times, untraced {want[k]}")
+        raw = self.raw_reads.get("exp3")
+        if raw is not None:
+            check(self._digest(data)[0] == raw["digest"],
+                  f"{what}: planes differ from phase 9's read")
+        stage = data.metrics.stage_busy.as_dict()["decode"]
+        attributed = data.metrics.field_costs_acc.decode_busy_s()
+        share = attributed / stage
+        check(abs(share - 1.0) <= 0.15, f"{what}: decode plane "
+              f"{attributed:.4f} s of the decode stage's {stage:.4f} s")
+        spans = self._p17_trace(trace, what, "shard")
+        check(spans.get("shard", 0) >= 1 and spans.get("stage", 0) >= 2,
+              f"{what}: spans {spans}")
+        mbps = size / timing["read"] / 1e6
+        # the untraced sequential read: phase 9's (warm), else phase 4's
+        # (the process's first read of the file)
+        plain, plain_src = ((raw["mb_per_s"][0], "phase 9") if raw
+                            else (size / self.rdw_e2e["exp3"][1] / 1e6,
+                                  "phase 4"))
+        self.p17["exp3"] = dict(
+            read_s=timing["read"], mb_per_s=mbps, untraced_mb_per_s=plain,
+            decode_stage_s=stage, decode_plane_s=attributed,
+            decode_share=share, spans=spans, synchronizes=syncs,
+            launches={k: v for k, v in launches.items() if v})
+        log(f"[obs] {self.card}: exp3 traced + attributed: {mbps:.1f} MB/s "
+            f"(untraced, {plain_src}: {plain:.1f}); decode plane "
+            f"{attributed:.4f} s = {share:.3f} of the decode stage "
+            f"{stage:.4f} s; spans {json.dumps(spans)}; {syncs} "
+            f"synchronizes; launches "
+            f"{json.dumps(self.p17['launches']['exp3'])}")
+        del data
+
     def run(self):
         if self.only:
             # a subset: the environment, the RDW files, then the phases
@@ -4422,7 +4798,7 @@ class Smoke:
             try:
                 self.phase_env()
                 self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
-                if {"14", "15", "16"} & set(self.only):
+                if {"14", "15", "16", "17"} & set(self.only):
                     self.phase_main()
                 self.phase_rdw()
                 if "14" in self.only:
@@ -4437,7 +4813,7 @@ class Smoke:
                          "exp3", "timings", "rdw_timings", "profile",
                          "pipeline", "query", "arrow", "recovery",
                          "generic", "hierarchical", "assembly", "io",
-                         "pushdown"):
+                         "pushdown", "obs"):
                 t0 = time.perf_counter()
                 getattr(self, f"phase_{name}")()
                 self.phase_secs[name] = time.perf_counter() - t0

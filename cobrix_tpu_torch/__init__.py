@@ -15,7 +15,11 @@ a persistent block cache, read-ahead and a persisted sparse index
 (``io``). A ``filter`` (``query``: typed expressions, their grammar and
 wire form, and a ``pyarrow.dataset``-shaped scan surface) is pushed into
 the device read: the filter columns are decoded first and only the kept
-records are decoded in full. The package imports torch and numpy and
+records are decoded in full. Every read reports into the observability
+plane (``obs``): trace spans with a Chrome-trace export (``trace_file``),
+live progress (``progress_callback``), per-field decode and assemble
+costs (``field_costs``), the metrics registry (``prometheus_text``) and
+``explain``. The package imports torch and numpy and
 nothing of ``cobrix_tpu``; it keeps its own copies of the copybook front
 end, plan compiler, code pages, readers and pipeline. Entry points run on
 the CUDA device unless given ``device="cpu"``.
@@ -32,8 +36,10 @@ from .copybook.datatypes import (
     Usage,
 )
 from .device import resolve_device
+from .explain import ScanReport, explain
 from .io import IoConfig, register_fsspec_backend
 from .io.compress import CompressedStreamError, register_codec
+from .obs import ScanProgress, Tracer, prometheus_text
 from .reader.columnar import ColumnarDecoder, DecodedBatch
 from .profiling import ReadMetrics, profile_trace
 from .reader.diagnostics import (FramingError, ReadDiagnostics,
@@ -64,16 +70,21 @@ __all__ = [
     "ReadMetrics",
     "RecordErrorPolicy",
     "RecordHandler",
+    "ScanProgress",
+    "ScanReport",
     "SchemaRetentionPolicy",
     "ShardErrorPolicy",
     "ShardFailureInfo",
+    "Tracer",
     "TrimPolicy",
     "TupleHandler",
     "Usage",
+    "explain",
     "merge_copybooks",
     "open_stream",
     "parse_copybook",
     "profile_trace",
+    "prometheus_text",
     "query",
     "read_cobol",
     "register_codec",

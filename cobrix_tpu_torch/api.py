@@ -99,7 +99,11 @@ from .engine.chunks import auto_split_mb, plan_var_len_chunks
 from .engine.pipeline import pipelined_fixed_scan, pipelined_var_len_scan
 from .io.compress import active_codec, codec_by_name
 from .io.config import IoConfig
-from .io.stats import activate as activate_io_stats
+from .obs.context import ObsContext
+from .obs.context import activate as obs_activate
+from .obs.context import carry
+from .obs.context import current as obs_current
+from .obs.fieldcost import FieldCostAccumulator
 from .copybook.datatypes import (
     CommentPolicy,
     DebugFieldsPolicy,
@@ -107,7 +111,7 @@ from .copybook.datatypes import (
     SchemaRetentionPolicy,
     TrimPolicy,
 )
-from .profiling import ReadMetrics, StageTimes
+from .profiling import ReadMetrics, StageTimes, stage, timed_stage
 from .reader.diagnostics import (DEFAULT_LEDGER_CAP, DEFAULT_RESYNC_WINDOW,
                                  ReadDiagnostics, RecordErrorPolicy,
                                  ShardErrorPolicy, ShardFailureInfo)
@@ -129,9 +133,7 @@ FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
 # raises, naming it (any other key is the pedantic audit's)
 _NOT_PORTED = frozenset((
     "use_stats", "collect_stats", "stats_chunk_mb", "hosts",
-    "speculative_quantile", "heartbeat_interval_s", "field_costs",
-    "trace_file", "trace_id", "request_id", "progress_interval_s",
-    "stream_batch_rows"))
+    "speculative_quantile", "heartbeat_interval_s", "stream_batch_rows"))
 # the framing options a custom record extractor is refused beside, and
 # (from the third on, with is_text) `record_length`, in the JAX package's
 # order
@@ -397,7 +399,13 @@ def parse_options(options: Dict[str, object],
         scan_deadline_s=float(opts.get("scan_deadline_s", "") or 0.0),
         select=tuple(s.strip() for s in opts.get("select", "").split(",")
                      if s.strip()) or None,
-        filter=_normalize_filter_option(opts.get("filter")))
+        filter=_normalize_filter_option(opts.get("filter")),
+        trace_file=opts.get("trace_file", "") or "",
+        trace_id=opts.get("trace_id", "") or "",
+        request_id=opts.get("request_id", "") or "",
+        progress_interval_s=float(
+            opts.get("progress_interval_s", "") or 0.5),
+        field_costs=opts.get_bool("field_costs"))
     # recognized keys consumed later by read_cobol — mark used before the
     # pedantic unused-key audit runs
     opts.get_bool("debug_ignore_file_size")
@@ -506,6 +514,24 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
             f"Invalid 'shard_max_retries' of {params.shard_max_retries}; "
             "it must be >= 0 (0 means a failed shard is never "
             "re-dispatched).")
+    if params.progress_interval_s < 0:
+        raise ValueError(
+            f"Invalid 'progress_interval_s' of "
+            f"{params.progress_interval_s}; it must be >= 0 "
+            "(0 invokes the callback on every completed chunk).")
+    if params.trace_file:
+        # fail BEFORE the scan, not after minutes of decode: the trace is
+        # written at read end, so an unwritable destination would
+        # otherwise discard a fully successful read
+        trace_dir = os.path.dirname(params.trace_file) or "."
+        if not os.path.isdir(trace_dir):
+            raise ValueError(
+                f"Invalid 'trace_file' '{params.trace_file}': directory "
+                f"'{trace_dir}' does not exist.")
+        if not os.access(trace_dir, os.W_OK):
+            raise ValueError(
+                f"Invalid 'trace_file' '{params.trace_file}': directory "
+                f"'{trace_dir}' is not writable.")
     seg = params.multisegment
     if seg and seg.field_parent_map and seg.segment_level_ids:
         raise ValueError(
@@ -617,7 +643,18 @@ class CobolData:
         A read with a ledger (a permissive policy, or shards lost under
         shard_error_policy='partial') carries its JSON in the schema
         metadata (``cobrix_tpu.read_diagnostics``), as the JAX package's
-        does."""
+        does. An attributed and traced read's trace file is rewritten
+        with the assemble plane's costs
+        (``ReadMetrics.refresh_trace_field_costs``)."""
+        table = self._to_arrow_impl()
+        if (self.metrics is not None
+                and self.metrics.field_costs_acc is not None):
+            # sequential assembly ran after the trace was written; fold
+            # its accrued per-field costs back into the artifact
+            self.metrics.refresh_trace_field_costs()
+        return table
+
+    def _to_arrow_impl(self):
         import pyarrow as pa
 
         from .reader.arrow_out import arrow_schema, warm_pyarrow
@@ -634,7 +671,8 @@ class CobolData:
                     return part.to_arrow(self.output_schema)
             warm_pyarrow()
             with ThreadPoolExecutor(max_workers=width) as ex:
-                tables = list(ex.map(build, parts))
+                # a read's context (when one is active) rides the threads
+                tables = list(ex.map(carry(build), parts))
         else:
             tables = [part.to_arrow(self.output_schema) for part in parts]
         if not tables:
@@ -705,7 +743,10 @@ def read_cobol(path=None,
                string_trimming_policy: str = "both",
                floating_point_format: str = "ibm",
                batch_callback=None,
-               **options) -> CobolData:
+               progress_callback=None,
+               explain: bool = False,
+               tracer=None,
+               **options):
     """Read fixed-length or RDW mainframe file(s) into decoded columns.
 
     `copybook` is a path (or list of paths) to copybook file(s);
@@ -744,8 +785,25 @@ def read_cobol(path=None,
     `parallelism` (threads for a file's index shards and for
     `to_arrow`'s parts; min(16, cpu_count) by default), `copybooks`
     (comma-separated copybook paths, in place of `copybook`),
-    `pedantic` (the unused-key audit) and `improve_locality` /
-    `optimize_allocation` (taken and dropped).
+    `pedantic` (the unused-key audit), `improve_locality` /
+    `optimize_allocation` (taken and dropped), and the observability
+    options (``obs``): `trace_file` (a Chrome-trace / Perfetto JSON of
+    the scan's host spans, scan -> shard or chunk -> stage, written at
+    the read's end, and again by `to_arrow` with the assemble plane's
+    costs), `trace_id` / `request_id` (identity on the trace),
+    `field_costs` (per-field decode and assemble seconds, bytes and
+    values: `metrics.field_costs`) and `progress_interval_s`.
+
+    `progress_callback` receives monotonic ``obs.ScanProgress``
+    snapshots while the scan runs (throttled by `progress_interval_s`;
+    the final ``done=True`` snapshot always fires; a callback that
+    raises never breaks the scan). `tracer` (an ``obs.Tracer``) records
+    the scan's spans into the caller's tracer (``metrics.spans``; the
+    file only with `trace_file`). `explain=True` turns `field_costs` on
+    and returns an ``explain.ScanReport`` (the field plan, the execution
+    plan, the cache planes, the measured per-field costs) with the data
+    on ``report.data``. A failed read still writes its partial trace and
+    its final progress snapshot, then raises.
 
     `batch_callback(chunk_index, table)` receives each chunk's pyarrow
     Table: on a pipelined read as soon as it is assembled (in completion
@@ -754,6 +812,12 @@ def read_cobol(path=None,
     order. The tables in index order concatenate to `to_arrow()` minus
     its diagnostics metadata; a callback exception fails the read (or
     the chunk, under the partial policy)."""
+    if tracer is not None and not hasattr(tracer, "record_span"):
+        raise ValueError("'tracer' must be an obs.Tracer (it receives "
+                         "scan spans).")
+    if progress_callback is not None and not callable(progress_callback):
+        raise ValueError("'progress_callback' must be callable (it "
+                         "receives ScanProgress snapshots).")
     if batch_callback is not None and not callable(batch_callback):
         raise ValueError("'batch_callback' must be callable (it receives "
                          "(chunk_index, pyarrow.Table) pairs).")
@@ -775,6 +839,9 @@ def read_cobol(path=None,
     params = parse_options(options, ebcdic_code_page,
                            schema_retention_policy, string_trimming_policy,
                            floating_point_format)
+    if explain and not params.field_costs:
+        # explain wants the measured cost table; flip attribution on
+        params = _dc_replace(params, field_costs=True)
     ignore_file_size = Options(options).get_bool("debug_ignore_file_size")
     parallelism = parallelism_of(options)
     contents = load_copybook_contents(copybook, copybook_contents)
@@ -784,19 +851,104 @@ def read_cobol(path=None,
     if not files:
         raise FileNotFoundError(f"No input files found for path {path}")
     device = resolve_device(device)
-    metrics = ReadMetrics(files=len(files))
-    # the read's IoStats is active on this thread for the whole read (and
-    # carried onto its pipeline and shard threads): the per-read
-    # metadata memo and the io counters
-    with activate_io_stats(metrics.io_stats):
-        data = _read(files, contents, params, device, metrics, tap,
-                     ignore_file_size, parallelism)
-    metrics.finalize(data)
+    metrics = ReadMetrics(files=len(files), device=str(device))
+    if params.field_costs:
+        metrics.field_costs_acc = FieldCostAccumulator()
+    # the read's observability context (its IoStats and cache scope
+    # always; tracer, progress and field costs when asked for) is active
+    # on this thread for the whole read and carried onto every thread the
+    # read starts (obs.context.carry)
+    obs_ctx = _build_obs_context(params, metrics, progress_callback,
+                                 tracer=tracer)
+    try:
+        with obs_activate(obs_ctx):
+            data = _read(files, contents, params, device, metrics, tap,
+                         ignore_file_size, parallelism)
+            metrics.finalize(data)
+    except BaseException:
+        # a failed scan still flushes its telemetry: the final done=True
+        # progress snapshot fires and the PARTIAL trace is written;
+        # nothing here catches the scan's own exception
+        _abort_obs(obs_ctx, params)
+        raise
+    _finish_obs(obs_ctx, params, data)
     if tap is not None and tap.count == 0:
         # a sequential read, or a pipelined one that delivered nothing:
         # the parts' tables go out now, in record order
         tap.emit_data(data)
+    if explain:
+        from .explain import build_scan_report
+
+        return build_scan_report(params, files=files, data=data,
+                                 device=device)
     return data
+
+
+def _build_obs_context(params: ReaderParameters, metrics: ReadMetrics,
+                       progress_callback, tracer=None) -> ObsContext:
+    """The read's ObsContext: a tracer when `trace_file` is set (or one
+    was passed in), a progress tracker when a callback was passed, the
+    default metrics registry's scan metric set, and the metrics object's
+    per-read cache scope, IoStats and field-cost accumulator."""
+    from .obs.metrics import scan_metrics
+
+    if tracer is None and params.trace_file:
+        from .obs.trace import Tracer
+
+        tracer = Tracer(trace_id=params.trace_id or None)
+    if tracer is not None:
+        if params.request_id:
+            tracer.meta.setdefault("request_id", params.request_id)
+        metrics.tracer = tracer
+    progress = None
+    if progress_callback is not None:
+        from .obs.progress import ProgressTracker
+
+        progress = ProgressTracker(
+            progress_callback, min_interval_s=params.progress_interval_s)
+    return ObsContext(tracer=tracer, metrics=scan_metrics(),
+                      progress=progress, cache_scope=metrics.cache_scope,
+                      io_stats=metrics.io_stats,
+                      field_costs=metrics.field_costs_acc)
+
+
+def _finish_obs(obs_ctx: ObsContext, params: ReaderParameters,
+                data: CobolData) -> None:
+    """End-of-read observability: the final done=True progress snapshot
+    and the Chrome-trace artifact (metrics.finalize already closed the
+    scan-root span and captured the span list)."""
+    if obs_ctx.progress is not None:
+        obs_ctx.progress.finish(records_total=len(data))
+    if obs_ctx.tracer is not None and params.trace_file:
+        # `to_arrow` refreshes the artifact with the assemble plane's
+        # costs (ReadMetrics.refresh_trace_field_costs)
+        data.metrics._trace_file = params.trace_file
+        try:
+            obs_ctx.tracer.write_chrome_trace(params.trace_file)
+        except OSError:
+            # the destination was validated up front, but it can still
+            # vanish (or the disk fill) during a long scan — a lost
+            # trace must not discard a fully successful read
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "failed to write trace_file %r; the read succeeded",
+                params.trace_file, exc_info=True)
+
+
+def _abort_obs(obs_ctx: ObsContext, params: ReaderParameters) -> None:
+    """Best-effort telemetry flush when the scan raised: every step is
+    individually guarded so nothing here can shadow the real error."""
+    if obs_ctx.progress is not None:
+        try:
+            obs_ctx.progress.finish()
+        except Exception:
+            pass
+    if obs_ctx.tracer is not None and params.trace_file:
+        try:
+            obs_ctx.tracer.write_chrome_trace(params.trace_file)
+        except Exception:
+            pass
 
 
 def _retry_policy(params: ReaderParameters) -> RetryPolicy:
@@ -842,9 +994,10 @@ def _total_input_bytes(files: List[str], io=None,
 def _read(files: List[str], contents, params: ReaderParameters, device,
           metrics: ReadMetrics, tap: Optional[_BatchTap],
           ignore_file_size: bool, parallelism: int) -> CobolData:
-    """`read_cobol`'s read of the listed `files`, inside its IoStats
-    scope: sizing, the route's reader, the sequential or pipelined scan,
-    the ledger."""
+    """`read_cobol`'s read of the listed `files`, inside its
+    observability context: sizing, the route's reader (the
+    "parse_copybook" phase), the sequential or pipelined scan (the
+    "scan" phase), the ledger."""
     on_batch = tap.emit if tap is not None else None
     io = _io_config(params)
     retry = _retry_policy(params)
@@ -855,6 +1008,10 @@ def _read(files: List[str], contents, params: ReaderParameters, device,
 
     metrics.bytes_read = _total_input_bytes(files, io=io, retry=retry,
                                             on_retry=on_retry)
+    obs = obs_current()
+    progress = obs.progress if obs is not None else None
+    if progress is not None:
+        progress.set_plan(bytes_total=metrics.bytes_read)
     workers = params.resolved_pipeline_workers()
     use_pipeline = workers > 0
     is_var_len = params.needs_var_len_reader
@@ -868,48 +1025,66 @@ def _read(files: List[str], contents, params: ReaderParameters, device,
     failures: List[ShardFailureInfo] = []
     batches: List[DecodedBatch] = []
     results: List[FileResult] = []
-    if is_var_len:
-        reader = VarLenReader(contents, params, device=device)
-        reader.parallelism = parallelism
-        reader.io, reader.retry, reader.on_retry = io, retry, on_retry
-        schema = output_schema_for(reader.copybook, params, is_var_len=True)
-        seg = params.multisegment
-        prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
-                  else default_segment_id_prefix())
-        if use_pipeline:
-            shards = plan_var_len_chunks(reader, files, params, retry,
-                                         on_retry, io=io)
-            metrics.shards = len(shards)
-            results, failures = pipelined_var_len_scan(
-                reader, shards, prefix, workers, schema, metrics,
-                on_batch=on_batch)
+    tracer = obs.tracer if obs is not None else None
+    # a traced or attributed sequential read times its stages too: the
+    # per-field decode costs anchor against the decode stage's busy time
+    timed = tracer is not None or metrics.field_costs_acc is not None
+    with stage(metrics, "parse_copybook"):
+        reader = (VarLenReader(contents, params, device=device) if is_var_len
+                  else FixedLenReader(contents, params, device=device))
+    schema = output_schema_for(reader.copybook, params,
+                               is_var_len=is_var_len)
+    with stage(metrics, "scan"):
+        if is_var_len:
+            reader.parallelism = parallelism
+            reader.io, reader.retry, reader.on_retry = io, retry, on_retry
+            seg = params.multisegment
+            prefix = (seg.segment_id_prefix if seg and seg.segment_id_prefix
+                      else default_segment_id_prefix())
+            if use_pipeline:
+                with stage(metrics, "plan_index"):
+                    shards = plan_var_len_chunks(reader, files, params,
+                                                 retry, on_retry, io=io)
+                metrics.shards = len(shards)
+                results, failures = pipelined_var_len_scan(
+                    reader, shards, prefix, workers, schema, metrics,
+                    on_batch=on_batch)
+            else:
+                reader.stage_times = metrics.framing = StageTimes(
+                    tracer=tracer)
+                if timed:
+                    metrics.stage_busy = metrics.framing
+                if progress is not None:
+                    progress.set_plan(chunks_total=len(files))
+                    progress.stage_times = metrics.framing
+                results = [r for file_order, file_path in enumerate(files)
+                           for r in reader.read_result(
+                               file_path, file_id=file_order,
+                               segment_id_prefix=prefix,
+                               start_record_id=file_record_id_base(
+                                   file_order))]
+                metrics.shards = len(results)
         else:
-            reader.stage_times = metrics.framing = StageTimes()
-            results = [r for file_order, file_path in enumerate(files)
-                       for r in reader.read_result(
-                           file_path, file_id=file_order,
-                           segment_id_prefix=prefix,
-                           start_record_id=file_record_id_base(file_order))]
-            metrics.shards = len(results)
-    else:
-        reader = FixedLenReader(contents, params, device=device)
-        schema = output_schema_for(reader.copybook, params, is_var_len=False)
-        if use_pipeline:
-            parts, failures = pipelined_fixed_scan(
-                reader, files, params, workers, schema, metrics,
-                ignore_file_size=ignore_file_size, on_batch=on_batch,
-                retry=retry, on_retry=on_retry, io=io)
-        else:
-            parts = _read_fixed_sequential(reader, files, ignore_file_size,
-                                           retry, on_retry, io)
-            metrics.shards = len(parts)
-        # one kind of part per read: batches, or (multisegment records)
-        # results
-        for part in parts:
-            if isinstance(part, FileResult):
-                results.append(part)
-            elif part is not None:
-                batches.append(part)
+            if use_pipeline:
+                parts, failures = pipelined_fixed_scan(
+                    reader, files, params, workers, schema, metrics,
+                    ignore_file_size=ignore_file_size, on_batch=on_batch,
+                    retry=retry, on_retry=on_retry, io=io)
+            else:
+                stage_times = None
+                if metrics.field_costs_acc is not None:
+                    stage_times = metrics.stage_busy = StageTimes()
+                parts = _read_fixed_sequential(
+                    reader, files, ignore_file_size, retry, on_retry, io,
+                    stage_times=stage_times, progress=progress)
+                metrics.shards = len(parts)
+            # one kind of part per read: batches, or (multisegment
+            # records) results
+            for part in parts:
+                if isinstance(part, FileResult):
+                    results.append(part)
+                elif part is not None:
+                    batches.append(part)
     data = CobolData(batches, schema,
                      [r for r in results if r is not None], metrics,
                      failures, parallelism=parallelism, device=device)
@@ -920,10 +1095,18 @@ def _read(files: List[str], contents, params: ReaderParameters, device,
     return data
 
 
+def _part_rows(part) -> int:
+    """Rows of a decoded part (a DecodedBatch or a FileResult)."""
+    return (part.n_rows if isinstance(part, FileResult)
+            else part.n_records)
+
+
 def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
                            ignore_file_size: bool,
                            retry: Optional[RetryPolicy] = None,
-                           on_retry=None, io=None) -> list:
+                           on_retry=None, io=None,
+                           stage_times: Optional[StageTimes] = None,
+                           progress=None) -> list:
     """The sequential fixed-length read: each file in record-aligned
     chunks of FIXED_READ_CHUNK_BYTES, read into a fresh host buffer and
     decoded in turn (`FixedLenReader.read_chunk`); a compressed or
@@ -934,7 +1117,9 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
     carries it (`FixedLenReader.read_torn_chunk`) and every part is a
     FileResult with its ledger. A source that serves fewer bytes than
     its size promised (a truncated backend object) ends the file there,
-    as the JAX package's whole-file read of the served bytes does."""
+    as the JAX package's whole-file read of the served bytes does.
+    `stage_times` times each chunk's decode ("decode"); `progress` (an
+    ``obs.ProgressTracker``) hears of each chunk done, with its bytes."""
     rs = reader.record_size
     permissive = reader.params.is_permissive
     keep_tail = permissive and not ignore_file_size
@@ -967,14 +1152,19 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
                     buf = buf[:n + rem]
                     if n == 0 and not torn:
                         break
-                if torn:
-                    parts.append(reader.read_torn_chunk(
-                        buf, rem, file_path, done // rs, size))
-                elif permissive:
-                    parts.append(reader.permissive_part(
-                        reader.read_chunk(buf)))
-                else:
-                    parts.append(reader.read_chunk(buf))
+                with timed_stage(stage_times, "decode"):
+                    if torn:
+                        part = reader.read_torn_chunk(
+                            buf, rem, file_path, done // rs, size)
+                    elif permissive:
+                        part = reader.permissive_part(reader.read_chunk(buf))
+                    else:
+                        part = reader.read_chunk(buf)
+                parts.append(part)
+                if progress is not None:
+                    progress.chunk_started()
+                    progress.chunk_done(bytes_done=len(buf),
+                                        records=_part_rows(part))
                 done += n
                 if short:
                     break

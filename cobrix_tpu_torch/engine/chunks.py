@@ -38,16 +38,17 @@ from ..reader.parameters import DEFAULT_FILE_RECORD_ID_INCREMENT
 from ..reader.stream import RetryPolicy, source_size
 
 
-def shard_progress_bytes(shard) -> int:
-    """Best-effort byte size of a var-len shard for progress/telemetry
-    accounting: closed ranges are exact; an open tail range
-    (offset_to < 0 = 'to end of file') falls back to the file size."""
-    if shard.offset_to >= 0:
-        return max(0, shard.offset_to - shard.offset_from)
-    try:
-        return max(0, source_size(shard.file_path) - shard.offset_from)
-    except Exception:
-        return 0
+def shard_progress_bytes(shard, file_size: int) -> int:
+    """Byte size of a var-len shard (a WorkShard or a sparse-index entry)
+    for progress and read accounting: a closed range is exact, clamped to
+    the file; an open tail range (offset_to < 0 = 'to end of file') runs
+    to `file_size`, so bytes_done reaches bytes_total. The caller passes
+    the file's logical size (decompressed for a compressed feed), as the
+    read sized it: the JAX package's version sizes a local file with
+    ``os.path.getsize`` itself."""
+    end = (file_size if shard.offset_to < 0
+           else min(shard.offset_to, file_size))
+    return max(0, end - shard.offset_from)
 
 
 @dataclass(frozen=True)

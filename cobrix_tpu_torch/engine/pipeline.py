@@ -34,11 +34,14 @@ Per-stage busy time accumulates in a shared `profiling.StageTimes`; the
 executor reports wall time, busy total, their ratio (the overlap
 factor), and the peak queue depth.
 
-`PipelineExecutor` is the JAX package's, with its supervision, unchanged
-but for what the port does not have: the observability context (tracer
-spans, progress, the metrics registry; ROADMAP A8), the memory-pressure
-degrade (``utils.pressure``) and ``_cap_omp_width``, which caps a native
-OpenMP library the port does not load. `pipelined_fixed_scan` and
+`PipelineExecutor` is the JAX package's, with its supervision, its
+observability wiring (the stage threads enter the read's
+``obs.context``; a span per chunk, the stage timers doubling as spans
+under it; ``chunk_failed`` / ``chunk_retry`` / ``worker_respawn``
+instants; progress per chunk from `chunk_meta`; the registry's chunk
+latency, queue depth and in-flight gauge) and the memory-pressure
+degrade (``utils.pressure``), unchanged but for ``_cap_omp_width``,
+which caps a native OpenMP library the port does not load. `pipelined_fixed_scan` and
 `pipelined_var_len_scan` drive it over the port's fixed-length and
 variable-length readers with the device plumbing the JAX package leaves to XLA
 (engine/staging.py): the reader thread reads each chunk or shard into a
@@ -57,11 +60,14 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..io.stats import carry
+from ..obs.context import activate as obs_activate
+from ..obs.context import current as obs_current
+from ..obs.trace import maybe_parent
 from ..profiling import ReadMetrics, StageTimes
 from ..reader.stream import source_size
 from ..reader.diagnostics import ShardErrorPolicy, ShardFailureInfo
-from .chunks import FixedChunk, WorkShard, plan_fixed_chunks
+from .chunks import (FixedChunk, WorkShard, plan_fixed_chunks,
+                     shard_progress_bytes)
 from .staging import StagingPool, worker_stream
 
 # poll tick bounding every queue wait in the pipeline (so cancellation is
@@ -141,8 +147,16 @@ class PipelineExecutor:
         # thread; exceptions are swallowed (the chunk already failed)
         self.on_chunk_failed: Optional[Callable] = None
         self.report: dict = {}
+        # the read's observability context, captured on the constructing
+        # thread (read_cobol activated it there) and re-activated on
+        # every stage thread this executor spawns — spans, progress, and
+        # cache counters all attribute across the pool
+        self.obs = obs_current()
+        if self.obs is not None and self.obs.tracer is not None:
+            self.stage_times.tracer = self.obs.tracer
 
-    def run(self, tasks: Sequence[tuple]) -> List[object]:
+    def run(self, tasks: Sequence[tuple],
+            chunk_meta: Optional[Sequence[dict]] = None) -> List[object]:
         n = len(tasks)
         results: List[object] = [None] * n
         if n == 0:
@@ -174,11 +188,46 @@ class PipelineExecutor:
         progress_t = [time.monotonic()]
         peak_queue = [0]
 
+        obs = self.obs
+        tracer = obs.tracer if obs is not None else None
+        progress = obs.progress if obs is not None else None
+        scan_m = obs.metrics if obs is not None else None
+        if progress is not None:
+            progress.set_plan(chunks_total=n)
+            if progress.stage_times is None:
+                progress.stage_times = self.stage_times
+        # per-chunk logical span (async across stage threads): id minted
+        # at first dispatch, one "chunk" span recorded at terminal state
+        chunk_span = [0] * n
+        chunk_t0 = [0.0] * n
+
         def touch() -> None:
             progress_t[0] = time.monotonic()
 
         def terminal(i: int) -> bool:
             return state[i] in ("done", "failed")
+
+        def chunk_terminal_obs(i: int, failed: bool) -> None:
+            """Telemetry for a chunk reaching a terminal state (called
+            outside the lock): span close, latency sample, progress."""
+            t1 = time.perf_counter()
+            if tracer is not None and chunk_span[i]:
+                tracer.record_span(
+                    "chunk", "chunk", chunk_t0[i], t1,
+                    parent=tracer.root_id, span_id=chunk_span[i],
+                    args={"chunk": i, "attempts": attempts[i],
+                          "failed": failed})
+            if scan_m is not None and chunk_t0[i]:
+                scan_m["chunk_latency"].observe(t1 - chunk_t0[i])
+            if progress is not None:
+                if failed:
+                    progress.chunk_failed()
+                else:
+                    meta = (chunk_meta[i] if chunk_meta is not None
+                            else None)
+                    progress.chunk_done(
+                        bytes_done=(meta or {}).get("bytes", 0),
+                        records=getattr(results[i], "n_rows", 0) or 0)
 
         def fail_chunk(i: int, reason: str, exc: BaseException) -> None:
             """Retry budget exhausted (or hard abort) for chunk i."""
@@ -201,6 +250,10 @@ class PipelineExecutor:
                     self.on_chunk_failed(i)
                 except Exception:
                     pass  # the chunk is already ledgered
+            if tracer is not None:
+                tracer.instant("chunk_failed", "supervision",
+                               args={"chunk": i, "reason": reason})
+            chunk_terminal_obs(i, failed=True)
             touch()
 
         def attempt_failed(i: int, reason: str,
@@ -216,6 +269,9 @@ class PipelineExecutor:
                     counters["chunk_retries"] += 1
                     requeue = True
             if requeue:
+                if tracer is not None:
+                    tracer.instant("chunk_retry", "supervision",
+                                   args={"chunk": i, "reason": reason})
                 retry_dq.append((i, tasks[i]))
                 touch()
             else:
@@ -224,6 +280,7 @@ class PipelineExecutor:
         def chunk_decoded(i: int, result: object, finalize_fn) -> bool:
             """Record a finished decode; False if the chunk was already
             terminal (late result from an abandoned worker — discard)."""
+            done = False
             with lock:
                 if terminal(i) or stop.is_set():
                     return False
@@ -233,6 +290,9 @@ class PipelineExecutor:
                 else:
                     state[i] = "done"
                     inflight.pop(i, None)
+                    done = True
+            if done:
+                chunk_terminal_obs(i, failed=False)
             touch()
             return True
 
@@ -246,19 +306,59 @@ class PipelineExecutor:
             return False
 
         def run_read(i: int, task) -> object:
+            first = False
             with lock:
                 if terminal(i):
                     return None
                 attempts[i] += 1
                 state[i] = "running"
                 inflight[i] = ("read", time.monotonic())
-            with self.stage_times.timed("read"):
-                return task[0]()
+                # first-dispatch sentinel is chunk_t0, NOT the span id
+                # (which only exists when tracing is on): a retried chunk
+                # must neither re-count as started nor reset its latency
+                # clock — the histogram is first-dispatch -> terminal in
+                # both modes
+                if chunk_t0[i] == 0.0:
+                    first = True
+                    chunk_t0[i] = time.perf_counter()
+                if tracer is not None and chunk_span[i] == 0:
+                    chunk_span[i] = tracer.new_id()
+            if first and progress is not None:
+                progress.chunk_started()
+            with maybe_parent(tracer, chunk_span[i]):
+                with self.stage_times.timed("read"):
+                    return task[0]()
+
+        degrade_events = [0]
+
+        def pressure_wait() -> None:
+            """Memory-pressure degrade (utils.pressure): while the
+            process is past its degrade watermark, the reader holds new
+            chunks until in-flight count drops under HALF the normal
+            window — raw chunk bytes are the pipeline's dominant RSS,
+            so halving the window sheds them fastest without failing
+            anything. Checked per chunk: a cached probe, not a syscall
+            per block. No budget configured = no-op."""
+            from ..utils.pressure import LEVEL_DEGRADED, current_level
+
+            shrunk = max(1, self.max_inflight // 2)
+            waited = False
+            while not stop.is_set():
+                if current_level() < LEVEL_DEGRADED:
+                    break
+                with lock:
+                    if len(inflight) < shrunk:
+                        break
+                if not waited:
+                    waited = True
+                    degrade_events[0] += 1
+                time.sleep(_TICK_S)
 
         def reader_loop() -> None:
             for i, task in enumerate(tasks):
                 if stop.is_set():
                     break
+                pressure_wait()
                 try:
                     payload = run_read(i, task)
                 except BaseException as exc:
@@ -304,16 +404,21 @@ class PipelineExecutor:
                     return
                 inflight[i] = ("assemble", time.monotonic())
             try:
-                finalize_fn(result)
+                with maybe_parent(tracer, chunk_span[i]):
+                    finalize_fn(result)
             except BaseException as exc:
                 # assembly is deterministic — no retry
                 attempts[i] = attempts[i] or 1
                 fail_chunk(i, "error", exc)
                 return
+            done = False
             with lock:
                 if not terminal(i):
                     state[i] = "done"
                     inflight.pop(i, None)
+                    done = True
+            if done:
+                chunk_terminal_obs(i, failed=False)
             touch()
 
         def worker_loop() -> None:
@@ -338,7 +443,8 @@ class PipelineExecutor:
                             _close_payload(payload)
                             continue
                         inflight[i] = ("decode", time.monotonic())
-                    result = task[1](payload)
+                    with maybe_parent(tracer, chunk_span[i]):
+                        result = task[1](payload)
                 except BaseException as exc:
                     attempt_failed(i, "error", exc)
                     continue
@@ -370,18 +476,23 @@ class PipelineExecutor:
                     continue
                 run_finalize(i, finalize_fn, result)
 
-        # the stage threads count into the read's IoStats (the reader
-        # thread opens and inflates the sources)
-        reader_loop, worker_loop, finalizer_loop = (
-            carry(reader_loop), carry(worker_loop), carry(finalizer_loop))
-        reader = threading.Thread(target=reader_loop,
+        def obs_target(fn):
+            """Stage-thread entry: the read's ObsContext (tracer parentage,
+            cache counters, progress) re-activated on this thread."""
+            def entry():
+                with obs_activate(obs):
+                    fn()
+            return entry
+
+        wrapped_worker_loop = obs_target(worker_loop)
+        reader = threading.Thread(target=obs_target(reader_loop),
                                   name="cobrix-pipe-read", daemon=True)
-        workers = [threading.Thread(target=worker_loop,
+        workers = [threading.Thread(target=wrapped_worker_loop,
                                     name=f"cobrix-pipe-{k}", daemon=True)
                    for k in range(self.workers)]
         finalizer = None
         if has_finalize and not self.parallel_finalize:
-            finalizer = threading.Thread(target=finalizer_loop,
+            finalizer = threading.Thread(target=obs_target(finalizer_loop),
                                          name="cobrix-pipe-assemble",
                                          daemon=True)
             finalizer.start()
@@ -392,7 +503,24 @@ class PipelineExecutor:
         # -- the watchdog / supervision loop (runs on the caller's
         # thread): every wait below is bounded by _TICK_S ---------------
         deadline_exc: Optional[BaseException] = None
+        last_depth_sample = 0.0
+        # this run's last contribution to the (process-global) in-flight
+        # gauge: updates are DELTAS so concurrent scans compose instead
+        # of clobbering each other with absolute writes
+        gauge_inflight = 0
         while True:
+            if scan_m is not None:
+                now_s = time.monotonic()
+                # backpressure-queue depth samples at a coarse cadence
+                # (the watchdog ticks at 25ms; sampling every tick would
+                # just histogram the sampler)
+                if now_s - last_depth_sample >= 0.2:
+                    last_depth_sample = now_s
+                    scan_m["queue_depth"].observe(q.qsize())
+                    with lock:
+                        now_inflight = len(inflight)
+                    scan_m["inflight"].inc(now_inflight - gauge_inflight)
+                    gauge_inflight = now_inflight
             with lock:
                 all_terminal = all(terminal(i) for i in range(n))
                 if errors:
@@ -409,7 +537,7 @@ class PipelineExecutor:
             if self.chunk_timeout_s > 0:
                 self._enforce_chunk_deadline(
                     now, lock, inflight, counters, fail_chunk, workers,
-                    worker_loop)
+                    wrapped_worker_loop)
                 with lock:
                     if errors:
                         break
@@ -432,6 +560,8 @@ class PipelineExecutor:
             _drain_fq(fq)
             stuck += _join_bounded([finalizer], _JOIN_GRACE_S)
 
+        if scan_m is not None:
+            scan_m["inflight"].inc(-gauge_inflight)
         wall = time.monotonic() - t_start
         busy = sum(self.stage_times.busy_s.values())
         self.report = {
@@ -447,6 +577,8 @@ class PipelineExecutor:
             self.report["parallel_assembly"] = bool(self.parallel_finalize)
         if any(counters.values()):
             self.report.update(counters)
+        if degrade_events[0]:
+            self.report["pressure_degrades"] = degrade_events[0]
         if stuck:
             self.report["stuck_stages"] = stuck
 
@@ -474,6 +606,7 @@ class PipelineExecutor:
                         i, attempts[i], "scan_deadline",
                         str(deadline_exc)))
                     results[i] = None
+                    chunk_terminal_obs(i, failed=True)
             self.report.update(counters)
         return results
 
@@ -505,6 +638,11 @@ class PipelineExecutor:
                 alive = sum(1 for t in workers if t.is_alive())
                 if alive >= self.workers:
                     counters["respawned_workers"] += 1
+                    if (self.obs is not None
+                            and self.obs.tracer is not None):
+                        self.obs.tracer.instant(
+                            "worker_respawn", "supervision",
+                            args={"chunk": i, "stage": stage_name})
                     t = threading.Thread(
                         target=worker_loop,
                         name=f"cobrix-pipe-r{counters['respawned_workers']}",
@@ -727,7 +865,9 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
 
     rs = reader.record_size
     device = reader.device
-    decoder = reader.decoder()
+    # the plan's decoder, built before the first chunk (the JAX
+    # package's `plan_decoder`)
+    reader.decoder()
     permissive = params.is_permissive
     chunk_bytes = max(1, int(params.pipeline_chunk_mb * 1024 * 1024))
     chunks = plan_fixed_chunks(rs, files, params, chunk_bytes,
@@ -760,7 +900,7 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
 
     def process_fn(c: FixedChunk):
         def process(staged):
-            with worker_stream(device), ex.stage_times.timed("decode"):
+            with worker_stream(device):
                 x = buf = ids = None
                 # whole records only: a torn tail is cut under
                 # debug_ignore_file_size (and raised before under
@@ -772,36 +912,49 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
                     n = staged.nbytes // rs * rs
                     if n == 0 and not rem:
                         return None
-                    if rem:
-                        buf = staged.host().numpy().copy()
-                    elif reader.plain_layout:
-                        x = staged.to_device(device, 0, n)
-                        if reader.pushdown is not None \
-                                and reader.needs_segment_ids:
-                            ids = reader._segment_values(
-                                staged.host()[:n].numpy().reshape(-1, rs))
-                    else:
-                        buf = staged.host()[:n].numpy().copy()
+                    # "frame": the chunk's records onto the card (or
+                    # into a host matrix), as the JAX package's frame
+                    # stage cuts them out of the chunk's bytes
+                    with ex.stage_times.timed("frame"):
+                        if rem:
+                            buf = staged.host().numpy().copy()
+                        elif reader.plain_layout:
+                            x = staged.to_device(device, 0, n)
+                            if reader.pushdown is not None \
+                                    and reader.needs_segment_ids:
+                                ids = reader._segment_values(
+                                    staged.host()[:n].numpy().reshape(
+                                        -1, rs))
+                        else:
+                            buf = staged.host()[:n].numpy().copy()
                 finally:
                     staged.close()
-                if rem:
-                    return reader.read_torn_chunk(
-                        buf, rem, c.file_path, 0, len(buf))
-                if x is None:
-                    part = reader.read_chunk(buf)
-                elif reader.pushdown is not None:
-                    # the filter's two stages read the staged image
-                    # where it lies on the card
-                    part = reader.read_image(
-                        x, np.full(n // rs, rs, dtype=np.int64), ids)
-                else:
-                    part = decoder.decode_tensor(x.view(-1, rs))
-                return reader.permissive_part(part) if permissive else part
+                with ex.stage_times.timed("decode"):
+                    if rem:
+                        return reader.read_torn_chunk(
+                            buf, rem, c.file_path, 0, len(buf))
+                    if x is None:
+                        part = reader.read_chunk(buf)
+                    elif reader.pushdown is not None:
+                        # the filter's two stages read the staged image
+                        # where it lies on the card
+                        part = reader.read_image(
+                            x, np.full(n // rs, rs, dtype=np.int64), ids)
+                    else:
+                        # the chunk's decoder, looked up per chunk as
+                        # every other route looks it up
+                        part = reader.decoder().decode_tensor(
+                            x.view(-1, rs))
+                    if x is not None:
+                        reader.observe_records(n // rs)
+                    return (reader.permissive_part(part) if permissive
+                            else part)
         return process
 
     finalizers = _finalizers(len(chunks), output_schema, ex, on_batch)
     results = ex.run([(read_fn(c), process_fn(c), fin)
-                      for c, fin in zip(chunks, finalizers)])
+                      for c, fin in zip(chunks, finalizers)],
+                     chunk_meta=[{"bytes": c.nbytes} for c in chunks])
     ex.report["staging"] = pool.report()
     ex.attach(metrics)
     if metrics is not None:
@@ -837,16 +990,21 @@ def pipelined_var_len_scan(reader, shards: Sequence[WorkShard],
     ex = _executor_for(params, workers, failure_info)
     pool = StagingPool(ex.max_inflight, device)
 
+    def nbytes(shard: WorkShard) -> int:
+        return shard_progress_bytes(shard, sizes[shard.file_path])
+
     def read_fn(shard: WorkShard):
-        size = sizes[shard.file_path]
-        end = size if shard.offset_to < 0 else min(shard.offset_to, size)
         return _staged_read(pool, ex.stage_times, reader.open_input,
                             shard.file_path, shard.offset_from,
-                            max(0, end - shard.offset_from))
+                            nbytes(shard))
+
+    # the reader times its frame and decode stages into the executor's
+    # StageTimes (spans under the chunk's span when tracing)
+    reader.stage_times = ex.stage_times
 
     def process_fn(shard: WorkShard):
         def process(staged):
-            with worker_stream(device), ex.stage_times.timed("decode"):
+            with worker_stream(device):
                 try:
                     return reader.read_shard(
                         staged, shard.file_order, shard.offset_from,
@@ -858,7 +1016,8 @@ def pipelined_var_len_scan(reader, shards: Sequence[WorkShard],
 
     finalizers = _finalizers(len(shards), output_schema, ex, on_batch)
     results = ex.run([(read_fn(s), process_fn(s), fin)
-                      for s, fin in zip(shards, finalizers)])
+                      for s, fin in zip(shards, finalizers)],
+                     chunk_meta=[{"bytes": nbytes(s)} for s in shards])
     ex.report["staging"] = pool.report()
     ex.attach(metrics)
     return results, ex.shard_failures

@@ -47,8 +47,8 @@ Port copy of ``cobrix_tpu.io.compress``. Changes from the JAX package:
   the inflater's output; `read` is built on it. `block` names the
   decompressed-plane block size (`open_source` shrinks the stream chunk
   to it).
-* The per-read memo and counters come from the port's read-scoped
-  IoStats holder (io/stats.py). The inflater runs on whichever thread
+* The per-read memo and counters come from the read's IoStats on its
+  observability context (io/stats.py). The inflater runs on whichever thread
   reads the source — the pipeline's reader thread — and zlib, bz2 and
   lzma release the GIL on large buffers.
 * zstd needs the optional ``zstandard`` module; without it a zstd input

@@ -16,8 +16,7 @@ time (open_stream runs on a thread the read activated), so counts from
 the prefetch pool's internal threads still land on the right read.
 
 Port copy of ``cobrix_tpu.io.config``; the active read's IoStats comes
-from the port's read-scoped holder (io/stats.py), the JAX package's
-from its observability context.
+from its observability context, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -1,13 +1,9 @@
 """Self-verifying durable state: checksums, quarantine, crash sweep.
 
-Port copy of ``cobrix_tpu.io.integrity``. Change from the JAX package:
-`corruption_counter` counts in the process (`PlaneCounter`, one count a
-plane, every detection, a read active or not) where the JAX package's
-registers ``cobrix_cache_corruption_total`` on its Prometheus registry
-(folded in from the read's counters at its end), which waits for the
-observability plane (ROADMAP A8); the counter keeps its
-``labels(plane=...).inc()`` surface. `tools/fsckcache.py` is not ported
-yet either.
+Port copy of ``cobrix_tpu.io.integrity``: `corruption_counter` is
+``cobrix_cache_corruption_total{plane}`` on the port's own metrics
+registry (``obs.metrics``), as in the JAX package. `tools/fsckcache.py`
+is not ported yet.
 
 Every persistent artifact the io planes trust across process lifetimes
 — block-cache entries, sparse-index payloads, the roofline calibration
@@ -98,8 +94,11 @@ def unframe_block(data: bytes, expect_len: int) -> Optional[bytes]:
 def note_corruption(plane: str, path: str, detail: str,
                     io_stats=None) -> None:
     """Record one detected corruption: the per-read IoStats bag when a
-    read is active (so `ReadMetrics` shows WHICH read self-healed),
-    the process counter, and a warning log naming the file. Cold path only
+    read is active (so `ReadMetrics` shows WHICH read self-healed;
+    `ReadMetrics.finalize` folds it into the Prometheus counter exactly
+    once, including counts merged home from forked multihost workers),
+    the Prometheus counter directly otherwise (roofline reads, offline
+    fsck), and a warning log naming the file either way. Cold path only
     — this runs when a checksum already failed, never on healthy
     hits."""
     if plane not in PLANES:
@@ -113,47 +112,27 @@ def note_corruption(plane: str, path: str, detail: str,
             io_stats = current_io_stats()
         if io_stats is not None:
             io_stats.bump(key)
-    corruption_counter().labels(plane=plane).inc()
+        else:
+            corruption_counter().labels(plane=plane).inc()
+    else:
+        corruption_counter().labels(plane=plane).inc()
     _logger.warning("cache corruption detected (plane=%s): %s — %s; "
                     "entry quarantined and rebuilt transparently",
                     plane, path, detail)
 
 
-class PlaneCounter:
-    """A process-wide count of corrupt entries by plane, with the
-    labelled-counter surface of the JAX package's Prometheus counter
-    (``labels(plane=...).inc()``) and `value(plane)` to read one."""
+def corruption_counter():
+    """``cobrix_cache_corruption_total{plane}`` on the default registry
+    (resolved lazily: integrity runs below obs in the import graph)."""
+    from ..obs.metrics import default_registry
 
-    class _Child:
-        def __init__(self, owner: "PlaneCounter", plane: str):
-            self._owner = owner
-            self._plane = plane
-
-        def inc(self, n: int = 1) -> None:
-            with self._owner._lock:
-                self._owner._counts[self._plane] = (
-                    self._owner._counts.get(self._plane, 0) + n)
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._counts: dict = {}
-
-    def labels(self, plane: str) -> "PlaneCounter._Child":
-        return PlaneCounter._Child(self, plane)
-
-    def value(self, plane: str) -> int:
-        with self._lock:
-            return self._counts.get(plane, 0)
-
-
-_CORRUPTION = PlaneCounter()
-
-
-def corruption_counter() -> PlaneCounter:
-    """Entries that failed checksum/structure verification on read, by
-    plane, counted in this process (every count is a corrupt entry that
-    was quarantined and rebuilt instead of being served)."""
-    return _CORRUPTION
+    return default_registry().counter(
+        "cobrix_cache_corruption_total",
+        "Persistent-state entries that failed checksum/structure "
+        "verification on read, by plane (block/index/roofline); every "
+        "count is a corrupt entry that was quarantined and rebuilt "
+        "instead of being served",
+        label_names=("plane",))
 
 
 _QUARANTINE_LOCK = threading.Lock()

@@ -46,6 +46,7 @@ import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
+from ..obs.context import carry
 from ..reader.stream import ByteRangeSource
 from .stats import IoStats
 
@@ -191,7 +192,9 @@ class ReadAheadSource(ByteRangeSource):
             pool = self._pool
         for first, last in runs:
             try:
-                pool.submit(self._prefetch_task, first, last)
+                # the fetch runs in the read's observability context
+                # (its IoStats, tracer and cache scope)
+                pool.submit(carry(self._prefetch_task), first, last)
             except RuntimeError:  # closed between the lock and the submit
                 with self._lock:
                     for idx in range(first, last + 1):

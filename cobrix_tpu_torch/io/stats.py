@@ -1,25 +1,18 @@
 """Per-read remote-IO counters.
 
-Port copy of ``cobrix_tpu.io.stats``. One `IoStats` rides on each read:
-every thread working for the read — the caller, the pipeline's reader
-and worker threads, the var-len shard pool — sees the same object, and
-`ReadMetrics` publishes the totals on ``as_dict()["io"]``.
-
-Change from the JAX package: its `current_io_stats` reads the read's
-``obs.context``, and the observability plane is not ported (ROADMAP
-A8). The port keeps a read-scoped holder of its own: a thread-local
-slot set by `activate` for the length of a read, and carried onto the
-read's other threads by `carry`, which wraps a thread's target (or a
-pool task) to run with the submitting thread's IoStats active.
-`merge`, which folds forked multihost workers' counts home, is left out
-with them (ROADMAP A7).
+Port copy of ``cobrix_tpu.io.stats``. One `IoStats` rides on each
+read's ``obs.context.ObsContext``, exactly like the compile-cache scope:
+every thread working for the read — the caller, the pipeline's stage
+threads, the index-shard pool, the threads a source starts (read-ahead,
+block-cache writers) through ``obs.context.carry`` — sees the same
+object, and `ReadMetrics` publishes the totals on ``as_dict()["io"]``
+and into the metrics registry. `merge`, which folds forked multihost
+workers' counts home, waits for them (ROADMAP A7).
 """
 from __future__ import annotations
 
-import contextlib
-import functools
 import threading
-from typing import Callable, Dict, Optional
+from typing import Dict
 
 # every counter the io layer emits; dict key order is reporting order
 KEYS = (
@@ -47,7 +40,6 @@ KEYS = (
     "inflate_skipped",         # decompressed blocks served without inflating
     "compress_corrupt",        # compressed-plane damage (stream or index)
 )
-
 
 
 class IoStats:
@@ -90,35 +82,10 @@ class IoStats:
             return max(0.0, min(1.0, used / issued))
 
 
-_HOLDER = threading.local()
-
-
 def current_io_stats() -> "IoStats | None":
     """The active read's IoStats (None outside a read). One thread-local
     lookup — safe on hot paths."""
-    return getattr(_HOLDER, "stats", None)
+    from ..obs.context import current
 
-
-@contextlib.contextmanager
-def activate(stats: Optional[IoStats]):
-    """Make `stats` the calling thread's active IoStats for the block
-    (None: no read is active), restoring the previous one after."""
-    prev = getattr(_HOLDER, "stats", None)
-    _HOLDER.stats = stats
-    try:
-        yield stats
-    finally:
-        _HOLDER.stats = prev
-
-
-def carry(fn: Callable) -> Callable:
-    """`fn`, run with the IoStats active where `carry` was called: a
-    thread target or pool task started for the current read counts into
-    the read's bag."""
-    stats = current_io_stats()
-
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        with activate(stats):
-            return fn(*args, **kwargs)
-    return run
+    ctx = current()
+    return ctx.io_stats if ctx is not None else None

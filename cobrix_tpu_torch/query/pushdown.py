@@ -32,9 +32,8 @@ on a record image already on the device (`mask_raw`); the JAX package's
 fixed-length readers upload a chunk once and run both stages on that
 image. `_arrays_from_batch` requests the leaves, assembles them in one
 pass on the batch's device and then makes the arrays, as the port's
-``ArrowBatchBuilder`` does. ``describe_pushdown`` feeds only
-``explain``, which the port does not have yet (ROADMAP A8), and is
-left out.
+``ArrowBatchBuilder`` does. ``describe_pushdown`` feeds the pushdown
+section of ``explain``.
 """
 from __future__ import annotations
 
@@ -425,3 +424,49 @@ def _value_set(arr, values):
         return pa.array(list(values), type=t)
     except (pa.ArrowInvalid, pa.ArrowTypeError):
         return pa.array(list(values))
+
+
+# -- explain support --------------------------------------------------------
+
+def describe_pushdown(copybook, params) -> Optional[dict]:
+    """The explain report's pushdown section: retained vs pruned
+    fields, per-depth decisions, and the late-materialized set — for a
+    given (copybook, select, filter) configuration, before any data is
+    read."""
+    select = params.select
+    wire = getattr(params, "filter", None)
+    if not select and not wire:
+        return None
+    from ..plan.cache import cached_compile_plan
+
+    bound = BoundFilter.build(wire, copybook, params)
+    full = cached_compile_plan(copybook, None)
+    stage2 = cached_compile_plan(copybook, None, select=select)
+    full_fields = [r["field"] for r in full.describe()]
+    kept_fields = {r["field"] for r in stage2.describe()}
+    pruned = [f for f in full_fields if f not in kept_fields]
+
+    out: dict = {
+        "select": list(select) if select else None,
+        "fields_total": len(full_fields),
+        "fields_retained": len(kept_fields),
+        "fields_pruned": len(pruned),
+        "pruned_fields": pruned[:40],
+        "plan_pruning": bool(select),
+    }
+    if bound is not None:
+        out["filter"] = str(bound.expr)
+        out["pre_decode_segment_drop"] = (
+            list(bound.segment_values)
+            if bound.segment_values is not None else None)
+        out["stage1_filter_fields"] = (list(bound.filter_select)
+                                       if bound.filter_select else [])
+        hierarchical = bool(copybook.is_hierarchical)
+        out["residual"] = (str(bound.value_expr)
+                           if hierarchical and bound.value_expr is not None
+                           else None)
+        sel_closure = kept_fields if select else set(full_fields)
+        out["late_materialized"] = sorted(
+            st.name for st in bound.statements.values()
+            if st.name not in sel_closure) if select else []
+    return out

@@ -44,10 +44,15 @@ the raw file image with its native library. `rows_to_table` builds the
 table of a row-backed result (the host row walk), with the value-list
 route's decimal rule above.
 
+Per-field cost attribution (``obs.fieldcost``) charges the assemble
+plane once a batch, around its card assembly (`_Leaves.run`), and per
+column on the value-list route, into the accumulator the batch captured
+at decode time (a sequential read's tables are built after
+``read_cobol`` returned).
+
 Left out: the grouped and limb decimal builds of the JAX package's
-numpy backend (``_decimal_group_array``, ``_decimal128_native``),
-``const_string_col``, and the per-field cost attribution
-(``obs.fieldcost``).
+numpy backend (``_decimal_group_array``, ``_decimal128_native``) and
+``const_string_col``.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ import numpy as np
 
 from ..copybook.ast import Group, Primitive, Statement
 from ..copybook.datatypes import SchemaRetentionPolicy, TrimPolicy
+from ..obs import fieldcost
 from ..ops import arrow_assemble as asm
 from ..plan.compiler import Codec
 from .columnar import (
@@ -178,20 +184,41 @@ class _Leaves:
         self.batch = batch
         self.requests: List[asm.Request] = []
         self.types: list = []
+        # each request's column (its cost name, width and kernel label)
+        self.specs: list = []
         self.result: Optional[asm.Result] = None
 
-    def add(self, request: "asm.Request", pa_type) -> int:
+    def add(self, request: "asm.Request", pa_type, spec) -> int:
         if self.result is not None:
             raise RuntimeError("a leaf was requested after the assembly ran")
         self.requests.append(request)
         self.types.append(pa_type)
+        self.specs.append(spec)
         return len(self.requests) - 1
 
     def run(self) -> None:
         if self.result is None and self.requests:
+            # field-cost attribution: one assemble-plane region over the
+            # plan and the card assembly, which ends in its own
+            # synchronize, split across the requested columns by bytes
+            fc = self.batch.field_costs
+            tok = fc.begin() if fc is not None else None
             plan = asm.build_plan(self.requests, self.batch.host_buffer,
                                   self.batch.decoder.device)
             self.result = asm.assemble(plan)
+            if tok is not None:
+                self._charge(fc, tok)
+
+    def _charge(self, fc, tok) -> None:
+        n = max(1, self.batch.n_records)
+        cost_name = self.batch.decoder.plan.cost_name
+        fc.commit_weighted(
+            tok,
+            [((cost_name(spec),),
+              spec.width * max(1, r.length // n), r.length * spec.width,
+              f"{spec.codec.value}/w{spec.width}")
+             for r, spec in zip(self.requests, self.specs)],
+            fieldcost.PLANE_ASSEMBLE, self.batch.n_records)
 
     def array(self, i: int):
         """Request i's array, or None when the assembly marked it bad."""
@@ -244,13 +271,14 @@ class ArrowBatchBuilder:
         device); the walk's thunks may be called after this."""
         self.leaves.run()
 
-    def _requested(self, request: "asm.Request", pa_type, fallback):
-        """Thunk of `request`'s assembled array, or of `fallback()` (the
+    def _requested(self, request: "asm.Request", pa_type, fallback, spec):
+        """Thunk of `request`'s assembled array (of column `spec`, or of
+        the OCCURS field whose first slot it is), or of `fallback()` (the
         value-list route) where the assembly marks it bad."""
         if request.length == 0:
             pa = _pa()
             return lambda: pa.array([], type=pa_type)
-        i = self.leaves.add(request, pa_type)
+        i = self.leaves.add(request, pa_type, spec)
 
         def build():
             arr = self.leaves.array(i)
@@ -369,7 +397,8 @@ class ArrowBatchBuilder:
                     col, pa.string(), relevant).take(pa.array(positions))
             out[id(st)] = self._requested(
                 self._string_request(spec, mat, rows=positions,
-                                     mask=relevant), pa.string(), fallback)
+                                     mask=relevant), pa.string(), fallback,
+                spec)
         return out
 
     def leaf_numeric_at(self, st: Primitive, positions: np.ndarray):
@@ -400,7 +429,8 @@ class ArrowBatchBuilder:
             return None
         return self._requested(
             self._number_request(kind, [out], len(positions),
-                                 rows=positions), pa_type, _no_fallback)
+                                 rows=positions), pa_type, _no_fallback,
+            spec)
 
     def _relevant_of(self, spec):
         """Row-visibility mask for a column of a decode-once batch (None =
@@ -410,6 +440,18 @@ class ArrowBatchBuilder:
         return None
 
     def _python_fallback(self, col: int, pa_type, relevant=None):
+        fc = self.batch.field_costs
+        if fc is None:
+            return self._python_fallback_impl(col, pa_type, relevant)
+        tok = fc.begin()
+        arr = self._python_fallback_impl(col, pa_type, relevant)
+        # seconds only: the column's bytes were counted by its decode
+        fc.commit(tok, (self.decoder.plan.cost_name(
+            self.decoder.plan.columns[col]),), fieldcost.PLANE_ASSEMBLE,
+            0, 0)
+        return arr
+
+    def _python_fallback_impl(self, col: int, pa_type, relevant=None):
         pa = _pa()
         # `relevant` (decode-once batches): rows hidden by a null parent
         # struct materialize as None and skip the truncation fixups
@@ -460,13 +502,13 @@ class ArrowBatchBuilder:
                 return lambda: pa.array([""] * self.n, type=pa_type)
             return self._requested(
                 self._string_request(spec, mat, mask=relevant), pa_type,
-                fallback)
+                fallback, spec)
         kind = self._number_kind(spec, out, pa_type)
         if kind is None:
             return fallback
         return self._requested(
             self._number_request(kind, [out], self.n, mask=relevant),
-            pa_type, fallback)
+            pa_type, fallback, spec)
 
     # -- arrays / groups ---------------------------------------------------
 
@@ -537,7 +579,7 @@ class ArrowBatchBuilder:
             asm.Request(n * max_size, planes, src, out_kind, mode, shift,
                         maxd, rows=compact_rows,
                         mask=relevant if compact_rows is None else None),
-            pa_type, _no_fallback)
+            pa_type, _no_fallback, spec0)
 
     def _slot_planes(self, cols: Sequence[int], kind: tuple):
         """The planes of an OCCURS field's slots `cols` as one

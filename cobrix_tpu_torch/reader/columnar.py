@@ -41,8 +41,11 @@ Left out of the port: the numpy and native backends, the lazy planes,
 the in-place raw kernels and segment row masks of ``decode_raw``, the
 native Arrow string buffers and their caches (``string_arrow_buffers``,
 ``_build_arrow_strings``, ``_group_masks``: the port's strings are
-built on the device from the code-point planes), the multi-device ``shard_map`` split
-(ROADMAP A7), and the field-cost and observability hooks.
+built on the device from the code-point planes) and the multi-device
+``shard_map`` split (ROADMAP A7). Field-cost attribution
+(``obs.fieldcost``) charges the decode plane once a batch, after its
+one synchronize and its `collect_outputs` (`_commit_decode`), and per
+column in `_decode_host_fallback`.
 """
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ from ..copybook.datatypes import (
     Usage,
 )
 from ..device import resolve_device
+from ..obs import fieldcost
 from ..ops import batch_torch
 from ..ops.device_framing import pack_records
 from ..ops.fused_decode import (_PLANE_DTYPES, FusedLayout, StridedGroup,
@@ -183,12 +187,18 @@ def _wide_dyn_dots(hi: np.ndarray, lo: np.ndarray, sf: int) -> np.ndarray:
 
 class _KernelGroup:
     def __init__(self, codec: Codec, width: int, variant: tuple,
-                 columns: List[ColumnSpec]):
+                 columns: List[ColumnSpec], names: Tuple[str, ...]):
         self.codec = codec
         self.width = width
         self.variant = variant
         self.columns = columns
         self.offsets = np.array([c.offset for c in columns], dtype=np.int64)
+        # cost-attribution identity: plan-resolved field names (OCCURS
+        # slots repeat a name and merge into one cost row; names reused
+        # across statements arrive path-qualified — FieldPlan.cost_name)
+        # and the kernel-family label shown in the explain table
+        self.names = names
+        self.label = f"{codec.value}/w{width}"
 
     @property
     def wide(self) -> bool:
@@ -297,6 +307,11 @@ class DecodedBatch:
         # output schema it was built for
         self._arrow_cache = None
         self._arrow_cache_schema = None
+        # the read's cost accumulator, captured at DECODE time (the obs
+        # context is active here) so the Arrow assembly of this batch
+        # attributes to the right read even when it runs after
+        # read_cobol returned (sequential to_arrow)
+        self.field_costs = fieldcost.current()
 
     @classmethod
     def concat(cls, batches: Sequence["DecodedBatch"]) -> "DecodedBatch":
@@ -733,18 +748,28 @@ def decoder_for_segment(cache: Dict[str, "ColumnarDecoder"],
                         select: Optional[Sequence[str]] = None
                         ) -> "ColumnarDecoder":
     """The decoder of one active segment on `device` with the column
-    projection `select`, built once per `cache` (a reader's dict) under a
-    lock, since pipeline workers share a reader. Port of the JAX
-    package's ``decoder_for_segment``, keyed by the device in place of
-    the backend."""
+    projection `select`, built once per `cache` (the copybook's
+    ``plan.cache.decoder_cache_for`` dict) under a lock, since pipeline
+    workers share a reader; each lookup counts as a decoder-cache hit or
+    miss (``plan.cache.note_decoder``). Port of the JAX package's
+    ``decoder_for_segment``, keyed by the device in place of the
+    backend."""
+    from ..plan.cache import note_decoder
+
     device = resolve_device(device)
     key = f"{active}|{device}|{','.join(select) if select else ''}"
-    with _DECODER_LOCK:
-        dec = cache.get(key)
-        if dec is None:
-            dec = ColumnarDecoder(copybook, active_segment=active or None,
-                                  select=select, device=device)
-            cache[key] = dec
+    dec = cache.get(key)
+    if dec is None:
+        with _DECODER_LOCK:
+            dec = cache.get(key)
+            if dec is None:
+                note_decoder(hit=False)
+                dec = ColumnarDecoder(copybook,
+                                      active_segment=active or None,
+                                      select=select, device=device)
+                cache[key] = dec
+                return dec
+    note_decoder(hit=True)
     return dec
 
 
@@ -801,7 +826,8 @@ class ColumnarDecoder:
             key = (c.codec, c.width) + _variant_key(c)
             groups.setdefault(key, []).append(c)
         self.kernel_groups = [
-            _KernelGroup(key[0], key[1], key[2:], cols)
+            _KernelGroup(key[0], key[1], key[2:], cols,
+                         tuple(self.plan.cost_name(c) for c in cols))
             for key, cols in groups.items()]
         # each column's (kernel group, position in the group's planes):
         # the Arrow builder takes an OCCURS field's evenly spaced slots
@@ -892,8 +918,13 @@ class ColumnarDecoder:
             # written through the tensor
             warnings.filterwarnings("ignore", message=".*not writable.*")
             host = torch.from_numpy(arr)
+        # the decode region opens before the batch's H2D (transfers
+        # included, as the JAX package times its device decode)
+        fc = fieldcost.current()
+        tok = fc.begin() if fc is not None else None
         group_outs, _, buf = self._decode_device(host.to(self.device))
         outputs = self.collect_outputs(group_outs, arr.shape[0])
+        self._commit_decode(fc, tok, arr.shape[0])
         self._decode_host_fallback(arr, outputs)
         return DecodedBatch(self, arr, outputs, lengths=lengths,
                             host_buffer=buf, groups=group_outs)
@@ -909,6 +940,8 @@ class ColumnarDecoder:
                 f"decode_tensor takes a [n, record_len] uint8 matrix on "
                 f"{self.device}, not {tuple(data.shape)} {data.dtype} on "
                 f"{data.device}")
+        fc = fieldcost.current()
+        tok = fc.begin() if fc is not None else None
         extent = self.plan.max_extent
         if data.shape[1] < extent:
             data = torch.nn.functional.pad(data, (0, extent - data.shape[1]))
@@ -918,13 +951,14 @@ class ColumnarDecoder:
         group_outs, extra_host, buf = self._decode_device(
             data.contiguous(), extras)
         outputs = self.collect_outputs(group_outs, n)
+        self._commit_decode(fc, tok, n)
         if end:
             self._decode_host_fallback(extra_host[0], outputs)
         return DecodedBatch(self, None, outputs, n_records=n,
                             host_buffer=buf, groups=group_outs)
 
     def decode_raw(self, image: torch.Tensor, rec_offsets, rec_lengths,
-                   start_offset: int = 0) -> DecodedBatch:
+                   start_offset: int = 0, rows=None) -> DecodedBatch:
         """Decode framed records of a file image on the decoder's device:
         the pack kernel gathers them, from `start_offset` into each
         record, into a zero-padded [n, extent] matrix at the plan's byte
@@ -932,7 +966,8 @@ class ColumnarDecoder:
         end are nulled through the lengths, as the JAX package's packed
         route does. `rec_offsets` / `rec_lengths`: int64 payload offsets
         into `image` and record lengths, as tensors on the device or
-        host arrays."""
+        host arrays; `rows` (host positions), when given, picks the
+        records to decode among them."""
         if image.device != self.device:
             raise ValueError(f"decode_raw: image on {image.device}, decoder "
                              f"on {self.device}")
@@ -940,6 +975,16 @@ class ColumnarDecoder:
         def on_device(x):
             return torch.as_tensor(x, dtype=torch.int64).to(self.device)
 
+        # the decode region opens before the batch's first transfer or
+        # launch (the gather of its records' offsets, or its pack)
+        fc = fieldcost.current()
+        tok = fc.begin() if fc is not None else None
+        if rows is not None:
+            rows = np.asarray(rows, dtype=np.int64)
+            rec_offsets, rec_lengths = (
+                x[torch.from_numpy(rows).to(x.device)]
+                if isinstance(x, torch.Tensor) else np.asarray(x)[rows]
+                for x in (rec_offsets, rec_lengths))
         host_lengths = (rec_lengths.cpu().numpy()
                         if isinstance(rec_lengths, torch.Tensor)
                         else np.asarray(rec_lengths, dtype=np.int64))
@@ -965,6 +1010,7 @@ class ColumnarDecoder:
             extras.append(packed[:, :end])
         group_outs, extra_host, buf = self._decode_device(packed, extras)
         outputs = self.collect_outputs(group_outs, n)
+        self._commit_decode(fc, tok, n)
         host_rows = dict(zip(short.tolist(), extra_host[0])) \
             if len(short) else {}
         if end:
@@ -1062,6 +1108,26 @@ class ColumnarDecoder:
         return (outs, [planes[("extra", k)] for k in range(len(extras))],
                 host)
 
+    def _commit_decode(self, fc, tok, n: int) -> None:
+        """Field-cost attribution (``obs.fieldcost``): commit one batch's
+        decode region. The region opens before the batch's first
+        transfer or launch and closes here, after the synchronize that
+        ends `_decode_device`'s copy back and after `collect_outputs`,
+        as the JAX package's closes after its device decode's
+        ``collect_outputs``: it holds the device work and not only its
+        launches. Its wall splits across the kernel groups by bytes
+        touched, as the JAX package splits its jitted device decode.
+        Off (`tok` None), nothing is timed and nothing is synchronized
+        beyond the copy's own synchronize."""
+        if tok is None:
+            return
+        fc.commit_weighted(
+            tok,
+            [(g.names, g.width, n * g.width, g.label)
+             for g in self.kernel_groups
+             if g.codec is not Codec.HOST_FALLBACK and g.names],
+            fieldcost.PLANE_DECODE, n)
+
     def collect_outputs(self, group_outs, n: int) -> Dict[int, dict]:
         """Per-group host outputs -> per-column host planes, with the JAX
         package's dtypes (int16 code points viewed as uint16, double bit
@@ -1151,13 +1217,19 @@ class ColumnarDecoder:
 
     def _decode_host_fallback(self, arr: np.ndarray,
                               outputs: Dict[int, dict]) -> None:
+        fc = fieldcost.current()
         n = arr.shape[0]
         for g in self.kernel_groups:
             if g.codec is not Codec.HOST_FALLBACK:
                 continue
             for c in g.columns:
+                tok = fc.begin() if fc is not None else None
                 values = []
                 for i in range(n):
                     chunk = arr[i, c.offset: c.offset + c.width].tobytes()
                     values.append(self.options.decode(c.dtype, chunk))
                 outputs[c.index] = {"host": values}
+                if tok is not None:
+                    fc.commit(tok, (self.plan.cost_name(c),),
+                              fieldcost.PLANE_DECODE, n * c.width, n,
+                              "host")

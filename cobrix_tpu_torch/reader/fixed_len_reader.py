@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..plan.cache import copybook_for_params
+from ..obs.context import current as obs_current
+from ..plan.cache import copybook_for_params, decoder_cache_for
 from ..profiling import annotate
 from ..query.pushdown import BoundFilter
 from .columnar import ColumnarDecoder, DecodedBatch, decoder_for_segment
@@ -78,7 +79,9 @@ class FixedLenReader:
         self.params = params
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
-        self._decoders: Dict[str, ColumnarDecoder] = {}
+        # shared with every read of the same parse-cached copybook
+        self._decoders: Dict[str, ColumnarDecoder] = \
+            decoder_cache_for(self.copybook)
         # predicate pushdown (query/pushdown.py): bound once per reader,
         # shared (with its counters) by every chunk of the read
         self.pushdown = BoundFilter.build(params.filter, self.copybook,
@@ -168,6 +171,7 @@ class FixedLenReader:
         two stages there (`read_image`): a FileResult."""
         rs = self.record_size
         matrix = buf.reshape(-1, rs)
+        self.observe_records(matrix.shape[0])
         rec_lengths = None
         if tail is not None:
             n = matrix.shape[0]
@@ -196,6 +200,14 @@ class FixedLenReader:
         if not self.is_multisegment:
             return self.decoder().decode(trimmed, lengths=lengths)
         return self._read_multiseg_result(matrix, trimmed, lengths)
+
+    def observe_records(self, n: int) -> None:
+        """`n` records of this reader's size into the read's
+        record-length histogram (``obs.metrics``), when a read is
+        active."""
+        obs = obs_current()
+        if obs is not None and obs.metrics is not None and n:
+            obs.metrics["record_length"].observe_repeat(self.record_size, n)
 
     def permissive_part(self, part: Union[DecodedBatch, FileResult],
                         ledger=None, reasons: Optional[dict] = None

@@ -10,8 +10,10 @@ options and record ids, the input-file-name column, the generic
 per-record framings (text, a record-length field, custom header parsers
 and record extractors, variable-size OCCURS), the record error policies
 with their resync window, ledger cap and corrupt-record column, the
-pipeline's options, the column projection (`select`) and the filter
-(`filter`, the canonical wire JSON of a ``query`` expression). Every other
+pipeline's options, the column projection (`select`), the filter
+(`filter`, the canonical wire JSON of a ``query`` expression) and the
+observability options (`trace_file`, `trace_id`, `request_id`,
+`progress_interval_s`, `field_costs`). Every other
 field of the JAX package belongs to an option the port refuses by name
 (``api.read_cobol``); a field comes back with the slice that takes its
 option.
@@ -156,6 +158,29 @@ class ReaderParameters:
     # are dropped before the full decode wherever a static columnar plan
     # exists
     filter: Optional[str] = None
+    # -- observability (obs/) ----------------------------------------------
+    # Chrome-trace/Perfetto JSON output path: when set, the read records
+    # trace spans on every execution path (scan -> shard -> chunk ->
+    # stage, supervisor events) and writes the file at read end. '' =
+    # tracing off (the ~zero-overhead default)
+    trace_file: str = ""
+    # inbound trace context: a request-scoped trace id propagated from
+    # an upstream caller. '' = mint a fresh id when tracing is on. The
+    # id lands in every trace export, so one request stitches across
+    # processes
+    trace_id: str = ""
+    # caller-assigned request id carried on the trace root span ('' =
+    # none); purely identifying, never behavioral
+    request_id: str = ""
+    # minimum seconds between progress_callback invocations (the final
+    # done=True snapshot always fires)
+    progress_interval_s: float = 0.5
+    # per-field/kernel-group cost attribution (obs.fieldcost): a timed
+    # region around each batch's device decode and card assembly,
+    # surfaced as ReadMetrics.field_costs and the explain cost table.
+    # Off by default — the disabled path takes zero timestamps;
+    # `read_cobol(..., explain=True)` forces it on for that read
+    field_costs: bool = False
 
     def resolved_pipeline_workers(self) -> int:
         """Effective worker count: 0 = sequential, negative = auto."""

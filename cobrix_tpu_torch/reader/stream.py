@@ -28,8 +28,8 @@ Changes from the JAX package:
   pipeline's reader thread use. A raw local file is opened as itself.
 * `ShardStream` reads a byte range already held on the host.
 * The per-read memo and counters come from `io.stats.current_io_stats`,
-  a read-scoped holder of the port's own (the JAX package reads its
-  observability context, ROADMAP A8).
+  which reads the read's observability context (``obs.context``), as
+  the JAX package's does.
 """
 from __future__ import annotations
 

@@ -140,12 +140,17 @@ import torch
 
 from ..copybook.ast import Group, Primitive
 from ..device import resolve_device
+from ..engine.chunks import shard_progress_bytes
 from ..engine.staging import StagedBytes, StagingPool, worker_stream
 from ..io.compress import compressed_chunkable
-from ..io.stats import carry, current_io_stats
+from ..io.stats import current_io_stats
+from ..obs.context import carry
+from ..obs.context import current as obs_current
+from ..obs.trace import maybe_span
 from ..ops.device_framing import (CARRY, DONE, TOO_BIG, ZERO, pack_records,
                                   scan_window)
-from ..plan.cache import copybook_for_params, parse_fingerprint
+from ..plan.cache import (copybook_for_params, decoder_cache_for,
+                          parse_fingerprint)
 from ..profiling import annotate, timed_stage
 from .columnar import (ColumnarDecoder, DecodedBatch, _resolve_occurs,
                        decoder_for_segment)
@@ -605,7 +610,9 @@ class VarLenReader:
         self.on_retry = None
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
-        self._decoders: Dict[str, ColumnarDecoder] = {}
+        # shared with every read of the same parse-cached copybook
+        self._decoders: Dict[str, ColumnarDecoder] = \
+            decoder_cache_for(self.copybook)
         # predicate pushdown (query/pushdown.py): bound once per reader,
         # shared (with its counters) by every shard and window of the read
         self.pushdown = BoundFilter.build(params.filter, self.copybook,
@@ -1222,7 +1229,7 @@ class VarLenReader:
                     segment_id_prefix, start_record_id + e.record_index,
                     0, 0, path=path, base_offset=e.offset_from)
             return result
-        return self._map_shards(read, entries)
+        return self._map_shards(read, entries, path)
 
     def open_input(self, path: str, start_offset: int = 0,
                    maximum_bytes: int = 0):
@@ -1256,20 +1263,61 @@ class VarLenReader:
     def _shard_width(self, entries: Sequence) -> int:
         return max(1, min(self.parallelism, len(entries)))
 
-    def _map_shards(self, read, entries: Sequence) -> List[FileResult]:
-        """`read(entry)` of every index shard, in shard order: one after
+    def _map_shards(self, read, entries: Sequence,
+                    path: str) -> List[FileResult]:
+        """`read(entry)` of every index shard of the file `path`, in shard
+        order: one after
         another, or on `parallelism` threads (the JAX package's indexed
         scan, ``cobrix_tpu/api.py:909-913``), each on its own CUDA
-        stream, as the pipeline's workers are."""
+        stream, as the pipeline's workers are, and each in the read's
+        observability context (``obs.context.carry``) as one shard of
+        the read (`_as_shard`)."""
+        obs = obs_current()
+        progress = obs.progress if obs is not None else None
+        if progress is not None and len(entries) > 1:
+            # the file was planned as one unit of progress
+            progress.set_plan(
+                chunks_total=progress.chunks_total + len(entries) - 1)
+
+        def shard(e):
+            return self._as_shard(lambda: read(e), path, e)
         width = self._shard_width(entries)
         if width == 1:
-            return [read(e) for e in entries]
+            return [shard(e) for e in entries]
 
         def run(e):
             with worker_stream(self.device):
-                return read(e)
+                return shard(e)
         with ThreadPoolExecutor(max_workers=width) as ex:
             return list(ex.map(carry(run), entries))
+
+    def _as_shard(self, run, path: str,
+                  entry: SparseIndexEntry) -> FileResult:
+        """`run()`, the read of the index shard `entry` of the file
+        `path`, as one shard of the read: a "shard" span under the scan's
+        root when the read traces (the reader's stage spans nest under
+        it), and one unit of progress with its bytes and rows (the JAX
+        package's indexed scan, ``cobrix_tpu/api.py:843-905``)."""
+        obs = obs_current()
+        if obs is None or (obs.tracer is None and obs.progress is None):
+            return run()
+        tracer, progress = obs.tracer, obs.progress
+        if progress is not None:
+            progress.chunk_started()
+        if tracer is None:
+            result = run()
+        else:
+            with tracer.span("shard", "shard", parent=tracer.root_id,
+                             args={"file": path,
+                                   "offset_from": entry.offset_from,
+                                   "offset_to": entry.offset_to}):
+                result = run()
+        if progress is not None:
+            progress.chunk_done(
+                bytes_done=shard_progress_bytes(entry,
+                                                self.input_size(path)),
+                records=result.n_rows)
+        return result
 
     def _decoder_for_segment(self, active_segment: str) -> ColumnarDecoder:
         return decoder_for_segment(self._decoders, self.copybook,
@@ -1331,6 +1379,8 @@ class VarLenReader:
                                               segment_id_prefix)
         shifted = indexed and p.file_start_offset > 0
         key = cached = None
+        obs = obs_current()
+        tracer = obs.tracer if obs is not None else None
         try:
             with self.open_input(path) as f:
                 if indexed:
@@ -1338,10 +1388,16 @@ class VarLenReader:
                     # indexed scan looks it up (the read frames the file
                     # whole either way; a miss keeps its starts)
                     key, cached = self._stored_index(path, f, file_id)
-                result, file_ids, starts = self._read(
-                    f, size, file_id, segment_id_prefix, start_record_id,
-                    p.file_start_offset, p.file_end_offset,
-                    keep_starts=indexed and cached is None, path=path)
+                # the whole file is one shard of the read (`_as_shard`),
+                # unless a permissive read re-reads it in its index's
+                with maybe_span(tracer, "shard", "shard",
+                                args={"file": path, "offset_from": 0,
+                                      "offset_to": -1}):
+                    result, file_ids, starts = self._read(
+                        f, size, file_id, segment_id_prefix,
+                        start_record_id, p.file_start_offset,
+                        p.file_end_offset,
+                        keep_starts=indexed and cached is None, path=path)
         except FramingError as exc:
             if not indexed or exc.file_name != path:
                 raise
@@ -1352,7 +1408,7 @@ class VarLenReader:
                 offset=exc.offset, reason=exc.reason,
                 header=exc.header) from None
         if not indexed:
-            return [result]
+            return [self._progress_whole(result, size)]
         entries = cached
         if entries is None:
             entries = sparse_index_entries(
@@ -1375,7 +1431,16 @@ class VarLenReader:
                 if s.seg_level_ids is not None:
                     rid = s.seg_level_ids.coded["root_rid"]
                     rid += (rid >= start_record_id + shift_from)
-        return [result]
+        return [self._progress_whole(result, size)]
+
+    @staticmethod
+    def _progress_whole(result: FileResult, size: int) -> FileResult:
+        """A file read whole: one unit of the read's progress."""
+        obs = obs_current()
+        if obs is not None and obs.progress is not None:
+            obs.progress.chunk_started()
+            obs.progress.chunk_done(bytes_done=size, records=result.n_rows)
+        return result
 
     def _read_file_shards(self, path: str, size: int,
                           entries: Sequence[SparseIndexEntry], file_id: int,
@@ -1404,7 +1469,7 @@ class VarLenReader:
                     segment_id_prefix, path=path)
             finally:
                 staged.close()
-        return self._map_shards(read, entries)
+        return self._map_shards(read, entries, path)
 
     def read_shard(self, staged: StagedBytes, file_id: int,
                    offset_from: int, record_index: int, file_size: int,
@@ -1489,6 +1554,11 @@ class VarLenReader:
                 break
             base, image, offs_d, lengths, window_ids = window
             n = offs_d.numel()
+            obs = obs_current()
+            if obs is not None and obs.metrics is not None and n:
+                # record-length distribution (one vectorized bucket count
+                # a window, never a per-record loop)
+                obs.metrics["record_length"].observe_many(lengths)
             if keep_starts:
                 starts.append(base + offs_d.cpu().numpy() - self._header_len)
             keep = np.ones(n, dtype=bool)
@@ -1790,8 +1860,8 @@ class VarLenReader:
             for b in range(0, len(positions), rows):
                 part = positions[b:b + rows]
                 decoded = decoder.decode_raw(
-                    image, offs_d[torch.from_numpy(part).to(image.device)],
-                    lengths[part], start_offset=self.params.start_offset)
+                    image, offs_d, lengths,
+                    start_offset=self.params.start_offset, rows=part)
                 file_pos = first + part.astype(np.int64)
                 result.segments.append(SegmentBatch(
                     decoded, active or None, file_pos,

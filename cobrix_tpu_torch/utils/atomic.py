@@ -1,10 +1,7 @@
-"""Crash-safe file writes: temp file + rename for whole artifacts —
-shared by every plane that persists something (block cache, inflate
-index, sparse-index store).
-
-Port copy of ``cobrix_tpu.utils.atomic``: `write_atomic` as it is. The
-O_APPEND record-log writer (`append_line`) is left out: its users (the
-scan audit log, ROADMAP A8) are not ported.
+"""Crash-safe file writes: temp file + rename for whole artifacts, and
+single-syscall O_APPEND appends for record logs — shared by every plane
+that persists something (trace export, roofline calibration, block
+cache, index store, scan audit log).
 
 The guarantee: a reader never observes a partially-written file under
 the final name — it sees the previous complete content or nothing. With
@@ -15,13 +12,34 @@ before visibility). Cache planes that can cheaply rebuild a lost entry
 skip the fsync; artifacts a human or gate reads (traces, calibrations)
 take it.
 
-This module must stay import-light (no package-internal imports).
+This module must stay import-light (no package-internal imports): it is
+used from ``obs/`` which ``api`` itself imports.
+
+Port copy of ``cobrix_tpu.utils.atomic``, unchanged.
 """
 from __future__ import annotations
 
 import os
 import tempfile
 from typing import Union
+
+
+def append_line(path: str, line: str) -> int:
+    """Append one newline-terminated record to `path` as a SINGLE
+    O_APPEND write (creating the file 0666&~umask if absent). POSIX
+    O_APPEND makes the offset seek+write atomic per call, so concurrent
+    appenders (threads or processes sharing an audit log) interleave
+    whole records, never splice bytes mid-record. Returns the bytes
+    written so callers can track size for rotation without a stat."""
+    if not line.endswith("\n"):
+        line += "\n"
+    data = line.encode("utf-8")
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o666)
+    try:
+        os.write(fd, data)
+    finally:
+        os.close(fd)
+    return len(data)
 
 
 def write_atomic(path: str, data: Union[bytes, str],

@@ -8,6 +8,7 @@ device="cpu")``, sequential and pipelined: the rows, the JSON lines and
 the Arrow table must be equal, or both reads must raise the same error
 class with the same message.
 """
+import os
 import struct
 from decimal import Decimal
 
@@ -430,6 +431,15 @@ def test_options_outside_the_slice_still_raise(tmp_path, option, value):
         with pytest.raises(ValueError, match="'A' is not found"):
             cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,
                                         **{option: value})
+        return
+    if option in ("field_costs", "trace_file"):
+        # taken since the observability slice: the read equals the JAX
+        # package's, and a trace file is written
+        if option == "trace_file":
+            value = str(tmp_path / value)
+        _same(path, dict(EXP1, **{option: value}))
+        if option == "trace_file":
+            assert os.path.getsize(value) > 0
         return
     with pytest.raises(ValueError, match=option):
         cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,

@@ -127,7 +127,7 @@ def test_read_cobol_names_every_option_it_does_not_take(tmp_path):
     path.write_bytes(pgen.generate_exp1(2, seed=1).tobytes())
     # options of the JAX package's reader the port does not take (a key
     # neither package knows is ignored, or named by `pedantic`)
-    for option in ("collect_stats", "trace_file", "use_stats",
+    for option in ("collect_stats", "heartbeat_interval_s", "use_stats",
                    "stream_batch_rows", "hosts"):
         with pytest.raises(ValueError, match=option):
             cobrix_tpu_torch.read_cobol(

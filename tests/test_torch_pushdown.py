@@ -469,15 +469,15 @@ def test_keyword_combination_raises():
 
 
 def test_package_exports_the_jax_names_but_the_later_slices():
-    later = {"explain", "ScanReport", "ScanProgress", "Tracer",
-             "prometheus_text", "ContinuousIngestor", "tail_cobol",
-             "SourceTruncated", "DatasetSink", "sink_cobol",
-             "SinkCorruption", "SinkSchemaError", "read_dataset"}
+    later = {"ContinuousIngestor", "tail_cobol", "SourceTruncated",
+             "DatasetSink", "sink_cobol", "SinkCorruption",
+             "SinkSchemaError", "read_dataset"}
     assert set(cobrix_tpu.__all__) - set(cobrix_tpu_torch.__all__) == later
     for name in ("CommentPolicy", "DebugFieldsPolicy", "Encoding", "Usage",
                  "ReadDiagnostics", "RecordErrorPolicy", "ShardErrorPolicy",
                  "ShardFailureInfo", "ReadMetrics", "profile_trace",
-                 "query"):
+                 "query", "explain", "ScanReport", "ScanProgress", "Tracer",
+                 "prometheus_text"):
         assert getattr(cobrix_tpu_torch, name) is not None
     public = {n for n in dir(jq) if not n.startswith("_")}
     assert public - {"expr", "pushdown", "dataset"} <= set(dir(tq))

@@ -266,6 +266,25 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
 ])
 def test_options_this_slice_does_not_take_are_refused(option, value,
                                                       paths):
+    if option == "progress_interval_s":
+        # taken since the observability slice: the read equals the JAX
+        # package's, and so do the final progress snapshots' counts
+        opts = dict(RDW, **SEGMENTS, **{option: value})
+        seen = {"port": [], "jax": []}
+        got = cobrix_tpu_torch.read_cobol(
+            paths["exp2"], copybook_contents=gen.EXP2_COPYBOOK,
+            device="cpu", progress_callback=seen["port"].append, **opts)
+        want = cobrix_tpu.read_cobol(
+            paths["exp2"], copybook_contents=gen.EXP2_COPYBOOK,
+            backend="numpy", progress_callback=seen["jax"].append, **opts)
+        assert got.to_arrow().equals(want.to_arrow())
+        last = {k: v[-1] for k, v in seen.items()}
+        assert last["port"].done and last["jax"].done
+        assert (last["port"].bytes_total, last["port"].bytes_done,
+                last["port"].records_done) == \
+            (last["jax"].bytes_total, last["jax"].bytes_done,
+             last["jax"].records_done)
+        return
     if option == "filter":
         # taken since the filter slice: the filtered read equals the JAX
         # package's, and no record has that company id
