@@ -155,10 +155,10 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    against a CPU read); (d) the generic framings on the card: 50,000
    exp3 records with big-endian RDWs read through ``RECORD-LENGTH PIC
    9(4) COMP`` (clean, and permissive with three length fields broken),
-   1,000,000 text lines (LF and CRLF, ``encoding=ascii``), 1,000,000
+   250,000 text lines (LF and CRLF, ``encoding=ascii``), 250,000
    ``generate_custom_rdw`` records through a custom header parser and
    through a custom record extractor (``testing/custom_framing.py``), and
-   12,000 records of a trailing ``OCCURS 1 TO 2000 DEPENDING ON`` table
+   6,000 records of a trailing ``OCCURS 1 TO 2000 DEPENDING ON`` table
    (``variable_size_occurs``): the first and last 1,000 rows against CPU
    reads. Before them, the cost of the policies on the clean exp2, exp3
    and exp1 files in turns (fail_fast, permissive, permissive,
@@ -293,19 +293,45 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    untraced read's scan, pack and fused launches and planes, the decode
    plane's 15% anchor. Each read prints its MB/s beside the untraced
    read's; every kernel's ``launches_by_path`` gets an ``obs`` path.
+18. the statistics plane (``cobrix_tpu_torch.stats``): (a) the phase 3
+   exp1 file read with ``collect_stats`` and a fresh ``cache_dir`` at the
+   default 4 MB grid (357 chunks of 2,809 records): the profiling pass
+   launches the fused kernel and each assembly kernel once a chunk
+   (counted as the read's launches less its stats-off twin's), a second
+   collecting read loads the profile and launches nothing more than the
+   twin, and the profile of the first 64 MiB of records on the card
+   equals the CPU's (``to_payload`` value for value); the pass's seconds
+   print apart from the read's. (b) 8,000,000 TXN records
+   (``testing/corpus.write_fixed_corpus``, TXN-ID rising, 67 chunks)
+   collected, then read with ``use_stats`` under ``TXN_ID == 4000000``
+   (>= 90% of the chunks skipped; the filter's stages launch on the kept
+   chunks only) and ``STATUS == 'A'`` (nothing provable, nothing
+   skipped), sequential and pipelined (2 workers): each table equals its
+   stats-off twin's. (c) 1,000,000 companies
+   (``write_multiseg_corpus``) in 4 MB index shards, collected, then read
+   under a selective and an impossible ``COMPANY_ID`` filter, sequential
+   and pipelined: the selective reads skip some shards, the impossible
+   ones every shard with no scan, pack or fused launch (the sequential
+   one is ROADMAP C10 at full size); tables equal the twins'. (d)
+   ``query.dataset(..., use_stats="true").aggregate`` over (b)'s file
+   equals the decode path's answer, types included, with no launch.
+   Every read prints its MB/s beside its twin's; every kernel's
+   ``launches_by_path`` gets a ``stats`` path.
 
-Every phase prints its seconds (``[phases]``). Every failure exits
-non-zero. The last two lines are the kernels JSON and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-package beside this file, it exits 2 and prints no result.
+Every phase prints its seconds (``[phases]``), and a whole run prints
+them again as one ``[phases] {...}`` JSON line before the result lines.
+Every failure exits non-zero. The last three lines are the card's name
+and power limit, the kernels JSON and ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the package beside this
+file, it exits 2 and prints no result.
 
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
 lines: it checks the script's paths, not the card. ``--phases 13`` (or
-``12``, ``14``, ``15``, ``16``, ``17``, or several) runs the
-environment, phase 4 (phase 14 also phases 3 and 5, phases 15, 16 and
-17 also phase 3) and the phases named, and also exits 3 without the
-result lines.
+``12``, ``14``, ``15``, ``16``, ``17``, ``18``, or several) runs the
+environment, phase 4 (phase 14 also phases 3 and 5, phases 15-18 also
+phase 3) and the phases named, and also exits 3 without the result
+lines. ``--cpu-rehearsal --phases 18`` rehearses phase 18 alone.
 """
 from __future__ import annotations
 
@@ -376,7 +402,7 @@ AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 # phases `--phases` can run alone (after the environment and phase 4)
 PHASES = {"12": "phase_generic", "13": "phase_hierarchical",
           "14": "phase_assembly", "15": "phase_io", "16": "phase_pushdown",
-          "17": "phase_obs"}
+          "17": "phase_obs", "18": "phase_stats"}
 
 
 class SmokeFailure(Exception):
@@ -1574,7 +1600,8 @@ class Smoke:
                   f"pageable copies back for {batches} batches (3 each)")
             check(pinned_h2d == 3 * report["chunks"],
                   f"traced read: {pinned_h2d} pinned copies to the card "
-                  f"for {report['chunks']} chunks (3 each)")
+                  f"for {report['chunks']} chunks (3 each); copies "
+                  f"{trace['copies']}")
             check(len(streams["kernel"]) >= 2,
                   f"traced read: kernels ran on {len(streams['kernel'])} "
                   f"stream(s)")
@@ -2748,15 +2775,17 @@ class Smoke:
                       bad_bounds, dict(opts, record_error_policy="permissive",
                                        corrupt_record_column="_corrupt"),
                       [n3 // 3, (2 * n3) // 3 - 1]))
-        # text lines, LF and CRLF mixed, trailing blanks cut
-        nt = 3000 if r else 1_000_000
+        # text lines, LF and CRLF mixed, trailing blanks cut (cut from
+        # 1,000,000, with the custom records and the OCCURS table below,
+        # to keep the whole run inside its time)
+        nt = 3000 if r else 250_000
         text = g.generate_text(nt, seed=42)
         nl = np.nonzero(np.frombuffer(text, dtype=np.uint8) == 0x0A)[0]
         cases.append(("text", text, np.append(0, nl + 1),
                       dict(copybook_contents=g.TEXT_COPYBOOK,
                            is_text="true", encoding="ascii"), []))
         # records behind a custom 5-byte header, written by children
-        nc = 3000 if r else 1_000_000
+        nc = 3000 if r else 250_000
         crdw = self._write_custom_rdw(nc)
         valid, pos, view = [], 0, memoryview(crdw)
         while pos + 5 <= len(crdw):
@@ -2775,7 +2804,7 @@ class Smoke:
             record_extractor=custom + "CustomRdw5ByteExtractor",
             re_additional_info="chip_smoke", **P12_SEG), []))
         # variable-size OCCURS: a trailing 1 TO 2000 table
-        nv = 40 if r else 12_000
+        nv = 40 if r else 6_000
         vo = g.generate_var_occurs(nv, seed=43)
         vb, pos = [], 0
         while pos < len(vo):
@@ -4791,6 +4820,344 @@ class Smoke:
             f"{json.dumps(self.p17['launches']['exp3'])}")
         del data
 
+    # -- phase 18: the statistics plane --------------------------------
+
+    def phase_stats(self):
+        """Phase 18: the statistics plane on the card (see the module
+        docstring): (a) exp1's profile, (b) fixed-length chunk skipping
+        on the TXN corpus, (c) RDW shard skipping on the multisegment
+        corpus (C10 at full size), (d) aggregates from the profile."""
+        t_phase = time.perf_counter()
+        self.p18 = {"launches": {}, "reads": {}}
+        self.p18_launches = dict.fromkeys(KERNELS, 0)
+        self._p18_exp1()
+        txn = self._p18_txn()
+        self._p18_multiseg()
+        self._p18_dataset(*txn)
+        self.launches["stats"] = dict(self.p18_launches)
+        if not self.rehearsal:
+            for k in READ_KERNELS + ARROW_KERNELS:
+                check(self.p18_launches[k] > 0,
+                      f"{k} never launched on the statistics path")
+        self.p18["secs"] = time.perf_counter() - t_phase
+        log(f"[stats] {self.card}: phase 18 {self.p18['secs']:.1f} s; "
+            f"launches on the statistics path "
+            f"{json.dumps(self.p18_launches)}")
+
+    def _p18_read(self, tag, path, stats=True, arrow=True, **opts):
+        """read_cobol on the default device (and its table unless
+        `arrow` is false), every kernel's launches counted from 0:
+        (data, table, read seconds, launches). A read with a stats
+        option joins the statistics path under `tag`; its stats-off twin
+        (`stats` false) is a reference and joins nothing."""
+        from cobrix_tpu_torch import read_cobol
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        timing = {}
+
+        def run():
+            t0 = time.perf_counter()
+            data = read_cobol(path, **opts, **kw)
+            self.sync()
+            timing["read"] = time.perf_counter() - t0
+            return data, (data.to_arrow() if arrow else None)
+        (data, table), launches = self._p16_count(run)
+        if stats:
+            for k, v in launches.items():
+                if k in self.p18_launches:
+                    self.p18_launches[k] += v
+            self.p18["launches"][tag] = {k: v for k, v in launches.items()
+                                         if v}
+        return data, table, timing["read"], launches
+
+    def _p18_report(self, tag, size, data, secs, launches, twin=None):
+        """Log one read of phase 18: its MB/s (beside its stats-off
+        twin's (data, seconds) when given), the profiling pass's
+        seconds, the chunk counters and the launches."""
+        collect_s = data.metrics.timings_s.get("collect_stats")
+        scan_s = secs - (collect_s or 0.0)
+        pd = data.metrics.pushdown or {}
+        row = dict(mb_per_s=size / scan_s / 1e6, read_s=secs,
+                   collect_s=collect_s, rows=len(data),
+                   chunks_considered=pd.get("chunks_considered"),
+                   chunks_skipped=pd.get("chunks_skipped"),
+                   bytes_skipped=pd.get("bytes_skipped"),
+                   launches={k: v for k, v in launches.items() if v})
+        if twin is not None:
+            row["stats_off_mb_per_s"] = size / twin[1] / 1e6
+        self.p18["reads"][tag] = row
+        beside = ("" if twin is None else
+                  f" (stats off {row['stats_off_mb_per_s']:.1f})")
+        extra = ("" if collect_s is None else
+                 f"; profiling pass {collect_s:.3f} s apart from the "
+                 f"read's {scan_s:.3f} s")
+        log(f"[stats] {self.card}: {tag}: {row['rows']} rows, "
+            f"{row['mb_per_s']:.1f} MB/s{beside}{extra}; chunks "
+            f"{row['chunks_skipped']}/{row['chunks_considered']} skipped, "
+            f"{row['bytes_skipped']} bytes; launches "
+            f"{json.dumps(row['launches'])}")
+        return row
+
+    @staticmethod
+    def _p18_payloads(cache):
+        """{url: profile payload} of the stats entries under `cache`."""
+        from cobrix_tpu_torch.testing.faults import cache_entry_paths
+
+        out = {}
+        for path in cache_entry_paths(cache, "stats"):
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)["profile"]
+            out[doc["url"]] = doc
+        return out
+
+    def _p18_chunks(self, size, rs, grid_mb):
+        """The profile's chunk count of a fixed-length file: strides of
+        `grid_mb` MB, record-aligned."""
+        stride = max(rs, int(float(grid_mb) * 1024 * 1024) // rs * rs)
+        return -(-size // stride)
+
+    def _p18_exp1(self):
+        """(a) the phase 3 exp1 file profiled at the default 4 MB grid:
+        one fused launch and one launch of each assembly kernel a chunk
+        in the profiling pass, none on a warm re-read; the profile of
+        the first 64 MiB of records on the card equals the CPU's."""
+        from cobrix_tpu_torch.api import parse_options
+        from cobrix_tpu_torch.stats.collect import build_and_store_profiles
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        rs = 1493
+        path, size = self.exp1_path, self.e2e[0]
+        if os.path.getsize(path) != size:
+            # phase 12 (c) left a torn tail on it: the phase 3 bytes
+            os.truncate(path, size)
+        grid = {"stats_chunk_mb": "0.5"} if self.rehearsal else {}
+        want_chunks = self._p18_chunks(size, rs, grid.get(
+            "stats_chunk_mb", "4"))
+        cb = dict(copybook_contents=EXP1_COPYBOOK)
+        off, _, off_s, twin = self._p18_read("exp1_off", path, stats=False,
+                                             arrow=False, **cb)
+        cache = os.path.join(self.tmp, "p18_exp1")
+        data, _, secs, launches = self._p18_read(
+            "exp1_collect", path, arrow=False, cache_dir=cache,
+            collect_stats="true", **cb, **grid)
+        self._p18_report("exp1_collect", size, data, secs, launches,
+                         (off, off_s))
+        prof = data.stats_profiles[path]
+        pass_launches = {k: launches[k] - twin[k] for k in launches}
+        check(prof["chunks"] == want_chunks and prof["records"] == size // rs,
+              f"exp1 profile: {prof['chunks']} chunks, {prof['records']} "
+              f"records; want {want_chunks}")
+        check(pass_launches["fused_decode"] == want_chunks,
+              f"exp1 profiling pass: {pass_launches} for {want_chunks} "
+              "chunks")
+        if not self.rehearsal:
+            for k in ARROW_KERNELS:
+                check(pass_launches[k] == want_chunks,
+                      f"exp1 profiling pass: {k} {pass_launches[k]} for "
+                      f"{want_chunks} chunks")
+        warm, _, warm_s, warm_launches = self._p18_read(
+            "exp1_collect_warm", path, arrow=False, cache_dir=cache,
+            collect_stats="true", **cb, **grid)
+        self._p18_report("exp1_collect_warm", size, warm, warm_s,
+                         warm_launches, (off, off_s))
+        check(warm_launches == twin,
+              f"the warm profile pass launched: {warm_launches} against "
+              f"the stats-off read's {twin}")
+        check(warm.stats_profiles == data.stats_profiles,
+              "the warm profile differs from the collected one")
+        del off, data, warm
+        # the profile of the first 64 MiB of records, card against CPU
+        n = 1000 if self.rehearsal else (64 << 20) // rs
+        head = os.path.join(self.tmp, "p18_exp1_head.dat")
+        with open(path, "rb") as src, open(head, "wb") as dst:
+            dst.write(src.read(n * rs))
+        caches = {k: os.path.join(self.tmp, f"p18_head_{k}")
+                  for k in ("card", "cpu")}
+        t0 = time.perf_counter()
+        self._p18_read("exp1_head", head, arrow=False,
+                       cache_dir=caches["card"], collect_stats="true",
+                       **cb, **grid)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_and_store_profiles([head], EXP1_COPYBOOK, parse_options(dict(
+            cache_dir=caches["cpu"], collect_stats="true", **grid)), "cpu")
+        cpu_s = time.perf_counter() - t0
+        got, want = (self._p18_payloads(caches[k]) for k in ("card", "cpu"))
+        check(list(got) == [head] and got == want,
+              "the card's exp1 profile differs from the CPU's")
+        self.p18["exp1"] = dict(chunks=want_chunks,
+                                pass_launches=pass_launches,
+                                head_records=n, head_chunks=len(
+                                    got[head]["chunks"]),
+                                head_card_s=card_s, head_cpu_s=cpu_s)
+        log(f"[stats] exp1: profiling pass {json.dumps(pass_launches)} "
+            f"launches for {want_chunks} chunks, none warm; the profile of "
+            f"the first {n} records ({len(got[head]['chunks'])} chunks) on "
+            f"the card == on the CPU, value for value (card read + pass "
+            f"{card_s:.1f} s, CPU pass {cpu_s:.1f} s)")
+        os.remove(head)
+
+    def _p18_txn(self):
+        """(b) the TXN corpus (TXN-ID rising): collected, then read with
+        use_stats under a 1-record filter (>= 90% of the chunks skipped)
+        and under a filter the zone maps cannot prove (nothing skipped),
+        sequential and pipelined: tables equal the stats-off reads'.
+        Returns (path, cache, read options) for (d)."""
+        from cobrix_tpu_torch.testing import corpus
+
+        n = 60_000 if self.rehearsal else 8_000_000
+        path = os.path.join(self.tmp, "p18_txn.dat")
+        t0 = time.perf_counter()
+        info = corpus.write_fixed_corpus(path, n, seed=7)
+        size, rs = info["bytes"], info["record_size"]
+        log(f"[stats] wrote {n} TXN records ({size} bytes) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        grid = {"stats_chunk_mb": "0.1"} if self.rehearsal else {}
+        opts = corpus.fixed_read_options()
+        cache = os.path.join(self.tmp, "p18_txn")
+        data, _, secs, launches = self._p18_read(
+            "txn_collect", path, arrow=False, cache_dir=cache,
+            collect_stats="true", **opts, **grid)
+        self._p18_report("txn_collect", size, data, secs, launches)
+        chunks = data.stats_profiles[path]["chunks"]
+        check(chunks == self._p18_chunks(size, rs, grid.get(
+            "stats_chunk_mb", "4")), f"TXN profile: {chunks} chunks")
+        del data
+        modes = {"sequential": {},
+                 "pipelined": {"pipeline_workers": "2",
+                               "chunk_size_mb": self.pipe_chunk_mb}}
+        for label, flt in (("selective", f"TXN_ID == {n // 2}"),
+                           ("unprovable", "STATUS == 'A'")):
+            for mode, extra in modes.items():
+                tag = f"txn_{label}_{mode}"
+                twin = self._p18_read(tag + "_off", path, stats=False,
+                                      filter=flt, **opts, **extra)
+                data, table, secs, launches = self._p18_read(
+                    tag, path, cache_dir=cache, use_stats="true",
+                    filter=flt, **opts, **grid, **extra)
+                row = self._p18_report(tag, size, data, secs, launches,
+                                       (twin[0], twin[2]))
+                check(table.equals(twin[1]), f"{tag}: the table differs "
+                      "from the stats-off read's")
+                considered = row["chunks_considered"]
+                kept = considered - row["chunks_skipped"]
+                check(considered == chunks, f"{tag}: {considered} chunks "
+                      f"considered of {chunks}")
+                # the filter's two stages a kept chunk: stage 1 packs
+                # the filter column and decodes it (TXN-ID in the fused
+                # kernel; STATUS, a string, outside it), stage 2 packs
+                # and decodes the chunk's kept records
+                if label == "selective":
+                    check(table.num_rows == 1 and kept <= 0.1 * chunks,
+                          f"{tag}: {table.num_rows} rows, {kept} of "
+                          f"{chunks} chunks kept")
+                    want = {"fused_decode": kept + 1,
+                            "pack_records": kept + 1}
+                else:
+                    check(kept == chunks and table.num_rows > 0,
+                          f"{tag}: {kept} of {chunks} chunks kept")
+                    want = {"fused_decode": kept, "pack_records": 2 * kept}
+                got = {k: launches[k] for k in want}
+                check(got == want, f"{tag}: launches {got}, want {want}")
+                del twin, data, table
+        return path, cache, dict(opts, **grid)
+
+    def _p18_multiseg(self):
+        """(c) the multisegment RDW corpus in 4 MB index shards:
+        collected, then read with use_stats under a selective filter
+        (some shards skipped) and an impossible one (every shard
+        skipped: no scan, pack or fused launch; the sequential read is
+        C10), sequential and pipelined: tables equal the stats-off
+        reads'."""
+        from cobrix_tpu_torch.testing import corpus
+
+        n = 20_000 if self.rehearsal else 1_000_000
+        path = os.path.join(self.tmp, "p18_multiseg.dat")
+        t0 = time.perf_counter()
+        info = corpus.write_multiseg_corpus(path, n, seed=7)
+        size = info["bytes"]
+        log(f"[stats] wrote {n} companies, {info['records']} records "
+            f"({size} bytes) in {time.perf_counter() - t0:.1f} s")
+        split = ({"input_split_records": "5000"} if self.rehearsal
+                 else {"input_split_size_mb": "4"})
+        opts = dict(corpus.multiseg_read_options(), **split)
+        cache = os.path.join(self.tmp, "p18_multiseg")
+        data, _, secs, launches = self._p18_read(
+            "multiseg_collect", path, arrow=False, cache_dir=cache,
+            collect_stats="true", **opts)
+        self._p18_report("multiseg_collect", size, data, secs, launches)
+        chunks = data.stats_profiles[path]["chunks"]
+        check(chunks > 1 and data.stats_profiles[path]["records"]
+              == info["records"], f"multiseg profile: {chunks} chunks")
+        del data
+        modes = {"sequential": {}, "pipelined": {"pipeline_workers": "2"}}
+        for label, flt in (("selective", f"COMPANY_ID == 'C{n // 2:09d}'"),
+                           ("impossible", "COMPANY_ID == 'Z'")):
+            for mode, extra in modes.items():
+                tag = f"multiseg_{label}_{mode}"
+                twin = self._p18_read(tag + "_off", path, stats=False,
+                                      filter=flt, **opts, **extra)
+                data, table, secs, launches = self._p18_read(
+                    tag, path, cache_dir=cache, use_stats="true",
+                    filter=flt, **opts, **extra)
+                row = self._p18_report(tag, size, data, secs, launches,
+                                       (twin[0], twin[2]))
+                check(table.equals(twin[1]), f"{tag}: the table differs "
+                      "from the stats-off read's")
+                considered = row["chunks_considered"]
+                skipped = row["chunks_skipped"]
+                check(considered == chunks, f"{tag}: {considered} shards "
+                      f"considered of {chunks}")
+                if label == "selective":
+                    check(0 < skipped < considered and table.num_rows >= 1,
+                          f"{tag}: {skipped} of {considered} skipped")
+                else:
+                    check(skipped == considered and table.num_rows == 0,
+                          f"{tag}: {skipped} of {considered} skipped, "
+                          f"{table.num_rows} rows")
+                    read = ("rdw_scan", "pack_records", "fused_decode")
+                    check(not any(launches[k] for k in read),
+                          f"{tag}: launches {launches} with every shard "
+                          "skipped")
+                del twin, data, table
+        os.remove(path)
+
+    def _p18_dataset(self, path, cache, opts):
+        """(d) query.dataset over the TXN corpus with use_stats: the
+        aggregates from the profile equal the decode path's, types
+        included, and launch nothing."""
+        from cobrix_tpu_torch.query import dataset
+
+        kw = {"device": "cpu"} if self.rehearsal else {}
+        aggs = ["count", "min:TXN_ID", "max:TXN_ID", "sum:AMOUNT",
+                "min:ACCOUNT", "max:CURRENCY", "sum:BRANCH"]
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0
+        ds = dataset(path, cache_dir=cache, use_stats="true", **opts, **kw)
+        (fast, fast_s), launches = self._p16_count(
+            lambda: timed(lambda: ds.aggregate(aggs)))
+        check(not any(launches.values()),
+              f"the stats-answered aggregate launched {launches}")
+        plain_ds = dataset(path, **opts, **kw)
+        (plain, plain_s), plain_launches = self._p16_count(
+            lambda: timed(lambda: plain_ds.aggregate(aggs)))
+        check(fast == plain and [type(fast[k]) for k in aggs]
+              == [type(plain[k]) for k in aggs],
+              f"aggregates from the profile {fast} vs decoded {plain}")
+        self.p18["dataset"] = dict(stats_s=fast_s, decode_s=plain_s,
+                                   decode_launches={
+                                       k: v for k, v in
+                                       plain_launches.items() if v})
+        log(f"[stats] {self.card}: dataset aggregate from the profile in "
+            f"{fast_s:.3f} s, no launch == the decode path's in "
+            f"{plain_s:.3f} s (launches "
+            f"{json.dumps(self.p18['dataset']['decode_launches'])}): "
+            f"{json.dumps({k: str(v) for k, v in fast.items()})}")
+        os.remove(path)
+
     def run(self):
         if self.only:
             # a subset: the environment, the RDW files, then the phases
@@ -4798,7 +5165,7 @@ class Smoke:
             try:
                 self.phase_env()
                 self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
-                if {"14", "15", "16", "17"} & set(self.only):
+                if {"14", "15", "16", "17", "18"} & set(self.only):
                     self.phase_main()
                 self.phase_rdw()
                 if "14" in self.only:
@@ -4813,7 +5180,7 @@ class Smoke:
                          "exp3", "timings", "rdw_timings", "profile",
                          "pipeline", "query", "arrow", "recovery",
                          "generic", "hierarchical", "assembly", "io",
-                         "pushdown", "obs"):
+                         "pushdown", "obs", "stats"):
                 t0 = time.perf_counter()
                 getattr(self, f"phase_{name}")()
                 self.phase_secs[name] = time.perf_counter() - t0
@@ -4884,7 +5251,9 @@ class Smoke:
                      max_abs_err=self.max_err[e["name"]], bound_by="bytes")
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()}
-        return [self.card, json.dumps({"kernels": entries}),
+        phases = {k: round(v, 1) for k, v in self.phase_secs.items()}
+        return ["[phases] " + json.dumps(phases, separators=(",", ":")),
+                self.card, json.dumps({"kernels": entries}),
                 json.dumps({"ok": True, "device": device})]
 
 

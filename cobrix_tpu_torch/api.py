@@ -83,11 +83,22 @@ read in two stages on the device: the filter columns alone are decoded
 records are packed from the same device image and decoded with the
 selected plan (stage 2). Hierarchical and row-walk reads filter the
 assembled table (``BoundFilter.filter_result_generic``).
+
+With ``collect_stats`` (and a ``cache_dir``) a profiling pass runs after
+the read, on its device (``stats.collect``): each file's per-chunk zone
+maps, null counts, sums and segment histograms persist in the cache's
+stats plane, and ``CobolData.stats_profiles`` holds their summaries.
+With ``use_stats`` and a filter a warm profile arms a chunk skipper
+(``stats.skip``): a fixed-length chunk on the profile grid
+(``stats_chunk_mb``) or an RDW index shard that the profile proves
+holds no matching record is never read; the table equals the stats-off
+read's.
 """
 from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import replace as _dc_replace
 from typing import Dict, List, Optional, Tuple
 
@@ -95,7 +106,8 @@ import numpy as np
 
 from .copybook.ast import transform_identifier
 from .device import resolve_device
-from .engine.chunks import auto_split_mb, plan_var_len_chunks
+from .engine.chunks import (auto_split_mb, plan_fixed_chunks,
+                            plan_var_len_chunks)
 from .engine.pipeline import pipelined_fixed_scan, pipelined_var_len_scan
 from .io.compress import active_codec, codec_by_name
 from .io.config import IoConfig
@@ -132,8 +144,8 @@ FIXED_READ_CHUNK_BYTES = 64 * 1024 * 1024
 # options of the JAX package's reader the port does not take yet: each
 # raises, naming it (any other key is the pedantic audit's)
 _NOT_PORTED = frozenset((
-    "use_stats", "collect_stats", "stats_chunk_mb", "hosts",
-    "speculative_quantile", "heartbeat_interval_s", "stream_batch_rows"))
+    "hosts", "speculative_quantile", "heartbeat_interval_s",
+    "stream_batch_rows"))
 # the framing options a custom record extractor is refused beside, and
 # (from the third on, with is_text) `record_length`, in the JAX package's
 # order
@@ -405,7 +417,10 @@ def parse_options(options: Dict[str, object],
         request_id=opts.get("request_id", "") or "",
         progress_interval_s=float(
             opts.get("progress_interval_s", "") or 0.5),
-        field_costs=opts.get_bool("field_costs"))
+        field_costs=opts.get_bool("field_costs"),
+        collect_stats=opts.get_bool("collect_stats"),
+        use_stats=opts.get_bool("use_stats"),
+        stats_chunk_mb=float(opts.get("stats_chunk_mb", "") or 4.0))
     # recognized keys consumed later by read_cobol — mark used before the
     # pedantic unused-key audit runs
     opts.get_bool("debug_ignore_file_size")
@@ -519,6 +534,16 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
             f"Invalid 'progress_interval_s' of "
             f"{params.progress_interval_s}; it must be >= 0 "
             "(0 invokes the callback on every completed chunk).")
+    if (params.collect_stats or params.use_stats) \
+            and not params.cache_dir:
+        raise ValueError(
+            "Options 'collect_stats'/'use_stats' require 'cache_dir': "
+            "profiles persist in (and load from) the cache directory's "
+            "stats plane.")
+    if params.stats_chunk_mb <= 0:
+        raise ValueError(
+            f"Invalid 'stats_chunk_mb' of {params.stats_chunk_mb}; it "
+            "must be a positive size in megabytes.")
     if params.trace_file:
         # fail BEFORE the scan, not after minutes of decode: the trace is
         # written at read end, so an unwritable destination would
@@ -596,6 +621,10 @@ class CobolData:
         # the read's error ledger (permissive policies, or lost shards;
         # None otherwise), set by read_cobol
         self.diagnostics: Optional[ReadDiagnostics] = None
+        # {file: FileProfile.summary()} of a read that collected
+        # statistics (collect_stats=true), set by read_cobol; None
+        # otherwise
+        self.stats_profiles: Optional[Dict[str, dict]] = None
         self._rows: Optional[List[List[object]]] = None
 
     @property
@@ -781,7 +810,10 @@ def read_cobol(path=None,
     a record it drops is dropped before the full decode where the read
     has a static columnar plan, ``query.pushdown``, and after it on the
     hierarchical and row-walk reads; `metrics.pushdown` counts what was
-    pruned),
+    pruned), `collect_stats` / `use_stats` / `stats_chunk_mb` (the
+    statistics plane: a profiling pass after the read, billed apart in
+    ``metrics.timings_s["collect_stats"]``, and zone-map chunk skipping
+    before framing; both need `cache_dir`),
     `parallelism` (threads for a file's index shards and for
     `to_arrow`'s parts; min(16, cpu_count) by default), `copybooks`
     (comma-separated copybook paths, in place of `copybook`),
@@ -876,6 +908,19 @@ def read_cobol(path=None,
         # a sequential read, or a pipelined one that delivered nothing:
         # the parts' tables go out now, in record order
         tap.emit_data(data)
+    if params.collect_stats:
+        # the profiling pass runs AFTER the read, on its device, billed
+        # apart from the scan (metrics.timings_s["collect_stats"]);
+        # warm profiles load instead of rebuilding. Gated on the option
+        # so a stats-off read never imports the stats package
+        from .stats.collect import build_and_store_profiles
+
+        t0 = time.perf_counter()
+        profiles = build_and_store_profiles(files, contents, params, device,
+                                            io=_io_config(params))
+        metrics.timings_s["collect_stats"] = time.perf_counter() - t0
+        data.stats_profiles = {url: profile.summary()
+                               for url, profile in profiles.items()}
     if explain:
         from .explain import build_scan_report
 
@@ -1032,6 +1077,13 @@ def _read(files: List[str], contents, params: ReaderParameters, device,
     with stage(metrics, "parse_copybook"):
         reader = (VarLenReader(contents, params, device=device) if is_var_len
                   else FixedLenReader(contents, params, device=device))
+    if params.use_stats:
+        # arm zone-map chunk skipping from warm profiles (stats/skip.py);
+        # gated on the option so a stats-off read never imports the
+        # stats package at all
+        from .stats.skip import maybe_attach_skipper
+
+        maybe_attach_skipper(reader, files, params)
     schema = output_schema_for(reader.copybook, params,
                                is_var_len=is_var_len)
     with stage(metrics, "scan"):
@@ -1119,7 +1171,9 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
     its size promised (a truncated backend object) ends the file there,
     as the JAX package's whole-file read of the served bytes does.
     `stage_times` times each chunk's decode ("decode"); `progress` (an
-    ``obs.ProgressTracker``) hears of each chunk done, with its bytes."""
+    ``obs.ProgressTracker``) hears of each chunk done, with its bytes.
+    With a chunk skipper armed (``use_stats``) a file is read as
+    `_read_fixed_kept` reads it."""
     rs = reader.record_size
     permissive = reader.params.is_permissive
     keep_tail = permissive and not ignore_file_size
@@ -1129,6 +1183,13 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
         size = source_size(file_path, retry=retry, on_retry=on_retry, io=io)
         reader.check_binary_data_validity(
             size, ignore_file_size or permissive, file_path)
+        if reader.chunk_skipper is not None:
+            kept = _read_fixed_kept(reader, file_path, ignore_file_size,
+                                    retry, on_retry, io, stage_times,
+                                    progress)
+            if kept is not None:
+                parts.extend(kept)
+                continue
         rem = size % rs if keep_tail else 0
         whole = size - size % rs
         done = 0
@@ -1169,3 +1230,51 @@ def _read_fixed_sequential(reader: FixedLenReader, files: List[str],
                 if short:
                     break
     return parts
+
+
+def _read_fixed_kept(reader: FixedLenReader, file_path: str,
+                     ignore_file_size: bool,
+                     retry: Optional[RetryPolicy], on_retry, io,
+                     stage_times: Optional[StageTimes], progress
+                     ) -> Optional[list]:
+    """The sequential read of one fixed-length file under the read's
+    chunk skipper (the JAX package's ``_read_fixed_len_chunked`` with a
+    skipper): the file planned as the pipelined read plans it
+    (`engine.chunks.plan_fixed_chunks` with the skipper: record-aligned
+    chunks on the profile grid, at most FIXED_READ_CHUNK_BYTES, the
+    proven ones left out), and each kept chunk read through its own
+    bounded `open_input` from its offset and decoded (`FixedLenReader
+    .read_chunk`), so a skipped range's bytes are never read. None when
+    the plan keeps the file whole: it is then read as a stats-off read
+    reads it."""
+    rs = reader.record_size
+    params = reader.params
+    chunks = plan_fixed_chunks(rs, [file_path], params,
+                               FIXED_READ_CHUNK_BYTES, ignore_file_size,
+                               retry, on_retry, io,
+                               skipper=reader.chunk_skipper)
+    if len(chunks) == 1 and chunks[0].whole_file:
+        return None
+    parts: list = []
+    for chunk in chunks:
+        done = chunk.offset
+        # a torn tail (debug_ignore_file_size) is left unread
+        n = chunk.nbytes - chunk.nbytes % rs
+        if not n:
+            continue
+        buf = np.empty(n, dtype=np.uint8)
+        with open_input(file_path, done, n, retry=retry, on_retry=on_retry,
+                        io=io) as f:
+            f.seek(done)
+            if f.readinto(memoryview(buf)) != n:
+                raise IOError(f"Short read from {file_path} at {done}")
+        with timed_stage(stage_times, "decode"):
+            part = reader.read_chunk(buf)
+            if params.is_permissive:
+                part = reader.permissive_part(part)
+        parts.append(part)
+        if progress is not None:
+            progress.chunk_started()
+            progress.chunk_done(bytes_done=n, records=_part_rows(part))
+    return parts
+

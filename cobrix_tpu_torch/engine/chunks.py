@@ -22,9 +22,19 @@ policy), and a compressed input splits only with a ``cache_dir``
 plane every chunk would re-inflate the prefix, so it is one whole-file
 chunk or shard.
 
-Changes from the JAX package: the stats chunk skipper (``use_stats``,
-ROADMAP A6/A8) is not carried over; `plan_fixed_chunks` takes the
-record size in place of the fixed-length reader; `WorkShard`
+When a read armed a chunk skipper (``use_stats=true`` + a filter + a
+warm profile, stats/skip.py), both planners drop ranges the profile
+PROVES cannot frame a matching record — before any byte is read.
+Offsets and Record_Id bases of surviving chunks are absolute, so
+skipping never renumbers or reorders what remains. The sequential reads
+plan a file under a skipper with these planners too
+(``api._read_fixed_kept``, ``VarLenReader._read_kept_shards``): one
+skip rule for every read, and a file is read in its plan's units however
+many the skipper keeps; only a file planned as one whole chunk is read
+as a stats-off read reads it.
+
+Changes from the JAX package: `plan_fixed_chunks` takes the record size
+and the skipper in place of the fixed-length reader; `WorkShard`
 (``parallel.planner.WorkShard`` in the JAX package) lives here.
 """
 from __future__ import annotations
@@ -34,7 +44,7 @@ from typing import List, Optional
 
 from ..io.compress import compressed_chunkable
 from ..reader.index import file_index_entries
-from ..reader.parameters import DEFAULT_FILE_RECORD_ID_INCREMENT
+from ..reader.parameters import DEFAULT_FILE_RECORD_ID_INCREMENT, MEGABYTE
 from ..reader.stream import RetryPolicy, source_size
 
 
@@ -90,15 +100,22 @@ def fixed_file_chunkable(size: int, record_size: int, params,
 def plan_fixed_chunks(record_size: int, files, params, chunk_bytes: int,
                       ignore_file_size: bool = False,
                       retry: Optional[RetryPolicy] = None, on_retry=None,
-                      io=None) -> List[FixedChunk]:
+                      io=None, skipper=None) -> List[FixedChunk]:
     """Byte-stride chunk plan over fixed-length input files.
 
     A file splits only when the conditions of `fixed_file_chunkable`
     hold and it is `compressed_chunkable`; anything else — including a
     truncated tail — stays a single whole-file chunk, so tail handling
-    matches the sequential read.
+    matches the sequential read. With a `skipper` (the read's
+    ``stats.skip.ChunkSkipper``) the plan strides on the profile grid
+    and leaves out every chunk the profile proves matches nothing.
     """
     rs = record_size
+    if skipper is not None:
+        # chunking is output-invariant: with skipping armed, plan on
+        # the profile grid so skip granularity matches the proofs
+        chunk_bytes = min(chunk_bytes, max(
+            rs, int(params.stats_chunk_mb * MEGABYTE)))
     chunk_bytes = max(rs, (chunk_bytes // rs) * rs)  # record-aligned
     chunks: List[FixedChunk] = []
     for file_order, file_path in enumerate(files):
@@ -108,14 +125,20 @@ def plan_fixed_chunks(record_size: int, files, params, chunk_bytes: int,
         if not fixed_file_chunkable(size, rs, params, chunk_bytes,
                                     ignore_file_size) \
                 or not compressed_chunkable(file_path, io):
+            if skipper is not None \
+                    and skipper.should_skip(file_path, 0, -1):
+                continue
             chunks.append(FixedChunk(file_path, file_order, 0, 0, base,
                                      whole_file=True))
             continue
         done = 0
         while done < size:
             n = min(chunk_bytes, size - done)
-            chunks.append(FixedChunk(file_path, file_order, done, n,
-                                     base + done // rs, whole_file=False))
+            if skipper is None \
+                    or not skipper.should_skip(file_path, done, done + n):
+                chunks.append(FixedChunk(file_path, file_order, done, n,
+                                         base + done // rs,
+                                         whole_file=False))
             done += n
     return chunks
 
@@ -126,7 +149,10 @@ def plan_var_len_chunks(reader, files, params,
     """Byte-range shard plan for a variable-length read: the sparse index
     per file turns the sequential record stream into shards; files
     without a useful index (or a compressed file without a cache_dir)
-    become one whole-file shard."""
+    become one whole-file shard. A chunk skipper armed on the reader
+    (``reader.chunk_skipper``) drops each shard its profile proves
+    matches nothing."""
+    skipper = getattr(reader, "chunk_skipper", None)
     shards: List[WorkShard] = []
     for file_order, file_path in enumerate(files):
         base = file_order * DEFAULT_FILE_RECORD_ID_INCREMENT
@@ -136,10 +162,14 @@ def plan_var_len_chunks(reader, files, params,
                                          params, retry, on_retry, io=io)
         if entries is not None and len(entries) > 1:
             for e in entries:
+                if skipper is not None and skipper.should_skip(
+                        file_path, e.offset_from, e.offset_to):
+                    continue
                 shards.append(WorkShard(file_path, file_order,
                                         e.offset_from, e.offset_to,
                                         base + e.record_index))
-        else:
+        elif skipper is None \
+                or not skipper.should_skip(file_path, 0, -1):
             shards.append(WorkShard(file_path, file_order, 0, -1, base))
     return shards
 

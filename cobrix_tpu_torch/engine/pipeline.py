@@ -871,7 +871,8 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
     permissive = params.is_permissive
     chunk_bytes = max(1, int(params.pipeline_chunk_mb * 1024 * 1024))
     chunks = plan_fixed_chunks(rs, files, params, chunk_bytes,
-                               ignore_file_size, retry, on_retry, io)
+                               ignore_file_size, retry, on_retry, io,
+                               skipper=reader.chunk_skipper)
 
     def failure_info(index, attempts, reason, error):
         c = chunks[index]

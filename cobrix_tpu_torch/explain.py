@@ -29,8 +29,7 @@ the code page's table, all on the host: it launches no kernel. The
 encoding options the port's `read_cobol` takes as arguments
 (`ebcdic_code_page`, `schema_retention_policy`, `string_trimming_policy`,
 `floating_point_format`) are taken here as keywords. `hosts` is always
-1 (ROADMAP A7); the statistics section waits for ``collect_stats``
-(ROADMAP A8).
+1 (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -430,4 +429,5 @@ def build_scan_report(params, files: List[str], data,
         data=data,
         metrics=metrics,
         pushdown=describe_pushdown(copybook_obj, params),
+        stats=getattr(data, "stats_profiles", None),
     )

@@ -21,15 +21,13 @@ Changes from the JAX package: reads go through the port's
 ``read_cobol`` on `device` (None: the CUDA device; ``"cpu"``: the plain
 versions) in place of a `backend`; the schema probe hands the code page
 and the policies to ``parse_options`` by name, as ``read_cobol`` does.
-``_aggregate_from_stats`` answers
-nothing (None) until the stats store is ported (ROADMAP A8), so every
-aggregate and count decodes. ``parse_specs`` (the JAX package's
-``stats.aggregate``) and ``leaf_columns`` (its ``stats.collect``) are
-copied here until ``stats/`` is ported.
+With ``use_stats=true`` ``aggregate`` and ``count_rows`` answer from
+persisted profiles (``stats.aggregate``), as in the JAX package; the
+stats package is imported only inside those calls.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 from .expr import Expr, normalize_filter, parse_filter
 
@@ -228,10 +226,15 @@ class CobolDataset:
         (``None`` = SQL NULL over no values; nulls are ignored by
         min/max/sum, counted by count).
 
-        The JAX package answers from persisted statistics with
-        ``use_stats=true``; the port has no stats store yet, so it
-        always decodes (`_aggregate_by_decode`).
+        With ``use_stats=true``, no filter, and a warm profile for
+        EVERY input file, the answer comes from persisted statistics
+        without decoding a byte (stats/aggregate.py) — and is exact by
+        construction: anything short of proof (missing profile,
+        NaN-tainted chunk, float sum, unknown field) silently falls
+        back to the decode path below, never an approximate answer.
         """
+        from ..stats.aggregate import parse_specs
+
         specs = parse_specs(aggs)
         if filter is None:
             fast = self._aggregate_from_stats(specs)
@@ -240,15 +243,27 @@ class CobolDataset:
         return self._aggregate_by_decode(specs, filter)
 
     def _aggregate_from_stats(self, specs) -> Optional[dict]:
-        """Stats-only answer, or None (then the caller decodes). The
-        port has no stats store yet (ROADMAP A8; its `use_stats` option
-        is refused), so this is always None."""
-        return None
+        """Stats-only answer, or None (then the caller decodes)."""
+        params = _parse_dataset_options(self.options)
+        if not params.use_stats:
+            return None
+        from ..plan.cache import copybook_for_params
+        from ..stats.aggregate import (aggregates_from_profiles,
+                                       load_all_profiles)
+
+        profiles = load_all_profiles(self.files, self.copybook_contents,
+                                     params)
+        if profiles is None:
+            return None
+        copybook = copybook_for_params(self.copybook_contents, params)
+        return aggregates_from_profiles(profiles, copybook, specs)
 
     def _aggregate_by_decode(self, specs, filter_) -> dict:
         """The ground-truth path: decode, then pyarrow compute. The
         semantics here DEFINE what the stats path must reproduce."""
         import pyarrow.compute as pc
+
+        from ..stats.collect import leaf_columns
 
         wanted = sorted({field for _, field in specs if field})
         known = set(self.schema.names)
@@ -283,6 +298,18 @@ _NAMED_READ_ARGS = ("ebcdic_code_page", "schema_retention_policy",
                     "string_trimming_policy", "floating_point_format")
 
 
+def _parse_dataset_options(options):
+    """A dataset's options as ReaderParameters: read_cobol takes the
+    code page and the three policies as named arguments, which the
+    port's parse_options takes apart."""
+    from ..api import parse_options
+
+    named = {k: str(options[k]) for k in _NAMED_READ_ARGS
+             if k in options}
+    return parse_options({k: v for k, v in options.items()
+                          if k not in named}, **named)
+
+
 def dataset(path, copybook: Optional[str] = None,
             copybook_contents=None, device=None,
             **options) -> CobolDataset:
@@ -291,8 +318,7 @@ def dataset(path, copybook: Optional[str] = None,
     `path`/`copybook`/`device`/`options` follow ``read_cobol``; the returned
     dataset's schema is derived up front from the copybook + options
     (no data is read until a scanner materializes)."""
-    from ..api import (list_input_files, load_copybook_contents,
-                       parse_options)
+    from ..api import list_input_files, load_copybook_contents
     from ..plan.cache import copybook_for_params
     from ..reader.arrow_out import arrow_schema
     from ..reader.schema import output_schema_for
@@ -305,12 +331,7 @@ def dataset(path, copybook: Optional[str] = None,
     # belong to each SCANNER, not the dataset identity
     probe_options = {k: v for k, v in options.items()
                      if k not in ("select", "filter")}
-    # read_cobol takes the code page and the three policies as named
-    # arguments, which the port's parse_options takes apart
-    named = {k: str(probe_options[k]) for k in _NAMED_READ_ARGS
-             if k in probe_options}
-    params = parse_options({k: v for k, v in probe_options.items()
-                            if k not in named}, **named)
+    params = _parse_dataset_options(probe_options)
     copybook_obj = copybook_for_params(contents, params)
     output_schema = output_schema_for(copybook_obj, params,
                                       params.needs_var_len_reader)
@@ -325,76 +346,3 @@ def dataset(path, copybook: Optional[str] = None,
             and n == params.corrupt_record_column))
     return CobolDataset(files, contents, device, probe_options, schema,
                         generated)
-
-
-# -- copies of the JAX package's stats helpers (until stats/ is ported) -----
-
-_GENERATED = ("Record_Id", "File_Id", "Record_Byte_Length")
-
-
-def parse_specs(aggs: Sequence[str]) -> List[Tuple[str, Optional[str]]]:
-    """``["count", "min:FIELD", ...]`` -> ``[(fn, field|None), ...]``
-    (validated; the one spelling both the stats and decode paths
-    share)."""
-    out: List[Tuple[str, Optional[str]]] = []
-    for spec in aggs:
-        fn, sep, field = str(spec).partition(":")
-        fn = fn.strip().lower()
-        field = field.strip()
-        if fn == "count" and not field:
-            out.append(("count", None))
-            continue
-        if fn in ("min", "max", "sum") and sep and field:
-            out.append((fn, field))
-            continue
-        raise ValueError(
-            f"unsupported aggregate spec {spec!r} (use 'count', "
-            f"'min:FIELD', 'max:FIELD', or 'sum:FIELD')")
-    if not out:
-        raise ValueError("aggregate() needs at least one spec")
-    return out
-
-
-def _kind_of(arrow_type) -> Optional[str]:
-    import pyarrow as pa
-
-    if pa.types.is_boolean(arrow_type):
-        return "bool"
-    if pa.types.is_integer(arrow_type):
-        return "int"
-    if pa.types.is_floating(arrow_type):
-        return "float"
-    if pa.types.is_decimal(arrow_type):
-        return "decimal"
-    if (pa.types.is_string(arrow_type)
-            or pa.types.is_large_string(arrow_type)):
-        return "string"
-    return None  # binary / nested / anything else: not profiled
-
-
-def leaf_columns(table) -> Dict[str, Tuple[str, object]]:
-    """{leaf name -> (kind, column)} for every profilable column of an
-    assembled table: structs flattened, lists and generated columns
-    dropped, DUPLICATE leaf names dropped entirely (a filter name that
-    is ambiguous in the copybook must not consult either column's zone
-    map)."""
-    import pyarrow as pa
-
-    while any(pa.types.is_struct(f.type) for f in table.schema):
-        table = table.flatten()
-    out: Dict[str, Tuple[str, object]] = {}
-    dupes = set()
-    for name, col in zip(table.column_names, table.columns):
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in _GENERATED or leaf.startswith("Seg_Id"):
-            continue
-        kind = _kind_of(col.type)
-        if kind is None:
-            continue
-        if leaf in dupes or leaf in out:
-            out.pop(leaf, None)
-            dupes.add(leaf)
-            continue
-        out[leaf] = (kind, col)
-    return out
-

@@ -55,7 +55,8 @@ import torch
 
 from ..device import resolve_device
 from ..obs.context import current as obs_current
-from ..plan.cache import copybook_for_params, decoder_cache_for
+from ..plan.cache import (copybook_for_params, decoder_cache_for,
+                          parse_fingerprint)
 from ..profiling import annotate
 from ..query.pushdown import BoundFilter
 from .columnar import ColumnarDecoder, DecodedBatch, decoder_for_segment
@@ -76,6 +77,10 @@ class FixedLenReader:
         seg = params.multisegment
         self.device = resolve_device(device)
         self.copybook = copybook_for_params(copybook_contents, params)
+        # stable copybook identity for the persisted profile key
+        # (stats.store), as the JAX package's reader carries it
+        self.copybook_fingerprint = parse_fingerprint(copybook_contents,
+                                                      params)
         self.params = params
         self.segment_redefine_map = dict(
             seg.segment_id_redefine_map) if seg else {}
@@ -86,6 +91,9 @@ class FixedLenReader:
         # shared (with its counters) by every chunk of the read
         self.pushdown = BoundFilter.build(params.filter, self.copybook,
                                           params)
+        # zone-map chunk skipping (stats/skip.py), armed by read_cobol
+        # under use_stats; None: every chunk is read
+        self.chunk_skipper = None
 
     @property
     def record_size(self) -> int:

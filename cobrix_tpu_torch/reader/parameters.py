@@ -13,7 +13,8 @@ with their resync window, ledger cap and corrupt-record column, the
 pipeline's options, the column projection (`select`), the filter
 (`filter`, the canonical wire JSON of a ``query`` expression) and the
 observability options (`trace_file`, `trace_id`, `request_id`,
-`progress_interval_s`, `field_costs`). Every other
+`progress_interval_s`, `field_costs`) and the statistics options
+(`collect_stats`, `use_stats`, `stats_chunk_mb`). Every other
 field of the JAX package belongs to an option the port refuses by name
 (``api.read_cobol``); a field comes back with the slice that takes its
 option.
@@ -181,6 +182,20 @@ class ReaderParameters:
     # Off by default — the disabled path takes zero timestamps;
     # `read_cobol(..., explain=True)` forces it on for that read
     field_costs: bool = False
+    # -- scan-time data profiler (cobrix_tpu_torch.stats) ----------------
+    # collect per-chunk per-field statistics (zone maps, null counts,
+    # segment histograms) on a canonical grid after the read and persist
+    # them under <cache_dir>/stats/. Requires cache_dir. Off = the stats
+    # package is never even imported
+    collect_stats: bool = False
+    # consume persisted profiles: chunk skipping before framing (with a
+    # filter) and stats-answered dataset aggregates. Requires cache_dir
+    use_stats: bool = False
+    # the profiler's canonical chunk grid stride, in MB (fractional
+    # accepted — tests force multi-chunk profiles on tiny files).
+    # Deliberately NOT part of the profile's config fingerprint: skip
+    # decisions are grid-independent (stats/skip.py union coverage)
+    stats_chunk_mb: float = 4.0
 
     def resolved_pipeline_workers(self) -> int:
         """Effective worker count: 0 = sequential, negative = auto."""

@@ -140,7 +140,7 @@ import torch
 
 from ..copybook.ast import Group, Primitive
 from ..device import resolve_device
-from ..engine.chunks import shard_progress_bytes
+from ..engine.chunks import plan_var_len_chunks, shard_progress_bytes
 from ..engine.staging import StagedBytes, StagingPool, worker_stream
 from ..io.compress import compressed_chunkable
 from ..io.stats import current_io_stats
@@ -617,6 +617,9 @@ class VarLenReader:
         # shared (with its counters) by every shard and window of the read
         self.pushdown = BoundFilter.build(params.filter, self.copybook,
                                           params)
+        # zone-map chunk skipping (stats/skip.py), armed by read_cobol
+        # under use_stats; None: every shard is read
+        self.chunk_skipper = None
         # framing and decode seconds of the reads (`profiling.StageTimes`;
         # None: not timed)
         self.stage_times = None
@@ -1212,14 +1215,19 @@ class VarLenReader:
 
     def _read_generic(self, path: str, size: int, file_id: int,
                       segment_id_prefix: Optional[str],
-                      start_record_id: int) -> List[FileResult]:
+                      start_record_id: int,
+                      entries: Optional[Sequence[SparseIndexEntry]] = None
+                      ) -> List[FileResult]:
         """A file of a generic framing: whole, or, where the JAX package
         splits it (`_index_applies`), in the shards of its sparse index
-        (`sparse_index_generator`), each a bounded stream of the file."""
-        entries = (self.generate_index(path, file_id)
-                   if self._index_applies(size, path) else None)
-        if not entries or len(entries) < 2:
-            entries = [SparseIndexEntry(0, -1, file_id, 0)]
+        (`sparse_index_generator`), each a bounded stream of the file;
+        `entries` (the shards a chunk skipper kept) in place of the
+        index's."""
+        if entries is None:
+            entries = (self.generate_index(path, file_id)
+                       if self._index_applies(size, path) else None)
+            if not entries or len(entries) < 2:
+                entries = [SparseIndexEntry(0, -1, file_id, 0)]
 
         def read(e: SparseIndexEntry) -> FileResult:
             n = 0 if e.offset_to < 0 else e.offset_to - e.offset_from
@@ -1360,9 +1368,20 @@ class VarLenReader:
         each): a shard's resync search sees no further than the shard's
         end, so its decisions, and the positions its ledger gives, are
         the shard's. A clean file frames the same records either way and
-        is read once."""
+        is read once.
+
+        With a chunk skipper armed (``use_stats``) the file is planned
+        as the JAX package's indexed scan plans it (`_read_kept_shards`):
+        its kept shards are read, and those its profile proves match
+        nothing never are."""
         p = self.params
         size = self.input_size(path)
+        if self.chunk_skipper is not None:
+            kept = self._read_kept_shards(path, size, file_id,
+                                          segment_id_prefix,
+                                          start_record_id)
+            if kept is not None:
+                return kept
         if self.generic_framing or self.row_walk:
             return self._read_generic(path, size, file_id,
                                       segment_id_prefix, start_record_id)
@@ -1432,6 +1451,41 @@ class VarLenReader:
                     rid = s.seg_level_ids.coded["root_rid"]
                     rid += (rid >= start_record_id + shift_from)
         return [self._progress_whole(result, size)]
+
+    def _read_kept_shards(self, path: str, size: int, file_id: int,
+                          segment_id_prefix: Optional[str],
+                          start_record_id: int
+                          ) -> Optional[List[FileResult]]:
+        """The file `path` under the read's chunk skipper, planned as the
+        pipelined read plans it (``engine.chunks.plan_var_len_chunks``:
+        its sparse-index shards, those the profile proves match nothing
+        left out), and the kept shards read with `_read_file_shards` (a
+        generic framing's through `_read_generic`), however many the
+        skipper kept. None when the plan keeps the file as one whole
+        shard: it is then read as a stats-off read reads it. A file
+        whose every shard is skipped gives no result (no read, no
+        launch)."""
+        shards = plan_var_len_chunks(self, [path], self.params, self.retry,
+                                     self.on_retry, io=self.io)
+        if len(shards) == 1 and shards[0].offset_from == 0 \
+                and shards[0].offset_to < 0:
+            return None
+        if not shards:
+            obs = obs_current()
+            if obs is not None and obs.progress is not None:
+                # the file was planned as one unit of progress: it is
+                # done, with none of its bytes read
+                obs.progress.chunk_started()
+                obs.progress.chunk_done(bytes_done=0, records=0)
+            return []
+        kept = [SparseIndexEntry(s.offset_from, s.offset_to, file_id,
+                                 s.record_index) for s in shards]
+        if self.generic_framing or self.row_walk:
+            return self._read_generic(path, size, file_id,
+                                      segment_id_prefix, start_record_id,
+                                      entries=kept)
+        return self._read_file_shards(path, size, kept, file_id,
+                                      start_record_id, segment_id_prefix)
 
     @staticmethod
     def _progress_whole(result: FileResult, size: int) -> FileResult:

@@ -166,6 +166,25 @@ def _text(values, width: int) -> np.ndarray:
     return encode_strings_column(list(values), width, pad=0x40)
 
 
+def _text_of(vocab: Sequence[str], idx: np.ndarray,
+             width: int) -> np.ndarray:
+    """`_text(vocab[i] for i in idx)`'s bytes, each distinct value
+    encoded once."""
+    return _text(vocab, width)[idx]
+
+
+def _numbered_text(prefix: str, values: np.ndarray, digits: int,
+                   width: int) -> np.ndarray:
+    """`_text(f"{prefix}{v:0{digits}d}" for v in values)`'s bytes for
+    0 <= v < 10 ** digits, built with numpy."""
+    out = np.full((len(values), width), 0x40, dtype=np.uint8)
+    out[:, :len(prefix)] = _text([prefix], len(prefix))[0]
+    digit_bytes = _text("0123456789", 1)[:, 0]
+    out[:, len(prefix):len(prefix) + digits] = digit_bytes[
+        _digit_matrix(values, digits)]
+    return out
+
+
 def write_fixed_corpus(path: str, num_records: int, *, seed: int = 7,
                        chunk_records: int = 262144,
                        distinct_accounts: int = 1000,
@@ -190,16 +209,16 @@ def write_fixed_corpus(path: str, num_records: int, *, seed: int = 7,
             n = min(chunk_records, num_records - written)
             rec = np.concatenate([
                 encode_comp_be(np.arange(written, written + n), 4),
-                _text((accounts[i] for i in
-                       rng.integers(0, distinct_accounts, size=n)), 10),
-                _text((_CURRENCIES[i] for i in
-                       rng.integers(0, len(_CURRENCIES), size=n)), 3),
+                _text_of(accounts,
+                         rng.integers(0, distinct_accounts, size=n), 10),
+                _text_of(_CURRENCIES,
+                         rng.integers(0, len(_CURRENCIES), size=n), 3),
                 _comp3_signed(rng.integers(-10 ** 11 + 1, 10 ** 11,
                                            size=n), 11),
                 _zoned_signed(rng.integers(-10 ** 9 + 1, 10 ** 9,
                                            size=n), 9),
-                _text((_STATUSES[i] for i in
-                       rng.choice(len(_STATUSES), size=n, p=weights)), 1),
+                _text_of(_STATUSES,
+                         rng.choice(len(_STATUSES), size=n, p=weights), 1),
                 encode_comp_be(rng.integers(0, 10 ** 4, size=n), 2),
             ], axis=1)
             data = rec.tobytes()
@@ -258,12 +277,11 @@ def write_multiseg_corpus(path: str, num_companies: int, *,
             c = min(chunk_companies, num_companies - done)
             k = rng.integers(lo, hi + 1, size=c)
             kt = int(k.sum())
-            ids = [f"C{gid:09d}" for gid in range(done, done + c)]
+            ids = _numbered_text("C", np.arange(done, done + c), 9, 10)
             mat_c = np.concatenate([
                 _rdw_headers(len_c - 4, c, big_endian_rdw),
-                _text(["C"] * c, 1), _text(ids, 10),
-                _text((names[i] for i in
-                       rng.integers(0, len(names), size=c)), 15),
+                _text_of("C", np.zeros(c, dtype=np.int64), 1), ids,
+                _text_of(names, rng.integers(0, len(names), size=c), 15),
                 encode_comp_be(rng.integers(0, 10 ** 8, size=c), 4),
             ], axis=1)
             pos_c, pos_p = _interleave_positions(k)
@@ -275,14 +293,14 @@ def write_multiseg_corpus(path: str, num_companies: int, *,
             buf[(offs[pos_c][:, None]
                  + np.arange(len_c)).ravel()] = mat_c.ravel()
             if kt:
-                phones = [f"+{n:014d}" for n in
-                          rng.integers(0, 10 ** 12, size=kt)]
+                phones = _numbered_text(
+                    "+", rng.integers(0, 10 ** 12, size=kt), 14, 17)
                 mat_p = np.concatenate([
                     _rdw_headers(len_p - 4, kt, big_endian_rdw),
-                    _text(["P"] * kt, 1), _text(np.repeat(ids, k), 10),
-                    _text(phones, 17),
-                    _text((people[i] for i in
-                           rng.integers(0, len(people), size=kt)), 28),
+                    _text_of("P", np.zeros(kt, dtype=np.int64), 1),
+                    np.repeat(ids, k, axis=0), phones,
+                    _text_of(people,
+                             rng.integers(0, len(people), size=kt), 28),
                 ], axis=1)
                 buf[(offs[pos_p][:, None]
                      + np.arange(len_p)).ravel()] = mat_p.ravel()

@@ -10,9 +10,9 @@ walk, in place of the native scan), `flip_bit`, `truncate`,
 (`compressed_member_spans`, `truncate_compressed_member`,
 `corrupt_compressed_trailer`, `garbage_between_members`); and the
 durable-state injector `corrupt_cache_entry` (with `cache_entry_paths`)
-for the block, index and compress planes. The sink, stats-plane,
-checkpoint and worker faults are not carried over, since the port has
-none of those planes yet.
+for the block, index, stats and compress planes. The sink, checkpoint
+and worker faults are not carried over, since the port has none of
+those planes yet.
 
 All injectors are pure: they take `bytes` and return corrupted `bytes`,
 so assertions can check that the ledger points at the right offset.
@@ -272,10 +272,12 @@ def garbage_between_members(data: bytes, codec: str = "gzip",
 def cache_entry_paths(cache_dir: str, plane: str = "block"):
     """Every durable entry file of one cache plane under `cache_dir`,
     sorted for determinism. Planes: 'block' (aligned .blk entries),
-    'index' (sparse-index .json payloads), 'compress' (seekable
-    inflate-index .json payloads)."""
-    sub = {"block": "blocks", "index": "index", "compress": "compress"}[plane]
-    suffix = {"block": ".blk", "index": ".json", "compress": ".json"}[plane]
+    'index' (sparse-index .json payloads), 'stats' (scan-profile .json
+    payloads), 'compress' (seekable inflate-index .json payloads)."""
+    sub = {"block": "blocks", "index": "index", "stats": "stats",
+           "compress": "compress"}[plane]
+    suffix = {"block": ".blk", "index": ".json", "stats": ".json",
+              "compress": ".json"}[plane]
     root = os.path.join(cache_dir, sub)
     out = []
     for dirpath, dirs, files in os.walk(root):

@@ -441,6 +441,20 @@ def test_options_outside_the_slice_still_raise(tmp_path, option, value):
         if option == "trace_file":
             assert os.path.getsize(value) > 0
         return
+    if option in ("collect_stats", "use_stats"):
+        # taken since the statistics slice: without a cache_dir both
+        # packages raise the same error naming the option; with one the
+        # read equals the JAX package's (no filter: nothing is skipped)
+        with pytest.raises(ValueError, match=option):
+            cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,
+                                        **{option: value})
+        assert _same(path, dict(EXP1, **{option: value})) is None
+        data = _same(path, dict(EXP1, cache_dir=str(tmp_path / "cache"),
+                                **{option: value}))
+        assert data.stats_profiles == (
+            None if option == "use_stats"
+            else {path: data.stats_profiles[path]})
+        return
     with pytest.raises(ValueError, match=option):
         cobrix_tpu_torch.read_cobol(path, device="cpu", **EXP1,
                                     **{option: value})

@@ -137,6 +137,11 @@ def test_read_cobol_names_every_option_it_does_not_take(tmp_path):
         cobrix_tpu_torch.read_cobol(
             str(path), copybook_contents=pgen.EXP1_COPYBOOK, device="cpu",
             schema_retention_policy="flatten")
+    # taken since the statistics slice, with the JAX package's checks
+    with pytest.raises(ValueError, match="Invalid 'stats_chunk_mb' of 0.0"):
+        cobrix_tpu_torch.read_cobol(
+            str(path), copybook_contents=pgen.EXP1_COPYBOOK, device="cpu",
+            cache_dir=str(tmp_path / "cache"), stats_chunk_mb="0")
 
 
 def _columns(plan, variant_key):

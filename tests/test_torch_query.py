@@ -668,7 +668,27 @@ def test_read_cobol_select_equals_the_jax_package(case, select_files):
 
 @pytest.mark.parametrize("option,value", [("filter", "ID > 5"),
                                           ("use_stats", "true")])
-def test_filter_and_stats_options_still_raise(option, value, select_files):
+def test_filter_and_stats_options_still_raise(option, value, select_files,
+                                              tmp_path):
+    if option == "use_stats":
+        # taken since the statistics slice: a profile collected by the
+        # port serves its projected, filtered read, which equals the JAX
+        # package's stats-off read
+        opts = dict(copybook_contents=EXP1_COPYBOOK, select="ID",
+                    filter="ID > 5")
+        cache = str(tmp_path / "cache")
+        cobrix_tpu_torch.read_cobol(select_files["exp1"], device=CPU,
+                                    cache_dir=cache, collect_stats="true",
+                                    **opts)
+        got = cobrix_tpu_torch.read_cobol(select_files["exp1"], device=CPU,
+                                          cache_dir=cache,
+                                          **{option: value}, **opts)
+        want = cobrix_tpu.read_cobol(select_files["exp1"], backend="numpy",
+                                     **opts)
+        assert got.to_rows() == want.to_rows()
+        assert got.to_arrow().equals(want.to_arrow())
+        assert got.metrics.pushdown["chunks_considered"] == 1
+        return
     if option == "filter":
         # taken since the filter slice: with `select` the read equals the
         # JAX package's filtered, projected read
@@ -681,12 +701,6 @@ def test_filter_and_stats_options_still_raise(option, value, select_files):
         assert 0 < len(got) < 40
         assert got.to_rows() == want.to_rows()
         assert got.to_arrow().equals(want.to_arrow())
-        return
-    with pytest.raises(ValueError, match=option):
-        cobrix_tpu_torch.read_cobol(select_files["exp1"],
-                                    copybook_contents=EXP1_COPYBOOK,
-                                    device=CPU, select="ID",
-                                    **{option: value})
 
 
 # ---------------------------------------------------------------------------

@@ -265,7 +265,37 @@ def test_malformed_headers_raise_the_same_error(kind, extra, window,
     ("filter", "COMPANY_ID == 'x'"),
 ])
 def test_options_this_slice_does_not_take_are_refused(option, value,
-                                                      paths):
+                                                      paths, tmp_path):
+    if option in ("use_stats", "collect_stats"):
+        # taken since the statistics slice: the port's profile of the
+        # file equals the JAX package's, and a use_stats read under a
+        # filter the profile proves empty skips every shard and equals
+        # the JAX package's stats-off filtered read
+        opts = dict(RDW, **SEGMENTS, input_split_records="100")
+        cache = {k: str(tmp_path / k) for k in ("port", "jax")}
+        got = cobrix_tpu_torch.read_cobol(
+            paths["exp2"], copybook_contents=gen.EXP2_COPYBOOK,
+            device="cpu", cache_dir=cache["port"], collect_stats="true",
+            **opts)
+        want = cobrix_tpu.read_cobol(
+            paths["exp2"], copybook_contents=gen.EXP2_COPYBOOK,
+            backend="numpy", parallelism="1", cache_dir=cache["jax"],
+            collect_stats="true", **opts)
+        assert got.to_arrow().equals(want.to_arrow())
+        assert got.stats_profiles == want.stats_profiles
+        if option == "use_stats":
+            flt = "COMPANY_ID == '0'"
+            got = cobrix_tpu_torch.read_cobol(
+                paths["exp2"], copybook_contents=gen.EXP2_COPYBOOK,
+                device="cpu", cache_dir=cache["port"], filter=flt,
+                **{option: value}, **opts)
+            want = cobrix_tpu.read_cobol(
+                paths["exp2"], copybook_contents=gen.EXP2_COPYBOOK,
+                backend="numpy", parallelism="1", filter=flt, **opts)
+            assert got.to_arrow().equals(want.to_arrow())
+            pd = got.metrics.pushdown
+            assert pd["chunks_skipped"] == pd["chunks_considered"] > 1
+        return
     if option == "progress_interval_s":
         # taken since the observability slice: the read equals the JAX
         # package's, and so do the final progress snapshots' counts
