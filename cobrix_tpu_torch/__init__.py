@@ -19,7 +19,10 @@ records are decoded in full. Every read reports into the observability
 plane (``obs``): trace spans with a Chrome-trace export (``trace_file``),
 live progress (``progress_callback``), per-field decode and assemble
 costs (``field_costs``), the metrics registry (``prometheus_text``) and
-``explain``. The package imports torch and numpy and
+``explain``. The write half re-encodes a read's rows to mainframe bytes
+(``CobolData.to_ebcdic``, ``encode``) and commits its table into a
+transactional Parquet or Arrow-IPC dataset (``CobolData.to_dataset``,
+``sink``, ``read_dataset``). The package imports torch and numpy and
 nothing of ``cobrix_tpu``; it keeps its own copies of the copybook front
 end, plan compiler, code pages, readers and pipeline. Entry points run on
 the CUDA device unless given ``device="cpu"``.
@@ -49,6 +52,8 @@ from .reader.handlers import (DictHandler, JsonHandler, RecordHandler,
                               TupleHandler)
 from .reader.stream import (ByteRangeSource, open_stream,
                             register_stream_backend, source_size)
+from .sink import (DatasetSink, SinkCorruption, SinkSchemaError,
+                   read_dataset)
 from . import query
 
 __all__ = [
@@ -58,6 +63,7 @@ __all__ = [
     "ColumnarDecoder",
     "CommentPolicy",
     "Copybook",
+    "DatasetSink",
     "DebugFieldsPolicy",
     "DecodedBatch",
     "DictHandler",
@@ -75,6 +81,8 @@ __all__ = [
     "SchemaRetentionPolicy",
     "ShardErrorPolicy",
     "ShardFailureInfo",
+    "SinkCorruption",
+    "SinkSchemaError",
     "Tracer",
     "TrimPolicy",
     "TupleHandler",
@@ -87,6 +95,7 @@ __all__ = [
     "prometheus_text",
     "query",
     "read_cobol",
+    "read_dataset",
     "register_codec",
     "register_fsspec_backend",
     "register_stream_backend",

@@ -625,6 +625,10 @@ class CobolData:
         # statistics (collect_stats=true), set by read_cobol; None
         # otherwise
         self.stats_profiles: Optional[Dict[str, dict]] = None
+        # digest of the copybook text and its parse options
+        # (`plan.cache.parse_fingerprint`), set by read_cobol on every
+        # route: the copybook half of a sink dataset's identity
+        self.plan_fingerprint: str = ""
         self._rows: Optional[List[List[object]]] = None
 
     @property
@@ -660,6 +664,87 @@ class CobolData:
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()
+
+    def to_dataset(self, dataset_dir: str, file_format: str = "parquet",
+                   partition_by=(), target_file_mb: float = 64.0,
+                   retry=None):
+        """One-shot atomic export into a transactional sink dataset
+        (`cobrix_tpu_torch.sink`): `to_arrow()` (built by the assembly
+        kernels on the read's device) is staged and finalized as
+        Parquet or Arrow-IPC files of about `target_file_mb`, hive-style
+        under `partition_by` columns, then ONE manifest record commits
+        them all — a crash at any instant leaves the dataset exactly as
+        it was. Re-exporting into the same dataset appends a new commit;
+        a dataset written under a different copybook/schema fingerprint
+        (or format, or partition spec) is refused (`SinkSchemaError`).
+        The fingerprint is the JAX package's for the same copybook and
+        options, so either package reads and appends to the other's
+        datasets. Returns the `DatasetSink` (its ``recovery`` report and
+        ``to_table()`` read-back included)."""
+        from .reader.arrow_out import arrow_schema as _arrow_schema
+        from .sink import DatasetSink, schema_fingerprint
+
+        schema = _arrow_schema(self.schema)
+        sink = DatasetSink(
+            dataset_dir, arrow_schema=schema,
+            schema_fp=schema_fingerprint(schema, self.plan_fingerprint),
+            file_format=file_format, partition_by=partition_by,
+            target_file_mb=target_file_mb, retry=retry)
+        sink.commit_table(self.to_arrow(), source="read_cobol")
+        return sink
+
+    def to_ebcdic(self, path: Optional[str] = None, *,
+                  framing: str = "fixed",
+                  rdw_big_endian: bool = False,
+                  rdw_adjustment: int = 0,
+                  rdw_part_of_record_length: bool = False,
+                  variable_size_occurs: bool = False,
+                  truncate: bool = True,
+                  fill_byte: Optional[int] = None):
+        """Encode the decoded records back to mainframe binary (the write
+        half of the bridge: `to_dataset` emits Parquet, this emits
+        fixed-length or RDW-framed EBCDIC/ASCII consumable by the same
+        copybook). Generated columns (File_Id/Record_Id/Seg_Id*/input
+        file name/corrupt-record) are stripped; the data columns of
+        `to_rows()` are re-encoded on the host through
+        `cobrix_tpu_torch.encode` against this read's copybook, byte for
+        byte as the JAX package's ``to_ebcdic``. `framing` is ``fixed``
+        (records padded with `fill_byte` to the copybook's size) or
+        ``rdw`` (4-byte RDW headers with `rdw_big_endian`,
+        `rdw_adjustment` and `rdw_part_of_record_length`; each record
+        cut to its used length unless `truncate` is false). Returns the
+        bytes, or writes to `path` and returns None."""
+        import io as _io
+
+        from .encode.encoder import RecordEncoder
+
+        if framing not in ("fixed", "rdw"):
+            raise ValueError(f"Unknown framing '{framing}' (fixed|rdw)")
+        schema = self.output_schema
+        enc = RecordEncoder(schema.copybook, policy=schema.policy,
+                            variable_size_occurs=variable_size_occurs,
+                            fill_byte=fill_byte)
+        # the generated columns lead (File_Id and Record_Id, the input
+        # file name, the Seg_Id levels); the corrupt-record column trails
+        lead = (2 if schema.generate_record_id else 0) \
+            + (1 if schema.input_file_name_field else 0) \
+            + schema.generate_seg_id_field_count
+        tail = -1 if schema.corrupt_record_field else None
+        bodies = (row[lead:tail] for row in self.to_rows())
+        sink = _io.BytesIO() if path is None else open(path, "wb")
+        try:
+            if framing == "fixed":
+                enc.encode_fixed(bodies, sink)
+            else:
+                enc.encode_rdw(
+                    bodies, sink, big_endian=rdw_big_endian,
+                    adjustment=rdw_adjustment,
+                    part_of_record_length=rdw_part_of_record_length,
+                    truncate=truncate)
+        finally:
+            if path is not None:
+                sink.close()
+        return sink.getvalue() if path is None else None
 
     def to_arrow(self):
         """pyarrow Table with the schema's declared types, built from the
@@ -921,6 +1006,9 @@ def read_cobol(path=None,
         metrics.timings_s["collect_stats"] = time.perf_counter() - t0
         data.stats_profiles = {url: profile.summary()
                                for url, profile in profiles.items()}
+    from .plan.cache import parse_fingerprint
+
+    data.plan_fingerprint = parse_fingerprint(contents, params)
     if explain:
         from .explain import build_scan_report
 

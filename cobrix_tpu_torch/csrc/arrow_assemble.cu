@@ -368,17 +368,8 @@ __device__ __forceinline__ bool scalar_element(
     // the int64 plane's digit count tops out at 19
     shift -= digit_count(mag);
   }
-  if (rule.maxd == 0) {
-    // mantissas of up to 18 digits: every visible row's shift in 0..18,
-    // the product unbounded (it fits 128 bits)
-    if (shift < 0 || shift > 18) {
-      bad = true;
-    } else if (valid) {
-      bool over;
-      dec = mul_pow10(mag, static_cast<int>(shift), &over);
-    }
-  } else if (valid) {
-    // bounded by the declared precision, valid rows only
+  if (valid) {
+    // bounded by the declared precision (1..38), valid rows only
     if (shift < 0 || shift > 38) {
       bad = true;
     } else {

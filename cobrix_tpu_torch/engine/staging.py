@@ -20,6 +20,7 @@ the same data flow:
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from typing import List, Optional, Tuple
@@ -34,8 +35,11 @@ class StagedBytes:
     payload it never processed)."""
 
     def __init__(self, pool: Optional["StagingPool"], buf: torch.Tensor,
-                 nbytes: int):
+                 nbytes: int, pooled: bool = True):
         self._pool = pool
+        # a buffer from `StagingPool.fresh` counts its copies on the pool
+        # but is not given back to it
+        self._pooled = pooled
         self._buf = buf
         self.nbytes = nbytes
         self._stream: Optional[torch.cuda.Stream] = None
@@ -55,6 +59,8 @@ class StagedBytes:
             return part.clone()
         out = part.to(device, non_blocking=True)
         self._stream = torch.cuda.current_stream(device)
+        if self._pool is not None:
+            self._pool.note_upload(part.is_pinned(), part.numel())
         return out
 
     def close(self) -> None:
@@ -65,7 +71,7 @@ class StagedBytes:
         if self._stream is not None:
             event = torch.cuda.Event()
             event.record(self._stream)
-        if self._pool is not None:
+        if self._pool is not None and self._pooled:
             self._pool.release(buf, event)
 
 
@@ -84,6 +90,13 @@ class StagingPool:
         self.allocations = 0   # buffers allocated (reuse = acquires - this)
         self.acquires = 0
         self.wait_s = 0.0      # seconds readers waited for a free buffer
+        # copies to the card from this pool's buffers (fresh ones too),
+        # how many of them were from pinned memory, and their count by
+        # memory kind and size: the program's own count, held against a
+        # trace's HtoD copies
+        self.uploads = 0
+        self.pinned_uploads = 0
+        self.upload_sizes: collections.Counter = collections.Counter()
 
     def _alloc(self, nbytes: int) -> torch.Tensor:
         """A buffer of the next power of two at or above `nbytes` (the
@@ -128,19 +141,31 @@ class StagingPool:
     def fresh(self, nbytes: int) -> StagedBytes:
         """A buffer outside the pool (a re-read after a failed attempt
         must not wait for buffers that queued chunks hold)."""
-        return StagedBytes(None, self._alloc(nbytes), nbytes)
+        return StagedBytes(self, self._alloc(nbytes), nbytes, pooled=False)
 
     def add_wait(self, seconds: float) -> None:
         with self._cond:
             self.wait_s += seconds
 
+    def note_upload(self, pinned: bool, nbytes: int) -> None:
+        with self._cond:
+            self.uploads += 1
+            self.pinned_uploads += int(pinned)
+            self.upload_sizes["pinned" if pinned else "pageable",
+                              nbytes] += 1
+
     def report(self) -> dict:
-        """Buffers, pinning, acquires, allocations and the wait."""
+        """Buffers, pinning, acquires, allocations, the wait and the
+        copies to the card."""
         with self._cond:
             return {"buffers": self.capacity, "pinned": self.pin,
                     "acquires": self.acquires,
                     "allocations": self.allocations,
-                    "wait_s": round(self.wait_s, 6)}
+                    "wait_s": round(self.wait_s, 6),
+                    "uploads": self.uploads,
+                    "pinned_uploads": self.pinned_uploads,
+                    "upload_sizes": {f"{kind} {n}": c for (kind, n), c
+                                     in sorted(self.upload_sizes.items())}}
 
     def release(self, buf: torch.Tensor,
                 event: Optional[torch.cuda.Event]) -> None:

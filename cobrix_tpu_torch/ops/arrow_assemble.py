@@ -13,8 +13,9 @@ bounds them.
   batch's host planes: a list of S per-slot dicts, or a `SlotPlanes`
   whose every plane kind is one [rows, S] array, as the fused decoder's
   column-major group planes hold an OCCURS field's slots), the source
-  and output kinds, the decimal mode, shift and precision bound, an
-  optional row table (build the array at those rows) and visibility mask
+  and output kinds, the decimal mode, shift and precision bound (the
+  decimal's declared precision, 1..38: a valid value at or past it is
+  zero and flags the request bad), an optional row table (build the array at those rows) and visibility mask
   (a hidden row is null and zero, a hidden string blank), or the string
   width and trim.
 * `build_plan(requests, host_buffer, device)` lays the requests out: each
@@ -43,8 +44,10 @@ bounds them.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -305,6 +308,10 @@ def build_plan(requests: Sequence[Request],
     docstring). `host_buffer`: the batch's host buffer (a 1-D uint8 CPU
     tensor, pinned for a CUDA batch) its planes are views of, or None."""
     requests = list(requests)
+    for r in requests:
+        if r.out_kind == OUT_DEC and not 1 <= r.maxd <= 38:
+            raise ValueError(f"a decimal request's precision bound is "
+                             f"1..38, not {r.maxd}")
     layouts = None
     if host_buffer is not None and host_buffer.numel() % 8 == 0:
         lo, size = host_buffer.data_ptr(), host_buffer.numel()
@@ -431,15 +438,27 @@ def new_state(plan: Plan, device: torch.device) -> Tuple[torch.Tensor, ...]:
 
 def upload(plan: Plan) -> Tuple[torch.Tensor, torch.Tensor]:
     """The source and aux buffers on the plan's device: one copy each
-    from pinned memory on the current stream (the CPU: themselves)."""
+    from pinned memory on the current stream (the CPU: themselves).
+    `upload.copies` counts the copies made by buffer ("src", "aux"),
+    memory kind ("pinned", "pageable") and size in bytes (the program's
+    own count, held against a trace's HtoD copies)."""
     device = plan.device
     aux = torch.from_numpy(plan.aux)
     if device.type == "cpu":
         return plan.src, aux
     pinned = torch.empty(aux.numel(), dtype=torch.uint8, pin_memory=True)
     pinned.copy_(aux)
-    return (plan.src.to(device, non_blocking=True),
-            pinned.to(device, non_blocking=True))
+    out = (plan.src.to(device, non_blocking=True),
+           pinned.to(device, non_blocking=True))
+    with _UPLOAD_LOCK:
+        for what, t in (("src", plan.src), ("aux", pinned)):
+            upload.copies[what, "pinned" if t.is_pinned() else "pageable",
+                          t.numel() * t.element_size()] += 1
+    return out
+
+
+_UPLOAD_LOCK = threading.Lock()
+upload.copies = collections.Counter()
 
 
 def run_steps(plan: Plan, src: torch.Tensor, aux: torch.Tensor,
@@ -763,16 +782,11 @@ def scalars_plain(src, aux, plan: Plan, out) -> None:
                 shift = shift - sv.i32[at(P_DOTS, 4) // 4].to(torch.int64)
             elif d[D_DEC] == DEC_DIGITS:
                 shift = shift - _digit_count(m_hi, m_lo)
-            out_of = (shift < 0) | (shift > (18 if d[D_MAXD] == 0 else 38))
+            maxd = int(d[D_MAXD])
             hi, lo, over = _mul_pow10(m_hi, m_lo, shift)
-            if d[D_MAXD] == 0:
-                bad = (vis & out_of).any()
-                fail = out_of
-            else:
-                maxd = int(d[D_MAXD])
-                fail = out_of | over | _ge128(
-                    hi, lo, int(_POW10_HI[maxd]), int(_POW10_LO[maxd]))
-                bad = (valid & fail).any()
+            fail = (shift < 0) | (shift > 38) | over | _ge128(
+                hi, lo, int(_POW10_HI[maxd]), int(_POW10_LO[maxd]))
+            bad = (valid & fail).any()
             keep = valid & ~fail
             hi, lo = torch.where(keep, hi, 0), torch.where(keep, lo, 0)
             n_lo = ~lo + 1

@@ -332,14 +332,15 @@ class ArrowBatchBuilder:
         else:
             mode = asm.DEC_STATIC
             shift = pa_type.scale + fixed_point_exponent(spec)
-        if wide or pa_type.precision > 18:
-            # wide (uint128-limb) mantissas, and int64 ones of a wider
-            # type: bounded by the declared precision, as the native
-            # limb build is; a value out of it takes the value list
-            return src, asm.OUT_DEC, mode, shift, pa_type.precision
-        if mode == asm.DEC_STATIC and not 0 <= shift <= 18:
+        if mode == asm.DEC_STATIC and not wide \
+                and pa_type.precision <= 18 and not 0 <= shift <= 18:
             return None
-        return src, asm.OUT_DEC, mode, shift, 0
+        # every decimal is bounded by its declared precision: a value
+        # out of it (a malformed record's binary field holding more
+        # digits than its PIC) takes the value list, which makes it null
+        # (ROADMAP C5), so that every array is valid Arrow and a Parquet
+        # export stores what the table holds
+        return src, asm.OUT_DEC, mode, shift, pa_type.precision
 
     @staticmethod
     def _number_planes(out: dict, kind: tuple) -> dict:

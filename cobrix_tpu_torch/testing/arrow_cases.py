@@ -191,22 +191,27 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
                                              ).view(np.int64))
     number(F32, asm.OUT_F64, values=lambda: rng.standard_normal(n).astype(
         np.float32).view(np.int32))
-    # narrow decimals: static shifts in and out of 0..18
-    for shift in (0, 18, 19, -1):
-        number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=shift)
-    number(I32, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=3, mask=mask)
-    number(I64, asm.OUT_DEC, "none", dec=asm.DEC_STATIC, shift=25)
-    number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2,
+    # narrow decimals, each bounded by a declared precision: static
+    # shifts in and out of 0..38, products that hold, overflow 128 bits
+    # or pass the precision (a binary field holding more digits than its
+    # PIC, ROADMAP C5)
+    for shift, maxd in ((0, 19), (18, 37), (19, 38), (20, 38), (-1, 38),
+                        (0, 18)):
+        number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=shift, maxd=maxd)
+    number(I32, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=3, maxd=13,
+           mask=mask)
+    number(I64, asm.OUT_DEC, "none", dec=asm.DEC_STATIC, shift=25, maxd=38)
+    number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, maxd=21,
            values=lambda: np.where(rng.random(n) < 0.1,
                                    np.iinfo(np.int64).min,
                                    rng.integers(-10 ** 15, 10 ** 15, n)))
     # per-row shifts: the dot plane, the digit count
-    number(I64, asm.OUT_DEC, dec=asm.DEC_DOTS, shift=4,
+    number(I64, asm.OUT_DEC, dec=asm.DEC_DOTS, shift=4, maxd=17,
            dots=lambda: rng.integers(0, 5, n), values=small(10 ** 12))
-    number(I64, asm.OUT_DEC, dec=asm.DEC_DOTS, shift=2,
+    number(I64, asm.OUT_DEC, dec=asm.DEC_DOTS, shift=2, maxd=9,
            dots=lambda: rng.integers(0, 4, n), values=small(10 ** 6),
            mask=mask)
-    number(I32, asm.OUT_DEC, dec=asm.DEC_DIGITS, shift=7,
+    number(I32, asm.OUT_DEC, dec=asm.DEC_DIGITS, shift=7, maxd=13,
            values=small(10 ** 6))
     number(I64, asm.OUT_DEC, dec=asm.DEC_DIGITS, shift=21, maxd=21,
            values=lambda: np.where(rng.random(n) < 0.2, 10 ** 17,
@@ -234,10 +239,10 @@ def grid(n: int, seed: int = 0, slots: int = 3, pin: bool = False
     # flat arrays of `slots` slots: plain, hidden rows, compact rows
     number(I32, asm.OUT_I32, s=slots)
     number(I32, asm.OUT_I64, s=slots, mask=mask)
-    number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, s=slots,
+    number(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, maxd=21, s=slots,
            rows=rows)
     fused(I32, asm.OUT_I32)
-    fused(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, mask=mask)
+    fused(I64, asm.OUT_DEC, dec=asm.DEC_STATIC, shift=2, maxd=11, mask=mask)
     fused(I32, asm.OUT_I64, rows=rows)
     fused(F64, asm.OUT_F64)
     # strings

@@ -16,16 +16,24 @@ the streaming inflate index):
   record-length distribution: 34-byte parent vs 60-byte child frames).
 
 Change from the JAX package: its writers build records through its
-encoder (``cobrix_tpu.encode.BatchEncoder``), which the port does not
-have; these pack the same layouts with numpy (big-endian COMP,
-sign-nibble COMP-3, trailing-overpunch zoned decimals, EBCDIC text
-through ``generators``' table). The values are drawn from the same
-distributions, not the same bytes; tests read one file with both
-packages. The damage helpers (`corrupt_*_corpus`) are not carried over.
+encoder (``cobrix_tpu.encode.BatchEncoder``); these pack the same
+layouts with numpy (big-endian COMP, sign-nibble COMP-3,
+trailing-overpunch zoned decimals, EBCDIC text through ``generators``'
+table). The port has its own `encode.BatchEncoder` now, and these
+writers stay numpy all the same: they are the load factory of
+``chip_smoke.py``'s large corpora, and the Python per-record paths
+around an encoder cost too much there (phase 18's 8,000,000-record TXN
+corpus took 139.2 s through Python writers on the card's host; see
+PERF.md). ``chip_smoke.py`` phase 19 builds a TXN file through
+`BatchEncoder` when the encoder itself is what it measures. The values
+are drawn from the same distributions, not the same bytes; tests read
+one file with both packages. Of the damage helpers only
+`corrupt_fixed_corpus` is carried over (the round-trip tests damage a
+TXN corpus with it).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -314,3 +322,38 @@ def write_multiseg_corpus(path: str, num_companies: int, *,
     if compression:
         out["wire_bytes"] = f.wire_bytes
     return out
+
+
+def corrupt_fixed_corpus(data: bytes, *, count: int = 3, seed: int = 0,
+                         kinds: Sequence[str] = ("sign-nibble",
+                                                 "packed-digit",
+                                                 "torn-write")
+                         ) -> Tuple[bytes, List[Dict[str, object]]]:
+    """Damage `count` records of a TXN corpus per kind (torn-write
+    always tears the file tail). Returns (corrupted, sites)."""
+    from ..copybook.copybook import parse_copybook
+    from .faults import corrupt_record, field_site
+
+    cb = parse_copybook(TXN_COPYBOOK)
+    rec = cb.record_size
+    amount = field_site(cb, "AMOUNT")
+    n = len(data) // rec
+    rng = np.random.default_rng(seed)
+    out = bytearray(data)
+    sites: List[Dict[str, object]] = []
+    body_kinds = [k for k in kinds if k != "torn-write"]
+    picks = rng.choice(n - 1, size=min(count * len(body_kinds), n - 1),
+                       replace=False) if body_kinds else []
+    for i, idx in enumerate(picks):
+        kind = body_kinds[i % len(body_kinds)]
+        start = int(idx) * rec
+        out[start:start + rec] = corrupt_record(
+            bytes(out[start:start + rec]), kind, site=amount)
+        sites.append({"record": int(idx), "kind": kind,
+                      "offset": start + amount[0]})
+    if "torn-write" in kinds:
+        keep = (n - 1) * rec + rec * 2 // 3
+        out = out[:keep]
+        sites.append({"record": n - 1, "kind": "torn-write",
+                      "offset": keep})
+    return bytes(out), sites

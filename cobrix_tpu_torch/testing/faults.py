@@ -10,8 +10,12 @@ walk, in place of the native scan), `flip_bit`, `truncate`,
 (`compressed_member_spans`, `truncate_compressed_member`,
 `corrupt_compressed_trailer`, `garbage_between_members`); and the
 durable-state injector `corrupt_cache_entry` (with `cache_entry_paths`)
-for the block, index, stats and compress planes. The sink, checkpoint
-and worker faults are not carried over, since the port has none of
+for the block, index, stats and compress planes; the encoder-aware
+record damage (`field_site`, `corrupt_record`); and the one-shot sink's
+faults (`SinkKilled`, `SinkFaultPlan`, `SINK_KILL_POINTS`,
+`corrupt_sink_manifest`, `sink_write_faults`). The streaming sink's
+source faults (``rotate_source``, ``LiveAppender``), the checkpoint and
+the worker faults are not carried over, since the port has none of
 those planes yet.
 
 All injectors are pure: they take `bytes` and return corrupted `bytes`,
@@ -322,3 +326,286 @@ def corrupt_cache_entry(cache_dir: str, plane: str = "block",
     with open(path, "wb") as f:
         f.write(data)
     return path
+
+
+# -- encoder-aware record corruption --------------------------------------
+#
+# The injectors above damage FRAMING (headers, tails, splices). The
+# helpers below damage the *content* of one record in ways only a
+# decoder notices — an invalid packed sign nibble, a non-digit BCD
+# nibble, a segment id no redefine maps — plus the two framing flavors
+# a per-record corruptor needs (RDW length damage, mid-record torn
+# write). Each damage class has a SPECIFIC observable diagnostic, which
+# the damage tests assert per kind:
+#
+#   sign-nibble   the damaged COMP-3 field decodes to None (0x0A is not
+#                 a sign), neighbors intact;
+#   packed-digit  same field-level None (a nibble >= 0x0A is not a
+#                 digit);
+#   rdw-length    zeroed header => "zero-length RDW header" resync
+#                 ledger entry; oversized => clamped-tail truncation;
+#   segment-id    no redefine branch matches => every segment column
+#                 of the row is None;
+#   torn-write    the record's tail is lost mid-field => permissive
+#                 nulls the tail and ledgers a truncation.
+
+CORRUPT_RECORD_KINDS = ("sign-nibble", "packed-digit", "rdw-length",
+                        "segment-id", "torn-write")
+
+
+def field_site(copybook, field_name: str):
+    """(byte_offset, byte_size) of a named primitive inside one record
+    — the encoder-aware aim point for `corrupt_record`. Accepts
+    copybook text or a parsed `Copybook`."""
+    from ..copybook.ast import transform_identifier
+    from ..copybook.copybook import parse_copybook
+
+    if isinstance(copybook, str):
+        copybook = parse_copybook(copybook)
+    want = transform_identifier(field_name)
+    for st in copybook.ast.walk_primitives():
+        if st.name == want:
+            return (st.binary_properties.offset,
+                    st.binary_properties.data_size)
+    raise KeyError(f"no primitive named {field_name!r} in copybook")
+
+
+def corrupt_record(record: bytes, kind: str, *, site=None,
+                   header: bool = False, big_endian: bool = False,
+                   seed: int = 0) -> bytes:
+    """Damage ONE record's bytes in an encoder-aware way and return the
+    corrupted record. `site` is the (offset, size) of the targeted field
+    *within the record body* (from `field_site`); `header=True` means
+    `record` starts with its own 4-byte RDW (sites shift by 4, and
+    'rdw-length' is applicable). `kind` is one of CORRUPT_RECORD_KINDS.
+    """
+    out = bytearray(record)
+    base = 4 if header else 0
+    if kind == "sign-nibble":
+        off, size = site
+        pos = base + off + size - 1  # sign lives in the final nibble
+        out[pos] = (out[pos] & 0xF0) | 0x0A  # 0xA: not C/D/F
+    elif kind == "packed-digit":
+        off, size = site
+        pos = base + off  # first digit byte
+        out[pos] = 0xBB   # nibbles 0xB: not decimal digits
+    elif kind == "rdw-length":
+        if not header:
+            raise ValueError("rdw-length damage needs header=True "
+                             "(the record must carry its own RDW)")
+        out[0:4] = b"\x00\x00\x00\x00" if seed % 2 == 0 else (
+            b"\xff\xff\x00\x00" if big_endian else b"\x00\x00\xff\xff")
+    elif kind == "segment-id":
+        off, size = site
+        # 0x5A..: EBCDIC punctuation — never a mapped segment id value
+        for i in range(size):
+            out[base + off + i] = 0x5A
+    elif kind == "torn-write":
+        keep = base + max(1, (len(record) - base) * 2 // 3)
+        return bytes(out[:keep])
+    else:
+        raise ValueError(f"unknown corruption kind {kind!r}; one of "
+                         f"{CORRUPT_RECORD_KINDS}")
+    return bytes(out)
+
+
+# -- lakehouse-sink fault injection --------------------------------------
+#
+# The injectors below break the TRANSACTIONAL SINK (`sink`):
+# consumers killed between staging a data file and committing its
+# manifest record, manifest records torn or bit-flipped on disk, and
+# dataset volumes that fail writes — a crash matrix drives the commit
+# protocol's recovery through every window with them. Once-markers use
+# an O_EXCL cross-process claim: a RESTARTED consumer re-
+# installs the plan, but the marker guarantees each fault fires exactly
+# once across the whole kill/restart sequence.
+
+SINK_KILL_POINTS = ("pre_stage", "post_stage", "pre_commit",
+                    "post_commit")
+
+
+class SinkKilled(Exception):
+    """Raised by a SinkFaultPlan in ``action='raise'`` mode — the
+    in-process stand-in for SIGKILL (the commit is abandoned exactly
+    where the kill landed; recovery runs on the next sink open)."""
+
+
+class SinkFaultPlan:
+    """Kill plan keyed by commit kill-window (and optionally commit
+    seq). ``action='exit'`` dies via ``os._exit(137)`` (subprocess
+    harnesses); ``action='raise'`` raises
+    `SinkKilled` (in-process tests: abandon the sink, reopen it, and
+    check what recovery left).
+
+        plan = SinkFaultPlan(state_dir, action="raise")
+        plan.kill("pre_commit")          # first commit reaching the
+                                         # stage-write→manifest window
+        plan.kill("post_commit", seq=3)  # commit #3, after the append,
+                                         # before the ack
+        with plan.installed():
+            DatasetSink(dataset_dir, ...).commit_table(table)
+    """
+
+    def __init__(self, state_dir: str, action: str = "exit"):
+        if action not in ("exit", "raise"):
+            raise ValueError(f"action must be 'exit' or 'raise', "
+                             f"got {action!r}")
+        self.state_dir = str(state_dir)
+        os.makedirs(self.state_dir, exist_ok=True)
+        self.action = action
+        self._kills: dict = {}
+
+    def kill(self, point: str, seq: Optional[int] = None,
+             once: bool = True) -> "SinkFaultPlan":
+        if point not in SINK_KILL_POINTS:
+            raise ValueError(f"unknown sink kill point {point!r}; "
+                             f"one of {SINK_KILL_POINTS}")
+        self._kills[(point, seq)] = once
+        return self
+
+    def _marker(self, point: str, seq: Optional[int]) -> str:
+        return os.path.join(self.state_dir,
+                            f"sink_fault_{point}_{seq or 'any'}")
+
+    def fired(self, point: str, seq: Optional[int] = None) -> bool:
+        return os.path.exists(self._marker(point, seq))
+
+    def _claim(self, point: str, seq: Optional[int]) -> bool:
+        try:
+            fd = os.open(self._marker(point, seq),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            return False
+        os.close(fd)
+        return True
+
+    def __call__(self, point: str, seq: int) -> None:
+        for key in ((point, seq), (point, None)):
+            if key not in self._kills:
+                continue
+            once = self._kills[key]
+            if once and not self._claim(*key):
+                continue
+            if not once:
+                self._claim(*key)  # fired() breadcrumb
+            if self.action == "exit":
+                os._exit(137)
+            raise SinkKilled(
+                f"injected sink kill at {point} (commit seq {seq})")
+
+    def installed(self):
+        """Context manager installing this plan as the sink fault hook
+        (uninstalled on exit, even on test failure)."""
+        import contextlib
+
+        from ..sink.writer import set_sink_fault_hook
+
+        @contextlib.contextmanager
+        def _ctx():
+            set_sink_fault_hook(self)
+            try:
+                yield self
+            finally:
+                set_sink_fault_hook(None)
+        return _ctx()
+
+
+def corrupt_sink_manifest(dataset_dir: str, mode: str = "bitflip",
+                          which: int = -1) -> str:
+    """Corrupt one record of a LOCAL sink dataset's manifest in place;
+    returns the manifest path.
+
+    * ``mode='bitflip'`` — flip one bit inside record `which` (default
+      the last record; the CRC stamp must catch it even when the JSON
+      stays parseable);
+    * ``mode='torn'`` — tear the manifest mid-way through record
+      `which` (a crashed appender / lost tail page).
+
+    Recovery must treat damage past the checkpointed position as a
+    self-healing truncation and damage inside it as loud
+    `SinkCorruption` — never silence, never replay."""
+    from ..sink.manifest import MANIFEST_NAME
+
+    path = os.path.join(dataset_dir, MANIFEST_NAME)
+    data = open(path, "rb").read()
+    lines = data.split(b"\n")[:-1]  # trailing "" after final newline
+    if not lines:
+        raise FileNotFoundError(f"no manifest records under {path}")
+    idx = which % len(lines)
+    start = sum(len(ln) + 1 for ln in lines[:idx])
+    if mode == "bitflip":
+        # flip a LOW bit inside the record's payload region (past the
+        # opening brace, ahead of the newline) so the line often stays
+        # valid JSON — only the CRC can catch it
+        pos = start + min(len(lines[idx]) - 2, 20)
+        data = flip_bit(data, pos, bit=0)
+    elif mode == "torn":
+        data = data[:start + max(1, len(lines[idx]) // 2)]
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}")
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+class sink_write_faults:
+    """Context manager making every DATASET-VOLUME write fail the way
+    a full or read-only volume does (``mode='enospc'`` => OSError
+    ENOSPC, ``mode='readonly'`` => OSError EROFS) while reads keep
+    working. Patches the sink writer's durable-write call sites
+    (`_local_write` staging/meta writes, `_local_append` manifest
+    appends)::
+
+        with sink_write_faults("enospc"):
+            sink.commit_table(table)   # raises ENOSPC, NOTHING
+                                       # half-committed
+
+    The contract under test: unlike cache planes, the sink must fail
+    LOUDLY (an un-persistable commit must never be acked) and
+    atomically (the manifest is unchanged; recovery quarantines any
+    finalized-but-unreferenced files)."""
+
+    def __init__(self, mode: str = "enospc",
+                 fail_writes: bool = True, fail_appends: bool = True):
+        import errno
+
+        self.errno = {"enospc": errno.ENOSPC,
+                      "readonly": errno.EROFS}[mode]
+        self.mode = mode
+        self.write_attempts = 0
+        self.append_attempts = 0
+        self.fail_writes = fail_writes
+        self.fail_appends = fail_appends
+        self._saved = None
+
+    def __enter__(self):
+        from ..sink import writer
+
+        fault = self
+        self._saved = (writer._local_write, writer._local_append)
+
+        def failing_write(path, data):
+            fault.write_attempts += 1
+            if fault.fail_writes:
+                raise OSError(fault.errno,
+                              f"injected {fault.mode} on sink write",
+                              path)
+            return fault._saved[0](path, data)
+
+        def failing_append(path, data):
+            fault.append_attempts += 1
+            if fault.fail_appends:
+                raise OSError(fault.errno,
+                              f"injected {fault.mode} on sink append",
+                              path)
+            return fault._saved[1](path, data)
+
+        writer._local_write = failing_write
+        writer._local_append = failing_append
+        return self
+
+    def __exit__(self, *exc):
+        from ..sink import writer
+
+        writer._local_write, writer._local_append = self._saved
+        return False

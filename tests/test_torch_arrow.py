@@ -113,7 +113,9 @@ def test_exp1_with_its_junk_tail(tmp_path, monkeypatch, chunk):
     """The JAX package's to_arrow raises on the junk tail, whose binary
     decimal fields hold more digits than they declare; the port makes
     such a value null (ROADMAP C5). With that one change made to the
-    JAX package's value-list route, the tables are equal."""
+    JAX package's value-list route, and its narrow decimals held to the
+    same rule (its assembly leaves them past their precision, an invalid
+    array), the tables are equal; the port's is valid Arrow."""
     import cobrix_tpu.reader.arrow_out as jax_arrow_out
     import cobrix_tpu_torch.api as api
     from cobrix_tpu_torch.reader.arrow_out import _fits_decimal
@@ -135,8 +137,38 @@ def test_exp1_with_its_junk_tail(tmp_path, monkeypatch, chunk):
 
     monkeypatch.setattr(jax_arrow_out.ArrowBatchBuilder, "_python_fallback",
                         fallback)
-    _same_table(got.to_arrow(), want.to_arrow())
-    pd.testing.assert_frame_equal(got.to_pandas(), want.to_pandas())
+    nulled = [0]
+
+    def c5(value, typ):
+        """The port's rule on a JAX value: a decimal past its declared
+        precision is null (structs and lists are fixed in place)."""
+        if value is None:
+            return None
+        if pa.types.is_struct(typ):
+            for f in typ:
+                value[f.name] = c5(value[f.name], f.type)
+        elif pa.types.is_list(typ) or pa.types.is_fixed_size_list(typ):
+            for i in range(len(value)):
+                value[i] = c5(value[i], typ.value_type)
+        elif pa.types.is_decimal(typ) and not _fits_decimal(value, typ):
+            nulled[0] += 1
+            return None
+        return value
+
+    table, want_table = got.to_arrow(), want.to_arrow()
+    table.validate(full=True)
+    assert table.schema.equals(want_table.schema, check_metadata=True)
+    assert table.num_rows == want_table.num_rows
+    for name in want_table.column_names:
+        typ = want_table.schema.field(name).type
+        assert _typed(table.column(name).to_pylist()) == _typed(
+            [c5(v, typ) for v in want_table.column(name).to_pylist()]), name
+    assert nulled[0] > 0  # the junk tail's narrow decimals
+    frame = want_table.to_pandas()
+    for name in frame.columns:
+        typ = want_table.schema.field(name).type
+        frame[name] = frame[name].map(lambda v, t=typ: c5(v, t))
+    pd.testing.assert_frame_equal(got.to_pandas(), frame)
     assert got.to_json_lines() == want.to_json_lines()
 
 

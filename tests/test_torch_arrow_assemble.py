@@ -97,11 +97,7 @@ def _number_reference(req):
                 shift -= int(p["dots"][row])
             elif req.dec_mode == asm.DEC_DIGITS:
                 shift -= _digits(mag)
-            if req.maxd == 0:
-                if not 0 <= shift <= 18:
-                    bad = True
-                value = mag * 10 ** shift if 0 <= shift <= 18 else 0
-            elif valid:
+            if valid:
                 value = mag * 10 ** max(shift, 0)
                 if not 0 <= shift <= 38 or value >= 2 ** 128 \
                         or value >= 10 ** req.maxd:
@@ -224,6 +220,17 @@ def test_slot_planes_outside_the_buffer_are_staged():
             assert plan.desc[i][asm.D_STEP + asm.P_VALUES] == \
                 33 * r.planes.arrays["values"].itemsize
     _check_result(asm.assemble(plan))
+
+
+@pytest.mark.parametrize("maxd", [0, 39])
+def test_a_decimal_request_needs_its_precision_bound(maxd):
+    """Every decimal is bounded by its declared precision (ROADMAP C5):
+    a decimal request without a bound in 1..38 is refused."""
+    requests, buf = arrow_cases.grid(9, seed=7)
+    dec = next(r for r in requests if r.out_kind == asm.OUT_DEC)
+    dec.maxd = maxd
+    with pytest.raises(ValueError, match="precision bound is 1..38"):
+        asm.build_plan(requests, buf, torch.device("cpu"))
 
 
 @pytest.mark.cuda
@@ -401,13 +408,14 @@ def test_every_kind_and_mode_against_the_jax_package(tmp_path, trim):
             (asm.SRC_I64, asm.OUT_I64, asm.DEC_NONE, False),
             (asm.SRC_F32, asm.OUT_F32, asm.DEC_NONE, False),
             (asm.SRC_F64, asm.OUT_F64, asm.DEC_NONE, False),
-            (asm.SRC_I32, asm.OUT_DEC, asm.DEC_STATIC, False),
+            # every decimal is bounded by its precision (ROADMAP C5)
+            (asm.SRC_I32, asm.OUT_DEC, asm.DEC_STATIC, True),
             (asm.SRC_WIDE, asm.OUT_DEC, asm.DEC_STATIC, True),
-            (asm.SRC_I64, asm.OUT_DEC, asm.DEC_DOTS, False),
+            (asm.SRC_I64, asm.OUT_DEC, asm.DEC_DOTS, True),
             (asm.SRC_WIDE, asm.OUT_DEC, asm.DEC_DOTS, True),
-            (asm.SRC_I32, asm.OUT_DEC, asm.DEC_DIGITS, False),
+            (asm.SRC_I32, asm.OUT_DEC, asm.DEC_DIGITS, True),
             (asm.SRC_I64, asm.OUT_DEC, asm.DEC_DIGITS, True),
-            (asm.SRC_I32, asm.OUT_DEC, asm.DEC_DOTS, False),
+            (asm.SRC_I32, asm.OUT_DEC, asm.DEC_DOTS, True),
             (asm.SRC_CP16, asm.OUT_UTF8, asm.DEC_NONE, False)} <= kinds
     assert not any(leaves.result.bad(i)
                    for i in range(len(leaves.requests)))

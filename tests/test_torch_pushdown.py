@@ -469,15 +469,17 @@ def test_keyword_combination_raises():
 
 
 def test_package_exports_the_jax_names_but_the_later_slices():
+    # the sink's one-shot half came with the write half; its streaming
+    # drive (sink_cobol) waits with tail_cobol
     later = {"ContinuousIngestor", "tail_cobol", "SourceTruncated",
-             "DatasetSink", "sink_cobol", "SinkCorruption",
-             "SinkSchemaError", "read_dataset"}
+             "sink_cobol"}
     assert set(cobrix_tpu.__all__) - set(cobrix_tpu_torch.__all__) == later
     for name in ("CommentPolicy", "DebugFieldsPolicy", "Encoding", "Usage",
                  "ReadDiagnostics", "RecordErrorPolicy", "ShardErrorPolicy",
                  "ShardFailureInfo", "ReadMetrics", "profile_trace",
                  "query", "explain", "ScanReport", "ScanProgress", "Tracer",
-                 "prometheus_text"):
+                 "prometheus_text", "DatasetSink", "SinkCorruption",
+                 "SinkSchemaError", "read_dataset"):
         assert getattr(cobrix_tpu_torch, name) is not None
     public = {n for n in dir(jq) if not n.startswith("_")}
     assert public - {"expr", "pushdown", "dataset"} <= set(dir(tq))
