@@ -156,10 +156,10 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    entries); (c) the phase 3 exp1 file with a 700-byte torn tail under
    the three policies (fail_fast names ``permissive``; the last row kept
    with its reason, or dropped; the ledger entry; the last 1,000 rows
-   against a CPU read); (d) the generic framings on the card: 50,000
+   against a CPU read); (d) the generic framings on the card: 25,000
    exp3 records with big-endian RDWs read through ``RECORD-LENGTH PIC
    9(4) COMP`` (clean, and permissive with three length fields broken),
-   250,000 text lines (LF and CRLF, ``encoding=ascii``), 250,000
+   60,000 text lines (LF and CRLF, ``encoding=ascii``), 60,000
    ``generate_custom_rdw`` records through a custom header parser and
    through a custom record extractor (``testing/custom_framing.py``), and
    6,000 records of a trailing ``OCCURS 1 TO 2000 DEPENDING ON`` table
@@ -175,15 +175,16 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    kernels must each launch) and read with ``to_arrow``, sequential and
    pipelined (2 workers, shards on roots): the pipelined table equals
    the sequential one, ``Record_Id`` is the flush trigger's record
-   index, the first and last 500 roots equal ``device="cpu"`` reads of
-   their records, and ``to_rows()`` of a 3,000-record prefix equals its
+   index, the first and last 250 roots equal ``device="cpu"`` reads of
+   their records, and ``to_rows()`` of a 1,500-record prefix equals its
    table and a CPU read; (b) the 7-segment hierarchy
    (``generate_hierarchical``, 60,000 companies in 8 parts of seeds
    100-107, about 80 MB), whose roots cross a 64 MiB window: its table
-   equals a CPU read's, the pipelined table the sequential one, and the
-   rows and JSON lines of its first 5,000 companies (about 6.7 MB) a
-   CPU read's; (c) the host row walk, on the host: the first 5,000
-   companies read with ``select``, and 100,000 records of a DEPENDING
+   equals CPU reads of its first 2,500, the 200 around the crossing root
+   and its last 500 roots, the pipelined table the sequential one, and the
+   rows and JSON lines of its first 2,500 companies (about 3.4 MB) a
+   CPU read's; (c) the host row walk, on the host: the first 2,500
+   companies read with ``select``, and 25,000 records of a DEPENDING
    ON table followed by a trailer (``generate_dynamic_occurs``), against
    CPU reads. Every read prints its MB/s and rows a second, its frame /
    decode / assemble seconds, its launches, the peak device memory, the
@@ -347,6 +348,39 @@ It builds the port's CUDA kernels from ``cobrix_tpu_torch/csrc`` (into
    id; floats by bit pattern), ``fsck_sink`` reports both clean; the
    export's MB/s beside the read + ``to_arrow`` MB/s. Every kernel's
    ``launches_by_path`` gets a ``write`` path.
+20. continuous ingestion (``cobrix_tpu_torch.streaming``, ``sink_cobol``,
+   ``testing.streamcheck``, ``testing.sinkcheck``), every ingestor and
+   read on the default device. First two processes build one kernel
+   into one empty build directory at once (both load a whole library)
+   and a build killed after 2 s leaves no library. (a) A ``LiveAppender``
+   grows a new file with the first 200,000 records of the phase 3 exp1
+   file in seeded slices that are no multiple of 1,493 while
+   ``streamcheck``'s consumer subprocesses tail it (``batch_max_mb=16``,
+   a checkpoint directory); one dies by ``os._exit`` and one by a parent
+   SIGKILL. The surviving batches equal ``read_cobol(file).to_arrow()``
+   and their byte ranges tile the file; the drain's MB/s and the median
+   and largest seconds from a poll to the yield of its batches print.
+   (b) The phase 4 exp3 file, whole on disk, tailed with two pipeline
+   workers (64 windows in flight, the whole backlog) and phase 4's
+   options less the Seg_Id levels
+   and prefix: the catch-up drain runs windows on the pipeline, each
+   window one pinned upload (the ingestor's staging pool counts them),
+   the batches equal the one-shot read; MB/s and launches of both. (c)
+   The first 500,000 exp2 records tailed with ``collect_stats`` and a
+   ``cache_dir``, rotated after the first batch to a generation whose
+   COMPANY-ID range is shifted: each generation equals the one-shot
+   read of its bytes (File_Id and Record_Id on the stream's numbering),
+   one ``out_of_range`` drift record; then ``truncate_source`` below the
+   watermark of a 20,000-record file: ``truncation_policy="error"``
+   raises ``SourceTruncated``, ``"restart"`` re-ingests it as generation
+   1. (d) ``sinkcheck``'s sweep over a live 100,000-record exp1 feed: a
+   consumer killed in each commit window and by one parent SIGKILL;
+   ``read_dataset`` equals the one-shot read, orphans quarantined,
+   ``fsck_sink`` clean. (e) ``CobolStreamer.stream_chunks`` over the
+   first 100,000 exp1 records in seeded chunks and ``stream_directory``
+   over three 20,000-record files equal the one-shot reads. The
+   launches of the phase (the consumers' from their reports) form every
+   kernel's ``stream`` path.
 
 Every phase prints its seconds (``[phases]``), and a whole run prints
 them again as one ``[phases] {...}`` JSON line before the result lines.
@@ -358,10 +392,11 @@ file, it exits 2 and prints no result.
 ``--cpu-rehearsal`` runs the same phases at a small size on the CPU, with
 the plain versions in place of the kernel, and exits 3 without the result
 lines: it checks the script's paths, not the card. ``--phases 13`` (or
-``12``, ``14``, ``15``, ``16``, ``17``, ``18``, ``19``, or several) runs
-the environment, phase 4 (phase 14 also phases 3 and 5, phases 15-19
-also phase 3) and the phases named, and also exits 3 without the result
-lines. ``--cpu-rehearsal --phases 19`` rehearses phase 19 alone.
+``12``, ``14``, ``15``, ``16``, ``17``, ``18``, ``19``, ``20``, or
+several) runs the environment, phase 4 (phase 14 also phases 3 and 5,
+phases 15-20 also phase 3) and the phases named, and also exits 3
+without the result lines. ``--cpu-rehearsal --phases 20`` rehearses
+phase 20 alone.
 """
 from __future__ import annotations
 
@@ -370,6 +405,7 @@ import collections
 import contextlib
 import hashlib
 import io
+import itertools
 import json
 import os
 import resource
@@ -433,7 +469,8 @@ AGG_MODES = {0: "none", 1: "const", 2: "dots", 3: "digits"}
 # phases `--phases` can run alone (after the environment and phase 4)
 PHASES = {"12": "phase_generic", "13": "phase_hierarchical",
           "14": "phase_assembly", "15": "phase_io", "16": "phase_pushdown",
-          "17": "phase_obs", "18": "phase_stats", "19": "phase_write"}
+          "17": "phase_obs", "18": "phase_stats", "19": "phase_write",
+          "20": "phase_stream"}
 
 
 class SmokeFailure(Exception):
@@ -2850,7 +2887,7 @@ class Smoke:
         # exp3 with big-endian RDWs read through a record-length field:
         # the phase 4 file's first records, their headers turned around
         raw, (offsets, lengths) = self.rdw_walk["exp3"]
-        n3 = 300 if r else 50_000
+        n3 = 300 if r else 25_000
         starts = np.asarray(offsets[:n3], dtype=np.int64) - 4
         end = int(offsets[n3 - 1] + lengths[n3 - 1])
         arr = np.frombuffer(raw[:end], dtype=np.uint8).copy()
@@ -2875,15 +2912,16 @@ class Smoke:
                       [n3 // 3, (2 * n3) // 3 - 1]))
         # text lines, LF and CRLF mixed, trailing blanks cut (cut from
         # 1,000,000, with the custom records and the OCCURS table below,
-        # to keep the whole run inside its time)
-        nt = 3000 if r else 250_000
+        # to keep the whole run inside its time; to 60,000 with the
+        # custom records in PR 20, for phase 20)
+        nt = 3000 if r else 60_000
         text = g.generate_text(nt, seed=42)
         nl = np.nonzero(np.frombuffer(text, dtype=np.uint8) == 0x0A)[0]
         cases.append(("text", text, np.append(0, nl + 1),
                       dict(copybook_contents=g.TEXT_COPYBOOK,
                            is_text="true", encoding="ascii"), []))
         # records behind a custom 5-byte header, written by children
-        nc = 3000 if r else 250_000
+        nc = 3000 if r else 60_000
         crdw = self._write_custom_rdw(nc)
         valid, pos, view = [], 0, memoryview(crdw)
         while pos + 5 <= len(crdw):
@@ -3131,7 +3169,7 @@ class Smoke:
         want_ids = np.append(roots[1:], n)
         check(np.array_equal(table.column("Record_Id").to_numpy(), want_ids),
               "exp3: Record_Id is not the flush trigger's record index")
-        k = min(500, len(roots))
+        k = min(250, len(roots))
         spans = [("first", 0, k, 0, int(starts[roots[k]]) if k < len(roots)
                   else size),
                  ("last", len(roots) - k, len(roots),
@@ -3146,7 +3184,7 @@ class Smoke:
             f"device='cpu' reads of those records")
         # to_rows of a prefix: the nesting walk against the table and the
         # CPU read
-        m = min(3000, n)
+        m = min(1500, n)
         prefix = raw[:int(starts[m])]
         ppath = os.path.join(self.tmp, "p13p.dat")
         with open(ppath, "wb") as f:
@@ -3199,7 +3237,7 @@ class Smoke:
         self._p13_columnar(res, "7-segment")
         # rows and JSON lines: of the first `prefix_roots` companies
         # (their nesting walk takes about 0.4 ms a row)
-        prefix_roots = min(len(roots), 50 if self.rehearsal else 5_000)
+        prefix_roots = min(len(roots), 50 if self.rehearsal else 2_500)
         cut = (int(starts[roots[prefix_roots]])
                if prefix_roots < len(roots) else size)
         ppath = os.path.join(self.tmp, "p13hp.dat")
@@ -3218,9 +3256,24 @@ class Smoke:
         self._p13_columnar(pres, "7-segment pipelined")
         check(ptable.equals(table), "7-segment: the pipelined table differs "
               "from the sequential one")
-        cpu, ctable = self._p13_cpu(raw, "p13h.dat", **opts)
-        self._same_table(table, ctable, "7-segment table")
-        cpu_pre, _ = self._p13_cpu(raw[:cut], "p13hc.dat", **opts)
+        # the table against CPU reads of three runs of its roots (cut in
+        # PR 20 from a CPU read of the whole file): the prefix, whose
+        # rows and JSON lines follow, the 200 around the root whose
+        # children cross a window's end, and the last 500
+        cpu_pre, cpre_table = self._p13_cpu(raw[:cut], "p13hc.dat", **opts)
+        self._same_table(
+            self._p13_ids_aside(table.slice(0, prefix_roots)),
+            self._p13_ids_aside(cpre_table), "7-segment prefix table")
+        ci = int(np.searchsorted(roots, crossing[0]))
+        for what, a, b in (("crossing", max(0, ci - 100),
+                            min(len(roots), ci + 100)),
+                           ("last", max(0, len(roots) - 500), len(roots))):
+            end = int(starts[roots[b]]) if b < len(roots) else size
+            _, want = self._p13_cpu(raw[int(starts[roots[a]]):end],
+                                    "p13hs.dat", **opts)
+            self._same_table(self._p13_ids_aside(table.slice(a, b - a)),
+                             self._p13_ids_aside(want),
+                             f"7-segment {what} roots {a}-{b}")
         cpu_rows = cpu_pre.to_rows()
         check(rows == cpu_rows, "7-segment prefix: rows differ from the "
               "device='cpu' read")
@@ -3236,8 +3289,9 @@ class Smoke:
         log(f"[p13] 7-segment: to_rows + to_json_lines of the first "
             f"{prefix_roots} companies {rows_s:.3f} s; {len(rows)} rows; "
             f"pipelined ({pres['shards']} shards) table == sequential; "
-            f"table == device='cpu' read (the crossing root's too), the "
-            f"prefix's rows and JSON lines of its first and last rows "
+            f"table == device='cpu' reads of its first {prefix_roots}, "
+            f"the 200 around the crossing root and the last 500 roots, "
+            f"the prefix's rows and JSON lines of its first and last rows "
             f"too; (b) {time.perf_counter() - t0:.1f} s")
         self.p13["seven"] = dict(companies=companies, records=len(offsets),
                                  bytes=size, crossing_root=crossing[0],
@@ -3245,7 +3299,7 @@ class Smoke:
                                  rows_and_json_s=rows_s)
         self.p13_seven_raw = (raw, starts, roots)
         os.remove(path)
-        del seq, table, pip, ptable, cpu, ctable, rows, lines, cpu_rows, pre
+        del seq, table, pip, ptable, cpre_table, rows, lines, cpu_rows, pre
 
     def _p13_walk(self):
         np = self.np
@@ -3254,7 +3308,7 @@ class Smoke:
         t0 = time.perf_counter()
         raw, starts, roots = self.p13_seven_raw
         del self.p13_seven_raw
-        k = 50 if self.rehearsal else 5000
+        k = 50 if self.rehearsal else 2500
         cut = raw[:int(starts[roots[k]])]
         path = os.path.join(self.tmp, "p13w.dat")
         with open(path, "wb") as f:
@@ -3275,7 +3329,7 @@ class Smoke:
         del got, table, cpu, ctable
         # a DEPENDING ON table followed by a trailer: the first and last
         # 1,000 rows against CPU reads of those records
-        n = 400 if self.rehearsal else 100_000
+        n = 400 if self.rehearsal else 25_000
         data = g.generate_dynamic_occurs(n, seed=44)
         bounds, pos = [], 0
         while pos < len(data):
@@ -5662,6 +5716,553 @@ class Smoke:
             del table, sink, got, want
             shutil.rmtree(ds, ignore_errors=True)
 
+    # -- phase 20: continuous ingestion --------------------------------------
+
+    def phase_stream(self):
+        """Phase 20: continuous ingestion on the card (see the module
+        docstring): (a) a live exp1 tail through killed consumers, (b)
+        the pipelined catch-up drain of the exp3 file, (c) rotation with
+        drift and both truncation policies over exp2, (d) the sink's
+        stream drive through killed consumers, (e) micro-batches."""
+        t_phase = time.perf_counter()
+        r = self.rehearsal
+        self.p20 = {"launches": {}}
+        self.p20_n = (dict(tail=1_500, rot=1_500, trunc=600, sink=1_000,
+                           micro=1_000, micro_dir=300) if r else
+                      dict(tail=200_000, rot=500_000, trunc=20_000,
+                           sink=100_000, micro=100_000, micro_dir=20_000))
+        self.p20_launches = dict.fromkeys(KERNELS, 0)
+        self.p20_secs = {}
+        for name in ("build_race", "tail", "catchup", "rotation", "sink",
+                     "micro"):
+            t0 = time.perf_counter()
+            getattr(self, f"_p20_{name}")()
+            self.p20_secs[name] = time.perf_counter() - t0
+        self.launches["stream"] = dict(self.p20_launches)
+        if not r:
+            for k in READ_KERNELS + ARROW_KERNELS:
+                check(self.p20_launches[k] > 0,
+                      f"{k} never launched on the stream path")
+        self.p20["secs"] = time.perf_counter() - t_phase
+        log(f"[stream] {self.card}: phase 20 {self.p20['secs']:.1f} s "
+            f"({json.dumps({k: round(v, 1) for k, v in self.p20_secs.items()})}); "
+            f"launches on the stream path {json.dumps(self.p20_launches)}")
+
+    def _p20_kw(self):
+        return {"device": "cpu"} if self.rehearsal else {}
+
+    def _p20_add(self, tag, launches, need=()):
+        """`launches` ({kernel: n}, of this process or a consumer's
+        report) join the stream path under `tag`; each kernel in `need`
+        must have launched on the card."""
+        for k, v in launches.items():
+            if k in self.p20_launches:
+                self.p20_launches[k] += v
+        got = {k: v for k, v in launches.items() if v}
+        self.p20["launches"][tag] = got
+        if not self.rehearsal:
+            for k in need:
+                check(launches.get(k, 0) > 0,
+                      f"{k} never launched on the stream path's {tag}")
+        return got
+
+    def _p20_count(self, tag, fn, need=()):
+        """`fn()` with every kernel's launches counted from 0, joining
+        the stream path under `tag`: (result, launches, seconds)."""
+        t0 = time.perf_counter()
+        out, launches = self._p16_count(fn)
+        secs = time.perf_counter() - t0
+        return out, self._p20_add(tag, launches, need), secs
+
+    @contextlib.contextmanager
+    def _p20_cut_time(self):
+        """Seconds and calls of the ingestor's host walk of its windows'
+        record headers (`ContinuousIngestor._cut`) inside the block."""
+        from cobrix_tpu_torch.streaming.ingest import ContinuousIngestor
+
+        spent = {"s": 0.0, "calls": 0}
+        real = ContinuousIngestor._cut
+
+        def timed(ing, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(ing, *a, **k)
+            finally:
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        ContinuousIngestor._cut = timed
+        try:
+            yield spent
+        finally:
+            ContinuousIngestor._cut = real
+
+    def _p20_slices(self, seed, lo, hi, rs=1493):
+        """Seeded append sizes in [lo, hi), none a multiple of `rs`."""
+        rng = self.np.random.default_rng(seed)
+        return tuple(int(v) + (1 if int(v) % rs == 0 else 0)
+                     for v in rng.integers(lo, hi, size=8))
+
+    def _p20_exp1(self, n):
+        with open(self.exp1_path, "rb") as f:
+            return f.read(n * 1493)
+
+    def _p20_build_race(self):
+        """Two processes that build the same kernel into one empty build
+        directory at once both load a whole library (each compiles to
+        its own temporary and renames it into place), and a build killed
+        midway leaves no library behind, only its temporary."""
+        if self.rehearsal:
+            log("[stream] build race: no nvcc in the rehearsal")
+            return
+        code = ("import sys, ctypes; sys.path.insert(0, sys.argv[1]); "
+                "from cobrix_tpu_torch.ops import _build; "
+                "_build.BUILD_ROOT = sys.argv[2]; "
+                "ctypes.CDLL(_build.build(['fused_decode'])"
+                "['fused_decode'])")
+        both = os.path.join(self.tmp, "p20_build_both")
+        t0 = time.perf_counter()
+        run_children([[sys.executable, "-c", code, HERE, both]] * 2,
+                     timeout=300)
+        left = [os.path.relpath(os.path.join(d, f), both)
+                for d, _, fs in os.walk(both) for f in fs]
+        check(len(left) == 1 and left[0].endswith("libfused_decode.so"),
+              f"build race left {left}")
+        killed = os.path.join(self.tmp, "p20_build_killed")
+        proc = subprocess.Popen([sys.executable, "-c", code, HERE, killed],
+                                stdin=subprocess.DEVNULL,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL,
+                                start_new_session=True)
+        time.sleep(2.0)
+        # the whole group: nvcc and its children go with the build
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        left_k = [f for d, _, fs in os.walk(killed) for f in fs]
+        check(not [f for f in left_k if f.endswith(".so")],
+              f"a killed build left a library: {left_k}")
+        log(f"[stream] build race: two builds at once -> one "
+            f"libfused_decode.so that both loaded; a build killed after "
+            f"2 s left {left_k or 'nothing'} (no library); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def _p20_tail(self):
+        """(a) a LiveAppender grows a new file with the first exp1
+        records in seeded slices while `testing.streamcheck`'s consumers
+        tail it on the card (one dies by os._exit, one by a parent
+        SIGKILL); the surviving batches tile the file and equal the
+        one-shot read."""
+        np = self.np
+        from cobrix_tpu_torch.testing import streamcheck
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        n = self.p20_n["tail"]
+        payload = self._p20_exp1(n)
+        sizes = (self._p20_slices(20, 1_000, 20_000) if self.rehearsal
+                 else self._p20_slices(20, 500_000, 6_000_000))
+        res = streamcheck.check_exactly_once(
+            "exp1", payload, {"copybook_contents": EXP1_COPYBOOK},
+            kill_cycles=2, device="cpu" if self.rehearsal else None,
+            slice_sizes=sizes, pause_s=0.02,
+            parent_kill_after_s=1.0, deadline_s=400,
+            work_dir=self.tmp,
+            ingest={"batch_max_mb": 0.05 if self.rehearsal else 16})
+        check(res["ok"], "the live exp1 tail was not exactly once")
+        check(res["parent_killed"], "the parent SIGKILL did not land")
+        check(res["cycles"] >= 3, f"{res['cycles']} consumer lifetimes")
+        got = self._p20_add("tail", res["launches"],
+                            need=("fused_decode", "arrow_scalars"))
+        reports = [r for r in res["reports"] if r["batches"]]
+        lat = sorted(v for r in reports for v in r["latencies_s"])
+        drained = sum(r["bytes"] for r in reports)
+        secs = sum(r["seconds"] for r in reports)
+        self.p20["tail"] = dict(
+            bytes=len(payload), rows=res["rows"], batches=res["batches"],
+            cycles=res["cycles"], drained_bytes=drained,
+            drain_s=secs, drain_mb_per_s=drained / max(secs, 1e-9) / 1e6,
+            consumers=[dict(batches=r["batches"], bytes=r["bytes"],
+                            seconds=r["seconds"]) for r in reports],
+            latency_median_s=float(np.median(lat)) if lat else None,
+            latency_max_s=lat[-1] if lat else None,
+            wall_s=res["drain_s"])
+        t = self.p20["tail"]
+        log(f"[stream] {self.card}: (a) live exp1 tail, {n} records "
+            f"({len(payload)} B) appended in slices of {sizes} B: "
+            f"{res['rows']} rows in {res['batches']} batches over "
+            f"{res['cycles']} consumer lifetimes (os._exit, parent "
+            f"SIGKILL) == read_cobol().to_arrow(); batch ranges tile the "
+            f"file (record positions rise, no duplicate, no gap); drain "
+            f"{t['drain_mb_per_s']:.1f} MB/s ({drained} B in "
+            f"{secs:.3f} s of the surviving consumers: "
+            f"{json.dumps(t['consumers'])}); poll-to-yield median "
+            f"{t['latency_median_s']} s, largest {t['latency_max_s']} s "
+            f"over {len(lat)} batches; wall {res['drain_s']:.1f} s; "
+            f"launches {json.dumps(got)}")
+
+    def _p20_rdw_opts(self):
+        # phase 4's options less the Seg_Id levels and prefix, which
+        # continuous ingestion refuses
+        return {k: v for k, v in RDW_OPTIONS.items()
+                if not k.startswith("segment_id_")}
+
+    def _p20_catchup(self):
+        """(b) the exp3 file, whole on disk, tailed with two pipeline
+        workers: the catch-up drain decodes its windows on the
+        pipeline's workers, each window one pinned upload; the batches
+        equal the one-shot read."""
+        import pyarrow as pa
+
+        from cobrix_tpu_torch import read_cobol, tail_cobol
+        from cobrix_tpu_torch.engine.pipeline import PipelineExecutor
+        from cobrix_tpu_torch.ops import arrow_assemble as asm
+        from cobrix_tpu_torch.testing.generators import EXP3_COPYBOOK
+
+        path = self.rdw_files["exp3"]
+        size = os.path.getsize(path)
+        opts = dict(copybook_contents=EXP3_COPYBOOK, **self._p20_rdw_opts())
+        kw = self._p20_kw()
+        window_mb = 0.25 if self.rehearsal else 16
+        drains = []
+        real_run = PipelineExecutor.run
+
+        def spy(ex, tasks, *a, **k):
+            drains.append(len(tasks))
+            return real_run(ex, tasks, *a, **k)
+
+        def drain():
+            ing = tail_cobol(path, pipeline_workers="2",
+                             max_inflight_chunks="64",
+                             batch_max_mb=window_mb, finalize_on_idle=True,
+                             idle_timeout_s=0.2, poll_interval_s=0.05,
+                             **kw, **opts)
+            tables = [b.to_arrow() for b in ing]
+            return ing, tables
+        asm.upload.copies.clear()
+        PipelineExecutor.run = spy
+        try:
+            with self._p20_cut_time() as cut:
+                (ing, tables), got, secs = self._p20_count(
+                    "catchup", drain, need=READ_KERNELS + ARROW_KERNELS)
+        finally:
+            PipelineExecutor.run = real_run
+        staging = ing.staging.report()
+        asm_kinds = {kind for (_, kind, _) in asm.upload.copies}
+
+        def one_shot():
+            data = read_cobol(path, **kw, **opts)
+            return data.to_arrow()
+        t0 = time.perf_counter()
+        want, ref_launches = self._p16_count(one_shot)
+        ref_secs = time.perf_counter() - t0
+        table = pa.concat_tables(tables).replace_schema_metadata(None)
+        check(table.equals(want.replace_schema_metadata(None)),
+              "exp3 catch-up drain != read_cobol().to_arrow()")
+        check(staging["uploads"] == len(tables)
+              == staging["pinned_uploads"]
+              and not [k for k in staging["upload_sizes"]
+                       if k.startswith("pageable")] or self.rehearsal,
+              f"exp3 drain: {len(tables)} windows, staging {staging}")
+        check("pageable" not in asm_kinds,
+              f"the assembly uploaded from pageable memory: {asm_kinds}")
+        check(drains and max(drains) > 1,
+              f"the catch-up drain never ran a pipelined batch {drains}")
+        self.p20["catchup"] = dict(
+            bytes=size, rows=table.num_rows, windows=len(tables),
+            pipelined_windows=sum(drains), pipeline_runs=len(drains),
+            drain_s=secs, drain_mb_per_s=size / secs / 1e6,
+            cut_s=cut["s"], cut_calls=cut["calls"], one_shot_s=ref_secs, one_shot_mb_per_s=size / ref_secs / 1e6,
+            uploads=staging["uploads"],
+            pinned_uploads=staging["pinned_uploads"],
+            launches=got, one_shot_launches={
+                k: v for k, v in ref_launches.items() if v})
+        c = self.p20["catchup"]
+        log(f"[stream] {self.card}: (b) exp3 catch-up ({size} B, "
+            f"{table.num_rows} rows, {len(tables)} windows of "
+            f"{window_mb} MB, {sum(drains)} of them on the 2-worker "
+            f"pipeline in {len(drains)} runs): drain + to_arrow "
+            f"{c['drain_mb_per_s']:.1f} MB/s ({secs:.3f} s, of which the "
+            f"host header walk `_cut` {cut['s']:.3f} s in {cut['calls']} "
+            f"calls) beside the "
+            f"one-shot read + to_arrow {c['one_shot_mb_per_s']:.1f} MB/s "
+            f"({ref_secs:.3f} s); equal tables; window uploads "
+            f"{staging['uploads']}, pinned {staging['pinned_uploads']}, "
+            f"by size {json.dumps(staging['upload_sizes'])}; launches "
+            f"drain {json.dumps(got)} one-shot "
+            f"{json.dumps(c['one_shot_launches'])}")
+        del tables, table, want
+
+    def _p20_rotation(self):
+        """(c) the first exp2 records tailed with collect_stats; after
+        the first batches the file rotates to a generation whose
+        COMPANY-ID range is shifted: each generation equals its one-shot
+        read, exactly one out_of_range drift record is emitted; then a
+        truncation below the watermark raises SourceTruncated under
+        'error' and re-ingests under 'restart'."""
+        np = self.np
+        import pyarrow as pa
+
+        import cobrix_tpu_torch as t
+        from cobrix_tpu_torch.obs.metrics import stream_metrics
+        from cobrix_tpu_torch.reader.var_len_reader import (
+            file_record_id_base)
+        from cobrix_tpu_torch.testing.faults import (rotate_source,
+                                                     truncate_source)
+        from cobrix_tpu_torch.testing.generators import EXP2_COPYBOOK
+
+        raw, (offsets, lengths) = self.rdw_walk["exp2"]
+        offsets = np.asarray(offsets, dtype=np.int64)
+        lengths = np.asarray(lengths, dtype=np.int64)
+        n = self.p20_n["rot"]
+        end = int(offsets[n - 1] + lengths[n - 1])
+        gen0 = raw[:end]
+        gen1 = np.frombuffer(gen0, dtype=np.uint8).copy()
+        # COMPANY-ID's first digit (payload byte 5) becomes EBCDIC '0':
+        # every id falls below the first generation's smallest
+        gen1[offsets[:n] + 5] = 0xF0
+        gen1 = gen1.tobytes()
+        kw = self._p20_kw()
+        base = dict(copybook_contents=EXP2_COPYBOOK, **self._p20_rdw_opts())
+        work = os.path.join(self.tmp, "p20_rot")
+        os.makedirs(work)
+        src = os.path.join(work, "feed.dat")
+        with open(src, "wb") as f:
+            f.write(gen0)
+        cache = os.path.join(work, "cache")
+        m = stream_metrics()
+        drift_before = m["stats_drift"].value(kind="out_of_range")
+        window_mb = 0.02 if self.rehearsal else 4
+
+        def run():
+            ing = t.tail_cobol(src, checkpoint_dir=os.path.join(work, "ck"),
+                               poll_interval_s=0.02, batch_max_mb=window_mb,
+                               collect_stats="true", cache_dir=cache,
+                               **kw, **base)
+            it = ing.batches()
+            batches = [next(it)]
+            rotated = rotate_source(src, gen1)
+            rows = batches[0].records
+            while rows < 2 * n:
+                batches.append(next(it))
+                rows += batches[-1].records
+            batches += ing.close(finalize=True)
+            return rotated, [(b.generation, b.offset_from, b.offset_to,
+                              b.to_arrow()) for b in batches]
+        with self._p20_cut_time() as cut:
+            (rotated, batches), got, secs = self._p20_count(
+                "rotation", run, need=READ_KERNELS)
+        for gen, path, fid in ((0, rotated, 0), (1, src, 1)):
+            parts = [tb for g, _, _, tb in batches if g == gen]
+            check(parts, f"no batch of generation {gen}")
+            table = pa.concat_tables(parts).replace_schema_metadata(None)
+            want = t.read_cobol(path, **kw, **base).to_arrow() \
+                .replace_schema_metadata(None)
+            rid = file_record_id_base(fid) + np.arange(want.num_rows)
+            check(table.column("File_Id").to_pylist()
+                  == [fid] * want.num_rows
+                  and np.array_equal(
+                      table.column("Record_Id").to_numpy(), rid),
+                  f"generation {gen}: File_Id / Record_Id")
+            body = [c for c in want.column_names
+                    if c not in ("File_Id", "Record_Id")]
+            check(table.select(body).equals(want.select(body)),
+                  f"generation {gen} != the one-shot read of its bytes")
+        spans = [(g, lo, hi) for g, lo, hi, _ in batches]
+        check(spans[-1][2] == len(gen1)
+              and sum(hi - lo for _, lo, hi in spans) == 2 * len(gen0),
+              f"generations drained once each: {spans[:3]}...")
+        trail = os.path.join(cache, "stats", "drift.jsonl")
+        with open(trail) as f:
+            events = [json.loads(line) for line in f]
+        delta = m["stats_drift"].value(kind="out_of_range") - drift_before
+        check(len(events) == 1 and delta == 1
+              and events[0]["kind"] == "out_of_range"
+              and events[0]["field"].endswith("COMPANY_ID"),
+              f"drift records {events} (metric +{delta})")
+        self.p20["rotation"] = dict(
+            bytes=2 * len(gen0), records=2 * n, batches=len(batches),
+            secs=secs, mb_per_s=2 * len(gen0) / secs / 1e6,
+            cut_s=cut["s"], cut_calls=cut["calls"], drift=events[0],
+            launches=got)
+        log(f"[stream] {self.card}: (c) {n} exp2 records ({len(gen0)} B) "
+            f"then a rotation to a shifted COMPANY-ID range: "
+            f"{len(batches)} batches, each generation == its one-shot "
+            f"read, drained once; drift {json.dumps(events[0])}; "
+            f"{secs:.3f} s with the profile fold "
+            f"({self.p20['rotation']['mb_per_s']:.1f} MB/s; the host "
+            f"header walk `_cut` {cut['s']:.3f} s in {cut['calls']} "
+            f"calls); launches "
+            f"{json.dumps(got)}")
+        # truncation below the watermark, under both policies
+        k = self.p20_n["trunc"]
+        small = raw[:int(offsets[k - 1] + lengths[k - 1])]
+        out = {}
+        for policy in ("error", "restart"):
+            path = os.path.join(work, f"trunc_{policy}.dat")
+            with open(path, "wb") as f:
+                f.write(small)
+
+            def run(path=path, policy=policy):
+                ing = t.tail_cobol(
+                    path, checkpoint_dir=os.path.join(work, f"ck_{policy}"),
+                    truncation_policy=policy, poll_interval_s=0.02,
+                    idle_timeout_s=0.3, finalize_on_idle=True,
+                    # sequential windows: nothing is decoded ahead of
+                    # the batch the cut follows
+                    pipeline_workers="0",
+                    batch_max_mb=len(small) / 4 / 1024 / 1024, **kw, **base)
+                it = ing.batches()
+                first = next(it)
+                # cut at a record start below the watermark
+                keep = int(offsets[np.searchsorted(
+                    offsets, first.offset_to // 2)] - 4)
+                truncate_source(path, keep)
+                if policy == "error":
+                    # the poll that cut `first` may still deliver what it
+                    # had read (the held descriptor's buffer): the next
+                    # poll's probe raises
+                    try:
+                        for _ in it:
+                            pass
+                    except t.SourceTruncated as exc:
+                        ing.close()
+                        return keep, first, exc
+                    raise SmokeFailure(
+                        f"no SourceTruncated after the cut to {keep} "
+                        f"below {first.offset_to}")
+                rest = list(it)
+                ing.close()
+                return keep, first, rest
+            (keep, first, res), _, _ = self._p20_count(f"trunc_{policy}",
+                                                      run)
+            if policy == "error":
+                check(res.size == keep and res.watermark >= first.offset_to,
+                      f"SourceTruncated({res.size}, {res.watermark}) after "
+                      f"a cut to {keep} below {first.offset_to}")
+                out[policy] = str(res)[:60]
+            else:
+                # what the cutting poll had read still belongs to
+                # generation 0; everything after is generation 1
+                gens = [b.generation for b in res]
+                check(1 in gens and gens == sorted(gens)
+                      and set(gens) <= {0, 1},
+                      f"restart: generations {gens} after the cut")
+                res = [b for b in res if b.generation == 1]
+                table = pa.concat_tables([b.to_arrow() for b in res]) \
+                    .replace_schema_metadata(None)
+                want = t.read_cobol(path, **kw, **base).to_arrow() \
+                    .replace_schema_metadata(None)
+                body = [c for c in want.column_names
+                        if c not in ("File_Id", "Record_Id")]
+                check(table.select(body).equals(want.select(body)),
+                      "restart: re-ingested content != its one-shot read")
+                out[policy] = f"{table.num_rows} rows re-ingested"
+        log(f"[stream] (c) truncation to a record start below the "
+            f"watermark: error -> {out['error']!r}...; restart -> "
+            f"{out['restart']} as generation 1 == its one-shot read")
+
+    def _p20_sink(self):
+        """(d) `testing.sinkcheck`'s quick sweep on the card over an exp1
+        feed: a consumer killed in each commit window and once by a
+        parent SIGKILL; read_dataset equals the one-shot read, fsck is
+        clean and the orphans are quarantined."""
+        from cobrix_tpu_torch.testing import sinkcheck
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        n = self.p20_n["sink"]
+        payload = self._p20_exp1(n)
+        sizes = (self._p20_slices(21, 1_000, 20_000) if self.rehearsal
+                 else self._p20_slices(21, 500_000, 6_000_000))
+        t0 = time.perf_counter()
+        res = sinkcheck.check_kill_matrix(
+            "exp1", payload, {"copybook_contents": EXP1_COPYBOOK},
+            device="cpu" if self.rehearsal else None, slice_sizes=sizes,
+            pause_s=0.02, parent_kill_after_s=1.0, deadline_s=400,
+            work_dir=self.tmp,
+            ingest={"batch_max_mb": 0.05 if self.rehearsal else 16},
+            target_file_mb=64)
+        secs = time.perf_counter() - t0
+        check(res["ok"], "the exp1 sink sweep failed")
+        check(res["parent_killed"], "the parent SIGKILL did not land")
+        got = self._p20_add("sink", res["launches"],
+                            need=("fused_decode", "arrow_scalars"))
+        self.p20["sink"] = dict(bytes=len(payload), rows=res["rows"],
+                                cycles=res["cycles"],
+                                windows=res["windows"],
+                                quarantined=res["quarantined"], secs=secs,
+                                launches=got)
+        log(f"[stream] {self.card}: (d) sink_cobol over a live {n}-record "
+            f"exp1 feed ({len(payload)} B): kills in {res['windows']} and "
+            f"a parent SIGKILL over {res['cycles']} consumer lifetimes; "
+            f"read_dataset == read_cobol().to_arrow(), "
+            f"{res['quarantined']} quarantined orphan(s), fsck clean; "
+            f"{secs:.1f} s; launches of the consumers that ended by "
+            f"themselves {json.dumps(got)}")
+
+    def _p20_micro(self):
+        """(e) CobolStreamer.stream_chunks over the first exp1 records in
+        seeded chunk sizes, and stream_directory over three files: each
+        concatenation equals the one-shot read."""
+        import pyarrow as pa
+
+        from cobrix_tpu_torch import read_cobol
+        from cobrix_tpu_torch.streaming import CobolStreamer
+        from cobrix_tpu_torch.testing.generators import EXP1_COPYBOOK
+
+        kw = self._p20_kw()
+        n = self.p20_n["micro"]
+        payload = self._p20_exp1(n)
+        sizes = (self._p20_slices(22, 1_000, 30_000) if self.rehearsal
+                 else self._p20_slices(22, 1_000_000, 12_000_000))
+        chunks, pos = [], 0
+        for size in itertools.cycle(sizes):
+            if pos >= len(payload):
+                break
+            chunks.append(payload[pos:pos + size])
+            pos += size
+
+        def run():
+            s = CobolStreamer(EXP1_COPYBOOK, **kw)
+            return [b.to_arrow() for b in s.stream_chunks(chunks)]
+        tables, got, secs = self._p20_count(
+            "micro_chunks", run, need=("fused_decode", "arrow_scalars"))
+        path = os.path.join(self.tmp, "p20_micro.dat")
+        with open(path, "wb") as f:
+            f.write(payload)
+        want = read_cobol(path, copybook_contents=EXP1_COPYBOOK, **kw) \
+            .to_arrow()
+        self._same_table(pa.concat_tables(tables), want,
+                         "stream_chunks", against="the one-shot read")
+        d = os.path.join(self.tmp, "p20_dir")
+        os.makedirs(d)
+        per = self.p20_n["micro_dir"] * 1493
+        for i in range(3):
+            with open(os.path.join(d, f"part{i}.dat"), "wb") as f:
+                f.write(payload[i * per:(i + 1) * per])
+
+        def run_dir():
+            s = CobolStreamer(EXP1_COPYBOOK, **kw)
+            return [b.to_arrow() for b in s.stream_directory(
+                d, poll_interval=0.05, max_batches=3)]
+        dir_tables, got_dir, dir_secs = self._p20_count(
+            "micro_directory", run_dir,
+            need=("fused_decode", "arrow_scalars"))
+        want_dir = read_cobol(d, copybook_contents=EXP1_COPYBOOK,
+                              **kw).to_arrow()
+        self._same_table(pa.concat_tables(dir_tables), want_dir,
+                         "stream_directory", against="the one-shot read")
+        self.p20["micro"] = dict(
+            bytes=len(payload), chunks=len(chunks), batches=len(tables),
+            secs=secs, mb_per_s=len(payload) / secs / 1e6,
+            dir_files=3, dir_secs=dir_secs, launches=got,
+            dir_launches=got_dir)
+        log(f"[stream] {self.card}: (e) stream_chunks over {n} exp1 "
+            f"records in {len(chunks)} chunks of {sizes} B: "
+            f"{len(tables)} batches == the one-shot read, "
+            f"{len(payload) / secs / 1e6:.1f} MB/s with to_arrow; "
+            f"stream_directory over 3 files of {self.p20_n['micro_dir']} "
+            f"records == the one-shot read of the directory "
+            f"({dir_secs:.3f} s, two polls a file); launches "
+            f"{json.dumps(got)} / {json.dumps(got_dir)}")
+
     def run(self):
         if self.only:
             # a subset: the environment, the RDW files, then the phases
@@ -5669,7 +6270,8 @@ class Smoke:
             try:
                 self.phase_env()
                 self.pipe_chunk_mb = "0.25" if self.rehearsal else "64"
-                if {"14", "15", "16", "17", "18", "19"} & set(self.only):
+                if {"14", "15", "16", "17", "18", "19",
+                        "20"} & set(self.only):
                     self.phase_main()
                 self.phase_rdw()
                 if "14" in self.only:
@@ -5684,7 +6286,7 @@ class Smoke:
                          "exp3", "timings", "rdw_timings", "profile",
                          "pipeline", "query", "arrow", "recovery",
                          "generic", "hierarchical", "assembly", "io",
-                         "pushdown", "obs", "stats", "write"):
+                         "pushdown", "obs", "stats", "write", "stream"):
                 t0 = time.perf_counter()
                 getattr(self, f"phase_{name}")()
                 self.phase_secs[name] = time.perf_counter() - t0

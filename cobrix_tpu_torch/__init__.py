@@ -22,7 +22,11 @@ costs (``field_costs``), the metrics registry (``prometheus_text``) and
 ``explain``. The write half re-encodes a read's rows to mainframe bytes
 (``CobolData.to_ebcdic``, ``encode``) and commits its table into a
 transactional Parquet or Arrow-IPC dataset (``CobolData.to_dataset``,
-``sink``, ``read_dataset``). The package imports torch and numpy and
+``sink``, ``read_dataset``). Continuous ingestion tails growing and
+rotating files with durable checkpoints (``tail_cobol``,
+``ContinuousIngestor``, ``streaming``), decoding every window on the
+card, and ``sink_cobol`` commits its batches into such a dataset
+exactly once. The package imports torch and numpy and
 nothing of ``cobrix_tpu``; it keeps its own copies of the copybook front
 end, plan compiler, code pages, readers and pipeline. Entry points run on
 the CUDA device unless given ``device="cpu"``.
@@ -53,7 +57,8 @@ from .reader.handlers import (DictHandler, JsonHandler, RecordHandler,
 from .reader.stream import (ByteRangeSource, open_stream,
                             register_stream_backend, source_size)
 from .sink import (DatasetSink, SinkCorruption, SinkSchemaError,
-                   read_dataset)
+                   read_dataset, sink_cobol)
+from .streaming import ContinuousIngestor, SourceTruncated, tail_cobol
 from . import query
 
 __all__ = [
@@ -62,6 +67,7 @@ __all__ = [
     "CompressedStreamError",
     "ColumnarDecoder",
     "CommentPolicy",
+    "ContinuousIngestor",
     "Copybook",
     "DatasetSink",
     "DebugFieldsPolicy",
@@ -83,6 +89,7 @@ __all__ = [
     "ShardFailureInfo",
     "SinkCorruption",
     "SinkSchemaError",
+    "SourceTruncated",
     "Tracer",
     "TrimPolicy",
     "TupleHandler",
@@ -100,5 +107,7 @@ __all__ = [
     "register_fsspec_backend",
     "register_stream_backend",
     "resolve_device",
+    "sink_cobol",
     "source_size",
+    "tail_cobol",
 ]

@@ -282,12 +282,31 @@ def parse_options(options: Dict[str, object],
                   ebcdic_code_page: str = "common",
                   schema_retention_policy: str = "keep_original",
                   string_trimming_policy: str = "both",
-                  floating_point_format: str = "ibm") -> ReaderParameters:
+                  floating_point_format: str = "ibm",
+                  streaming: bool = False) -> ReaderParameters:
     """Options -> typed ReaderParameters, as ``cobrix_tpu.api
     .parse_options`` builds them for the options the port takes, with
     its checks and messages, the pedantic audit of unused keys last.
     Raises ValueError naming the first option of the JAX package's
-    reader that the port does not take."""
+    reader that the port does not take. `streaming`: the micro-batch
+    and continuous-ingest surfaces (``streaming``), which let
+    ``with_input_file_name_col`` through on fixed-length records, as
+    the JAX package's ``streaming=True`` does, and take the code page
+    and the three policies among the options, as the JAX package's
+    surfaces take them (``read_cobol`` names them as arguments)."""
+    if streaming:
+        options = dict(options)
+        named = {k: str(options.pop(k)) for k in (
+            "ebcdic_code_page", "schema_retention_policy",
+            "string_trimming_policy", "floating_point_format")
+            if k in options}
+        ebcdic_code_page = named.get("ebcdic_code_page", ebcdic_code_page)
+        schema_retention_policy = named.get("schema_retention_policy",
+                                            schema_retention_policy)
+        string_trimming_policy = named.get("string_trimming_policy",
+                                           string_trimming_policy)
+        floating_point_format = named.get("floating_point_format",
+                                          floating_point_format)
     for name in sorted(options):
         if name in _NOT_PORTED:
             raise ValueError(
@@ -430,7 +449,7 @@ def parse_options(options: Dict[str, object],
     # a local read has no block topology to place shards by
     opts.get_bool("improve_locality", True)
     opts.get_bool("optimize_allocation")
-    _validate(params, opts)
+    _validate(params, opts, streaming)
     return params
 
 
@@ -442,9 +461,11 @@ def parallelism_of(options: Dict[str, object]) -> int:
         16, os.cpu_count() or 1)
 
 
-def _validate(params: ReaderParameters, opts: Options) -> None:
+def _validate(params: ReaderParameters, opts: Options,
+              streaming: bool = False) -> None:
     """The JAX package's checks (``cobrix_tpu.api._validate_options``)
-    of the options the port takes, same messages."""
+    of the options the port takes, same messages; `streaming` lets the
+    input-file-name column through on fixed-length records."""
     if "record_extractor" in opts:
         bad = [k for k in _RDW_ISH if k in opts]
         if bad:
@@ -458,7 +479,8 @@ def _validate(params: ReaderParameters, opts: Options) -> None:
             raise ValueError(
                 f"Option 'record_length' and {', '.join(bad)} cannot be "
                 "used together.")
-    if params.input_file_name_column and not params.is_variable_length:
+    if (params.input_file_name_column and not streaming
+            and not params.is_variable_length):
         raise ValueError(
             "Option 'with_input_file_name_col' is supported only when "
             "one of this holds: 'is_record_sequence' = true or "

@@ -58,8 +58,6 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from ..obs.context import activate as obs_activate
 from ..obs.context import current as obs_current
 from ..obs.trace import maybe_parent
@@ -902,54 +900,22 @@ def pipelined_fixed_scan(reader, files, params, workers: int,
     def process_fn(c: FixedChunk):
         def process(staged):
             with worker_stream(device):
-                x = buf = ids = None
                 # whole records only: a torn tail is cut under
                 # debug_ignore_file_size (and raised before under
                 # fail_fast); a permissive read of a whole-file chunk
-                # keeps or drops it (`FixedLenReader.read_torn_chunk`)
+                # keeps or drops it (`FixedLenReader.read_torn_chunk`).
+                # "frame": the chunk's records onto the card (or into a
+                # host matrix), as the JAX package's frame stage cuts
+                # them out of the chunk's bytes
                 rem = (staged.nbytes % rs if permissive and c.whole_file
                        and not ignore_file_size else 0)
-                try:
-                    n = staged.nbytes // rs * rs
-                    if n == 0 and not rem:
-                        return None
-                    # "frame": the chunk's records onto the card (or
-                    # into a host matrix), as the JAX package's frame
-                    # stage cuts them out of the chunk's bytes
-                    with ex.stage_times.timed("frame"):
-                        if rem:
-                            buf = staged.host().numpy().copy()
-                        elif reader.plain_layout:
-                            x = staged.to_device(device, 0, n)
-                            if reader.pushdown is not None \
-                                    and reader.needs_segment_ids:
-                                ids = reader._segment_values(
-                                    staged.host()[:n].numpy().reshape(
-                                        -1, rs))
-                        else:
-                            buf = staged.host()[:n].numpy().copy()
-                finally:
-                    staged.close()
+                part = reader.decode_staged(
+                    staged, 0, staged.nbytes // rs * rs, rem, c.file_path,
+                    staged.nbytes, ex.stage_times)
+                if part is None or rem or not permissive:
+                    return part
                 with ex.stage_times.timed("decode"):
-                    if rem:
-                        return reader.read_torn_chunk(
-                            buf, rem, c.file_path, 0, len(buf))
-                    if x is None:
-                        part = reader.read_chunk(buf)
-                    elif reader.pushdown is not None:
-                        # the filter's two stages read the staged image
-                        # where it lies on the card
-                        part = reader.read_image(
-                            x, np.full(n // rs, rs, dtype=np.int64), ids)
-                    else:
-                        # the chunk's decoder, looked up per chunk as
-                        # every other route looks it up
-                        part = reader.decoder().decode_tensor(
-                            x.view(-1, rs))
-                    if x is not None:
-                        reader.observe_records(n // rs)
-                    return (reader.permissive_part(part) if permissive
-                            else part)
+                    return reader.permissive_part(part)
         return process
 
     finalizers = _finalizers(len(chunks), output_schema, ex, on_batch)

@@ -25,6 +25,7 @@ import contextlib
 import threading
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 class StagedBytes:
@@ -137,6 +138,14 @@ class StagingPool:
         if buf is None:
             buf = self._alloc(nbytes)
         return StagedBytes(self, buf, nbytes)
+
+    def stage(self, data) -> StagedBytes:
+        """A buffer holding a copy of `data` (bytes-like): host bytes made
+        ready for one copy to the card. The caller closes it."""
+        src = np.frombuffer(data, dtype=np.uint8)
+        staged = self.acquire(len(src))
+        staged.host().numpy()[:] = src
+        return staged
 
     def fresh(self, nbytes: int) -> StagedBytes:
         """A buffer outside the pool (a re-read after a failed attempt

@@ -173,6 +173,25 @@ class SparseIndexStore:
             self._corrupt(path, "entry rows failed to deserialize")
             return None
 
+    def save_for_local_path(self, path: str, config_fp: str,
+                            entries: List[SparseIndexEntry]) -> bool:
+        """Persist `entries` for the CURRENT on-disk version of a local
+        file, under the same ``local:<size>:<mtime_ns>`` fingerprint a
+        read probes for it — the continuous-ingest tailer calls this
+        when a tailed generation finalizes, so the first read of a
+        rotated-out file loads the incrementally-built index instead of
+        re-indexing. False when the file cannot be stat'd (vanished
+        between finalize and save)."""
+        from ..reader.stream import normalize_local
+
+        try:
+            st = os.stat(normalize_local(path))
+        except OSError:
+            return False
+        self.save(path, f"local:{st.st_size}:{st.st_mtime_ns}",
+                  config_fp, entries)
+        return True
+
     def save(self, url: str, fingerprint: str, config_fp: str,
              entries: List[SparseIndexEntry]) -> None:
         """Persist one file version's entries (atomic; best-effort — a

@@ -17,7 +17,11 @@ there is no segment filter).
 
 `read_chunk` takes a chunk of whole records on the host; the pipelined
 read decodes a chunk of a plain layout (`plain_layout`) straight from
-its staging buffer on the device instead (``engine.pipeline``).
+its staging buffer on the device instead (`decode_staged`, which
+``engine.pipeline`` calls). `read_result` is the JAX package's window
+decode of the streaming surfaces (``streaming``): host bytes, a file
+header and footer cut off, staged in the reader's pinned pool and sent
+through `decode_staged`, with file id, Record_Ids and file name.
 
 Under a permissive record error policy a torn tail (a last record cut
 short by the end of the file) is the JAX package's
@@ -48,16 +52,18 @@ are the same.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.staging import StagedBytes, StagingPool, worker_stream
 from ..obs.context import current as obs_current
 from ..plan.cache import (copybook_for_params, decoder_cache_for,
                           parse_fingerprint)
-from ..profiling import annotate
+from ..profiling import annotate, timed_stage
 from ..query.pushdown import BoundFilter
 from .columnar import ColumnarDecoder, DecodedBatch, decoder_for_segment
 from .diagnostics import CorruptRecordInfo, RecordErrorPolicy, hex_snapshot
@@ -66,6 +72,10 @@ from .parameters import ReaderParameters
 from .result import FileResult, SegmentBatch
 from .vrl_reader import (SegmentIds, decode_segment_id_bytes,
                          resolve_segment_id_field)
+
+# staging buffers of a reader's `read_result` windows (decode threads
+# that take more wait for one to come back)
+WINDOW_BUFFERS = 8
 
 
 class FixedLenReader:
@@ -94,6 +104,10 @@ class FixedLenReader:
         # zone-map chunk skipping (stats/skip.py), armed by read_cobol
         # under use_stats; None: every chunk is read
         self.chunk_skipper = None
+        # the pinned buffers `read_result` stages host bytes in (made at
+        # its first call)
+        self._window_pool = None
+        self._pool_lock = threading.Lock()
 
     @property
     def record_size(self) -> int:
@@ -112,16 +126,24 @@ class FixedLenReader:
             raise ValueError(
                 f"Invalid record end offset = {self.params.end_offset}. "
                 "A record end offset cannot be negative.")
-        if ignore_file_size or data_size % rs == 0:
+        if ignore_file_size:
+            return
+        # the records lie between the file header and footer (only the
+        # micro-batch streamer's whole files have them here)
+        payload = (data_size - self.params.file_start_offset
+                   - self.params.file_end_offset)
+        if payload % rs == 0:
             return
         where = f" of '{file_name}'" if file_name else ""
         raise ValueError(
             f"Binary record size {rs} does not divide data size "
-            f"{data_size}{where}: the last {data_size % rs} byte(s) "
-            f"(at file offset {data_size - data_size % rs}) do not form "
-            "a whole record. Set record_error_policy='permissive' (or "
-            "'drop_malformed') to tolerate a truncated tail, or "
-            "'debug_ignore_file_size' to ignore it.")
+            f"{payload}{where}: the last {payload % rs} byte(s) "
+            f"(at file offset "
+            f"{data_size - self.params.file_end_offset - payload % rs}) "
+            "do not form a whole record. Set "
+            "record_error_policy='permissive' (or 'drop_malformed') to "
+            "tolerate a truncated tail, or 'debug_ignore_file_size' to "
+            "ignore it.")
 
     def decoder(self, active: str = "") -> ColumnarDecoder:
         return decoder_for_segment(self._decoders, self.copybook, active,
@@ -268,6 +290,130 @@ class FixedLenReader:
         part = self.read_chunk(whole, tail if keep else None)
         return self.permissive_part(part, ledger,
                                     {n: reason} if keep else None)
+
+    # -- a window of host bytes (the streaming surfaces) -----------------
+
+    def stage(self, data) -> StagedBytes:
+        """`data` (bytes-like) in a pinned buffer of this reader's
+        window pool (made at the first call); the caller closes it."""
+        with self._pool_lock:
+            if self._window_pool is None:
+                self._window_pool = StagingPool(WINDOW_BUFFERS, self.device)
+        return self._window_pool.stage(data)
+
+    def read_result(self, data, file_id: int = 0, first_record_id: int = 0,
+                    input_file_name: str = "",
+                    ignore_file_size: bool = False) -> FileResult:
+        """Decode a window of records held on the host (the JAX
+        package's ``read_result``, which the micro-batch streamer and
+        the continuous ingestor call; the window decodes on the reader's
+        device in place of its ``backend``). `data` is bytes-like, or
+        `StagedBytes` the caller filled (closed here once its bytes are
+        out of it). A file header and
+        footer (``file_start_offset`` / ``file_end_offset``) are cut
+        off; the records go to the device in ONE copy from a pinned
+        staging buffer, on the calling thread's stream
+        (`worker_stream`), and take the pipelined fixed read's route
+        (``engine.pipeline``): a plain layout decodes where it lies
+        (`decode_tensor`), a filter reads both stages on that image
+        (`read_image`), other layouts decode a host matrix
+        (`read_chunk`). A torn tail raises the JAX package's error under
+        fail_fast and, under a permissive policy, is kept or dropped by
+        `read_torn_chunk` with its ledger entry at the JAX package's
+        window-relative offset. Rows carry `file_id`,
+        `input_file_name` and Record_Ids from `first_record_id`, as the
+        JAX package's result does."""
+        own = not isinstance(data, StagedBytes)
+        staged = self.stage(data) if own else data
+        try:
+            result = self._read_staged(staged, input_file_name,
+                                       ignore_file_size)
+        finally:
+            if own:
+                staged.close()
+        p = self.params
+        result.file_id = file_id
+        result.input_file_name = input_file_name
+        result.policy = p.schema_policy
+        result.generate_record_id = p.generate_record_id
+        result.generate_input_file_field = bool(p.input_file_name_column)
+        result.corrupt_record_field = p.corrupt_record_column
+        for seg in result.segments:
+            seg.record_ids = first_record_id + np.asarray(seg.positions,
+                                                          dtype=np.int64)
+        return result
+
+    def _read_staged(self, staged: StagedBytes, file_name: str,
+                     ignore_file_size: bool) -> FileResult:
+        p = self.params
+        rs = self.record_size
+        size = staged.nbytes
+        lo = min(p.file_start_offset, size)
+        hi = max(lo, size - p.file_end_offset)
+        body = hi - lo
+        rem = 0
+        if p.is_permissive and not ignore_file_size:
+            rem = body % rs if body > 0 else 0
+            self.check_binary_data_validity(size, True, file_name)
+        else:
+            self.check_binary_data_validity(size, ignore_file_size,
+                                            file_name)
+        with worker_stream(self.device):
+            part = self.decode_staged(staged, lo, body // rs * rs, rem,
+                                      file_name, hi)
+        if part is None:
+            part = FileResult(n_rows=0, policy=p.schema_policy)
+        if p.is_permissive and not rem:
+            return self.permissive_part(part)
+        if isinstance(part, FileResult):
+            return part
+        positions = np.arange(part.n_records, dtype=np.int64)
+        return FileResult(n_rows=part.n_records, policy=p.schema_policy,
+                          segments=[SegmentBatch(part, None, positions,
+                                                 positions)])
+
+    def decode_staged(self, staged: StagedBytes, lo: int, n: int, rem: int,
+                      file_name: str, data_size: int, stage_times=None
+                      ) -> Union[DecodedBatch, FileResult, None]:
+        """Decode the `n` bytes of whole records at `lo` of `staged` and,
+        under a permissive policy, the torn record of `rem` bytes after
+        them, on the current stream (the pipelined fixed read's route,
+        which `read_result` takes too): the records cross to the device
+        in one copy and a plain layout decodes where it lies
+        (`decode_tensor`), a filter reads both stages on that image
+        (`read_image`), other layouts and a torn tail decode a host
+        matrix (`read_chunk`, `read_torn_chunk`, its ledger entry at
+        `data_size` - `rem`). `staged` is closed once its bytes are out
+        of it. None when there is no record; `stage_times` times the
+        "frame" (the copy out) and "decode" steps."""
+        rs = self.record_size
+        x = buf = ids = None
+        try:
+            if n == 0 and not rem:
+                return None
+            with timed_stage(stage_times, "frame"):
+                if rem:
+                    buf = staged.host()[lo:lo + n + rem].numpy().copy()
+                elif self.plain_layout:
+                    x = staged.to_device(self.device, lo, lo + n)
+                    if self.pushdown is not None and self.needs_segment_ids:
+                        ids = self._segment_values(
+                            staged.host()[lo:lo + n].numpy().reshape(-1, rs))
+                else:
+                    buf = staged.host()[lo:lo + n].numpy().copy()
+        finally:
+            staged.close()
+        with timed_stage(stage_times, "decode"):
+            if rem:
+                return self.read_torn_chunk(buf, rem, file_name, 0,
+                                            data_size)
+            if x is None:
+                return self.read_chunk(buf)
+            self.observe_records(n // rs)
+            if self.pushdown is not None:
+                return self.read_image(
+                    x, np.full(n // rs, rs, dtype=np.int64), ids)
+            return self.decoder().decode_tensor(x.view(-1, rs))
 
     def _read_multiseg_result(self, matrix: np.ndarray, trimmed: np.ndarray,
                               lengths: Optional[np.ndarray]) -> FileResult:

@@ -1528,21 +1528,26 @@ class VarLenReader:
     def read_shard(self, staged: StagedBytes, file_id: int,
                    offset_from: int, record_index: int, file_size: int,
                    segment_id_prefix: Optional[str] = None,
-                   path: str = "") -> FileResult:
+                   path: str = "",
+                   before: Optional[bytes] = None) -> FileResult:
         """Frame and decode one shard of the pipelined read: the bytes
         [offset_from, offset_from + staged.nbytes) of the file `path` of
         `file_size` bytes, held in `staged`, with record ids from
         `record_index` (the JAX package's ``read_result_columnar`` over a
         shard stream). The file header applies to the shard that starts
         the file, the footer to the one that ends it; a shard up to twice
-        READ_WINDOW_BYTES is framed as one window."""
+        READ_WINDOW_BYTES is framed as one window. `before`: the file's
+        bytes just before the shard for the generic framing (read from
+        `path` when None). The continuous ingestor decodes its windows
+        here, `file_size` then being the window's end for a live window
+        and the generation's final size for its last one."""
         p = self.params
         n = staged.nbytes
         if self.generic_framing or self.row_walk:
+            if before is None:
+                before = self._bytes_before(path, offset_from)
             stream = ShardStream(staged.host().numpy(), offset_from,
-                                 file_size, path,
-                                 before=self._bytes_before(path,
-                                                           offset_from))
+                                 file_size, path, before=before)
             result, _, _ = self._read(stream, n, file_id, segment_id_prefix,
                                       record_index, 0, 0, path=path,
                                       base_offset=offset_from)

@@ -1,6 +1,13 @@
 """Transactional lakehouse sink: crash-consistent Parquet/Arrow-IPC
-datasets (port copy of ``cobrix_tpu.sink``, its one-shot half).
+datasets driven by the exactly-once ingest ack window (port copy of
+``cobrix_tpu.sink``).
 
+* `sink_cobol(tail_cobol(...), dataset_dir)` — continuous
+  mainframe→lakehouse pipeline: each micro-batch (decoded and built
+  into Arrow on the card) is staged, finalized, and committed by a
+  CRC-stamped manifest record whose position rides the checkpoint's
+  ``app_state``; SIGKILL anywhere recovers to a dataset
+  byte-identical to a one-shot read of the final sources.
 * `read_cobol(...).to_dataset(dataset_dir)` — one-shot atomic batch
   export: the read's table (built by the assembly kernels on the card)
   is staged, finalized, and committed by ONE CRC-stamped manifest
@@ -12,15 +19,14 @@ datasets (port copy of ``cobrix_tpu.sink``, its one-shot half).
 
 The on-disk layout, the manifest records and the schema fingerprint
 are the JAX package's, so either package reads, appends to and repairs
-the other's datasets. `DatasetSink` keeps the stream recovery
-(``committed_state``, ownership) whole; the streaming drive that uses
-it (``sink_cobol``, ``sink_for_ingestor``, ``SinkResult``) comes with
-the port's streaming tier.
+the other's datasets, and a stream's checkpoint directory resumes in
+either package.
 
 Corruption detections count under Prometheus plane ``"sink"``
 (``cobrix_cache_corruption_total``); commit/recovery counters are the
 ``cobrix_sink_*`` series (`obs.metrics.sink_metrics`).
 """
+from .drive import SinkResult, sink_cobol, sink_for_ingestor
 from .manifest import (
     SinkCorruption,
     SinkError,
@@ -40,9 +46,12 @@ __all__ = [
     "DatasetSink",
     "SinkCorruption",
     "SinkError",
+    "SinkResult",
     "SinkSchemaError",
     "fsck_sink",
     "read_dataset",
     "schema_fingerprint",
     "set_sink_fault_hook",
+    "sink_cobol",
+    "sink_for_ingestor",
 ]

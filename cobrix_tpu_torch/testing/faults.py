@@ -13,10 +13,11 @@ durable-state injector `corrupt_cache_entry` (with `cache_entry_paths`)
 for the block, index, stats and compress planes; the encoder-aware
 record damage (`field_site`, `corrupt_record`); and the one-shot sink's
 faults (`SinkKilled`, `SinkFaultPlan`, `SINK_KILL_POINTS`,
-`corrupt_sink_manifest`, `sink_write_faults`). The streaming sink's
-source faults (``rotate_source``, ``LiveAppender``), the checkpoint and
-the worker faults are not carried over, since the port has none of
-those planes yet.
+`corrupt_sink_manifest`, `sink_write_faults`); the live-source faults
+of continuous ingestion (`LiveAppender`, `rotate_source`,
+`truncate_source`, `replace_source`, `crash_consumer_after`) and the
+checkpoint plane of `corrupt_cache_entry`. The worker faults are not
+carried over, since the port has no such plane yet.
 
 All injectors are pure: they take `bytes` and return corrupted `bytes`,
 so assertions can check that the ledger points at the right offset.
@@ -277,7 +278,13 @@ def cache_entry_paths(cache_dir: str, plane: str = "block"):
     """Every durable entry file of one cache plane under `cache_dir`,
     sorted for determinism. Planes: 'block' (aligned .blk entries),
     'index' (sparse-index .json payloads), 'stats' (scan-profile .json
-    payloads), 'compress' (seekable inflate-index .json payloads)."""
+    payloads), 'compress' (seekable inflate-index .json payloads),
+    'checkpoint' (continuous-ingest watermark slots — pass the
+    CHECKPOINT directory)."""
+    if plane == "checkpoint":
+        from ..streaming.checkpoint import checkpoint_files
+
+        return checkpoint_files(cache_dir)
     sub = {"block": "blocks", "index": "index", "stats": "stats",
            "compress": "compress"}[plane]
     suffix = {"block": ".blk", "index": ".json", "stats": ".json",
@@ -407,6 +414,119 @@ def corrupt_record(record: bytes, kind: str, *, site=None,
         raise ValueError(f"unknown corruption kind {kind!r}; one of "
                          f"{CORRUPT_RECORD_KINDS}")
     return bytes(out)
+
+
+# -- live-source fault injection -----------------------------------------
+#
+# The injectors below break LIVE sources, not static bytes: the
+# continuous-ingest tailer (cobrix_tpu_torch.streaming) must survive files
+# that grow in torn non-record-aligned increments, rotate under it,
+# shrink below its watermark, and consumers that die mid-stream. Driven
+# by the port's streaming tests and ``testing.streamcheck``.
+
+
+class LiveAppender:
+    """Background thread growing a file in TORN increments: appends are
+    deliberately cut at non-record boundaries (and optionally fsync'd
+    mid-record with a pause), so the tailer's stable-prefix framing is
+    exercised against every partial-record shape a live writer
+    produces.
+
+        app = LiveAppender(path, payload, slice_sizes=(7, 3, 12))
+        app.start(); ...; app.join()
+
+    `slice_sizes` cycles; when exhausted the remainder goes out in one
+    write. `pause_s` sleeps between appends (0 = as fast as possible).
+    """
+
+    def __init__(self, path: str, payload: bytes,
+                 slice_sizes=(5, 1, 9, 2), pause_s: float = 0.02,
+                 fsync: bool = False):
+        import threading
+
+        self.path = str(path)
+        self.payload = payload
+        self.slice_sizes = tuple(slice_sizes)
+        self.pause_s = pause_s
+        self.fsync = fsync
+        self.appended = 0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        import itertools
+        import time
+
+        sizes = itertools.cycle(self.slice_sizes)
+        pos = 0
+        with open(self.path, "ab") as f:
+            while pos < len(self.payload):
+                n = min(next(sizes), len(self.payload) - pos)
+                f.write(self.payload[pos:pos + n])
+                f.flush()
+                if self.fsync:
+                    os.fsync(f.fileno())
+                pos += n
+                self.appended = pos
+                if self.pause_s:
+                    time.sleep(self.pause_s)
+
+    def start(self) -> "LiveAppender":
+        self._thread.start()
+        return self
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        self._thread.join(timeout)
+
+    @property
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+
+def rotate_source(path: str, new_content: bytes,
+                  rotated_suffix: str = ".1") -> str:
+    """Classic rename rotation: the current file moves to
+    ``path + rotated_suffix`` (same inode, same content) and a NEW file
+    with `new_content` appears at `path`. Returns the rotated-away
+    path. The tailer must drain the old generation exactly once (via
+    its held descriptor or the inode-matched alias) before switching."""
+    rotated = path + rotated_suffix
+    os.replace(path, rotated)
+    with open(path, "wb") as f:
+        f.write(new_content)
+    return rotated
+
+
+def truncate_source(path: str, keep_bytes: int) -> None:
+    """Shrink a live file in place below (presumably) the consumer's
+    watermark — the copy-truncate / operator-mistake shape that must
+    surface as a structured ``source_truncated`` outcome, never as
+    silently wrong rows."""
+    with open(path, "r+b") as f:
+        f.truncate(keep_bytes)
+
+
+def replace_source(path: str, new_content: bytes) -> None:
+    """In-place content replacement keeping the path (and usually the
+    inode): the rotation flavor only the head-CRC check can detect
+    when the new content is not shorter than the watermark."""
+    with open(path, "wb") as f:
+        f.write(new_content)
+
+
+def crash_consumer_after(batches: int):
+    """A consumer-side crash hook: returns a callable to invoke once
+    per delivered batch; on the N-th call the PROCESS dies via
+    ``os._exit`` — no exception, no cleanup, no atexit — exactly how
+    SIGKILL/OOM ends an ingesting worker. For in-process tests prefer
+    simply abandoning the ingestor (same recovery path, no subprocess);
+    subprocess harnesses (``testing.streamcheck``) use this."""
+    state = {"n": 0}
+
+    def hook() -> None:
+        state["n"] += 1
+        if state["n"] >= batches:
+            os._exit(137)
+    return hook
 
 
 # -- lakehouse-sink fault injection --------------------------------------

@@ -64,7 +64,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     # every subpackage is scanned, the device-resident query path too
     assert {os.path.join("cobrix_tpu_torch", p) for p in
             ("ops", "reader", "engine", "parallel", "io", "utils",
-             "testing")} <= packages
+             "testing", "streaming", "sink")} <= packages
     assert not _forbidden("cobrix_tpu_torch")
     assert not _forbidden("cobrix_tpu_torch.ops")
 
@@ -92,6 +92,15 @@ def test_decode_in_a_fresh_process_loads_neither():
         "r = t.read_cobol(p, copybook_contents=EXP1_COPYBOOK, device='cpu',\n"
         "                 cache_dir=os.path.join(d, 'c'))\n"
         "assert len(r) == 7 and r.metrics.as_dict()['io']\n"
+        "q = os.path.join(d, 'e.dat')\n"
+        "open(q, 'wb').write(generate_exp1(3).tobytes())\n"
+        "ing = t.tail_cobol(q, copybook_contents=EXP1_COPYBOOK,\n"
+        "                   device='cpu', idle_timeout_s=0.01,\n"
+        "                   finalize_on_idle=True)\n"
+        "res = t.sink_cobol(ing, os.path.join(d, 'ds'))\n"
+        "assert res.records == 3, res\n"
+        "assert {'cobrix_tpu_torch.streaming.ingest',\n"
+        "        'cobrix_tpu_torch.sink.drive'} <= set(sys.modules)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
         "m.startswith(('jax.', 'jaxlib.', 'cobrix_tpu.')) or "
         "m == 'cobrix_tpu']\n"

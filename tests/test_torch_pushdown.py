@@ -469,11 +469,16 @@ def test_keyword_combination_raises():
 
 
 def test_package_exports_the_jax_names_but_the_later_slices():
-    # the sink's one-shot half came with the write half; its streaming
-    # drive (sink_cobol) waits with tail_cobol
-    later = {"ContinuousIngestor", "tail_cobol", "SourceTruncated",
-             "sink_cobol"}
-    assert set(cobrix_tpu.__all__) - set(cobrix_tpu_torch.__all__) == later
+    # every name of the JAX package's surface is the port's since the
+    # streaming slice; so are the streaming and sink packages' names
+    import cobrix_tpu.sink as jsink
+    import cobrix_tpu.streaming as jstreaming
+    import cobrix_tpu_torch.sink as tsink
+    import cobrix_tpu_torch.streaming as tstreaming
+
+    assert set(cobrix_tpu.__all__) - set(cobrix_tpu_torch.__all__) == set()
+    assert sorted(tstreaming.__all__) == sorted(jstreaming.__all__)
+    assert sorted(tsink.__all__) == sorted(jsink.__all__)
     for name in ("CommentPolicy", "DebugFieldsPolicy", "Encoding", "Usage",
                  "ReadDiagnostics", "RecordErrorPolicy", "ShardErrorPolicy",
                  "ShardFailureInfo", "ReadMetrics", "profile_trace",
